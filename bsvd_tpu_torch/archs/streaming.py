@@ -1,0 +1,438 @@
+"""Streaming (pipeline) inference with explicit buffer state, in PyTorch
+(counterpart of bsvd_tpu/archs/streaming.py, natural layout).
+
+Every temporal conv holds one packed frame per stream (``_bibuffer_init``)
+and one streaming step advances the whole 16-deep pipeline by one frame;
+the U-Net skips cross the pipeline delay through fixed-depth rings. A clip
+fed frame by frame, then drained, equals whole-clip MIMO ``wnet_apply``
+(zero temporal boundaries on both sides).
+
+Validity is a host bool here, where the JAX package traces it: the
+schedule is fixed by the push count, so an invalid frame is ``None``, a
+site whose output would be invalid is skipped, and no step reads anything
+back from the device. Per site:
+
+- steady (valid input, primed buffer; every causal step): K5
+  ``bibuffer_conv``, or K6 ``bibuffer_chain`` for a whole MemCvBlock when
+  both its buffers are primed and it is at most ``CHAIN_MAX_C`` channels
+  wide (the TPU's routing: the chain at 128 channels, two steps at 256);
+- drain (invalid input, primed buffer): the input assembled with
+  ``torch.cat`` and K1 ``conv3x3`` (shift 'none');
+- fill (valid input, empty buffer): no conv, the frame is stored;
+- stems and ups: K2 ``conv_chain`` / ``conv_chain_add2_res``, K3
+  ``conv_s2`` and K4 ``conv_ps`` at one frame.
+
+``stream_step_block`` advances F frames in steady state with K5
+``bibuffer_multi`` at every temporal conv and the stem / up kernels at F
+frames (``StreamDenoiser.push_block``).
+
+State: a list (one per stage) of dicts. A buffered conv is ``{'packed':
+(N, h, w, c) tensor, 'has_center': bool}``; a skip ring ``{'buf': (depth,
+N, h, w, c) tensor, 'w': int, 'r': int}``, as the JAX state (see
+convert.torch_ckpt.from_jax_stream_state). A step returns new packed
+tensors (the kernels never write the state they read) and advances the
+rings' buffers in place. The width-folded TPU layout, spatial and
+multi-stream meshes are not ported.
+"""
+
+import torch
+
+from bsvd_tpu_torch.archs.wnet_arch import _cw, _WNetBase, prepare_params
+from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain, bibuffer_conv,
+                                              bibuffer_multi)
+from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
+from bsvd_tpu_torch.ops.conv_chain import conv_chain, conv_chain_add2_res
+from bsvd_tpu_torch.ops.conv_s2 import conv_s2
+
+# widest MemCvBlock (input or intermediate channels) that runs as one K6
+CHAIN_MAX_C = 128
+
+_CV_SITES = ('down0', 'down1', 'up2', 'up1')
+
+
+def _is_causal(cfg):
+    return 'toFutureOnly' in cfg.shift_mode
+
+
+# ---------------------------------------------------------------------------
+# buffered temporal conv (BiBufferConv)
+# ---------------------------------------------------------------------------
+
+def _bibuffer_init(n, h, w, c, dtype, device):
+    return {'packed': torch.zeros((n, h, w, c), dtype=dtype, device=device),
+            'has_center': False}
+
+
+def _bibuffer_step(cw, st, x, act, fold_div, causal):
+    """One step of a buffered shift conv (+ bias + act); ``x`` is the live
+    frame or None (invalid). Returns (new state, output or None)."""
+    B = st['packed']
+    if causal:
+        if x is None:
+            return st, None
+        y, nb = bibuffer_conv(x, B, cw, fold_div=fold_div, act=act,
+                              causal=True)
+        return {'packed': nb, 'has_center': st['has_center']}, y
+    f = B.shape[-1] // fold_div
+    if st['has_center']:
+        if x is not None:
+            y, nb = bibuffer_conv(x, B, cw, fold_div=fold_div, act=act)
+            return {'packed': nb, 'has_center': True}, y
+        # drain: the future slice is the clip's zero boundary
+        inp = torch.cat([torch.zeros_like(B[..., :f]), B[..., :f],
+                         B[..., 2 * f:]], dim=-1)
+        nb = torch.cat([B[..., f:2 * f], B[..., f:]], dim=-1)
+        return {'packed': nb, 'has_center': False}, conv3x3(inp, cw, act=act)
+    if x is None:
+        return st, None
+    # fill: the first frame becomes the center; nothing to output yet
+    nb = torch.cat([B[..., :f], x[..., f:]], dim=-1)
+    return {'packed': nb, 'has_center': True}, None
+
+
+def _memcv_step(p, pair, x, cfg):
+    """MemCvBlock: two buffered shift convs (+ act)."""
+    c1, c2 = _cw(p['c1']), _cw(p['c2'])
+    causal = _is_causal(cfg)
+    primed = causal or (pair[0]['has_center'] and pair[1]['has_center'])
+    if (x is not None and primed
+            and max(c1.cin, c1.cout) <= CHAIN_MAX_C):
+        y, s1, s2 = bibuffer_chain(x, pair[0]['packed'], pair[1]['packed'],
+                                   c1, None, c2, None, fold_div=cfg.fold_div,
+                                   act=cfg.act, act2=cfg.act, causal=causal)
+        return [dict(pair[0], packed=s1), dict(pair[1], packed=s2)], y
+    s1, y = _bibuffer_step(c1, pair[0], x, cfg.act, cfg.fold_div, causal)
+    s2, y = _bibuffer_step(c2, pair[1], y, cfg.act, cfg.fold_div, causal)
+    return [s1, s2], y
+
+
+# ---------------------------------------------------------------------------
+# skip rings (MemSkip, fixed depth)
+# ---------------------------------------------------------------------------
+
+def _ring_init(depth, n, h, w, c, dtype, device):
+    return {'buf': torch.zeros((depth, n, h, w, c), dtype=dtype,
+                               device=device), 'w': 0, 'r': 0}
+
+
+def _ring_push(ring, x):
+    buf = ring['buf']
+    buf[ring['w'] % buf.shape[0]].copy_(x)
+    return dict(ring, w=ring['w'] + 1)
+
+
+def _ring_pop(ring):
+    """(advanced ring, the oldest entry as a view of its slot; the slot is
+    rewritten only by a later step's push)."""
+    buf = ring['buf']
+    return dict(ring, r=ring['r'] + 1), buf[ring['r'] % buf.shape[0]]
+
+
+def _ring_thread(ring, frames):
+    """F push-then-pop pairs through a ring in steady state, where it is a
+    pure delay line of depth - 1 frames (streaming.py _ring_thread): the
+    first pops come from the stored entries, the rest from ``frames``
+    (F, N, h, w, c); the entries left are rewritten to slots 0..depth-2
+    (r = 0, w = depth - 1). Returns (ring, pops (F, N, h, w, c))."""
+    buf = ring['buf']
+    depth = buf.shape[0]
+    dly = depth - 1
+    f = frames.shape[0]
+    if dly == 0:
+        return ring, frames
+    r = ring['r'] % depth
+    stored = [buf[(r + j) % depth] for j in range(min(dly, f))]
+    if f >= dly:
+        pops = torch.stack(stored + list(frames[:f - dly]))
+        new_entries = frames[f - dly:]
+    else:
+        pops = torch.stack(stored)
+        new_entries = torch.stack([buf[(r + f + j) % depth]
+                                   for j in range(dly - f)] + list(frames))
+    buf[:dly].copy_(new_entries)
+    return dict(ring, w=dly, r=0), pops
+
+
+# ---------------------------------------------------------------------------
+# streaming DenBlock stage
+# ---------------------------------------------------------------------------
+
+def _stage_stream_init(cfg, n, h, w, dtype, device):
+    """State of one stage at input resolution (h, w)."""
+    if h % 4 or w % 4:
+        raise ValueError(f'streaming needs H and W multiples of 4, got '
+                         f'{h}x{w}')
+    c0, c1, c2 = cfg.chns
+    h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
+    kw = dict(dtype=dtype, device=device)
+    st = {}
+    for site, (hh, ww, c) in zip(_CV_SITES, ((h2, w2, c1), (h4, w4, c2),
+                                             (h4, w4, c2), (h2, w2, c1))):
+        st[site] = [_bibuffer_init(n, hh, ww, c, **kw) for _ in range(2)]
+    # ring depth = frames in flight across the skip + 1 (bidirectional)
+    d1, d2, d3 = (1, 1, 1) if _is_causal(cfg) else (9, 9, 5)
+    st['skip1'] = _ring_init(d1, n, h, w, cfg.residual_ch, **kw)
+    st['skip2'] = _ring_init(d2, n, h, w, c0, **kw)
+    st['skip3'] = _ring_init(d3, n, h2, w2, c1, **kw)
+    return st
+
+
+def _stage_stream_step(p, st, x, cfg):
+    """One frame (or None) through one stage (reference streaming DenBlock,
+    bsvd_arch.py:374-396). Returns (new state, output or None)."""
+    act, rc = cfg.act, cfg.residual_ch
+    new = dict(st)
+    if x is None:
+        x0 = None
+    else:
+        new['skip1'] = _ring_push(st['skip1'], x[..., :rc])
+        x0 = conv_chain(x, _cw(p['inc']['c1']), None, _cw(p['inc']['c2']),
+                        None, act, act)
+        new['skip2'] = _ring_push(st['skip2'], x0)
+
+    d = p['down0']
+    y = None if x0 is None else conv_s2(x0, _cw(d['conv']), act=act)
+    new['down0'], x1 = _memcv_step(d['cv'], st['down0'], y, cfg)
+    if x1 is not None:
+        new['skip3'] = _ring_push(new['skip3'], x1)
+
+    d = p['down1']
+    y = None if x1 is None else conv_s2(x1, _cw(d['conv']), act=act)
+    new['down1'], x2 = _memcv_step(d['cv'], st['down1'], y, cfg)
+
+    u = p['up2']
+    new['up2'], x2 = _memcv_step(u['cv'], st['up2'], x2, cfg)
+    if x2 is not None:
+        x2 = conv_ps(x2, _cw(u['conv']))
+        new['skip3'], sk3 = _ring_pop(new['skip3'])
+        x2 = x2 + sk3
+
+    u = p['up1']
+    new['up1'], x1u = _memcv_step(u['cv'], st['up1'], x2, cfg)
+    if x1u is None:
+        return new, None
+    x1u = conv_ps(x1u, _cw(u['conv']))
+    new['skip2'], sk2 = _ring_pop(new['skip2'])
+    new['skip1'], sk1 = _ring_pop(new['skip1'])
+    o = p['outc']
+    return new, conv_chain_add2_res(x1u, sk2, sk1, _cw(o['c1']), None,
+                                    _cw(o['c2']), None, act, 'none', rc)
+
+
+def _memcv_multi(p, pair, xs, cfg):
+    """F-frame MemCvBlock advance in steady state: K5 over F frames at
+    each of its two convs."""
+    causal = _is_causal(cfg)
+    new = []
+    for k, st in zip(('c1', 'c2'), pair):
+        xs, packed = bibuffer_multi(xs, st['packed'], _cw(p[k]),
+                                    fold_div=cfg.fold_div, act=cfg.act,
+                                    causal=causal)
+        new.append(dict(st, packed=packed))
+    return new, xs
+
+
+def _stage_stream_step_block(p, st, xs, cfg):
+    """F frames (F, N, H, W, C) through one stage in steady state: F
+    repetitions of _stage_stream_step with every frame valid and every
+    buffer primed."""
+    act, rc = cfg.act, cfg.residual_ch
+    f, n = xs.shape[:2]
+
+    def merge(v):
+        return v.reshape((f * n,) + tuple(v.shape[2:]))
+
+    def split(v):
+        return v.reshape((f, n) + tuple(v.shape[1:]))
+
+    new = dict(st)
+    x0 = split(conv_chain(merge(xs), _cw(p['inc']['c1']), None,
+                          _cw(p['inc']['c2']), None, act, act))
+    d = p['down0']
+    y = split(conv_s2(merge(x0), _cw(d['conv']), act=act))
+    new['down0'], x1 = _memcv_multi(d['cv'], st['down0'], y, cfg)
+    d = p['down1']
+    y = split(conv_s2(merge(x1), _cw(d['conv']), act=act))
+    new['down1'], x2 = _memcv_multi(d['cv'], st['down1'], y, cfg)
+    u = p['up2']
+    new['up2'], x2 = _memcv_multi(u['cv'], st['up2'], x2, cfg)
+    x2 = split(conv_ps(merge(x2), _cw(u['conv'])))
+    new['skip3'], sk3 = _ring_thread(st['skip3'], x1)
+    u = p['up1']
+    new['up1'], x1u = _memcv_multi(u['cv'], st['up1'], x2 + sk3, cfg)
+    x1u = conv_ps(merge(x1u), _cw(u['conv']))
+    new['skip2'], sk2 = _ring_thread(st['skip2'], x0)
+    new['skip1'], sk1 = _ring_thread(st['skip1'], xs[..., :rc])
+    o = p['outc']
+    return new, split(conv_chain_add2_res(
+        x1u, merge(sk2), merge(sk1), _cw(o['c1']), None, _cw(o['c2']), None,
+        act, 'none', rc))
+
+
+# ---------------------------------------------------------------------------
+# whole net
+# ---------------------------------------------------------------------------
+
+def stream_init(cfg, n, h, w, dtype=torch.float32, device='cpu'):
+    """Zero streaming state for the whole net at input resolution (h, w)."""
+    cfg.check_supported()
+    return [_stage_stream_init(cfg, n, h, w, dtype, torch.device(device))
+            for _ in range(cfg.stage_num)]
+
+
+def stream_step(params, state, x, cfg):
+    """Advance the pipeline by one frame.
+
+    Args:
+        x: (N, H, W, C_in) frame, or None for an invalid one (the drain).
+    Returns:
+        (new state, out (N, H, W, out_ch), or None while no output is
+        valid).
+    """
+    new_state = []
+    for i in range(cfg.stage_num):
+        st, x = _stage_stream_step(params[f'stage{i}'], state[i], x, cfg)
+        new_state.append(st)
+    return new_state, x
+
+
+def stream_step_block(params, state, xs, cfg):
+    """Advance the pipeline by F frames (F, N, H, W, C_in) in steady state
+    (every buffer primed, every frame valid): F ``stream_step`` advances,
+    with each temporal conv one K5 launch over the F frames. Returns
+    (new state, outs (F, N, H, W, out_ch))."""
+    new_state = []
+    for i in range(cfg.stage_num):
+        st, xs = _stage_stream_step_block(params[f'stage{i}'], state[i], xs,
+                                          cfg)
+        new_state.append(st)
+    return new_state, xs
+
+
+def pipeline_latency(cfg):
+    """Output delay in frames: shift_num (16 for two stages) for the
+    bidirectional net, 0 for the causal one."""
+    return 0 if _is_causal(cfg) else cfg.shift_num
+
+
+def streaming_apply(params, x, cfg):
+    """Whole-clip streaming forward (reference BSVD.streaming_forward,
+    bsvd_arch.py:501-552): feed T frames, drain with ``latency`` invalid
+    steps, keep the valid outputs.
+
+    Args:
+        params: a wnet_init tree (or prepared ConvWeights) on x's device.
+        x: (N, T, H, W, C_in).
+    Returns:
+        (N, T, H, W, out_ch)
+    """
+    n, t, h, w, _ = x.shape
+    lat = pipeline_latency(cfg)
+    state = stream_init(cfg, n, h, w, x.dtype, x.device)
+    outs = []
+    for i in range(t + lat):
+        state, out = stream_step(params, state, x[:, i] if i < t else None,
+                                 cfg)
+        if out is not None:
+            outs.append(out)
+    if len(outs) != t:
+        raise AssertionError(f'{len(outs)} outputs for {t} frames')
+    return torch.stack(outs, dim=1)
+
+
+class StreamDenoiser:
+    """Low-latency frame-by-frame streaming client (JAX StreamDenoiser).
+
+    Push frames one at a time; each push returns a denoised frame delayed by
+    ``latency`` frames (None while the pipeline fills). ``flush()`` drains
+    the rest. No call synchronises with the device: outputs are device
+    tensors, and validity follows from the push count.
+
+    Example::
+
+        net = build_network(dict(type='BSVD', ...)).to('cuda')
+        sd = StreamDenoiser(net, None, batch=1, height=540, width=960,
+                            dtype=torch.bfloat16)
+        for frame in video:          # (1, H, W, 4): RGB + noise map
+            out = sd.push(frame)
+            if out is not None:
+                emit(out)
+        for out in sd.flush():
+            emit(out)
+    """
+
+    def __init__(self, params, cfg, batch, height, width,
+                 dtype=torch.float32, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError('StreamDenoiser(mesh=...): spatial and '
+                                      'multi-stream sharding are not ported')
+        if isinstance(params, _WNetBase):
+            cfg = cfg or params.cfg
+            self.device = next(params.parameters()).device
+            self.params = params.prepared(self.device, dtype)
+        else:
+            self.device = _cw(params['stage0']['inc']['c1']).w.device
+            self.params = prepare_params(params, self.device, dtype)
+        cfg.check_supported()
+        self.cfg = cfg
+        self.dtype = dtype
+        self._shape = (batch, height, width)
+        self.latency = pipeline_latency(cfg)
+        self.reset()
+
+    def reset(self):
+        n, h, w = self._shape
+        self.state = stream_init(self.cfg, n, h, w, self.dtype, self.device)
+        self._pushed = 0
+        self._emitted = 0
+
+    def _frame(self, frame):
+        return torch.as_tensor(frame).to(self.device, self.dtype)
+
+    def _emit(self, out):
+        self._pushed += 1
+        if self._pushed > self.latency:
+            self._emitted += 1
+            return out
+        return None
+
+    def push(self, frame):
+        """frame (N, H, W, C_in) -> the output ``latency`` frames back, or
+        None while the pipeline fills."""
+        with torch.no_grad():
+            self.state, out = stream_step(self.params, self.state,
+                                          self._frame(frame), self.cfg)
+        return self._emit(out)
+
+    def push_block(self, frames):
+        """Advance by F frames, (F, N, H, W, C_in) or a list of (N, H, W,
+        C_in): in steady state one K5 launch per temporal conv over the F
+        frames; while filling, F pushes. Returns F outputs (None while
+        filling)."""
+        if isinstance(frames, (list, tuple)):
+            frames = torch.stack([self._frame(f) for f in frames])
+        else:
+            frames = self._frame(frames)
+        if self._pushed < self.latency:
+            return [self.push(f) for f in frames]
+        with torch.no_grad():
+            self.state, outs = stream_step_block(self.params, self.state,
+                                                 frames, self.cfg)
+        return [self._emit(o) for o in outs]
+
+    def flush(self):
+        """Drain the pipeline and return the outstanding outputs: always
+        ``latency`` drain steps (an output exists only ``latency`` steps
+        after its push), keeping the last ``pushed - emitted``."""
+        if self._emitted >= self._pushed:
+            return []
+        outs = []
+        first_valid = self.latency + self._emitted - self._pushed
+        with torch.no_grad():
+            for d in range(self.latency):
+                self.state, out = stream_step(self.params, self.state,
+                                              None, self.cfg)
+                if d >= first_valid:
+                    outs.append(out)
+                    self._emitted += 1
+        return outs

@@ -76,6 +76,12 @@ class WNetConfig:
         return s_in, s_out
 
     @property
+    def effective_in_ch(self):
+        """Channels of a frame fed to the net (blind nets take no noise
+        map)."""
+        return 3 if self.blind else self.in_ch
+
+    @property
     def shift_num(self):
         return 8 * self.stage_num
 
@@ -119,7 +125,12 @@ def _is_conv_leaf(node):
 
 def prepare_params(params, device, dtype):
     """The tree with every conv as a ConvWeights cast to ``dtype`` on
-    ``device`` (what the kernels pack once and reuse)."""
+    ``device`` (what the kernels pack once and reuse). ConvWeights leaves
+    already there are kept, with their packed weights."""
+    if isinstance(params, ConvWeights):
+        if params.w.device == torch.device(device) and params.w.dtype == dtype:
+            return params
+        params = {'w': params.w, 'b': params.b}
     if _is_conv_leaf(params):
         b = params.get('b')
         return ConvWeights(params['w'].to(device, dtype),

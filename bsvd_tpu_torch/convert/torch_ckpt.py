@@ -11,8 +11,8 @@ transpose; JAX trees (HWIO) are transposed.
 import numpy as np
 import torch
 
-__all__ = ['tsn_key_map', 'from_jax_params', 'load_tsn_state_dict',
-           'to_tsn_state_dict']
+__all__ = ['tsn_key_map', 'from_jax_params', 'from_jax_stream_state',
+           'load_tsn_state_dict', 'to_tsn_state_dict']
 
 _PREFIXES = ('module.base_model.nets_list.', 'base_model.nets_list.',
              'module.nets_list.', 'nets_list.')
@@ -87,6 +87,32 @@ def from_jax_params(np_tree, cfg):
             out['b'] = _tensor(leaf['b'])
         _set_path(params, path, out)
     return params
+
+
+def from_jax_stream_state(np_state, cfg):
+    """A bsvd_tpu ``stream_init`` / ``StreamDenoiser.state`` tree (numpy or
+    array leaves, natural layout) -> the port's streaming state: packed
+    buffers and ring buffers as CPU tensors of their own dtype,
+    ``has_center`` as a bool and the ring counters ``w`` / ``r`` as ints.
+    Move it with ``.to`` to resume on another device."""
+    def tensor(v):
+        return torch.from_numpy(np.array(v))
+
+    def bib(node):
+        return {'packed': tensor(node['packed']),
+                'has_center': bool(np.asarray(node['has_center']))}
+
+    out = []
+    for st in np_state[:cfg.stage_num]:
+        new = {}
+        for k, v in st.items():
+            if k.startswith('skip'):
+                new[k] = {'buf': tensor(v['buf']), 'w': int(np.asarray(v['w'])),
+                          'r': int(np.asarray(v['r']))}
+            else:
+                new[k] = [bib(b) for b in v]
+        out.append(new)
+    return out
 
 
 def _strip_prefix(state):

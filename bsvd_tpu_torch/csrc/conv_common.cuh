@@ -178,8 +178,10 @@ __device__ __forceinline__ void read_group(const Src<T>& s, int n, int y,
 
 // Patch of PH x PW pixels whose (0, 0) is image pixel (iy0, ix0), channels
 // k0..k0+15, into smem [PH*PW][kKS]; zeros outside the image / channels.
-template <typename T>
-__device__ void load_patch(T* sm, const Src<T>& s, int n, int iy0, int ix0,
+// ``Source`` is Src<T> or any type with H, W, C and a read_group overload
+// (found by argument-dependent lookup), e.g. bibuffer_conv.cu's BiSrc.
+template <typename T, typename Source>
+__device__ void load_patch(T* sm, const Source& s, int n, int iy0, int ix0,
                            int PH, int PW, int k0) {
   int units = PH * PW * 2;
   for (int u = threadIdx.x; u < units; u += kThreads) {
@@ -318,8 +320,8 @@ __device__ __forceinline__ void zero_acc(float (&acc)[MT][4][4]) {
 // Full conv of one block tile over all K slices: output channels
 // n0..n0+63 of an RH x RW region whose input patch starts at image pixel
 // (iy0, ix0) of frame n, stride S.
-template <typename T, int S, int MT>
-__device__ void conv_region(float (&acc)[MT][4][4], const Src<T>& s,
+template <typename T, int S, int MT, typename Source>
+__device__ void conv_region(float (&acc)[MT][4][4], const Source& s,
                             const T* w, int CinP, int n0, int n, int iy0,
                             int ix0, int RH, int RW, T* patch, T* wsm) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;

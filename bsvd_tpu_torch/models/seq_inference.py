@@ -1,19 +1,22 @@
-"""Sequence denoising, whole-clip MIMO (counterpart of bsvd_tpu/models/
-seq_inference.py denoise_seq with ``temp_psz=-1``, ``mode='mimo'``).
+"""Sequence denoising of a whole clip (counterpart of bsvd_tpu/models/
+seq_inference.py denoise_seq with ``temp_psz=-1``): ``mode='mimo'`` runs
+one batched forward, ``mode='streaming'`` the frame-by-frame pipeline
+(archs/streaming.streaming_apply); both give the same function.
 
 The chunked protocol (``temp_psz``, carries, auto-chunking of long clips)
-and scan streaming are not ported yet: asking for them raises
-NotImplementedError rather than answering another way.
+is not ported yet: asking for it raises NotImplementedError rather than
+answering another way.
 """
 
 import numpy as np
 import torch
 
+from bsvd_tpu_torch.archs.streaming import streaming_apply
 from bsvd_tpu_torch.archs.wnet_arch import (_cw, _WNetBase, prepare_params,
                                             wnet_apply)
 
-_LATER = ('waits for the chunked / streaming inference port (ROADMAP.md '
-          'Queue 1, seq_inference and streaming)')
+_LATER = ('waits for the chunked inference port (ROADMAP.md Queue 1, '
+          'seq_inference)')
 
 
 def _memory_budget(device, frac=0.8):
@@ -23,7 +26,7 @@ def _memory_budget(device, frac=0.8):
 
 def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
                 mode='mimo', compute_dtype=None):
-    """Denoise a frame sequence in one whole-clip forward.
+    """Denoise a frame sequence as one whole clip.
 
     Args:
         params: a BSVD / TSN module (its cached, packed weights are used;
@@ -32,13 +35,15 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
         seq: (T, C, H, W) float array in [0, 1] (reference layout).
         noise_sigma: noise std in [0, 1] units (a constant noise-map
             channel is appended), or None for blind nets.
+        mode: 'mimo' (one batched forward) or 'streaming' (frame by
+            frame through the buffered pipeline, drained at the end).
         compute_dtype: torch dtype the input and weights are cast to
             (e.g. torch.bfloat16); None keeps the sequence's dtype.
     Returns:
         (T, out_ch, H, W) numpy float32 clipped to [0, 1].
     """
-    if mode != 'mimo':
-        raise NotImplementedError(f'mode={mode!r} {_LATER}')
+    if mode not in ('mimo', 'streaming'):
+        raise ValueError(f"mode must be 'mimo' or 'streaming', got {mode!r}")
     seq = torch.as_tensor(np.asarray(seq))
     t, c, h, w = seq.shape
     if not (temp_psz == -1 or temp_psz >= t):
@@ -52,7 +57,7 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
         device = _cw(params['stage0']['inc']['c1']).w.device
     dtype = compute_dtype or seq.dtype
 
-    if device.type == 'cuda':
+    if device.type == 'cuda' and mode == 'mimo':
         # a whole-clip forward holds O(T) full-resolution activations
         per_frame = h * w * 256 * torch.empty((), dtype=dtype).element_size()
         budget = _memory_budget(device)
@@ -71,7 +76,8 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
                         device=device)
         x = torch.cat([x, nm], dim=-1)
     with torch.no_grad():
-        out = torch.clamp(wnet_apply(p, x[None], cfg), 0., 1.)[0]
+        apply = streaming_apply if mode == 'streaming' else wnet_apply
+        out = torch.clamp(apply(p, x[None], cfg), 0., 1.)[0]
     out = out.permute(0, 3, 1, 2).float().contiguous()
     if device.type != 'cuda':
         return out.numpy()

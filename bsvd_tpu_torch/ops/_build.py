@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels.
 
-``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into one shared
-library with a plain C interface, loaded with ``ctypes``. The build runs at
+``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a``, one process per
+source, all started together, and linked into one shared library with a
+plain C interface, loaded with ``ctypes``. The build runs at
 the first CUDA use (never at import: machines without ``nvcc`` import every
 module), is keyed on a hash of the sources and the flags, and lands in
 ``bsvd_tpu_torch/_build/<hash>/`` (listed in ``.gitignore``); later
@@ -23,7 +24,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / 'csrc'
 NVCC_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-              '-O3', '-shared', '-Xcompiler', '-fPIC', '-lineinfo']
+              '-O3', '-Xcompiler', '-fPIC', '-lineinfo']
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
@@ -31,6 +32,8 @@ _SIGNATURES = {
     'bsvd_conv_ps': [_I] + [_P] * 4 + [_I] * 8 + [_P],
     'bsvd_conv_s2': [_I] + [_P] * 4 + [_I] * 9 + [_P],
     'bsvd_conv_chain': [_I] + [_P] * 8 + [_I] * 14 + [_P],
+    'bsvd_bibuffer': [_I] + [_P] * 6 + [_I] * 12 + [_P],
+    'bsvd_bibuffer_chain': [_I] + [_P] * 10 + [_I] * 15 + [_P],
 }
 
 _lock = threading.Lock()
@@ -66,13 +69,31 @@ def build():
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f'.{os.getpid()}.tmp')
-    cus = [str(p) for p in sorted(CSRC.glob('*.cu'))]
-    cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), *cus]
+    tag = f'{os.getpid()}.tmp'
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for cu in sorted(CSRC.glob('*.cu')):
+        obj = out.parent / f'{cu.stem}.{tag}.o'
+        cmd = [nvcc, *NVCC_FLAGS, '-c', '-o', str(obj), str(cu)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True)))
+        objs.append(str(obj))
+    failed = []
+    for cmd, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f'{" ".join(cmd)}\n{log}')
+    if failed:
+        raise RuntimeError('nvcc failed:\n' + '\n'.join(failed))
+    tmp = out.with_suffix(f'.{tag}')
+    cmd = [nvcc, *NVCC_FLAGS, '-shared', '-o', str(tmp), *objs]
     res = subprocess.run(cmd, capture_output=True, text=True)
     if res.returncode != 0:
         raise RuntimeError(f'nvcc failed ({res.returncode}):\n{" ".join(cmd)}'
                            f'\n{res.stdout}\n{res.stderr}')
+    for obj in objs:
+        os.remove(obj)
     os.replace(tmp, out)
     return out
 

@@ -6,13 +6,18 @@
 Phases, each printed as one JSON object on its own line:
 
 0. device: the card's name, and ``nvidia-smi``'s name and power limit.
-1. build: nvcc compiles ``bsvd_tpu_torch/csrc/*.cu`` for sm_90a.
-2. kernels: each kernel (K1 conv3x3, K2 conv_chain, K3 conv_s2, K4 conv_ps)
-   in every variant the BSVD-c64 forward uses, at that forward's site shapes
-   for a 10-frame 540x960 clip, in bf16, against its plain PyTorch version
-   run in fp32 on the same bf16 values (cuDNN TF32 off); kernel and plain
-   times are CUDA-event medians of 10 runs after warm-up.
-3. main path: ``build_network`` BSVD-c64 (random weights from a seed),
+1. build: nvcc compiles ``bsvd_tpu_torch/csrc/*.cu`` for sm_90a, one
+   process per source, all started together.
+2. kernels: each kernel in every variant the BSVD-c64 paths use, at their
+   site shapes, in bf16, against its plain PyTorch version run in fp32 on
+   the same bf16 values (cuDNN TF32 off); kernel and plain times are
+   CUDA-event medians of 10 runs after warm-up. Whole-clip sites (10
+   frames): K1 conv3x3, K2 conv_chain, K3 conv_s2, K4 conv_ps. Streaming
+   sites (one frame, or 8 for push_block): K5 bibuffer_conv (F = 1) and
+   bibuffer_multi (F = 8), K6 bibuffer_chain, and K1 (shift 'none', the
+   drain conv), K2, K3, K4 at one frame. K5 states and K6's s1' must equal
+   the plain version exactly.
+3. MIMO main path: ``build_network`` BSVD-c64 (random weights from a seed),
    ``denoise_seq`` of 3 clips of (10, 3, 540, 960) at sigma 20/255 in bf16,
    for the bidirectional and the causal net; the launch counters must show
    16 / 4 / 4 / 4 launches of K1 / K2 / K3 / K4 per forward, and
@@ -21,11 +26,26 @@ Phases, each printed as one JSON object on its own line:
    against the plain fp32 path on the CPU, and the bf16 kernel path's PSNR
    against that fp32 output beside the plain bf16 path's (CPU); then bf16
    against fp32 kernels at 540p (max |diff| and PSNR).
+5. streaming main path, both nets: ``StreamDenoiser`` push of a 24-frame
+   540x960 bf16 clip, then flush (F.conv2d made to raise); the launches of
+   every push must match the port's fill / steady / drain rule (steady:
+   K2 4, K3 4, K4 4, K5 8, K6 4, K1 0) and a steady push_block of 8
+   frames must launch K5 16 times and K2 / K3 / K4 4 times. The 24 outputs,
+   and the push_block's, against fp32 MIMO by PSNR (no more than 1 dB below
+   bf16 MIMO's). Then steady ms/frame of push (64 pushes, best of 3) and
+   of push_block(8), state bytes, peak memory, and the device idle share
+   of 16 steady pushes under ``torch.profiler``.
+6. streaming parity: fp32 streaming kernels against fp32 MIMO kernels on a
+   reduced clip (1e-4 x max|ref|), and ``denoise_seq(mode='streaming')``
+   of a 10-frame clip against ``mode='mimo'`` by the same PSNR rule.
 
 Any failed check raises (exit code != 0). The line before the last is
-``{"kernels": [...]}``: per kernel, its launches in phase 3 (6 forwards),
-the largest max |diff| of phase 2, and ``ms`` / ``plain_ms``, the phase-2
-site medians summed at the counts one bidirectional forward runs them.
+``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
+phases 3 and 5 (counters set to 0 before each run, read after), the
+largest max |diff| of phase 2, and ``ms`` / ``plain_ms``, the phase-2 site
+medians summed at the counts of one bidirectional unit of work, named by
+``per``: a 10-frame forward (K1-K4), a steady push (K5 bibuffer_conv, K6)
+or a steady push_block of 8 frames (K5 bibuffer_multi).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -45,10 +65,15 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from bsvd_tpu_torch.archs import build_network  # noqa: E402
+from bsvd_tpu_torch.archs.streaming import (CHAIN_MAX_C,  # noqa: E402
+                                            StreamDenoiser, streaming_apply)
 from bsvd_tpu_torch.archs.wnet_arch import wnet_apply  # noqa: E402
 from bsvd_tpu_torch.models.seq_inference import denoise_seq  # noqa: E402
 from bsvd_tpu_torch.ops import _build  # noqa: E402
 from bsvd_tpu_torch.ops._pack import ConvWeights  # noqa: E402
+from bsvd_tpu_torch.ops.bibuffer_conv import (  # noqa: E402
+    bibuffer_chain, bibuffer_chain_reference, bibuffer_conv,
+    bibuffer_conv_reference, bibuffer_multi, bibuffer_multi_reference)
 from bsvd_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_reference,  # noqa: E402
                                         conv_ps, conv_ps_reference)
 from bsvd_tpu_torch.ops.conv_chain import (conv_chain,  # noqa: E402
@@ -68,15 +93,30 @@ BF16_TOL = 2 ** -6
 FP32_TOL = 1e-4
 KERNELS = {
     'conv3x3': (conv3x3, 'bsvd_tpu_torch/csrc/conv3x3.cu',
-                'bsvd_tpu/ops/conv3x3.py:309'),
+                'bsvd_tpu/ops/conv3x3.py:309', 'forward'),
     'conv_chain': (conv_chain, 'bsvd_tpu_torch/csrc/conv_chain.cu',
-                   'bsvd_tpu/ops/conv_chain.py:213'),
+                   'bsvd_tpu/ops/conv_chain.py:213', 'forward'),
     'conv_s2': (conv_s2, 'bsvd_tpu_torch/csrc/conv_s2.cu',
-                'bsvd_tpu/ops/conv_s2.py:155'),
+                'bsvd_tpu/ops/conv_s2.py:155', 'forward'),
     'conv_ps': (conv_ps, 'bsvd_tpu_torch/csrc/conv3x3.cu',
-                'bsvd_tpu/ops/conv3x3.py:797'),
+                'bsvd_tpu/ops/conv3x3.py:797', 'forward'),
+    'bibuffer_conv': (bibuffer_conv, 'bsvd_tpu_torch/csrc/bibuffer_conv.cu',
+                      'bsvd_tpu/ops/bibuffer_conv.py:99', 'push'),
+    'bibuffer_multi': (bibuffer_multi,
+                       'bsvd_tpu_torch/csrc/bibuffer_conv.cu',
+                       'bsvd_tpu/ops/bibuffer_conv.py:539', 'push_block'),
+    'bibuffer_chain': (bibuffer_chain,
+                       'bsvd_tpu_torch/csrc/bibuffer_conv.cu',
+                       'bsvd_tpu/ops/bibuffer_conv.py:346', 'push'),
 }
 PER_FORWARD = {'conv3x3': 16, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4}
+# streaming: 24 frames pushed, push_block of 8, timing over 64 frames
+STREAM_T, BLOCK_F, TIMED = 24, 8, 64
+PER_STEADY_PUSH = {'conv3x3': 0, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
+                   'bibuffer_conv': 8, 'bibuffer_multi': 0,
+                   'bibuffer_chain': 4}
+PER_BLOCK = {'conv3x3': 0, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
+             'bibuffer_conv': 0, 'bibuffer_multi': 16, 'bibuffer_chain': 0}
 
 
 def emit(obj):
@@ -87,8 +127,12 @@ def counts():
     return {k: v[0].launches for k, v in KERNELS.items()}
 
 
+def delta_since(before):
+    return {k: v - before[k] for k, v in counts().items()}
+
+
 def reset_counts():
-    for fn, _, _ in KERNELS.values():
+    for fn, _, _, _ in KERNELS.values():
         fn.launches = 0
 
 
@@ -120,12 +164,16 @@ def psnr(got, ref):
 
 
 # ---------------------------------------------------------------------------
-# phase 2: every kernel variant of the forward, at its site shapes
+# phase 2: every kernel variant of both paths, at its site shapes
 # ---------------------------------------------------------------------------
 
 def _sites():
-    """(kernel, variant, per-forward count in the bidirectional net,
-    make(g) -> (kernel call, plain call in fp32, plain call in bf16))."""
+    """(kernel, variant, count, unit, make(g) -> (kernel call, plain call in
+    fp32, plain call in bf16, exact)): ``count`` is the site's launches per
+    ``unit`` of work of the bidirectional net ('forward': a 10-frame MIMO
+    forward; 'push': a steady push; 'block': a steady push_block of 8);
+    ``exact`` flags the outputs (of a tuple) that must equal the plain
+    version bit for bit."""
     h2, w2, h4, w4 = H // 2, W // 2, H // 4, W // 4
 
     def conv(cin, cout, g):
@@ -138,22 +186,24 @@ def _sites():
     def act_in(shape, g):
         return torch.rand(shape, generator=g, device='cuda').to(torch.bfloat16)
 
-    def k1(h, w, c, shift, add2):
+    def f32(*ts):
+        return [None if t is None else t.float() for t in ts]
+
+    def k1(h, w, c, shift, add2, nt=T):
         def make(g):
-            x = act_in((T, h, w, c), g)
-            x2 = act_in((T, h, w, c), g) if add2 else None
+            x = act_in((nt, h, w, c), g)
+            x2 = act_in((nt, h, w, c), g) if add2 else None
             cw = conv(c, c, g)
-            kw = dict(t_len=T, shift=shift, act='relu6')
+            kw = dict(t_len=nt, shift=shift, act='relu6')
             return (lambda: conv3x3(x, cw, x2=x2, **kw),
-                    lambda: conv3x3_reference(
-                        x.float(), cw, x2=None if x2 is None else x2.float(),
-                        **kw),
-                    lambda: conv3x3_reference(x, cw, x2=x2, **kw))
+                    lambda: conv3x3_reference(*f32(x), cw, x2=f32(x2)[0],
+                                              **kw),
+                    lambda: conv3x3_reference(x, cw, x2=x2, **kw), None)
         return make
 
-    def k2(c, cres, cout):
+    def k2(c, cres, cout, nt=T):
         def make(g):
-            x = act_in((T, H, W, c), g)
+            x = act_in((nt, H, W, c), g)
             c1, c2 = conv(c, 64, g), conv(64, cout, g)
             if not cres:
                 return (lambda: conv_chain(x, c1, None, c2, None, 'relu6',
@@ -161,8 +211,8 @@ def _sites():
                         lambda: conv_chain_reference(x.float(), c1, None, c2,
                                                      None, 'relu6', 'relu6'),
                         lambda: conv_chain_reference(x, c1, None, c2, None,
-                                                     'relu6', 'relu6'))
-            x2, xr = act_in(x.shape, g), act_in((T, H, W, cres), g)
+                                                     'relu6', 'relu6'), None)
+            x2, xr = act_in(x.shape, g), act_in((nt, H, W, cres), g)
             return (lambda: conv_chain_add2_res(x, x2, xr, c1, None, c2, None,
                                                 'relu6', 'none', 3),
                     lambda: conv_chain_reference(
@@ -170,28 +220,56 @@ def _sites():
                         x2=x2.float(), x_res=xr.float(), res_ch=3),
                     lambda: conv_chain_reference(
                         x, c1, None, c2, None, 'relu6', 'none', x2=x2,
-                        x_res=xr, res_ch=3))
+                        x_res=xr, res_ch=3), None)
         return make
 
-    def k3(h, w, c, cout):
+    def k3(h, w, c, cout, nt=T):
         def make(g):
-            x = act_in((T, h, w, c), g)
+            x = act_in((nt, h, w, c), g)
             cw = conv(c, cout, g)
             return (lambda: conv_s2(x, cw, act='relu6'),
                     lambda: conv_s2_reference(x.float(), cw, act='relu6'),
-                    lambda: conv_s2_reference(x, cw, act='relu6'))
+                    lambda: conv_s2_reference(x, cw, act='relu6'), None)
         return make
 
-    def k4(h, w, c, cout):
+    def k4(h, w, c, cout, nt=T):
         def make(g):
-            x = act_in((T, h, w, c), g)
+            x = act_in((nt, h, w, c), g)
             cw = conv(c, cout, g)
             return (lambda: conv_ps(x, cw),
                     lambda: conv_ps_reference(x.float(), cw),
-                    lambda: conv_ps_reference(x, cw))
+                    lambda: conv_ps_reference(x, cw), None)
         return make
 
-    return [
+    def k5(h, w, c, causal, nf=None):
+        """bibuffer_conv on one frame (nf None) or bibuffer_multi on nf."""
+        def make(g):
+            x = act_in((nf or 1, h, w, c), g)
+            st = act_in((1, h, w, c), g)
+            cw = conv(c, c, g)
+            kw = dict(act='relu6', causal=causal)
+            fn, ref = ((bibuffer_conv, bibuffer_conv_reference) if nf is None
+                       else (bibuffer_multi, bibuffer_multi_reference))
+            return (lambda: fn(x, st, cw, **kw),
+                    lambda: ref(*f32(x, st), cw, **kw),
+                    lambda: ref(x, st, cw, **kw), (False, True))
+        return make
+
+    def k6(h, w, c, causal):
+        def make(g):
+            x, s1, s2 = (act_in((1, h, w, c), g) for _ in range(3))
+            c1, c2 = conv(c, c, g), conv(c, c, g)
+            kw = dict(act='relu6', act2='relu6', causal=causal)
+            return (lambda: bibuffer_chain(x, s1, s2, c1, None, c2, None,
+                                           **kw),
+                    lambda: bibuffer_chain_reference(*f32(x, s1, s2), c1,
+                                                     None, c2, None, **kw),
+                    lambda: bibuffer_chain_reference(x, s1, s2, c1, None, c2,
+                                                     None, **kw),
+                    (False, True, False))
+        return make
+
+    fwd = [
         ('conv3x3', 'tsm_270x480_c128', 6, k1(h2, w2, 128, 'tsm', False)),
         ('conv3x3', 'tsm_add2_270x480_c128', 2, k1(h2, w2, 128, 'tsm', True)),
         ('conv3x3', 'tsm_135x240_c256', 8, k1(h4, w4, 256, 'tsm', False)),
@@ -210,50 +288,120 @@ def _sites():
         ('conv_ps', 'ps_135x240_256_512', 2, k4(h4, w4, 256, 512)),
         ('conv_ps', 'ps_270x480_128_256', 2, k4(h2, w2, 128, 256)),
     ]
+    # per-frame streaming sites; the chain runs at 128 channels, two K5
+    # steps at 256 (CHAIN_MAX_C); the other route at each width is timed
+    # with count 0
+    assert CHAIN_MAX_C == 128
+    stream = [
+        ('bibuffer_conv', 'bidir_135x240_c256', 8, k5(h4, w4, 256, False)),
+        ('bibuffer_conv', 'causal_135x240_c256', 0, k5(h4, w4, 256, True)),
+        ('bibuffer_conv', 'bidir_270x480_c128', 0, k5(h2, w2, 128, False)),
+        ('bibuffer_chain', 'bidir_270x480_c128', 4, k6(h2, w2, 128, False)),
+        ('bibuffer_chain', 'causal_270x480_c128', 0, k6(h2, w2, 128, True)),
+        ('bibuffer_chain', 'bidir_135x240_c256', 0, k6(h4, w4, 256, False)),
+        ('conv3x3', 'drain_270x480_c128', 0, k1(h2, w2, 128, 'none', False,
+                                                nt=1)),
+        ('conv3x3', 'drain_135x240_c256', 0, k1(h4, w4, 256, 'none', False,
+                                                nt=1)),
+        ('conv_chain', 'inc_540x960_4_64_64', 1, k2(4, 0, 64, nt=1)),
+        ('conv_chain', 'inc_540x960_64_64_64', 1, k2(64, 0, 64, nt=1)),
+        ('conv_chain', 'outc_res_540x960_64_64_64_xres3', 1,
+         k2(64, 3, 64, nt=1)),
+        ('conv_chain', 'outc_res_540x960_64_64_3_xres3', 1,
+         k2(64, 3, 3, nt=1)),
+        ('conv_s2', 's2_540x960_64_128', 2, k3(H, W, 64, 128, nt=1)),
+        ('conv_s2', 's2_270x480_128_256', 2, k3(h2, w2, 128, 256, nt=1)),
+        ('conv_ps', 'ps_135x240_256_512', 2, k4(h4, w4, 256, 512, nt=1)),
+        ('conv_ps', 'ps_270x480_128_256', 2, k4(h2, w2, 128, 256, nt=1)),
+    ]
+    block = [
+        ('bibuffer_multi', f'bidir_f{BLOCK_F}_270x480_c128', 8,
+         k5(h2, w2, 128, False, BLOCK_F)),
+        ('bibuffer_multi', f'bidir_f{BLOCK_F}_135x240_c256', 8,
+         k5(h4, w4, 256, False, BLOCK_F)),
+        ('bibuffer_multi', f'causal_f{BLOCK_F}_270x480_c128', 0,
+         k5(h2, w2, 128, True, BLOCK_F)),
+        ('bibuffer_multi', f'causal_f{BLOCK_F}_135x240_c256', 0,
+         k5(h4, w4, 256, True, BLOCK_F)),
+    ]
+    return ([(k, v, n, 'forward', m) for k, v, n, m in fwd]
+            + [(k, v, n, 'push', m) for k, v, n, m in stream]
+            + [(k, v, n, 'push_block', m) for k, v, n, m in block])
+
+
+def _check_site(name, got, ref, exact):
+    """Max |diff| and tolerance of the outputs compared within tolerance;
+    raises if one is outside it or an exact output differs."""
+    if exact is None:
+        got, ref, exact = (got,), (ref,), (False,)
+    worst, tol = 0.0, 0.0
+    for g, r, ex in zip(got, ref, exact):
+        if g.shape != r.shape:
+            raise AssertionError(f'{name}: shape {tuple(g.shape)} != '
+                                 f'{tuple(r.shape)}')
+        if ex:
+            if not torch.equal(g.float(), r.float()):
+                raise AssertionError(f'{name}: state copy differs')
+            continue
+        err, scale = rel_err(g, r)
+        if not err <= BF16_TOL * scale:
+            raise AssertionError(f'{name}: max|diff| {err} > '
+                                 f'{BF16_TOL * scale}')
+        if err >= worst:
+            worst, tol = err, BF16_TOL * scale
+    return worst, tol
 
 
 def phase_kernels():
+    """Per kernel: max err; ms / plain_ms at the counts of its unit (the
+    KERNELS table). Also the kernel and plain ms of one steady push and of
+    one push_block over all kernels."""
     g = torch.Generator(device='cuda').manual_seed(SEED)
     summary = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
                for k in KERNELS}
-    for kernel, variant, per_fwd, make in _sites():
-        run, plain32, plain_bf16 = make(g)
+    per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0}
+                for u in ('forward', 'push', 'push_block')}
+    for kernel, variant, count, unit, make in _sites():
+        run, plain32, plain_bf16, exact = make(g)
         got = run()
         torch.cuda.synchronize()
         ref = plain32()
-        err, scale = rel_err(got, ref)
-        tol = BF16_TOL * scale
+        err, tol = _check_site(f'{kernel}/{unit}/{variant}', got, ref, exact)
         del ref
         ms = median_ms(run)
         plain_ms = median_ms(plain_bf16)
+        out = got[0] if isinstance(got, tuple) else got
         emit({'phase': 'kernel', 'kernel': kernel, 'variant': variant,
-              'shape_out': list(got.shape), 'max_abs_err': err, 'tol': tol,
-              'ms': ms, 'plain_ms': plain_ms, 'per_forward': per_fwd})
-        if not err <= tol:
-            raise AssertionError(f'{kernel}/{variant}: max|diff| {err} > {tol}')
+              'per': unit, 'shape_out': list(out.shape), 'max_abs_err': err,
+              'tol': tol, 'exact_states': bool(exact), 'ms': ms,
+              'plain_ms': plain_ms, 'count': count})
         s = summary[kernel]
         s['max_abs_err'] = max(s['max_abs_err'], err)
-        s['ms'] += per_fwd * ms
-        s['plain_ms'] += per_fwd * plain_ms
-        del got
+        if unit == KERNELS[kernel][3]:
+            s['ms'] += count * ms
+            s['plain_ms'] += count * plain_ms
+        per_unit[unit]['ms'] += count * ms
+        per_unit[unit]['plain_ms'] += count * plain_ms
+        del got, out
         torch.cuda.empty_cache()
+    emit({'phase': 'kernel_sums', 'per_unit': per_unit})
     return summary
 
 
 # ---------------------------------------------------------------------------
-# phase 3: the main path
+# phase 3: the MIMO main path
 # ---------------------------------------------------------------------------
 
-def _clips(rng, n):
-    """Smooth synthetic clean clips (T, 3, H, W) in [0, 1] and their noisy
-    versions at SIGMA."""
+def _clips(rng, n, t_len=T):
+    """Smooth synthetic clean clips (t_len, 3, H, W) in [0, 1] and their
+    noisy versions at SIGMA."""
     yy, xx = np.mgrid[0:H, 0:W].astype(np.float32)
     out = []
     for _ in range(n):
         f = rng.uniform(0.005, 0.03, size=(3, 2)).astype(np.float32)
-        ph = rng.uniform(0, 6.28, size=(3, T)).astype(np.float32)
-        clean = np.empty((T, 3, H, W), np.float32)
-        for t in range(T):
+        ph = rng.uniform(0, 6.28, size=(3, t_len)).astype(np.float32)
+        clean = np.empty((t_len, 3, H, W), np.float32)
+        for t in range(t_len):
             for c in range(3):
                 clean[t, c] = 0.5 + 0.4 * np.sin(f[c, 0] * yy + f[c, 1] * xx
                                                  + ph[c, t])
@@ -300,8 +448,9 @@ def phase_main(clips):
                                       compute_dtype=torch.bfloat16)
                           for _, noisy in clips]
             wall = (time.perf_counter() - t0) / len(clips)
-            delta = {k: v - before[k] for k, v in counts().items()}
-            for k, n in PER_FORWARD.items():
+            delta = delta_since(before)
+            for k in KERNELS:
+                n = PER_FORWARD.get(k, 0)
                 if delta[k] != n * len(clips):
                     raise AssertionError(f'{mode}: {k} launched {delta[k]} '
                                          f'times in {len(clips)} forwards, '
@@ -371,6 +520,278 @@ def phase_parity(nets, clips, outs):
           float(np.abs(out16 - out32).max()),
           'bf16_vs_fp32_psnr_db': psnr(torch.from_numpy(out16),
                                        torch.from_numpy(out32))})
+    return out32
+
+
+# ---------------------------------------------------------------------------
+# phase 5: the streaming main path
+# ---------------------------------------------------------------------------
+
+def expected_step(p, t_len, causal, wide=(False, True, True, False),
+                  stage_num=2):
+    """Launches of streaming step p (0-based; p >= t_len are the flush's
+    drain steps) over a t_len-frame clip, by archs/streaming.py's rule,
+    derived here from frame indices alone. Stage s's temporal conv k (8s ..
+    8s+7: down0, down1, up2, up1, two each) reads frame p - k at step p
+    and holds frame p - k - 1: it outputs iff that frame exists, through
+    K5 if its input exists too (steady) and K1 if not (drain). A
+    MemCvBlock no wider than CHAIN_MAX_C (``wide`` False) runs as one K6
+    when both its convs are steady. The causal net has no delay: every
+    site runs steady on every valid frame."""
+    c = dict.fromkeys(KERNELS, 0)
+
+    def ok(j):
+        return 0 <= j < t_len
+
+    for s in range(stage_num):
+        if causal:
+            if ok(p):
+                for k, n in PER_STEADY_PUSH.items():
+                    c[k] += n // stage_num
+            continue
+        base = 8 * s
+        q = p - base                       # frame at the stage's input
+        if ok(q):                          # inc, down0's stride-2 conv
+            c['conv_chain'] += 1
+            c['conv_s2'] += 1
+        for j, is_wide in enumerate(wide):
+            k1 = base + 2 * j
+            if not is_wide and all(ok(p - k1 - d) for d in range(3)):
+                c['bibuffer_chain'] += 1
+                continue
+            for k in (k1, k1 + 1):
+                if ok(p - k - 1):
+                    c['bibuffer_conv' if ok(p - k) else 'conv3x3'] += 1
+        if ok(q - 2):                      # down1's stride-2 conv
+            c['conv_s2'] += 1
+        if ok(q - 6):                      # up2's conv + shuffle
+            c['conv_ps'] += 1
+        if ok(q - 8):                      # up1's conv + shuffle, outc
+            c['conv_ps'] += 1
+            c['conv_chain'] += 1
+    return c
+
+
+def _stream_input(noisy):
+    """(T, 3, H, W) numpy -> (T, 1, H, W, 4) bf16 frames on the card."""
+    x = torch.from_numpy(noisy).cuda().to(torch.bfloat16)
+    x = torch.cat([x, torch.full_like(x[:, :1], SIGMA)], dim=1)
+    return x.permute(0, 2, 3, 1)[:, None].contiguous()
+
+
+def _state_bytes(state):
+    total = 0
+    for st in state:
+        for v in st.values():
+            for node in (v if isinstance(v, list) else [v]):
+                t = node['packed'] if 'packed' in node else node['buf']
+                total += t.numel() * t.element_size()
+    return total
+
+
+def _time_per_frame(sd, x, block):
+    """Best of 3 host-clock ms per frame over TIMED frames resident on the
+    card, ending in a synchronize (push, or push_block of BLOCK_F)."""
+    best = float('inf')
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if block:
+            for k in range(0, TIMED, BLOCK_F):
+                i = k % STREAM_T
+                sd.push_block(x[i:i + BLOCK_F])
+        else:
+            for k in range(TIMED):
+                sd.push(x[k % STREAM_T])
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / TIMED)
+    return best * 1e3
+
+
+def _profile_pushes(sd, x, n=16):
+    """Device busy time (union of all device activity) and idle share of n
+    steady pushes, from torch.profiler; the kernels by device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with record_function('steady_pushes'):
+            for k in range(n):
+                sd.push(x[k % STREAM_T])
+            torch.cuda.synchronize()
+    events = prof.events()
+    win = next(e for e in events if e.name == 'steady_pushes')
+    ws, we = win.time_range.start, win.time_range.end
+    spans = sorted((max(e.time_range.start, ws), min(e.time_range.end, we))
+                   for e in events if e.device_type == DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if b <= a:
+            continue
+        if cur is None or a > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0 if cur is None else cur[1] - cur[0]
+    by_name = sorted(((e.key, getattr(e, 'self_device_time_total', 0))
+                      for e in prof.key_averages()), key=lambda kv: -kv[1])
+    return {'pushes': n, 'window_ms_per_push': (we - ws) / 1e3 / n,
+            'device_busy_ms_per_push': busy / 1e3 / n,
+            'idle_share': (1 - busy / (we - ws)) if spans else None,
+            'top_device_ms_per_push': [[k, v / 1e3 / n]
+                                       for k, v in by_name[:9]
+                                       if v > 0 and k != 'steady_pushes']}
+
+
+def phase_stream(nets, clip):
+    """Returns the launches of the checked main-path runs."""
+    clean, noisy = clip
+    x = _stream_input(noisy)
+    xm = x[:, 0][None]                           # (1, T, H, W, 4) for MIMO
+    launches = dict.fromkeys(KERNELS, 0)
+    for mode, net in nets.items():
+        causal = 'toFutureOnly' in mode
+        cfg = net.cfg
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before_gb = torch.cuda.memory_allocated() / 1e9
+        sd = StreamDenoiser(net, None, batch=1, height=H, width=W,
+                            dtype=torch.bfloat16)
+        state_gb = _state_bytes(sd.state) / 1e9
+        lat = sd.latency
+        reset_counts()
+        steps, outs = [], []
+        with _NoConv2d():
+            for i in range(STREAM_T):
+                before = counts()
+                out = sd.push(x[i])
+                steps.append(delta_since(before))
+                if out is not None:
+                    outs.append(out)
+            before = counts()
+            outs += sd.flush()
+            drain = delta_since(before)
+        for k, v in counts().items():
+            launches[k] += v
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        for p, got in enumerate(steps):
+            if got != expected_step(p, STREAM_T, causal):
+                raise AssertionError(f'{mode}: push {p} launched {got}, '
+                                     f'expected {expected_step(p, STREAM_T, causal)}')
+            if lat <= p and got != PER_STEADY_PUSH:
+                raise AssertionError(f'{mode}: steady push {p}: {got}')
+        want = dict.fromkeys(KERNELS, 0)
+        for p in range(STREAM_T, STREAM_T + lat):
+            for k, v in expected_step(p, STREAM_T, causal).items():
+                want[k] += v
+        if drain != want:
+            raise AssertionError(f'{mode}: flush launched {drain}, expected '
+                                 f'{want}')
+        if len(outs) != STREAM_T:
+            raise AssertionError(f'{mode}: {len(outs)} outputs for '
+                                 f'{STREAM_T} frames')
+        y = torch.stack(outs, dim=1)
+        if not torch.isfinite(y).all():
+            raise AssertionError(f'{mode}: non-finite streaming output')
+
+        with torch.no_grad():
+            ref32 = wnet_apply(net.prepared('cuda', torch.float32),
+                               xm.float(), cfg)
+            mimo16 = wnet_apply(net.prepared('cuda', torch.bfloat16), xm,
+                                cfg)
+        psnr_stream, psnr_mimo = psnr(y, ref32), psnr(mimo16, ref32)
+        if not psnr_stream > psnr_mimo - 1.0:
+            raise AssertionError(f'{mode}: bf16 streaming {psnr_stream} dB vs'
+                                 f' fp32 MIMO, bf16 MIMO {psnr_mimo} dB')
+
+        # a steady push_block of BLOCK_F frames (the first lat by push)
+        sd.reset()
+        for i in range(lat):
+            sd.push(x[i])
+        reset_counts()
+        with _NoConv2d():
+            blk = sd.push_block(x[lat:lat + BLOCK_F])
+        block = counts()
+        for k, v in block.items():
+            launches[k] += v
+        if block != PER_BLOCK:
+            raise AssertionError(f'{mode}: push_block launched {block}')
+        yb = torch.stack(blk, dim=1)                 # frames 0 .. BLOCK_F-1
+        psnr_block = psnr(yb, ref32[:, :BLOCK_F])
+        psnr_mimo_b = psnr(mimo16[:, :BLOCK_F], ref32[:, :BLOCK_F])
+        if not psnr_block > psnr_mimo_b - 1.0:
+            raise AssertionError(f'{mode}: push_block {psnr_block} dB, bf16 '
+                                 f'MIMO {psnr_mimo_b} dB')
+        del ref32, mimo16, y, yb, outs, blk
+
+        sd.reset()
+        for i in range(lat + 4):
+            sd.push(x[i % STREAM_T])
+        push_ms = _time_per_frame(sd, x, block=False)
+        block_ms = _time_per_frame(sd, x, block=True)
+        prof = _profile_pushes(sd, x)
+        emit({'phase': 'stream', 'shift_mode': mode, 'latency': lat,
+              'frames': STREAM_T, 'launches_fill_steady': steps,
+              'launches_flush': drain, 'launches_push_block': block,
+              'psnr_db_vs_fp32_mimo': {'stream_bf16': psnr_stream,
+                                       'mimo_bf16': psnr_mimo,
+                                       'push_block_bf16': psnr_block,
+                                       'mimo_bf16_first_block': psnr_mimo_b},
+              'push_ms_per_frame': push_ms,
+              f'push_block{BLOCK_F}_ms_per_frame': block_ms,
+              'state_gb': state_gb, 'allocated_before_gb': before_gb,
+              'peak_allocated_gb': peak_gb,
+              'profile': prof})
+        del sd
+        torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 6: streaming parity
+# ---------------------------------------------------------------------------
+
+def phase_stream_parity(nets, clips, outs, out32):
+    """fp32 streaming kernels against fp32 MIMO kernels on a reduced clip;
+    denoise_seq(mode='streaming') of a 540p clip against mode='mimo'.
+    Returns the launches of the denoise_seq run."""
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 20, 128, 224, 4))
+                         .astype(np.float32)).cuda()
+    for mode, net in nets.items():
+        p = net.prepared('cuda', torch.float32)
+        with torch.no_grad():
+            ref = wnet_apply(p, x, net.cfg)
+            got = streaming_apply(p, x, net.cfg)
+        err, scale = rel_err(got, ref)
+        emit({'phase': 'stream_parity_fp32', 'shift_mode': mode,
+              'shape': list(x.shape), 'max_abs_err': err,
+              'tol': FP32_TOL * scale})
+        if not err <= FP32_TOL * scale:
+            raise AssertionError(f'{mode}: fp32 streaming vs MIMO: {err}')
+
+    clean, noisy = clips[0]
+    reset_counts()
+    with _NoConv2d():
+        s16 = denoise_seq(nets['TSM'], None, noisy, noise_sigma=SIGMA,
+                          mode='streaming', compute_dtype=torch.bfloat16)
+    launches = counts()
+    _check_out(s16, clean)
+    to_t = torch.from_numpy
+    psnr_s, psnr_m = psnr(to_t(s16), to_t(out32)), psnr(to_t(outs['TSM'][0]),
+                                                        to_t(out32))
+    emit({'phase': 'denoise_seq_streaming', 'frames': T,
+          'psnr_db_vs_fp32_mimo': {'streaming_bf16': psnr_s,
+                                   'mimo_bf16': psnr_m},
+          'launches': launches})
+    if not psnr_s > psnr_m - 1.0:
+        raise AssertionError(f"denoise_seq(mode='streaming') {psnr_s} dB, "
+                             f"mode='mimo' {psnr_m} dB")
+    return launches
 
 
 def main():
@@ -396,13 +817,21 @@ def main():
     summary = phase_kernels()
     clips = _clips(np.random.default_rng(SEED), 3)
     nets, outs, launches = phase_main(clips)
-    phase_parity(nets, clips, outs)
+    out32 = phase_parity(nets, clips, outs)
+    clip24 = _clips(np.random.default_rng(SEED + 3), 1, STREAM_T)[0]
+    stream_launches = phase_stream(nets, clip24)
+    seq_launches = phase_stream_parity(nets, clips, outs, out32)
+    for k in KERNELS:
+        if not stream_launches[k] > 0:
+            raise AssertionError(f'{k} never launched on the streaming path')
+        launches[k] += stream_launches[k] + seq_launches[k]
 
     emit({'kernels': [
         {'name': k, 'route': 'cuda', 'source': src, 'replaces': rep,
          'launches': launches[k], 'max_abs_err': summary[k]['max_abs_err'],
-         'ms': summary[k]['ms'], 'plain_ms': summary[k]['plain_ms']}
-        for k, (_, src, rep) in KERNELS.items()]})
+         'ms': summary[k]['ms'], 'plain_ms': summary[k]['plain_ms'],
+         'per': per}
+        for k, (_, src, rep, per) in KERNELS.items()]})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': torch.cuda.device_count()}})
 

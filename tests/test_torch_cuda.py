@@ -191,3 +191,104 @@ def test_wnet_kernels_match_plain_path(dev, shift_mode):
                      cfg)
     torch.cuda.synchronize()
     _close(got.cpu(), ref, torch.float32)
+
+
+# ---- K5 bibuffer_conv / bibuffer_multi, K6 bibuffer_chain -------------------
+
+_BI_CASES = {'c16_ragged': (13, 37, 16, 24, 16),     # scalar loader path
+             'c128': (10, 20, 128, 128, 128)}         # 16-byte loader path
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', sorted(_BI_CASES))
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('nf', [1, 2, 5])
+def test_bibuffer_multi_kernel(dev, nf, causal, case, dtype):
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_multi,
+                                                  bibuffer_multi_reference)
+    h, w, c, co, _ = _BI_CASES[case]
+    rng = np.random.default_rng(7)
+    x = _t(rng, (nf, h, w, c), 1.0, dev).to(dtype)
+    st = _t(rng, (1, h, w, c), 1.0, dev).to(dtype)
+    wt = _t(rng, (co, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
+    b = _t(rng, (co,), 0.1, dev)
+    before = bibuffer_multi.launches
+    y, ns = bibuffer_multi(x, st, wt, b, causal=causal)
+    assert bibuffer_multi.launches == before + 1
+    torch.cuda.synchronize()
+    ry, rs = bibuffer_multi_reference(x.float(), st.float(), wt, b,
+                                      causal=causal)
+    assert y.dtype == dtype and ns.dtype == dtype
+    _close(y, ry, dtype)
+    assert torch.equal(ns.float(), rs)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('causal', [False, True])
+def test_bibuffer_conv_kernel_streams(dev, causal, dtype):
+    """F = 1 over N = 3 streams (the per-push form)."""
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_conv,
+                                                  bibuffer_conv_reference)
+    rng = np.random.default_rng(8)
+    x = _t(rng, (3, 12, 24, 64), 1.0, dev).to(dtype)
+    st = _t(rng, x.shape, 1.0, dev).to(dtype)
+    wt = _t(rng, (64, 64, 3, 3), (2 / (9 * 64)) ** 0.5, dev)
+    b = _t(rng, (64,), 0.1, dev)
+    y, ns = bibuffer_conv(x, st, wt, b, act='relu', causal=causal)
+    torch.cuda.synchronize()
+    ry, rs = bibuffer_conv_reference(x.float(), st.float(), wt, b,
+                                     act='relu', causal=causal)
+    _close(y, ry, dtype)
+    assert torch.equal(ns.float(), rs)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', sorted(_BI_CASES))
+@pytest.mark.parametrize('causal', [False, True])
+def test_bibuffer_chain_kernel(dev, causal, case, dtype):
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain,
+                                                  bibuffer_chain_reference)
+    h, w, c, c1, co = _BI_CASES[case]
+    rng = np.random.default_rng(9)
+    x = _t(rng, (2, h, w, c), 1.0, dev).to(dtype)
+    s1 = _t(rng, x.shape, 1.0, dev).to(dtype)
+    s2 = _t(rng, (2, h, w, c1), 1.0, dev).to(dtype)
+    w1 = _t(rng, (c1, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
+    b1 = _t(rng, (c1,), 0.1, dev)
+    w2 = _t(rng, (co, c1, 3, 3), (2 / (9 * c1)) ** 0.5, dev)
+    b2 = _t(rng, (co,), 0.1, dev)
+    y, n1, n2 = bibuffer_chain(x, s1, s2, w1, b1, w2, b2, causal=causal)
+    torch.cuda.synchronize()
+    ry, r1, r2 = bibuffer_chain_reference(x.float(), s1.float(), s2.float(),
+                                          w1, b1, w2, b2, causal=causal)
+    _close(y, ry, dtype)
+    assert torch.equal(n1.float(), r1)
+    _close(n2, r2, dtype)
+
+
+@pytest.mark.parametrize('batch', [1, 2])
+@pytest.mark.parametrize('shift_mode', ['TSM', 'TSM_toFutureOnly'])
+def test_stream_denoiser_kernels_match_plain_path(dev, shift_mode, batch):
+    """A small net streamed on the card (push, push_block, flush) in fp32
+    against the plain streaming path on the CPU, for 1 and 2 streams."""
+    from bsvd_tpu_torch.archs.streaming import StreamDenoiser
+    from bsvd_tpu_torch.archs.wnet_arch import (WNetConfig, prepare_params,
+                                                wnet_init)
+    cfg = WNetConfig(chns=(16, 32, 64), mid_ch=16, interm_ch=16,
+                     norm='none', act='relu6', shift_mode=shift_mode)
+    params = wnet_init(cfg, seed=1)
+    rng = np.random.default_rng(10)
+    t, h, w = 22, 16, 32
+    x = torch.from_numpy(rng.uniform(0, 1, (t, batch, h, w, 4))
+                         .astype(np.float32))
+    outs = {}
+    for where in ('cpu', 'cuda'):
+        p = params if where == 'cpu' else prepare_params(params, dev,
+                                                         torch.float32)
+        sd = StreamDenoiser(p, cfg, batch=batch, height=h, width=w)
+        got = [sd.push(x[i]) for i in range(18)]
+        got += sd.push_block(x[18:])
+        got += sd.flush()
+        outs[where] = torch.stack([o.cpu() for o in got if o is not None])
+    assert outs['cuda'].shape == (t, batch, h, w, 3)
+    _close(outs['cuda'], outs['cpu'], torch.float32)

@@ -18,7 +18,9 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml'))
 print(len(names), bad)
-assert len(names) >= 15, names
+assert len(names) >= 17, names
+assert {'bsvd_tpu_torch.archs.streaming',
+        'bsvd_tpu_torch.ops.bibuffer_conv'} <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
 assert _build._lib is None       # nothing built or loaded at import

@@ -101,8 +101,10 @@ def test_synthetic_clip_psnr_anchor():
     assert abs(psnr - float(g['ref_psnr'])) < 1e-3, (psnr, g['ref_psnr'])
 
 
-@pytest.mark.parametrize('kw', [dict(temp_psz=4), dict(mode='streaming')])
+@pytest.mark.parametrize('kw', [dict(temp_psz=4),
+                                dict(temp_psz=4, mode='streaming')])
 def test_unported_protocols_raise(kw):
+    """Chunked clips (temp_psz < T), in either mode, are not ported yet."""
     _, _, pcfg, params = _pair(24)
     with pytest.raises(NotImplementedError):
         denoise_seq(params, pcfg, _clip(25), noise_sigma=0.1, **kw)
