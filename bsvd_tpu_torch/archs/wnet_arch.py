@@ -13,6 +13,11 @@ PyTorch version; on CUDA tensors its hand-written kernel.
 Parameters are a nested dict mirroring the JAX tree, with torch OIHW conv
 weights: ``{'stage0': {'inc': {'c1': {'w', 'b'}, ...}, ...}}``. Only
 ``norm='none'`` and ``shift_input=False`` are ported so far.
+
+``wnet_apply`` is differentiable: with grad mode on and parameters (or an
+input) that require grad, every op runs as its autograd Function (the JAX
+custom_vjps' direct backwards, K7 for the weight gradients), which is the
+training forward of ``TSN.train_forward``.
 """
 
 import dataclasses
@@ -133,8 +138,8 @@ def prepare_params(params, device, dtype):
         params = {'w': params.w, 'b': params.b}
     if _is_conv_leaf(params):
         b = params.get('b')
-        return ConvWeights(params['w'].to(device, dtype),
-                           None if b is None else b.to(device, dtype))
+        return ConvWeights(params['w'].detach().to(device, dtype),
+                           None if b is None else b.detach().to(device, dtype))
     return {k: prepare_params(v, device, dtype) for k, v in params.items()}
 
 
@@ -202,9 +207,15 @@ def wnet_apply(params, x, cfg):
 
 def _to_module(tree):
     if _is_conv_leaf(tree):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        return nn.ParameterDict({k: nn.Parameter(v)
                                  for k, v in tree.items()})
     return nn.ModuleDict({k: _to_module(v) for k, v in tree.items()})
+
+
+def _map_tree(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map_tree(v, fn) for k, v in tree.items()}
+    return fn(tree)
 
 
 def _to_tree(mod):
@@ -235,8 +246,10 @@ class _WNetBase(nn.Module):
         return self.cfg.shift_num
 
     def param_tree(self):
-        """The parameters as the nested dict ``wnet_apply`` takes."""
-        return _to_tree(self.params)
+        """The parameters as the nested dict ``wnet_apply`` takes, detached
+        (they share storage with the module's; ``train_forward`` uses the
+        parameters themselves)."""
+        return _map_tree(_to_tree(self.params), torch.Tensor.detach)
 
     def prepared(self, device, dtype):
         """Parameters cast to ``dtype`` on ``device`` as ConvWeights, cached
@@ -268,13 +281,27 @@ class _WNetBase(nn.Module):
 
     def forward(self, input, noise_map=None):
         """input (N, F, C, H, W) [+ noise_map (N, F, 1, H, W)] ->
-        (N, F, out_ch, H, W), computed in input's dtype."""
+        (N, F, out_ch, H, W), computed in input's dtype. Inference: no
+        autograd graph is recorded."""
         if noise_map is not None:
             input = torch.cat([input, noise_map.to(input.dtype)], dim=2)
         x = input.permute(0, 1, 3, 4, 2)
         with torch.no_grad():
             y = wnet_apply(self.prepared(x.device, x.dtype), x, self.cfg)
         return y.permute(0, 1, 4, 2, 3)
+
+    def train_forward(self, x, amp=False):
+        """The training forward with autograd on: x (N, T, H, W, C_in) ->
+        fp32 (N, T, H, W, out_ch). With ``amp`` the parameters are cast to
+        bf16 differentiably (their gradients come back to the fp32 masters
+        through the cast, each rounded to bf16 first) and x is cast too
+        (bsvd_tpu/models/denoising_model.py make_train_step, amp=True)."""
+        params = _to_tree(self.params)
+        if amp:
+            params = _map_tree(params, lambda t: t.to(torch.bfloat16))
+            x = x.to(torch.bfloat16)
+        with torch.enable_grad():
+            return wnet_apply(params, x, self.cfg).float()
 
 
 @ARCH_REGISTRY.register()

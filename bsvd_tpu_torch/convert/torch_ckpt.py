@@ -11,8 +11,9 @@ transpose; JAX trees (HWIO) are transposed.
 import numpy as np
 import torch
 
-__all__ = ['tsn_key_map', 'from_jax_params', 'from_jax_stream_state',
-           'load_tsn_state_dict', 'to_tsn_state_dict']
+__all__ = ['tsn_key_map', 'from_jax_params', 'to_jax_params',
+           'from_jax_stream_state', 'load_tsn_state_dict',
+           'to_tsn_state_dict']
 
 _PREFIXES = ('module.base_model.nets_list.', 'base_model.nets_list.',
              'module.nets_list.', 'nets_list.')
@@ -87,6 +88,33 @@ def from_jax_params(np_tree, cfg):
             out['b'] = _tensor(leaf['b'])
         _set_path(params, path, out)
     return params
+
+
+def to_jax_params(params, cfg):
+    """The port's tree (tensor or numpy leaves, OIHW) -> a bsvd_tpu
+    ``wnet_init`` tree of fp32 numpy arrays: HWIO weights, and the empty
+    norm slots (``n1`` / ``n2`` / ``n``) that norm='none' nets carry, so
+    that ``bsvd_tpu.models.checkpoint`` saves and loads it structure-exact.
+    The inverse of ``from_jax_params``."""
+    cfg.check_supported()
+
+    def arr(v):
+        if isinstance(v, torch.Tensor):
+            v = v.detach().cpu().float().numpy()
+        return np.asarray(v, np.float32)
+
+    tree = {}
+    for _, path, kind in tsn_key_map(cfg):
+        if kind == 'bn':
+            _set_path(tree, path, {})
+            continue
+        leaf = _get_path(params, path)
+        out = {'w': np.ascontiguousarray(np.transpose(arr(leaf['w']),
+                                                      (2, 3, 1, 0)))}
+        if leaf.get('b') is not None:
+            out['b'] = arr(leaf['b'])
+        _set_path(tree, path, out)
+    return tree
 
 
 def from_jax_stream_state(np_state, cfg):

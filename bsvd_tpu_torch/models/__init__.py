@@ -1,1 +1,1 @@
-"""Inference algorithms of the port."""
+"""Inference and training of the port."""

@@ -24,6 +24,31 @@ def conv2d(x, w, b=None, stride=1):
     return y.reshape(tuple(lead) + tuple(y.shape[1:]))
 
 
+def _nchw(x):
+    """NCHW view of an NHWC tensor (channels-last strides, no copy)."""
+    return x.permute(0, 3, 1, 2)
+
+
+def conv2d_input_grad(dz, w, x, stride=1):
+    """Input gradient of the 3x3 conv (pad 1) over NHWC: ``dz`` the output
+    cotangent, ``x`` the conv's input (its shape and layout only). Runs
+    aten's convolution_backward, as the JAX package leaves this transpose
+    to XLA."""
+    dx = torch.ops.aten.convolution_backward(
+        _nchw(dz), _nchw(x), w, None, [stride, stride], [1, 1], [1, 1],
+        False, [0, 0], 1, [True, False, False])[0]
+    return dx.permute(0, 2, 3, 1).contiguous()
+
+
+def conv2d_weight_grad(x, dz, w_shape, stride=1):
+    """Weight gradient (OIHW) of the 3x3 conv (pad 1) over NHWC, through
+    aten's convolution_backward."""
+    w = torch.empty(w_shape, dtype=dz.dtype, device=dz.device)
+    return torch.ops.aten.convolution_backward(
+        _nchw(dz), _nchw(x), w, None, [stride, stride], [1, 1], [1, 1],
+        False, [0, 0], 1, [False, True, False])[1]
+
+
 def pixel_shuffle(x, r=2):
     """torch.nn.PixelShuffle on ``(..., H, W, C*r*r)``: input channel
     ``c*r*r + i*r + j`` goes to pixel offset (i, j) of channel c."""
@@ -33,6 +58,17 @@ def pixel_shuffle(x, r=2):
     nl = len(lead)
     perm = tuple(range(nl)) + (nl, nl + 3, nl + 1, nl + 4, nl + 2)
     return x.permute(perm).reshape(*lead, h * r, w * r, c)
+
+
+def pixel_unshuffle(x, r=2):
+    """Inverse of ``pixel_shuffle`` on ``(..., H*r, W*r, C)``, as
+    torch.nn.PixelUnshuffle orders channels: pixel offset (i, j) of
+    channel c goes to channel ``c*r*r + i*r + j``."""
+    *lead, hr, wr, c = x.shape
+    x = x.reshape(*lead, hr // r, r, wr // r, r, c)
+    nl = len(lead)
+    perm = tuple(range(nl)) + (nl, nl + 2, nl + 4, nl + 1, nl + 3)
+    return x.permute(perm).reshape(*lead, hr // r, wr // r, c * r * r)
 
 
 def get_act(act):

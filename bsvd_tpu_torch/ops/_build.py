@@ -34,6 +34,7 @@ _SIGNATURES = {
     'bsvd_conv_chain': [_I] + [_P] * 8 + [_I] * 14 + [_P],
     'bsvd_bibuffer': [_I] + [_P] * 6 + [_I] * 12 + [_P],
     'bsvd_bibuffer_chain': [_I] + [_P] * 10 + [_I] * 15 + [_P],
+    'bsvd_conv3x3_dw': [_I] + [_P] * 5 + [_I] * 13 + [_P],
 }
 
 _lock = threading.Lock()

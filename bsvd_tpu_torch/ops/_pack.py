@@ -5,8 +5,9 @@ versions use) and packs them for the CUDA kernels once, at first CUDA use:
 ``(CoutP, 3, 3, CinP)`` contiguous in the activation dtype, CinP rounded up
 to 16 and CoutP to 64 with zeros, and an fp32 bias of CoutP, on the
 activations' device. Modules keep their ConvWeights per (device, dtype), so
-packing happens once, not per call. A wrapper also takes a bare weight
-tensor and packs it for that call.
+packing happens once, not per call; a packed copy is made anew when its
+weight or bias has changed in place since (an optimizer step). A wrapper
+also takes a bare weight tensor and packs it for that call.
 """
 
 import torch
@@ -46,20 +47,35 @@ class ConvWeights:
         64 for a chain's second conv, whose K runs over the padded
         intermediate."""
         key = (torch.device(device), dtype, cin_mult)
+        stamp = (self.w._version, self.b._version)
         hit = self._packed.get(key)
-        if hit is None:
+        if hit is None or hit[0] != stamp:
             cinp = round_up(self.cin, cin_mult)
             coutp = round_up(self.cout, 64)
-            wp = torch.zeros((coutp, 3, 3, cinp), dtype=dtype, device=key[0])
-            wp[:self.cout, :, :, :self.cin] = self.w.permute(0, 2, 3, 1)
-            bp = torch.zeros(coutp, dtype=torch.float32, device=key[0])
-            bp[:self.cout] = self.b.float()
-            hit = self._packed[key] = (wp, bp)
-        return hit
+            with torch.no_grad():
+                wp = torch.zeros((coutp, 3, 3, cinp), dtype=dtype,
+                                 device=key[0])
+                wp[:self.cout, :, :, :self.cin] = self.w.permute(0, 2, 3, 1)
+                bp = torch.zeros(coutp, dtype=torch.float32, device=key[0])
+                bp[:self.cout] = self.b.float()
+            hit = self._packed[key] = (stamp, (wp, bp))
+        return hit[1]
 
 
 def as_weights(w, b=None):
     return w if isinstance(w, ConvWeights) else ConvWeights(w, b)
+
+
+def grad_needed(*inputs):
+    """Whether a call must record autograd: grad mode on and some input (a
+    tensor, or a ConvWeights' weight or bias) requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    for t in inputs:
+        ts = (t.w, t.b) if isinstance(t, ConvWeights) else (t,)
+        if any(isinstance(v, torch.Tensor) and v.requires_grad for v in ts):
+            return True
+    return False
 
 
 def is_cpu(x):
@@ -109,3 +125,22 @@ def ptr(t):
 def apply_act(y, act):
     act_code(act)
     return get_act(act)(y)
+
+
+def act_mask(y, act):
+    """Derivative of the activation recovered from its saved OUTPUT, so no
+    backward recomputes a forward conv (bsvd_tpu/ops/shift_conv.py
+    act_mask). At exactly 0 and 6 it is 0, where autodiff of a clip gives
+    0.5. None for 'none'."""
+    if act == 'relu':
+        return (y > 0).to(y.dtype)
+    if act == 'relu6':
+        return ((y > 0) & (y < 6)).to(y.dtype)
+    act_code(act)
+    return None
+
+
+def masked(g, y, act):
+    """The cotangent before the activation: g * act_mask(y)."""
+    m = act_mask(y, act)
+    return g if m is None else g * m

@@ -8,15 +8,23 @@ for c < res_ch, the natural-layout per-stage residual; x_res keeps its own
 channel count). CPU tensors run ``conv_chain_reference``; CUDA tensors
 launch the kernel or raise. ``conv_chain.launches`` counts launches of all
 three variants.
+
+All three are differentiable, with conv_chain.py _chain_direct_bwd's
+backward: the act2 mask from the saved output and only the intermediate h
+recomputed, through K1 (``conv3x3`` with shift 'none', act1 and x2), then
+two K7 weight gradients; ``_ccr_bwd``'s residual un-combine runs on the
+first ``res_ch`` channels in the natural layout.
 """
 
 import torch
 
-from bsvd_tpu_torch.nn.layers import conv2d
+from bsvd_tpu_torch.nn.layers import conv2d, conv2d_input_grad
 from bsvd_tpu_torch.ops import _build
-from bsvd_tpu_torch.ops._pack import (act_code, apply_act, as_weights,
-                                      check_cuda, check_same_shape, is_cpu,
-                                      ptr, vec_ok)
+from bsvd_tpu_torch.ops._pack import (ConvWeights, act_code, apply_act,
+                                      as_weights, check_cuda,
+                                      check_same_shape, grad_needed, is_cpu,
+                                      masked, ptr, vec_ok)
+from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_dw
 
 
 def conv_chain_reference(x, w1, b1, w2, b2, act1='relu6', act2='none',
@@ -46,6 +54,9 @@ def _chain(x, x2, x_res, w1, b1, w2, b2, act1, act2, res_ch):
         if res_ch > min(x_res.shape[-1], c2w.cout):
             raise ValueError(f'res_ch {res_ch} exceeds x_res / output '
                              'channels')
+    if grad_needed(x, x2, x_res, c1w, c2w):
+        return _ChainFn.apply(x, x2, x_res if res_ch else None, c1w.w, c1w.b,
+                              c2w.w, c2w.b, act1, act2, res_ch)
     if is_cpu(x):
         return conv_chain_reference(x, c1w, None, c2w, None, act1, act2,
                                     x2=x2, x_res=x_res, res_ch=res_ch)
@@ -83,3 +94,44 @@ def conv_chain_add2_res(x, x2, x_res, w1, b1, w2, b2, act1='relu6',
     """conv_chain of (x + x2), then out[..., c] = x_res[..., c] - out[..., c]
     for c < res_ch."""
     return _chain(x, x2, x_res, w1, b1, w2, b2, act1, act2, res_ch)
+
+
+class _ChainFn(torch.autograd.Function):
+    """K2 forward; direct backward from the saved endpoints (the
+    intermediate recomputed by K1, never stored)."""
+
+    @staticmethod
+    def forward(ctx, x, x2, x_res, w1, b1, w2, b2, act1, act2, res_ch):
+        y = _chain(x, x2, x_res, ConvWeights(w1, b1), None,
+                   ConvWeights(w2, b2), None, act1, act2, res_ch)
+        ctx.save_for_backward(x, x2, x_res, w1, b1, w2, y)
+        ctx.conf = (act1, act2, res_ch)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, x2, x_res, w1, b1, w2, y = ctx.saved_tensors
+        act1, act2, rc = ctx.conf
+        need = ctx.needs_input_grad
+        dxres = None
+        if rc:
+            # saved y = [x_res - y2 | y2] on the first rc channels: y2 (the
+            # act2 mask's source) and the cotangents of (y2, x_res) are
+            # channel selects of y and g
+            if act2 != 'none':
+                y = torch.cat([x_res[..., :rc] - y[..., :rc], y[..., rc:]],
+                              dim=-1)
+            if need[2]:
+                dxres = torch.zeros_like(x_res)
+                dxres[..., :rc] = g[..., :rc]
+            g = torch.cat([-g[..., :rc], g[..., rc:]], dim=-1)
+        h = conv3x3(x, ConvWeights(w1, b1), x2=x2, act=act1)
+        dz2 = masked(g, y, act2).contiguous()
+        db2 = dz2.sum((0, 1, 2)).to(w2.dtype) if need[6] else None
+        dw2 = conv3x3_dw(h, dz2).to(w2.dtype) if need[5] else None
+        dz1 = masked(conv2d_input_grad(dz2, w2, h), h, act1)
+        db1 = dz1.sum((0, 1, 2)).to(w1.dtype) if need[4] else None
+        dw1 = conv3x3_dw(x, dz1, x2).to(w1.dtype) if need[3] else None
+        dx = conv2d_input_grad(dz1, w1, x) if need[0] or need[1] else None
+        return (dx if need[0] else None, dx if need[1] else None, dxres,
+                dw1, db1, dw2, db2, None, None, None)

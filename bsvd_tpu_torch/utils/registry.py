@@ -1,6 +1,6 @@
 """Name -> implementation registry of the port (counterpart of
-bsvd_tpu/utils/registry.py; the port registers archs only). Options dicts
-select an arch with a ``type:`` key.
+bsvd_tpu/utils/registry.py; the port registers archs, losses and models).
+Options dicts select an implementation with a ``type:`` key.
 """
 
 
@@ -45,3 +45,5 @@ class Registry:
 
 
 ARCH_REGISTRY = Registry('arch')
+LOSS_REGISTRY = Registry('loss')
+MODEL_REGISTRY = Registry('model')

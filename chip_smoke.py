@@ -16,7 +16,12 @@ Phases, each printed as one JSON object on its own line:
    sites (one frame, or 8 for push_block): K5 bibuffer_conv (F = 1) and
    bibuffer_multi (F = 8), K6 bibuffer_chain, and K1 (shift 'none', the
    drain conv), K2, K3, K4 at one frame. K5 states and K6's s1' must equal
-   the plain version exactly.
+   the plain version exactly. Train sites (8 clips x 11 frames of 96x96,
+   the c64 train step's 28 weight gradients): K7 conv3x3_dw against the
+   fp32 weight gradient of the same bf16 values, its plain time that of
+   cuDNN's bf16 wgrad (the shift and addend materialised first). The
+   generation-1 shift-conv entry (``shift_conv_fused_v1``, K1 with no
+   second input) at its whole-clip sites.
 3. MIMO main path: ``build_network`` BSVD-c64 (random weights from a seed),
    ``denoise_seq`` of 3 clips of (10, 3, 540, 960) at sigma 20/255 in bf16,
    for the bidirectional and the causal net; the launch counters must show
@@ -38,23 +43,48 @@ Phases, each printed as one JSON object on its own line:
 6. streaming parity: fp32 streaming kernels against fp32 MIMO kernels on a
    reduced clip (1e-4 x max|ref|), and ``denoise_seq(mode='streaming')``
    of a 10-frame clip against ``mode='mimo'`` by the same PSNR rule.
+7. train_grad: one fp32 ``DenoisingModel`` step of the full-width c64 TSN
+   on 2 clips x 5 frames of 64x64, kernels on the card against the plain
+   path on the CPU (same weights and batch): the loss and every gradient
+   to 1e-4 x max|ref| per tensor, the CPU backward taking the card's
+   activation masks (a pre-activation within rounding of 0 or 6 may
+   take the other side of the clip on the other device: the count of such
+   flips is reported), and the parameters after the Adam step against the
+   CPU optimizer fed the card's gradients.
+8. train main path: the options of options/train/bsvd_c64_unblind.yml
+   (batch 8 x 11 frames of 96x96, sigma ~ U[5, 55]/255 per clip, MSE,
+   Adam 1e-3, betas (0.9, 0.99)), fp32 and bf16 AMP, on one repeated batch
+   made by the ported augment and noise code from seeded synthetic uint8
+   clips: 5 warm-up and 30 timed steps with F.conv2d raising; every step
+   must launch K1 20, K2 4, K3 4, K4 4 and K7 28 times (the
+   generation-1 entry 14), the losses must be finite and the mean of
+   steps 21-30 below that of steps 1-10. Then ms/step and it/s at batch 8
+   and 16, peak memory, the device idle share and device time per kernel
+   group (K7 and cuDNN's wgrad / dgrad apart) of 8 steps under
+   ``torch.profiler`` (the idle share also of the unprofiled step time,
+   which the profiler's host cost does not stretch), and
+   ``train_pipeline``'s save -> auto-resume round
+   trip (EMA on) bit-equal to the uninterrupted run.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3 and 5 (counters set to 0 before each run, read after), the
+phases 3, 5 and 8 (counters set to 0 before each run, read after), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms``, the phase-2 site
 medians summed at the counts of one bidirectional unit of work, named by
-``per``: a 10-frame forward (K1-K4), a steady push (K5 bibuffer_conv, K6)
-or a steady push_block of 8 frames (K5 bibuffer_multi).
+``per``: a 10-frame forward (K1-K4 and the generation-1 entry), a steady
+push (K5 bibuffer_conv, K6), a steady push_block of 8 frames (K5
+bibuffer_multi) or a c64 train step at batch 8 (K7).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import copy
 import json
 import math
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -68,18 +98,30 @@ from bsvd_tpu_torch.archs import build_network  # noqa: E402
 from bsvd_tpu_torch.archs.streaming import (CHAIN_MAX_C,  # noqa: E402
                                             StreamDenoiser, streaming_apply)
 from bsvd_tpu_torch.archs.wnet_arch import wnet_apply  # noqa: E402
+from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
+    noisy_batch, synthetic_clips)
+from bsvd_tpu_torch.models.denoising_model import DenoisingModel  # noqa: E402
+from bsvd_tpu_torch.models.optim import Adam  # noqa: E402
 from bsvd_tpu_torch.models.seq_inference import denoise_seq  # noqa: E402
+from bsvd_tpu_torch.nn.layers import conv2d_weight_grad  # noqa: E402
+from bsvd_tpu_torch.nn.shift import temporal_shift  # noqa: E402
 from bsvd_tpu_torch.ops import _build  # noqa: E402
-from bsvd_tpu_torch.ops._pack import ConvWeights  # noqa: E402
+from bsvd_tpu_torch.ops import conv3x3 as conv3x3_mod  # noqa: E402
+from bsvd_tpu_torch.ops import conv_chain as conv_chain_mod  # noqa: E402
+from bsvd_tpu_torch.ops import conv_s2 as conv_s2_mod  # noqa: E402
+from bsvd_tpu_torch.ops._pack import ConvWeights, act_mask  # noqa: E402
 from bsvd_tpu_torch.ops.bibuffer_conv import (  # noqa: E402
     bibuffer_chain, bibuffer_chain_reference, bibuffer_conv,
     bibuffer_conv_reference, bibuffer_multi, bibuffer_multi_reference)
-from bsvd_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_reference,  # noqa: E402
-                                        conv_ps, conv_ps_reference)
+from bsvd_tpu_torch.ops.conv3x3 import (  # noqa: E402
+    conv3x3, conv3x3_dw, conv3x3_dw_reference, conv3x3_reference, conv_ps,
+    conv_ps_reference)
 from bsvd_tpu_torch.ops.conv_chain import (conv_chain,  # noqa: E402
                                            conv_chain_add2_res,
                                            conv_chain_reference)
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2, conv_s2_reference  # noqa: E402
+from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1  # noqa: E402
+from bsvd_tpu_torch.train import train_pipeline  # noqa: E402
 
 SEED = 0
 T, H, W = 10, 540, 960
@@ -108,15 +150,34 @@ KERNELS = {
     'bibuffer_chain': (bibuffer_chain,
                        'bsvd_tpu_torch/csrc/bibuffer_conv.cu',
                        'bsvd_tpu/ops/bibuffer_conv.py:346', 'push'),
+    'conv3x3_dw': (conv3x3_dw, 'bsvd_tpu_torch/csrc/conv3x3_dw.cu',
+                   'bsvd_tpu/ops/conv3x3.py:476', 'train_step'),
+    'shift_conv_fused_v1': (shift_conv_fused_v1,
+                            'bsvd_tpu_torch/csrc/conv3x3.cu',
+                            'bsvd_tpu/ops/shift_conv.py:174', 'forward'),
 }
-PER_FORWARD = {'conv3x3': 16, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4}
+# the generation-1 entry launches K1: its sites and launches are K1's too,
+# so the per-unit sums leave it out
+ALIASES = ('shift_conv_fused_v1',)
+NOT_STREAMED = ('conv3x3_dw', 'shift_conv_fused_v1')
+PER_FORWARD = {'conv3x3': 16, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
+               'shift_conv_fused_v1': 14}
+# a c64 train step: the forward, then K7 for the 16 shift sites, 8 chain
+# convs and 4 up convs, and K1 for the 4 chain intermediates
+PER_TRAIN_STEP = dict(PER_FORWARD, conv3x3=20, conv3x3_dw=28)
 # streaming: 24 frames pushed, push_block of 8, timing over 64 frames
 STREAM_T, BLOCK_F, TIMED = 24, 8, 64
 PER_STEADY_PUSH = {'conv3x3': 0, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
                    'bibuffer_conv': 8, 'bibuffer_multi': 0,
-                   'bibuffer_chain': 4}
-PER_BLOCK = {'conv3x3': 0, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
-             'bibuffer_conv': 0, 'bibuffer_multi': 16, 'bibuffer_chain': 0}
+                   'bibuffer_chain': 4, 'conv3x3_dw': 0,
+                   'shift_conv_fused_v1': 0}
+PER_BLOCK = dict(PER_STEADY_PUSH, bibuffer_conv=0, bibuffer_multi=16,
+                 bibuffer_chain=0)
+# the train slice: options/train/bsvd_c64_unblind.yml (batch 8 x 11 frames
+# of 96 x 96); the parity step's reduced batch
+TRAIN_N, TRAIN_T, TRAIN_HW = 8, 11, 96
+GRAD_N, GRAD_T, GRAD_HW = 2, 5, 64
+WARMUP, TIMED_STEPS = 5, 30
 
 
 def emit(obj):
@@ -269,6 +330,37 @@ def _sites():
                     (False, True, False))
         return make
 
+    def k7(hw, c, co, shift, add2):
+        """K7 at a train site: NT = 8 clips x 11 frames of hw x hw."""
+        def make(g):
+            x = act_in((TRAIN_N * TRAIN_T, hw, hw, c), g)
+            x2 = act_in(x.shape, g) if add2 else None
+            # a cotangent of the MSE's scale (2^-10, exact in bf16)
+            dz = (torch.randn((TRAIN_N * TRAIN_T, hw, hw, co), generator=g,
+                              device='cuda') * 2 ** -10).to(torch.bfloat16)
+            kw = dict(t_len=TRAIN_T, shift=shift)
+
+            def cudnn_bf16():
+                v = x if x2 is None else x + x2
+                if shift != 'none':
+                    v = temporal_shift(v.reshape(TRAIN_N, TRAIN_T, hw, hw, c),
+                                       8, 'TSM').reshape(v.shape)
+                return conv2d_weight_grad(v, dz, (co, c, 3, 3))
+            return (lambda: conv3x3_dw(x, dz, x2, **kw),
+                    lambda: conv3x3_dw_reference(x, dz, x2, **kw),
+                    cudnn_bf16, None)
+        return make
+
+    def v1(h, w, c):
+        def make(g):
+            x = act_in((T, h, w, c), g)
+            cw = conv(c, c, g)
+            kw = dict(t_len=T, shift='tsm', act='relu6')
+            return (lambda: shift_conv_fused_v1(x, cw, None, t_len=T),
+                    lambda: conv3x3_reference(x.float(), cw, **kw),
+                    lambda: conv3x3_reference(x, cw, **kw), None)
+        return make
+
     fwd = [
         ('conv3x3', 'tsm_270x480_c128', 6, k1(h2, w2, 128, 'tsm', False)),
         ('conv3x3', 'tsm_add2_270x480_c128', 2, k1(h2, w2, 128, 'tsm', True)),
@@ -287,7 +379,30 @@ def _sites():
         ('conv_s2', 's2_270x480_128_256', 2, k3(h2, w2, 128, 256)),
         ('conv_ps', 'ps_135x240_256_512', 2, k4(h4, w4, 256, 512)),
         ('conv_ps', 'ps_270x480_128_256', 2, k4(h2, w2, 128, 256)),
+        ('shift_conv_fused_v1', 'tsm_270x480_c128', 6, v1(h2, w2, 128)),
+        ('shift_conv_fused_v1', 'tsm_135x240_c256', 8, v1(h4, w4, 256)),
     ]
+    # the c64 train step's weight gradients (PER_TRAIN_STEP['conv3x3_dw'])
+    hw2, hw4 = TRAIN_HW // 2, TRAIN_HW // 4
+    train = [
+        ('conv3x3_dw', 'inc1_96x96_4_64', 1, k7(TRAIN_HW, 4, 64, 'none',
+                                                False)),
+        ('conv3x3_dw', 'c64_96x96_64_64', 4, k7(TRAIN_HW, 64, 64, 'none',
+                                                False)),
+        ('conv3x3_dw', 'add2_96x96_64_64', 2, k7(TRAIN_HW, 64, 64, 'none',
+                                                 True)),
+        ('conv3x3_dw', 'outc2_96x96_64_3', 1, k7(TRAIN_HW, 64, 3, 'none',
+                                                 False)),
+        ('conv3x3_dw', 'tsm_48x48_c128', 6, k7(hw2, 128, 128, 'tsm', False)),
+        ('conv3x3_dw', 'tsm_add2_48x48_c128', 2, k7(hw2, 128, 128, 'tsm',
+                                                    True)),
+        ('conv3x3_dw', 'ps_48x48_128_256', 2, k7(hw2, 128, 256, 'none',
+                                                 False)),
+        ('conv3x3_dw', 'tsm_24x24_c256', 8, k7(hw4, 256, 256, 'tsm', False)),
+        ('conv3x3_dw', 'ps_24x24_256_512', 2, k7(hw4, 256, 512, 'none',
+                                                 False)),
+    ]
+    assert sum(n for _, _, n, _ in train) == PER_TRAIN_STEP['conv3x3_dw']
     # per-frame streaming sites; the chain runs at 128 channels, two K5
     # steps at 256 (CHAIN_MAX_C); the other route at each width is timed
     # with count 0
@@ -326,7 +441,8 @@ def _sites():
     ]
     return ([(k, v, n, 'forward', m) for k, v, n, m in fwd]
             + [(k, v, n, 'push', m) for k, v, n, m in stream]
-            + [(k, v, n, 'push_block', m) for k, v, n, m in block])
+            + [(k, v, n, 'push_block', m) for k, v, n, m in block]
+            + [(k, v, n, 'train_step', m) for k, v, n, m in train])
 
 
 def _check_site(name, got, ref, exact):
@@ -360,7 +476,7 @@ def phase_kernels():
     summary = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
                for k in KERNELS}
     per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0}
-                for u in ('forward', 'push', 'push_block')}
+                for u in ('forward', 'push', 'push_block', 'train_step')}
     for kernel, variant, count, unit, make in _sites():
         run, plain32, plain_bf16, exact = make(g)
         got = run()
@@ -380,8 +496,9 @@ def phase_kernels():
         if unit == KERNELS[kernel][3]:
             s['ms'] += count * ms
             s['plain_ms'] += count * plain_ms
-        per_unit[unit]['ms'] += count * ms
-        per_unit[unit]['plain_ms'] += count * plain_ms
+        if kernel not in ALIASES:
+            per_unit[unit]['ms'] += count * ms
+            per_unit[unit]['plain_ms'] += count * plain_ms
         del got, out
         torch.cuda.empty_cache()
     emit({'phase': 'kernel_sums', 'per_unit': per_unit})
@@ -608,23 +725,28 @@ def _time_per_frame(sd, x, block):
     return best * 1e3
 
 
-def _profile_pushes(sd, x, n=16):
-    """Device busy time (union of all device activity) and idle share of n
-    steady pushes, from torch.profiler; the kernels by device time."""
+def _device_profile(run, n, label):
+    """Device busy time (union of all device activity) and idle share of
+    ``run()`` (n units of work, ending in a synchronize) under
+    torch.profiler; the kernels and the ``record_function`` ranges inside
+    by device time, per unit."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        with record_function('steady_pushes'):
-            for k in range(n):
-                sd.push(x[k % STREAM_T])
-            torch.cuda.synchronize()
+        with record_function(label):
+            run()
     events = prof.events()
-    win = next(e for e in events if e.name == 'steady_pushes')
+    win = next(e for e in events if e.name == label)
     ws, we = win.time_range.start, win.time_range.end
+    # device activity: kernels, copies and sets; a record_function range
+    # also shows on the device timeline (an annotation spanning its
+    # kernels), which is no activity of its own
+    device = [e for e in events if e.device_type == DeviceType.CUDA
+              and not e.is_user_annotation]
     spans = sorted((max(e.time_range.start, ws), min(e.time_range.end, we))
-                   for e in events if e.device_type == DeviceType.CUDA)
+                   for e in device)
     busy, cur = 0.0, None
     for a, b in spans:
         if b <= a:
@@ -635,14 +757,38 @@ def _profile_pushes(sd, x, n=16):
         else:
             cur[1] = max(cur[1], b)
     busy += 0 if cur is None else cur[1] - cur[0]
-    by_name = sorted(((e.key, getattr(e, 'self_device_time_total', 0))
-                      for e in prof.key_averages()), key=lambda kv: -kv[1])
-    return {'pushes': n, 'window_ms_per_push': (we - ws) / 1e3 / n,
-            'device_busy_ms_per_push': busy / 1e3 / n,
+    # device time by kernel name (a CPU op's row in key_averages() carries
+    # its kernels' time as well), and the device span of each range
+    totals, ranges = {}, {}
+    for e in events:
+        if e.device_type != DeviceType.CUDA:
+            continue
+        into = ranges if e.is_user_annotation else totals
+        into[e.name] = into.get(e.name, 0) + (e.time_range.end -
+                                              e.time_range.start)
+    by_name = sorted(totals.items(), key=lambda kv: -kv[1])
+    ranges = {k: v / 1e3 / n for k, v in ranges.items() if k != label}
+    return {'units': n, 'window_ms_per_unit': (we - ws) / 1e3 / n,
+            'device_busy_ms_per_unit': busy / 1e3 / n,
             'idle_share': (1 - busy / (we - ws)) if spans else None,
-            'top_device_ms_per_push': [[k, v / 1e3 / n]
-                                       for k, v in by_name[:9]
-                                       if v > 0 and k != 'steady_pushes']}
+            'top_device_ms_per_unit': [[k, v / 1e3 / n]
+                                       for k, v in by_name[:12]],
+            'by_kernel': [[k, v / 1e3 / n] for k, v in by_name],
+            'ranges_device_ms_per_unit': ranges}
+
+
+def _profile_pushes(sd, x, n=16):
+    """The device profile of n steady pushes."""
+    def run():
+        for k in range(n):
+            sd.push(x[k % STREAM_T])
+        torch.cuda.synchronize()
+    prof = _device_profile(run, n, 'steady_pushes')
+    return {'pushes': n,
+            'window_ms_per_push': prof['window_ms_per_unit'],
+            'device_busy_ms_per_push': prof['device_busy_ms_per_unit'],
+            'idle_share': prof['idle_share'],
+            'top_device_ms_per_push': prof['top_device_ms_per_unit'][:9]}
 
 
 def phase_stream(nets, clip):
@@ -794,6 +940,324 @@ def phase_stream_parity(nets, clips, outs, out32):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the train slice
+# ---------------------------------------------------------------------------
+
+def _train_opt(t_len, amp=False, ema_decay=0):
+    """options/train/bsvd_c64_unblind.yml as ``parse_options`` makes it (the
+    card's machine has no PyYAML); ``num_segments`` is the clip length."""
+    return {
+        'name': 'bsvd_c64_unblind', 'model_type': 'DenoisingModel',
+        'num_gpu': 1, 'manual_seed': 10, 'is_train': True,
+        'network_g': {
+            'type': 'TSN', 'num_segments': t_len,
+            'base_model': 'WNet_multistage', 'shift_type': 'TSM',
+            'shift_div': 8, 'inplace': False,
+            'net2d_opt': {'chns': [64, 128, 256], 'mid_ch': 64,
+                          'shift_input': False, 'norm': 'none',
+                          'interm_ch': 64, 'act': 'relu6'}},
+        'path': {'strict_load_g': True},
+        'train': {
+            'optim_g': {'type': 'Adam', 'lr': 1e-3, 'weight_decay': 0,
+                        'betas': [0.9, 0.99]},
+            'scheduler': {'type': 'MultiStepLR',
+                          'milestones': [50000 * k for k in range(1, 14)],
+                          'gamma': 0.7},
+            'total_iter': 700000, 'warmup_iter': -1,
+            'gradient_clipping': 5,
+            'pixel_opt': {'type': 'MSELoss', 'loss_weight': 1.0,
+                          'reduction': 'mean'},
+            'fp16': amp, 'ema_decay': ema_decay},
+        'logger': {'print_freq': 100, 'save_checkpoint_freq': 5000}}
+
+
+def _train_batch(rng, n, t_len, hw):
+    """A train batch through the ported augment and noise code (noise_ival
+    [5, 55], noise_shape N) from seeded synthetic uint8 clips."""
+    return noisy_batch(synthetic_clips(rng, n, t_len, hw, hw), rng, [5, 55],
+                       'N')
+
+
+class _SharedMasks:
+    """Records the activation masks of one backward (in call order) and
+    hands them to a later backward on the other device, counting where
+    that device's own mask differs."""
+
+    MODULES = (conv3x3_mod, conv_chain_mod, conv_s2_mod)
+
+    def __init__(self):
+        self.masks, self.flips, self.fn = [], 0, None
+
+    def _record(self, g, y, act):
+        m = act_mask(y, act)
+        self.masks.append(m)
+        return g if m is None else g * m
+
+    def _replay(self, g, y, act):
+        m = self.masks.pop(0)
+        if m is None:
+            return g
+        m = m.to(g.device, g.dtype)
+        self.flips += int((act_mask(y, act) != m).sum())
+        return g * m
+
+    def record(self):
+        self.fn = self._record
+        return self
+
+    def replay(self):
+        self.fn = self._replay
+        return self
+
+    def __enter__(self):
+        self.saved = [mod.masked for mod in self.MODULES]
+        for mod in self.MODULES:
+            mod.masked = self.fn
+
+    def __exit__(self, *exc):
+        for mod, fn in zip(self.MODULES, self.saved):
+            mod.masked = fn
+
+
+def _max_rel(got, ref):
+    ref = ref.detach().float().cpu()
+    err = (got.detach().float().cpu() - ref).abs().max().item()
+    return err / max(ref.abs().max().item(), 1e-30)
+
+
+def phase_train_grad():
+    """One fp32 step of the full-width net, card against CPU."""
+    opt = _train_opt(GRAD_T)
+    batch = _train_batch(np.random.default_rng(SEED + 4), GRAD_N, GRAD_T,
+                         GRAD_HW)
+    card = DenoisingModel(copy.deepcopy(opt), device='cuda')
+    cpu = DenoisingModel(copy.deepcopy(opt), device='cpu')
+    before = {n: p.detach().clone() for n, p in cpu.net.named_parameters()}
+    masks = _SharedMasks()
+    card.feed_data(batch)
+    with _NoConv2d(), masks.record():
+        card.optimize_parameters(1)
+    cpu.feed_data(batch)
+    with masks.replay():
+        cpu.optimize_parameters(1)
+    # the parameters after the step: the CPU optimizer fed the card's grads
+    named = dict(card.net.named_parameters())
+    ref = [(n, p.requires_grad_(True)) for n, p in before.items()]
+    for n, p in ref:
+        p.grad = named[n].grad.cpu()
+    Adam(ref, cpu.lr_schedule, betas=opt['train']['optim_g']['betas']).step()
+    loss, ref_loss = card.get_current_log()['l_pix'], \
+        cpu.get_current_log()['l_pix']
+    errs = {'loss': abs(loss - ref_loss) / abs(ref_loss)}
+    cpu_named = dict(cpu.net.named_parameters())
+    grad_errs = {n: _max_rel(p.grad, cpu_named[n].grad)
+                 for n, p in named.items()}
+    param_errs = {n: _max_rel(named[n], p) for n, p in ref}
+    worst_g = max(grad_errs, key=grad_errs.get)
+    worst_p = max(param_errs, key=param_errs.get)
+    emit({'phase': 'train_grad', 'batch': [GRAD_N, GRAD_T, GRAD_HW, GRAD_HW],
+          'loss': loss, 'loss_rel_err': errs['loss'],
+          'grad_max_rel_err': [worst_g, grad_errs[worst_g]],
+          'param_max_rel_err': [worst_p, param_errs[worst_p]],
+          'tensors': len(grad_errs), 'mask_flips': masks.flips,
+          'tol': FP32_TOL})
+    if not math.isfinite(loss):
+        raise AssertionError('non-finite loss on the card')
+    for what, e in [('loss', errs['loss'])] + [
+            (f'grad {n}', e) for n, e in grad_errs.items()] + [
+            (f'param {n}', e) for n, e in param_errs.items()]:
+        if not e <= FP32_TOL:
+            raise AssertionError(f'train step on the card vs the CPU: {what} '
+                                 f'max rel err {e}')
+
+
+def _kernel_group(name):
+    n = name.lower()
+    if 'conv3x3_dw' in n:
+        return 'K7 conv3x3_dw'
+    if 'conv3x3_kernel' in n:       # conv3x3_kernel<T, PS>: PS true is K4
+        return 'K4 conv_ps' if ', true>' in n else 'K1 conv3x3'
+    for key, group in (('bibuffer', 'K5/K6'), ('conv_chain', 'K2 conv_chain'),
+                       ('conv_s2', 'K3 conv_s2'), ('dgrad', 'cuDNN dgrad'),
+                       ('wgrad', 'cuDNN wgrad'), ('reduce_kernel', 'sums'),
+                       ('copy', 'copies'), ('elementwise', 'elementwise')):
+        if key in n:
+            return group
+    return 'other'
+
+
+def _time_steps(model, steps, first_iter):
+    """Host-clock ms per step over ``steps`` steps (synchronised at both
+    ends), and the steps' losses read back after the timing."""
+    losses = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(steps):
+        model.optimize_parameters(first_iter + i)
+        losses.append(model.log_dict['l_pix'])
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / steps * 1e3, [float(v) for v in
+                                                      losses]
+
+
+def _profile_steps(model, n, first_iter):
+    """The device profile of n train steps, with the input and weight
+    gradients that aten's convolution_backward computes (cuDNN) marked as
+    ranges."""
+    from torch.profiler import record_function
+    mods = (conv3x3_mod, conv_chain_mod, conv_s2_mod)
+    saved = [(m, getattr(m, 'conv2d_input_grad', None),
+              getattr(m, 'conv2d_weight_grad', None)) for m in mods]
+
+    def ranged(fn, label):
+        def call(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+        return call
+    for m, ig, wg in saved:
+        if ig is not None:
+            m.conv2d_input_grad = ranged(ig, 'range:cudnn_dgrad')
+        if wg is not None:
+            m.conv2d_weight_grad = ranged(wg, 'range:cudnn_wgrad')
+    try:
+        def run():
+            for i in range(n):
+                model.optimize_parameters(first_iter + i)
+            torch.cuda.synchronize()
+        prof = _device_profile(run, n, 'train_steps')
+    finally:
+        for m, ig, wg in saved:
+            if ig is not None:
+                m.conv2d_input_grad = ig
+            if wg is not None:
+                m.conv2d_weight_grad = wg
+    groups = {}
+    for name, ms in prof.pop('by_kernel'):
+        g = _kernel_group(name)
+        groups[g] = groups.get(g, 0.0) + ms
+    prof['device_ms_per_step_by_group'] = groups
+    return prof
+
+
+def _resume_round_trip(batch, root):
+    """train_pipeline for 6 steps straight, against 4 steps with a save at
+    step 4 followed by an auto-resumed run to step 6 (bf16 AMP, EMA on,
+    one repeated batch, deterministic cuDNN). Returns the max |diff| of
+    the parameters and of the EMA (both must be 0)."""
+    def opt_for(tag, total):
+        opt = _train_opt(TRAIN_T, amp=True, ema_decay=0.999)
+        opt['train']['total_iter'] = total
+        opt['logger'] = {'print_freq': 2, 'save_checkpoint_freq': 4}
+        opt['path'].update(models=os.path.join(root, tag, 'models'),
+                           training_states=os.path.join(root, tag, 'states'))
+        return opt
+    loader = [batch] * 8
+    straight = train_pipeline(opt_for('a', 6), loader, device='cuda')
+    train_pipeline(opt_for('b', 4), loader, device='cuda')
+    resumed_opt = opt_for('b', 6)
+    resumed_opt['auto_resume'] = True
+    resumed = train_pipeline(resumed_opt, loader, device='cuda')
+    if resumed.optimizer.count != 6:
+        raise AssertionError(f'resumed optimizer count '
+                             f'{resumed.optimizer.count}')
+    got = dict(resumed.net.named_parameters())
+    d_params = max((got[n] - p).abs().max().item()
+                   for n, p in straight.net.named_parameters())
+    d_ema = max((a - b).abs().max().item() for a, b in zip(
+        _leaves(resumed.ema_params), _leaves(straight.ema_params)))
+    return d_params, d_ema
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _leaves(tree[k])
+    else:
+        yield tree
+
+
+def phase_train():
+    """The train main path. Returns the launches of its checked steps."""
+    per_step = {k: PER_TRAIN_STEP.get(k, 0) for k in KERNELS}
+    rng = np.random.default_rng(SEED + 5)
+    batch = _train_batch(rng, TRAIN_N, TRAIN_T, TRAIN_HW)
+    launches = dict.fromkeys(KERNELS, 0)
+    for amp in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = DenoisingModel(_train_opt(TRAIN_T, amp=amp), device='cuda')
+        model.feed_data(batch)
+        with _NoConv2d():
+            for i in range(WARMUP):
+                reset_counts()
+                model.optimize_parameters(i + 1)
+                step = counts()
+                if step != per_step:
+                    raise AssertionError(f'amp={amp}: train step {i + 1} '
+                                         f'launched {step}')
+                for k, v in step.items():
+                    launches[k] += v
+            reset_counts()
+            ms, losses = _time_steps(model, TIMED_STEPS, WARMUP + 1)
+            for k, v in counts().items():
+                if v != per_step[k] * TIMED_STEPS:
+                    raise AssertionError(f'amp={amp}: {k} launched {v} times '
+                                         f'in {TIMED_STEPS} steps')
+                launches[k] += v
+            peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            prof = None
+            if amp:
+                prof = _profile_steps(model, 8, WARMUP + TIMED_STEPS + 1)
+                # the profiler slows the host, so its window is longer than
+                # an unprofiled step: the device's idle share of the timed
+                # steps, from the profiled busy time
+                prof['idle_share_of_timed_step'] = \
+                    1 - prof['device_busy_ms_per_unit'] / ms
+        first, last = np.mean(losses[:10]), np.mean(losses[20:30])
+        emit({'phase': 'train', 'amp': amp,
+              'batch': [TRAIN_N, TRAIN_T, TRAIN_HW, TRAIN_HW],
+              'launches_per_step': per_step, 'ms_per_step': ms,
+              'it_per_s': 1e3 / ms, 'loss_steps_1_10_mean': first,
+              'loss_steps_21_30_mean': last, 'loss_last': losses[-1],
+              'peak_allocated_gb': peak_gb, 'profile': prof})
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f'amp={amp}: non-finite loss')
+        if not last < first:
+            raise AssertionError(f'amp={amp}: loss did not fall on the '
+                                 f'repeated batch ({first} -> {last})')
+        del model
+    # the reference's effective batch: 16 clips (8 per GPU on two GPUs)
+    batch16 = _train_batch(rng, 2 * TRAIN_N, TRAIN_T, TRAIN_HW)
+    for amp in (False, True):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model = DenoisingModel(_train_opt(TRAIN_T, amp=amp), device='cuda')
+        model.feed_data(batch16)
+        with _NoConv2d():
+            _time_steps(model, 2, 1)
+            ms, losses = _time_steps(model, 10, 3)
+        emit({'phase': 'train_batch16', 'amp': amp,
+              'batch': [2 * TRAIN_N, TRAIN_T, TRAIN_HW, TRAIN_HW],
+              'ms_per_step': ms, 'it_per_s': 1e3 / ms,
+              'peak_allocated_gb': torch.cuda.max_memory_allocated() / 1e9})
+        if not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f'batch 16, amp={amp}: non-finite loss')
+        del model
+    torch.backends.cudnn.deterministic = True
+    try:
+        with tempfile.TemporaryDirectory() as root, _NoConv2d():
+            d_params, d_ema = _resume_round_trip(batch, root)
+    finally:
+        torch.backends.cudnn.deterministic = False
+    emit({'phase': 'train_resume', 'steps': [4, 2],
+          'max_abs_diff_params': d_params, 'max_abs_diff_ema': d_ema})
+    if d_params != 0 or d_ema != 0:
+        raise AssertionError(f'resume differs from the uninterrupted run: '
+                             f'params {d_params}, EMA {d_ema}')
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available()'
@@ -822,9 +1286,15 @@ def main():
     stream_launches = phase_stream(nets, clip24)
     seq_launches = phase_stream_parity(nets, clips, outs, out32)
     for k in KERNELS:
-        if not stream_launches[k] > 0:
+        if k not in NOT_STREAMED and not stream_launches[k] > 0:
             raise AssertionError(f'{k} never launched on the streaming path')
         launches[k] += stream_launches[k] + seq_launches[k]
+    phase_train_grad()
+    train_launches = phase_train()
+    for k in KERNELS:
+        launches[k] += train_launches[k]
+        if not launches[k] > 0:
+            raise AssertionError(f'{k} never launched on a main path')
 
     emit({'kernels': [
         {'name': k, 'route': 'cuda', 'source': src, 'replaces': rep,

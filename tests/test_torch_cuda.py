@@ -14,6 +14,9 @@ Run on a card with ``python -m pytest -o addopts= --noconftest
 tests/test_torch_cuda.py``.
 """
 
+import contextlib
+import copy
+
 import numpy as np
 import pytest
 import torch
@@ -292,3 +295,192 @@ def test_stream_denoiser_kernels_match_plain_path(dev, shift_mode, batch):
         outs[where] = torch.stack([o.cpu() for o in got if o is not None])
     assert outs['cuda'].shape == (t, batch, h, w, 3)
     _close(outs['cuda'], outs['cpu'], torch.float32)
+
+
+# ---- K7 conv3x3_dw and the autograd Functions (training) --------------------
+
+@contextlib.contextmanager
+def _masks(tape, replay=False):
+    """Record the activation masks of a backward pass in call order
+    (``replay`` False), or hand them to a later backward pass in the same
+    order. A pre-activation within rounding of 0 or 6 may fall on the other
+    side of the clip on the other device (or in bf16), and its mask then
+    moves a gradient by a whole pixel's contribution: comparisons of
+    backward passes share the masks."""
+    from bsvd_tpu_torch.ops import conv3x3 as c3, conv_chain as cc, \
+        conv_s2 as s2
+    from bsvd_tpu_torch.ops._pack import act_mask
+    mods = (c3, cc, s2)
+    saved = [m.masked for m in mods]
+
+    def record(g, y, act):
+        m = act_mask(y, act)
+        tape.append(m)
+        return g if m is None else g * m
+
+    def play(g, y, act):
+        m = tape.pop(0)
+        return g if m is None else g * m.to(g.device, g.dtype)
+    for m in mods:
+        m.masked = play if replay else record
+    try:
+        yield
+    finally:
+        for m, fn in zip(mods, saved):
+            m.masked = fn
+
+
+def _rel(got, ref, tol):
+    """max|got - ref| within tol x max|ref| (a weight gradient sums over
+    every pixel, so its scale is not 1)."""
+    ref = ref.float()
+    err = (got.float() - ref).abs().max().item()
+    assert got.shape == ref.shape
+    assert err <= tol * ref.abs().max().item(), (err, ref.abs().max().item())
+
+
+_DW_CASES = {'c64': (6, 16, 32, 64, 64, 'none', False),
+             'tsm': (6, 16, 32, 64, 64, 'tsm', False),
+             'tsm_x2': (6, 16, 32, 64, 64, 'tsm', True),
+             'causal': (6, 16, 32, 128, 64, 'causal', False),
+             'ragged': (3, 13, 37, 20, 72, 'none', True),
+             'cin4': (2, 12, 20, 4, 64, 'none', False),
+             'cout3': (2, 12, 20, 64, 3, 'none', False)}
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('case', sorted(_DW_CASES))
+def test_conv3x3_dw_kernel(dev, dtype, case):
+    """K7 against the plain fp32 weight gradient on the same values (the
+    bf16 case too: both sum exact products in fp32), and bit-identical on
+    a second run (the partial sums are combined in a fixed order)."""
+    from bsvd_tpu_torch.ops.conv3x3 import conv3x3_dw, conv3x3_dw_reference
+    nt, h, w, c, co, shift, add2 = _DW_CASES[case]
+    rng = np.random.default_rng(11)
+    x = _t(rng, (nt, h, w, c), 1.0, dev).to(dtype)
+    x2 = _t(rng, x.shape, 1.0, dev).to(dtype) if add2 else None
+    dz = _t(rng, (nt, h, w, co), 1.0, dev).to(dtype)
+    kw = dict(t_len=3, shift=shift)
+    before = conv3x3_dw.launches
+    got = conv3x3_dw(x, dz, x2, **kw)
+    again = conv3x3_dw(x, dz, x2, **kw)
+    assert conv3x3_dw.launches == before + 2
+    torch.cuda.synchronize()
+    assert got.dtype == torch.float32 and got.shape == (co, c, 3, 3)
+    assert torch.equal(got, again)
+    _rel(got, conv3x3_dw_reference(x, dz, x2, **kw), 1e-4)
+
+
+def _fn_case(name, dev, dtype, rng):
+    """(call(*tensors), input tensors, cotangent shape) of one Function."""
+    from bsvd_tpu_torch.ops.shift_conv import shift_conv, shift_conv_add2
+    n, h, w = 6, 12, 20
+
+    def a(*shape):
+        return _t(rng, shape, 1.0, dev)
+
+    def wt(ci, co):
+        return [_t(rng, (co, ci, 3, 3), (2 / (9 * ci)) ** 0.5, dev),
+                _t(rng, (co,), 0.1, dev)]
+    if name == 'conv3x3':
+        return (lambda x, w_, b: conv3x3(x, w_, b, act='relu6'),
+                [a(n, h, w, 32)] + wt(32, 32), (n, h, w, 32))
+    if name == 'shift_conv':
+        return (lambda x, w_, b: shift_conv(x, w_, b, 3),
+                [a(n, h, w, 32)] + wt(32, 32), (n, h, w, 32))
+    if name == 'shift_conv_add2':
+        return (lambda x, x2, w_, b: shift_conv_add2(x, x2, w_, b, 3,
+                                                     causal=True),
+                [a(n, h, w, 32), a(n, h, w, 32)] + wt(32, 32),
+                (n, h, w, 32))
+    if name == 'conv_ps':
+        return (conv_ps, [a(n, h, w, 32)] + wt(32, 64), (n, 2 * h, 2 * w, 16))
+    if name == 'conv_s2':
+        return (lambda x, w_, b: conv_s2(x, w_, b, act='relu6'),
+                [a(n, h, w, 16)] + wt(16, 32), (n, h // 2, w // 2, 32))
+    if name == 'chain_inc':
+        return (lambda x, w1, b1, w2, b2: conv_chain(x, w1, b1, w2, b2,
+                                                     'relu6', 'relu6'),
+                [a(n, h, w, 4)] + wt(4, 16) + wt(16, 16), (n, h, w, 16))
+    return (lambda x, x2, xr, w1, b1, w2, b2: conv_chain_add2_res(
+                x, x2, xr, w1, b1, w2, b2, 'relu6', 'none', 3),
+            [a(n, h, w, 16), a(n, h, w, 16), a(n, h, w, 4)] + wt(16, 16)
+            + wt(16, 4), (n, h, w, 4))
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('name', ['conv3x3', 'shift_conv', 'shift_conv_add2',
+                                  'conv_ps', 'conv_s2', 'chain_inc',
+                                  'chain_res'])
+def test_autograd_functions_match_plain(dev, name, dtype):
+    """Each op's output and every input's gradient through its kernels (K7
+    for the weight gradients, K1 for a chain's intermediate) against the
+    plain ops' autograd on the CPU in fp32 on the same values, the
+    activation masks shared (``_masks``). bf16 tolerance: the saved
+    output, the recomputed intermediate and each cotangent round to bf16
+    (2^-8 relative each), so 2^-5 of max|ref|."""
+    from bsvd_tpu_torch.ops.conv3x3 import conv3x3_dw
+    rng = np.random.default_rng(12)
+    fn, ins, gshape = _fn_case(name, dev, dtype, rng)
+    g = _t(rng, gshape, 1.0, dev)
+    ins = [t.to(dtype) for t in ins]
+    dw_before = conv3x3_dw.launches
+    kern = [t.detach().requires_grad_(True) for t in ins]
+    tape = []
+    with _masks(tape):
+        y = fn(*kern)
+        y.backward(g.to(y.dtype))
+    torch.cuda.synchronize()
+    plain = [t.detach().float().cpu().requires_grad_(True) for t in ins]
+    with _masks(tape, replay=True):
+        ry = fn(*plain)
+        ry.backward(g.cpu())
+    assert not tape
+    tol = 1e-4 if dtype == torch.float32 else 2 ** -5
+    _rel(y.cpu(), ry.detach(), tol)
+    for t, r in zip(kern, plain):
+        assert t.grad.dtype == dtype
+        _rel(t.grad.cpu(), r.grad, tol)
+    if name != 'conv_s2':                   # stride-2 dw is aten's
+        assert conv3x3_dw.launches > dw_before
+
+
+@pytest.mark.parametrize('amp', [False, True])
+def test_train_step_kernels_match_plain(dev, amp):
+    """A DenoisingModel step of a small net on the card against the same
+    step on the CPU (the activation masks shared): fp32 to 1e-4 x max|ref|
+    in the loss and every gradient; bf16 AMP finite with its loss within
+    2^-5."""
+    from bsvd_tpu_torch.models.denoising_model import DenoisingModel
+    net = {'type': 'TSN', 'num_segments': 5, 'base_model': 'WNet_multistage',
+           'shift_type': 'TSM', 'shift_div': 8,
+           'net2d_opt': {'chns': [16, 32, 64], 'mid_ch': 16, 'interm_ch': 16,
+                         'norm': 'none', 'act': 'relu6'}}
+    opt = {'model_type': 'DenoisingModel', 'is_train': True, 'network_g': net,
+           'path': {}, 'train': {
+               'optim_g': {'type': 'Adam', 'lr': 1e-3, 'betas': [0.9, 0.99]},
+               'scheduler': {'type': 'MultiStepLR', 'milestones': [10],
+                             'gamma': 0.7},
+               'pixel_opt': {'type': 'MSELoss', 'loss_weight': 1.0},
+               'ema_decay': 0.999, 'fp16': amp}}
+    rng = np.random.default_rng(13)
+    gt = rng.uniform(0, 1, (2, 5, 3, 24, 32)).astype(np.float32)
+    batch = {'gt': gt, 'lq': gt + rng.normal(0, 0.1, gt.shape).astype(
+        np.float32), 'noise_map': np.full((2, 5, 1, 24, 32), 0.1, np.float32)}
+    models, tape = {}, []
+    for where in ('cuda', 'cpu'):
+        m = DenoisingModel(copy.deepcopy(opt), device=where)
+        m.feed_data(batch)
+        with _masks(tape, replay=where == 'cpu'):
+            m.optimize_parameters(1)
+        models[where] = m
+    cpu, card = models['cpu'], models['cuda']
+    loss, ref = card.get_current_log()['l_pix'], cpu.get_current_log()['l_pix']
+    assert np.isfinite(loss)
+    if amp:
+        assert abs(loss - ref) <= 2 ** -5 * abs(ref)
+        return
+    assert abs(loss - ref) <= 1e-4 * abs(ref)
+    ref_grads = dict(cpu.net.named_parameters())
+    for name, p in card.net.named_parameters():
+        _rel(p.grad.cpu(), ref_grads[name].grad, 1e-4)

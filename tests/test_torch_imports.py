@@ -1,6 +1,6 @@
 """Import hygiene of the port: every bsvd_tpu_torch module imports in a
 fresh interpreter without a GPU or nvcc, and pulls in neither jax, the JAX
-package nor yaml (the machine with the card has none of them)."""
+package, yaml nor cv2 (the machine with the card has none of them)."""
 
 import os
 import subprocess
@@ -16,11 +16,18 @@ names = ['bsvd_tpu_torch'] + [m.name for m in pkgutil.walk_packages(
 for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
-             if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml'))
+             if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml',
+                                    'cv2'))
 print(len(names), bad)
-assert len(names) >= 17, names
+assert len(names) >= 28, names
 assert {'bsvd_tpu_torch.archs.streaming',
-        'bsvd_tpu_torch.ops.bibuffer_conv'} <= set(names), names
+        'bsvd_tpu_torch.ops.bibuffer_conv',
+        'bsvd_tpu_torch.train', 'bsvd_tpu_torch.models.denoising_model',
+        'bsvd_tpu_torch.models.base_model', 'bsvd_tpu_torch.models.optim',
+        'bsvd_tpu_torch.models.lr_scheduler',
+        'bsvd_tpu_torch.models.checkpoint',
+        'bsvd_tpu_torch.data.video_train_loader',
+        'bsvd_tpu_torch.losses.losses'} <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
 assert _build._lib is None       # nothing built or loaded at import

@@ -15,7 +15,8 @@ import torch
 from bsvd_tpu_torch.nn.layers import pixel_shuffle, conv_init
 from bsvd_tpu_torch.nn.shift import temporal_shift
 from bsvd_tpu_torch.ops._pack import ConvWeights
-from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
+from bsvd_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_dw,
+                                        conv3x3_dw_reference, conv_ps)
 from bsvd_tpu_torch.ops.conv_chain import (conv_chain, conv_chain_add2,
                                            conv_chain_add2_res)
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
@@ -49,11 +50,11 @@ def _check(got, ref):
 @pytest.fixture(autouse=True)
 def _no_launches():
     """CPU tensors run the plain versions: no kernel is ever launched."""
-    fns = (conv3x3, conv_ps, conv_chain, conv_s2)
+    fns = (conv3x3, conv_ps, conv_chain, conv_s2, conv3x3_dw)
     for f in fns:
         f.launches = 0
     yield
-    assert [f.launches for f in fns] == [0, 0, 0, 0]
+    assert [f.launches for f in fns] == [0] * len(fns)
 
 
 # ---- K1 conv3x3 ------------------------------------------------------------
@@ -273,3 +274,41 @@ def test_conv_weights_packing():
     assert wp[3:].abs().sum() == 0 and wp[:, :, :, 4:].abs().sum() == 0
     np.testing.assert_array_equal(bp[:3].numpy(), b)
     assert bp[3:].abs().sum() == 0
+
+
+# ---- K7 conv3x3_dw ---------------------------------------------------------
+
+@pytest.mark.parametrize('nt,bh', [(1, 4), (3, 6)])
+def test_conv3x3_dw_matches_pallas_and_xla(nt, bh):
+    """The weight gradient's plain version (OIHW) against the JAX Pallas
+    kernel in interpret mode and the JAX XLA path (both HWIO)."""
+    from bsvd_tpu.ops.conv3x3 import conv3x3_dw as jdw, conv3x3_dw_pallas
+    rng = np.random.default_rng(70 + nt)
+    x, dz = _arrays(rng, (nt, 12, 16, 16), (nt, 12, 16, 8))
+    got = conv3x3_dw(_t(x), _t(dz))
+    assert got.shape == (8, 16, 3, 3) and got.dtype == torch.float32
+    for ref in (conv3x3_dw_pallas(jnp.asarray(x), jnp.asarray(dz), bh=bh,
+                                  interpret=True),
+                jdw(jnp.asarray(x), jnp.asarray(dz))):
+        _check(got, np.transpose(np.asarray(ref), (3, 2, 0, 1)))
+
+
+@pytest.mark.parametrize('shift', ['tsm', 'causal'])
+def test_conv3x3_dw_of_shifted_sum(shift):
+    """With a shift and a second addend, the weight gradient is the plain
+    one of shift(x + x2): the JAX XLA weight gradient of that input."""
+    from bsvd_tpu.nn.shift import temporal_shift as jshift
+    from bsvd_tpu.ops.conv3x3 import conv3x3_dw as jdw
+    rng = np.random.default_rng(72)
+    x, x2, dz = _arrays(rng, (6, 8, 16, 16), (6, 8, 16, 16), (6, 8, 16, 24))
+    mode = 'TSM' if shift == 'tsm' else 'TSM_toFutureOnly'
+    v = jshift(jnp.asarray(x + x2).reshape(2, 3, 8, 16, 16), 8,
+               mode).reshape(6, 8, 16, 16)
+    got = conv3x3_dw(_t(x), _t(dz), _t(x2), t_len=3, shift=shift)
+    _check(got, np.transpose(np.asarray(jdw(v, jnp.asarray(dz))),
+                             (3, 2, 0, 1)))
+    with pytest.raises(ValueError):
+        conv3x3_dw(_t(x), _t(dz), t_len=4, shift=shift)
+    np.testing.assert_array_equal(
+        conv3x3_dw_reference(_t(x), _t(dz), _t(x2), t_len=3,
+                             shift=shift).numpy(), got.numpy())
