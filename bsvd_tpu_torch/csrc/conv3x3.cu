@@ -1,17 +1,13 @@
-// K1 conv3x3 and K4 conv_ps: stride-1 3x3 conv + bias (+ act), NHWC.
+// K1 conv3x3: stride-1 3x3 conv + bias (+ act), NHWC.
 //
-// K1 replaces bsvd_tpu/ops/conv3x3.py conv3x3_pallas -> _kernel (reached
+// Replaces bsvd_tpu/ops/conv3x3.py conv3x3_pallas -> _kernel (reached
 // through ops/shift_conv.py shift_conv / shift_conv_add2; the same function
 // as the generation-1 _shift_conv_fused_v1). The temporal shift happens in
 // the tile loader: each input channel is read from frame t+1, t-1 or t, or
 // is zero at a clip edge (t % t_len), so the shifted tensor never exists in
 // device memory; an optional second input is summed as it is loaded.
-//
-// K4 replaces conv3x3.py conv_ps_natural_pallas and conv_ps_fold_pallas
-// (the same _kernel with the ps_nat / ps_half epilogues): conv + bias, then
-// an r=2 pixel shuffle written by the epilogue, output channel
-// o = k*4 + di*2 + dj going to out[n, 2i+di, 2j+dj, k] (torch PixelShuffle
-// order). The width-folded write of ps_fold is TPU layout and is dropped.
+// (K4 conv_ps, which shared this kernel in its first design, lives in
+// conv_ps.cu.)
 //
 // What bounds it on the H100: tensor-core FLOPs. At the BSVD-c64 sites
 // (C = 128/256 at 270x480 / 135x240) a block does 9 * 16 * 64 MACs per
@@ -19,8 +15,9 @@
 // above the ~295 FLOP/byte ridge. The design feeds mma.sync from shared
 // memory and keeps the whole output tile's fp32 accumulators in registers;
 // weights are reloaded per 16-channel slice (from L2) and input patches
-// per 64-channel output group. Not yet done: multi-stage cp.async / TMA
-// pipelining and wgmma, which the later speed PRs add.
+// per 64-channel output group. Not yet done: the cp.async ring and
+// ldmatrix fragments of conv_pipe.cuh (K4's main loop), which K1 adopts
+// in a later PR.
 
 #include "conv_common.cuh"
 
@@ -46,8 +43,7 @@ __device__ __forceinline__ Src<T> make_src(const ConvArgs& a) {
   return s;
 }
 
-// PS = false: K1 (plain NHWC output); PS = true: K4 (pixel-shuffled).
-template <typename T, bool PS>
+template <typename T>
 __global__ void __launch_bounds__(kThreads)
 conv3x3_kernel(ConvArgs a) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -71,25 +67,15 @@ conv3x3_kernel(ConvArgs a) {
     if (r >= kTH * kTW || oy >= a.H || ox >= a.W || co >= a.Cout) return;
     v0 = apply_act(v0 + a.b[co], a.act);
     v1 = apply_act(v1 + a.b[co + 1], a.act);
-    if (!PS) {
-      long long off = (((long long)n * a.H + oy) * a.W + ox) * a.Cout + co;
-      store2(y + off, v0, v1, co + 1 < a.Cout, pair_ok);
-    } else {
-      // channels co, co+1 (co even) share k = co/4 and di, and are dj = 0, 1
-      const int c4 = a.Cout / 4;
-      int k = co >> 2, di = (co >> 1) & 1;
-      long long base = (((long long)n * 2 * a.H + 2 * oy + di) * 2 * a.W +
-                        2 * ox) * c4 + k;
-      y[base] = from_f<T>(v0);
-      y[base + c4] = from_f<T>(v1);
-    }
+    long long off = (((long long)n * a.H + oy) * a.W + ox) * a.Cout + co;
+    store2(y + off, v0, v1, co + 1 < a.Cout, pair_ok);
   });
 }
 
-template <typename T, bool PS>
+template <typename T>
 static int launch(const ConvArgs& a, cudaStream_t stream) {
   size_t smem = ((kTH + 2) * (kTW + 2) * kKS + kWTile) * sizeof(T);
-  auto kern = conv3x3_kernel<T, PS>;
+  auto kern = conv3x3_kernel<T>;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(cdiv(a.H, kTH) * cdiv(a.W, kTW), a.CoutP / kBN, a.N);
@@ -110,19 +96,8 @@ extern "C" int bsvd_conv3x3(int dtype, const void* x, const void* x2,
   ConvArgs a{x, x2, w, static_cast<const float*>(b), y, N, H, W, Cin, CinP,
              Cout, CoutP, t_len, fold, shift, act, vec};
   auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? bsvd::launch<bsvd::bf16, false>(a, s)
-                    : bsvd::launch<float, false>(a, s);
-}
-
-extern "C" int bsvd_conv_ps(int dtype, const void* x, const void* w,
-                            const void* b, void* y, int N, int H, int W,
-                            int Cin, int CinP, int Cout, int CoutP, int vec,
-                            void* stream) {
-  ConvArgs a{x, nullptr, w, static_cast<const float*>(b), y, N, H, W, Cin,
-             CinP, Cout, CoutP, 1, 0, bsvd::kShiftNone, bsvd::kActNone, vec};
-  auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? bsvd::launch<bsvd::bf16, true>(a, s)
-                    : bsvd::launch<float, true>(a, s);
+  return dtype == 1 ? bsvd::launch<bsvd::bf16>(a, s)
+                    : bsvd::launch<float>(a, s);
 }
 
 // Message of a cudaError_t code that an entry point above returned.

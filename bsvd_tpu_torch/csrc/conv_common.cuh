@@ -119,26 +119,29 @@ struct Src {
   int vec;          // C % 8 == 0 and 16-byte aligned pointers
 };
 
-// Frame that channel c of frame n is read from, or -1 for a zero (clip edge).
-// TSM: [0, fold) from t+1, [fold, 2 fold) from t-1; causal: [0, 2 fold)
-// from t-1 (bsvd_tpu/nn/shift.py temporal_shift).
-__device__ __forceinline__ int src_frame(int c, int n, int shift, int t_len,
-                                         int fold) {
-  if (shift == kShiftNone) return n;
-  int t = n % t_len;
-  if (shift == kShiftTsm) {
-    if (c < fold) return t < t_len - 1 ? n + 1 : -1;
-    if (c < 2 * fold) return t > 0 ? n - 1 : -1;
-    return n;
-  }
-  if (c < 2 * fold) return t > 0 ? n - 1 : -1;
-  return n;
-}
-
+// Shift region of channel c: TSM reads [0, fold) from t+1 (region 0) and
+// [fold, 2 fold) from t-1 (region 1); causal reads [0, 2 fold) from t-1;
+// the rest (region 2) from t (bsvd_tpu/nn/shift.py temporal_shift).
 __device__ __forceinline__ int region_of(int c, int shift, int fold) {
   if (shift == kShiftNone) return 0;
   int lim = shift == kShiftTsm ? fold : 0;
   return c < lim ? 0 : (c < 2 * fold ? 1 : 2);
+}
+
+// Frame that region r of frame n is read from, or -1 for a zero (clip edge).
+__device__ __forceinline__ int region_frame(int r, int n, int shift,
+                                            int t_len) {
+  if (shift == kShiftNone) return n;
+  const int t = n % t_len;
+  if (r == 0) return t < t_len - 1 ? n + 1 : -1;
+  if (r == 1) return t > 0 ? n - 1 : -1;
+  return n;
+}
+
+// Frame that channel c of frame n is read from, or -1.
+__device__ __forceinline__ int src_frame(int c, int n, int shift, int t_len,
+                                         int fold) {
+  return region_frame(region_of(c, shift, fold), n, shift, t_len);
 }
 
 // Eight channels c0..c0+7 of pixel (y, x) of frame n, summed over x and x2
@@ -360,7 +363,9 @@ __device__ __forceinline__ void for_each_pair(const float (&acc)[MT][4][4],
       }
 }
 
-inline int cdiv(int a, int b) { return (a + b - 1) / b; }
+__host__ __device__ __forceinline__ int cdiv(int a, int b) {
+  return (a + b - 1) / b;
+}
 
 // Opt in to > 48 KB of dynamic shared memory for one kernel instantiation.
 // A refusal is returned, and cleared from the runtime's last-error slot so

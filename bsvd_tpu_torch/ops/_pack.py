@@ -4,10 +4,12 @@ A ``ConvWeights`` keeps a conv's torch OIHW weight and bias (what the plain
 versions use) and packs them for the CUDA kernels once, at first CUDA use:
 ``(CoutP, 3, 3, CinP)`` contiguous in the activation dtype, CinP rounded up
 to 16 and CoutP to 64 with zeros, and an fp32 bias of CoutP, on the
-activations' device. Modules keep their ConvWeights per (device, dtype), so
-packing happens once, not per call; a packed copy is made anew when its
-weight or bias has changed in place since (an optimizer step). A wrapper
-also takes a bare weight tensor and packs it for that call.
+activations' device. K4 takes its own order (``order='ps'``): output rows
+sub-pixel-major and CoutP rounded up to 128. Modules keep their
+ConvWeights per (device, dtype), so packing happens once, not per call; a
+packed copy is made anew when its weight or bias has changed in place since
+(an optimizer step). A wrapper also takes a bare weight tensor and packs it
+for that call.
 """
 
 import torch
@@ -42,24 +44,39 @@ class ConvWeights:
     def cin(self):
         return self.w.shape[1]
 
-    def packed(self, device, dtype, cin_mult=16):
+    def packed(self, device, dtype, cin_mult=16, order='oc'):
         """(w_packed, b_packed) on ``device`` (the activations'); ``cin_mult``
         64 for a chain's second conv, whose K runs over the padded
-        intermediate."""
-        key = (torch.device(device), dtype, cin_mult)
+        intermediate. ``order`` 'oc' keeps torch's output channel order;
+        'ps' (K4) puts packed row ``s * c4 + k`` = torch channel
+        ``k * 4 + s`` (``ps_order``), CoutP a multiple of 128."""
+        if order not in ('oc', 'ps'):
+            raise ValueError(f'pack order must be oc or ps, got {order!r}')
+        key = (torch.device(device), dtype, cin_mult, order)
         stamp = (self.w._version, self.b._version)
         hit = self._packed.get(key)
         if hit is None or hit[0] != stamp:
             cinp = round_up(self.cin, cin_mult)
-            coutp = round_up(self.cout, 64)
+            coutp = round_up(self.cout, 128 if order == 'ps' else 64)
+            rows = (ps_order(self.cout, self.w.device) if order == 'ps'
+                    else slice(None))
             with torch.no_grad():
                 wp = torch.zeros((coutp, 3, 3, cinp), dtype=dtype,
                                  device=key[0])
-                wp[:self.cout, :, :, :self.cin] = self.w.permute(0, 2, 3, 1)
+                wp[:self.cout, :, :, :self.cin] = \
+                    self.w[rows].permute(0, 2, 3, 1)
                 bp = torch.zeros(coutp, dtype=torch.float32, device=key[0])
-                bp[:self.cout] = self.b.float()
+                bp[:self.cout] = self.b[rows].float()
             hit = self._packed[key] = (stamp, (wp, bp))
         return hit[1]
+
+
+def ps_order(cout, device=None):
+    """Torch output channel of each sub-pixel-major row: row ``s * c4 + k``
+    holds channel ``k * 4 + s`` (s = di * 2 + dj, c4 = cout // 4), so a run
+    of rows is a run of channels k of one sub-pixel of the r=2 shuffle."""
+    c4 = cout // 4
+    return torch.arange(cout, device=device).reshape(c4, 4).t().reshape(-1)
 
 
 def as_weights(w, b=None):

@@ -4,9 +4,10 @@ input), K4 ``conv_ps`` (3x3 conv + bias + r=2 pixel shuffle) and K7
 
 Counterparts of bsvd_tpu/ops/conv3x3.py ``conv3x3_pallas``,
 ``conv_ps_natural_pallas`` / ``conv_ps_fold_pallas`` and
-``conv3x3_dw_pallas``; the CUDA kernels are ``csrc/conv3x3.cu`` and
-``csrc/conv3x3_dw.cu``. On a CPU tensor a wrapper runs its plain version
-(``*_reference``); on a CUDA tensor it launches the kernel or raises.
+``conv3x3_dw_pallas``; the CUDA kernels are ``csrc/conv3x3.cu``,
+``csrc/conv_ps.cu`` and ``csrc/conv3x3_dw.cu``. On a CPU tensor a wrapper
+runs its plain version (``*_reference``); on a CUDA tensor it launches the
+kernel or raises.
 ``conv3x3.launches`` / ``conv_ps.launches`` / ``conv3x3_dw.launches``
 count kernel launches.
 
@@ -19,6 +20,8 @@ is the transposed conv (aten's convolution_backward, as the JAX package
 leaves it to XLA) followed by the reverse temporal shift and fans out to
 both addends, and dw is K7 on the (shifted, summed) input.
 """
+
+import functools
 
 import torch
 
@@ -34,8 +37,13 @@ from bsvd_tpu_torch.ops._pack import (ConvWeights, act_code, apply_act,
 
 SHIFT_CODES = {'none': 0, 'tsm': 1, 'causal': 2}
 _SHIFT_MODES = {'tsm': 'TSM', 'causal': 'TSM_toFutureOnly'}
-# K7: blocks to aim for across its pixel splits (four per SM of an H100)
+# K7 fp32 (the FMA walk): 8 x 16 pixel tiles, 64 x 32 channel blocks, and
+# the blocks to aim for across its pixel splits (four per SM of an H100)
 DW_BLOCKS = 528
+# K7 bf16: 8 x 8 pixel tiles; (output, input) channels of a block for each
+# instantiation: 0 the 64 x 64 block, 1 for Ci <= 16, 2 for Co <= 16. One
+# block per SM in all.
+DW_BF16_BLOCKS = {0: (64, 64), 1: (64, 16), 2: (16, 64)}
 
 
 def _shift_code(shift):
@@ -168,7 +176,7 @@ def conv_ps(x, w, b=None):
     if is_cpu(x):
         return conv_ps_reference(x, cw)
     (x,) = check_cuda('conv_ps', x)
-    wp, bp = cw.packed(x.device, x.dtype)
+    wp, bp = cw.packed(x.device, x.dtype, order='ps')
     y = torch.empty((nt, 2 * h, 2 * w_, cw.cout // 4), dtype=x.dtype,
                     device=x.device)
     err = _build.lib().bsvd_conv_ps(
@@ -217,6 +225,34 @@ def conv3x3_dw_reference(x, dz, x2=None, *, t_len=None, shift='none',
                               (dz.shape[-1], x.shape[-1], 3, 3))
 
 
+def dw_plan(nt, h, w, ci, co, dtype, sms):
+    """K7's launch: (cfg, CinP, CoutP, tiles, splits). Block (co block, ci
+    block, split s) sums the pixel tiles ``dw_split_tiles(s, splits,
+    tiles)``; the fp32 partials of the splits are added in a fixed order."""
+    if dtype == torch.bfloat16:
+        cfg = 1 if ci <= 16 else 2 if co <= 16 else 0
+        (cob, cib), (th, tw) = DW_BF16_BLOCKS[cfg], (8, 8)
+    else:
+        cfg, cob, cib, th, tw = 0, 64, 32, 8, 16
+    cinp, coutp = round_up(ci, cib), round_up(co, cob)
+    tiles = nt * -(-h // th) * -(-w // tw)
+    cblocks = (coutp // cob) * (cinp // cib)
+    target = (sms // cblocks if dtype == torch.bfloat16
+              else -(-DW_BLOCKS // cblocks))
+    return cfg, cinp, coutp, tiles, max(1, min(tiles, target))
+
+
+def dw_split_tiles(s, splits, tiles):
+    """The pixel tiles split ``s`` sums, in the kernels' order."""
+    mine = (tiles - s + splits - 1) // splits
+    return [s + i * splits for i in range(mine)]
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device):
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def conv3x3_dw(x, dz, x2=None, *, t_len=None, shift='none', fold_div=8):
     """Weight gradient of a stride-1 pad-1 3x3 NHWC conv:
     dw[co, ci, ky, kx] = sum_{n,y,x} pad(v)[n, y+ky, x+kx, ci] dz[n, y, x, co]
@@ -240,17 +276,15 @@ def conv3x3_dw(x, dz, x2=None, *, t_len=None, shift='none', fold_div=8):
                                     fold_div=fold_div)
     x, x2, dz = check_cuda('conv3x3_dw', x, x2, dz)
     co = dz.shape[-1]
-    cinp, coutp = round_up(c, 32), round_up(co, 64)
-    ntiles = nt * -(-h // 8) * -(-w_ // 16)
-    splits = max(1, min(ntiles, -(-DW_BLOCKS // ((coutp // 64) *
-                                                  (cinp // 32)))))
-    part = torch.empty((splits, coutp, cinp, 9), dtype=torch.float32,
+    cfg, cinp, coutp, _, splits = dw_plan(nt, h, w_, c, co, x.dtype,
+                                          _sm_count(x.device))
+    part = torch.empty((splits, 9, coutp, cinp), dtype=torch.float32,
                        device=x.device)
     dw = torch.empty((co, c, 3, 3), dtype=torch.float32, device=x.device)
     err = _build.lib().bsvd_conv3x3_dw(
         int(x.dtype == torch.bfloat16), ptr(x), ptr(x2), ptr(dz), ptr(part),
         ptr(dw), nt, h, w_, c, co, cinp, coutp, t_len or 1, c // fold_div,
-        code, vec_ok(c, x, x2), vec_ok(co, dz), splits,
+        code, vec_ok(c, x, x2), vec_ok(co, dz), splits, cfg,
         _build.stream_ptr(x))
     _build.check(err, 'conv3x3_dw')
     conv3x3_dw.launches += 1

@@ -11,7 +11,12 @@ Phases, each printed as one JSON object on its own line:
 2. kernels: each kernel in every variant the BSVD-c64 paths use, at their
    site shapes, in bf16, against its plain PyTorch version run in fp32 on
    the same bf16 values (cuDNN TF32 off); kernel and plain times are
-   CUDA-event medians of 10 runs after warm-up. Whole-clip sites (10
+   CUDA-event medians of 10 runs after warm-up, beside each site's bound
+   (its FLOPs at the H100's 989 TFLOP/s of dense bf16, or its bytes, each
+   input read once and each output written once, at 3.35 TB/s, whichever
+   is longer) and the time of one cuDNN call that does the site's conv
+   arithmetic on inputs prepared beforehand (``library_ms``; none for the
+   two-conv K2 and K6). Whole-clip sites (10
    frames): K1 conv3x3, K2 conv_chain, K3 conv_s2, K4 conv_ps. Streaming
    sites (one frame, or 8 for push_block): K5 bibuffer_conv (F = 1) and
    bibuffer_multi (F = 8), K6 bibuffer_chain, and K1 (shift 'none', the
@@ -69,8 +74,10 @@ Phases, each printed as one JSON object on its own line:
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
 phases 3, 5 and 8 (counters set to 0 before each run, read after), the
-largest max |diff| of phase 2, and ``ms`` / ``plain_ms``, the phase-2 site
-medians summed at the counts of one bidirectional unit of work, named by
+largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
+/ ``bound_ms``, the phase-2 site medians and bounds summed at the counts of
+one bidirectional unit of work (``bound_by``: ``operations`` or ``bytes``,
+whichever dominates the summed bound), named by
 ``per``: a 10-frame forward (K1-K4 and the generation-1 entry), a steady
 push (K5 bibuffer_conv, K6), a steady push_block of 8 frames (K5
 bibuffer_multi) or a c64 train step at batch 8 (K7).
@@ -103,7 +110,7 @@ from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
 from bsvd_tpu_torch.models.denoising_model import DenoisingModel  # noqa: E402
 from bsvd_tpu_torch.models.optim import Adam  # noqa: E402
 from bsvd_tpu_torch.models.seq_inference import denoise_seq  # noqa: E402
-from bsvd_tpu_torch.nn.layers import conv2d_weight_grad  # noqa: E402
+from bsvd_tpu_torch.nn.layers import conv2d, conv2d_weight_grad  # noqa: E402
 from bsvd_tpu_torch.nn.shift import temporal_shift  # noqa: E402
 from bsvd_tpu_torch.ops import _build  # noqa: E402
 from bsvd_tpu_torch.ops import conv3x3 as conv3x3_mod  # noqa: E402
@@ -140,7 +147,7 @@ KERNELS = {
                    'bsvd_tpu/ops/conv_chain.py:213', 'forward'),
     'conv_s2': (conv_s2, 'bsvd_tpu_torch/csrc/conv_s2.cu',
                 'bsvd_tpu/ops/conv_s2.py:155', 'forward'),
-    'conv_ps': (conv_ps, 'bsvd_tpu_torch/csrc/conv3x3.cu',
+    'conv_ps': (conv_ps, 'bsvd_tpu_torch/csrc/conv_ps.cu',
                 'bsvd_tpu/ops/conv3x3.py:797', 'forward'),
     'bibuffer_conv': (bibuffer_conv, 'bsvd_tpu_torch/csrc/bibuffer_conv.cu',
                       'bsvd_tpu/ops/bibuffer_conv.py:99', 'push'),
@@ -178,6 +185,10 @@ PER_BLOCK = dict(PER_STEADY_PUSH, bibuffer_conv=0, bibuffer_multi=16,
 TRAIN_N, TRAIN_T, TRAIN_HW = 8, 11, 96
 GRAD_N, GRAD_T, GRAD_HW = 2, 5, 64
 WARMUP, TIMED_STEPS = 5, 30
+# the least time of a site: its operations at the dense bf16 tensor-core
+# peak, or its bytes (each input read once, each output written once) at
+# the HBM rate, whichever is longer (NVIDIA's H100 SXM data sheet)
+PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def emit(obj):
@@ -212,6 +223,20 @@ def median_ms(fn, reps=10, warmup=2):
     return statistics.median(times)
 
 
+def nbytes(*ts):
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def wbytes(*cws):
+    """Bytes of packed weights (bf16) and fp32 biases."""
+    return sum(cw.w.numel() * 2 + cw.b.numel() * 4 for cw in cws)
+
+
+def bound_ms(flops, n_bytes):
+    """(operations ms, bytes ms) at the card's peaks."""
+    return flops / PEAK_FLOPS * 1e3, n_bytes / PEAK_BYTES * 1e3
+
+
 def rel_err(got, ref):
     ref = ref.float()
     err = (got.float() - ref).abs().max().item()
@@ -230,11 +255,15 @@ def psnr(got, ref):
 
 def _sites():
     """(kernel, variant, count, unit, make(g) -> (kernel call, plain call in
-    fp32, plain call in bf16, exact)): ``count`` is the site's launches per
-    ``unit`` of work of the bidirectional net ('forward': a 10-frame MIMO
-    forward; 'push': a steady push; 'block': a steady push_block of 8);
-    ``exact`` flags the outputs (of a tuple) that must equal the plain
-    version bit for bit."""
+    fp32, plain call in bf16, exact, work)): ``count`` is the site's
+    launches per ``unit`` of work of the bidirectional net ('forward': a
+    10-frame MIMO forward; 'push': a steady push; 'block': a steady
+    push_block of 8); ``exact`` flags the outputs (of a tuple) that must
+    equal the plain version bit for bit; ``work`` holds the site's
+    ``flops``, its input bytes ``in_bytes`` and ``library``, one cuDNN call
+    that does the site's conv arithmetic on inputs prepared beforehand
+    (the shift and addend materialised, K4's shuffle left out), or None
+    where the site is two convs (K2, K6)."""
     h2, w2, h4, w4 = H // 2, W // 2, H // 4, W // 4
 
     def conv(cin, cout, g):
@@ -250,29 +279,50 @@ def _sites():
     def f32(*ts):
         return [None if t is None else t.float() for t in ts]
 
+    def shifted(v, nt, shift):
+        if shift == 'none':
+            return v
+        mode = 'TSM' if shift == 'tsm' else 'TSM_toFutureOnly'
+        return temporal_shift(v.reshape(v.shape[0] // nt, nt, *v.shape[1:]),
+                              8, mode).reshape(v.shape)
+
+    def work(flops, inputs, cws, library):
+        return {'flops': flops, 'in_bytes': nbytes(*inputs) + wbytes(*cws),
+                'library': library}
+
+    def lib_conv(v, cw, stride=1):
+        """The library's conv of v, weights cast to bf16 once, here."""
+        w, b = cw.w.to(torch.bfloat16), cw.b.to(torch.bfloat16)
+        return lambda: conv2d(v, w, b, stride=stride)
+
     def k1(h, w, c, shift, add2, nt=T):
         def make(g):
             x = act_in((nt, h, w, c), g)
             x2 = act_in((nt, h, w, c), g) if add2 else None
             cw = conv(c, c, g)
             kw = dict(t_len=nt, shift=shift, act='relu6')
+            v = shifted(x if x2 is None else x + x2, nt, shift)
             return (lambda: conv3x3(x, cw, x2=x2, **kw),
                     lambda: conv3x3_reference(*f32(x), cw, x2=f32(x2)[0],
                                               **kw),
-                    lambda: conv3x3_reference(x, cw, x2=x2, **kw), None)
+                    lambda: conv3x3_reference(x, cw, x2=x2, **kw), None,
+                    work(2 * 9 * c * c * nt * h * w, (x, x2), (cw,),
+                         lib_conv(v, cw)))
         return make
 
     def k2(c, cres, cout, nt=T):
         def make(g):
             x = act_in((nt, H, W, c), g)
             c1, c2 = conv(c, 64, g), conv(64, cout, g)
+            flops = 2 * 9 * (c * 64 + 64 * cout) * nt * H * W
             if not cres:
                 return (lambda: conv_chain(x, c1, None, c2, None, 'relu6',
                                            'relu6'),
                         lambda: conv_chain_reference(x.float(), c1, None, c2,
                                                      None, 'relu6', 'relu6'),
                         lambda: conv_chain_reference(x, c1, None, c2, None,
-                                                     'relu6', 'relu6'), None)
+                                                     'relu6', 'relu6'), None,
+                        work(flops, (x,), (c1, c2), None))
             x2, xr = act_in(x.shape, g), act_in((nt, H, W, cres), g)
             return (lambda: conv_chain_add2_res(x, x2, xr, c1, None, c2, None,
                                                 'relu6', 'none', 3),
@@ -281,7 +331,8 @@ def _sites():
                         x2=x2.float(), x_res=xr.float(), res_ch=3),
                     lambda: conv_chain_reference(
                         x, c1, None, c2, None, 'relu6', 'none', x2=x2,
-                        x_res=xr, res_ch=3), None)
+                        x_res=xr, res_ch=3), None,
+                    work(flops, (x, x2, xr), (c1, c2), None))
         return make
 
     def k3(h, w, c, cout, nt=T):
@@ -290,7 +341,10 @@ def _sites():
             cw = conv(c, cout, g)
             return (lambda: conv_s2(x, cw, act='relu6'),
                     lambda: conv_s2_reference(x.float(), cw, act='relu6'),
-                    lambda: conv_s2_reference(x, cw, act='relu6'), None)
+                    lambda: conv_s2_reference(x, cw, act='relu6'), None,
+                    work(2 * 9 * c * cout * nt * -(-h // 2) * -(-w // 2),
+                         (x,), (cw,),
+                         lib_conv(x, cw, stride=2)))
         return make
 
     def k4(h, w, c, cout, nt=T):
@@ -299,7 +353,9 @@ def _sites():
             cw = conv(c, cout, g)
             return (lambda: conv_ps(x, cw),
                     lambda: conv_ps_reference(x.float(), cw),
-                    lambda: conv_ps_reference(x, cw), None)
+                    lambda: conv_ps_reference(x, cw), None,
+                    work(2 * 9 * c * cout * nt * h * w, (x,), (cw,),
+                         lib_conv(x, cw)))
         return make
 
     def k5(h, w, c, causal, nf=None):
@@ -311,9 +367,12 @@ def _sites():
             kw = dict(act='relu6', causal=causal)
             fn, ref = ((bibuffer_conv, bibuffer_conv_reference) if nf is None
                        else (bibuffer_multi, bibuffer_multi_reference))
+            # the library conv runs on an input of the assembled one's shape
             return (lambda: fn(x, st, cw, **kw),
                     lambda: ref(*f32(x, st), cw, **kw),
-                    lambda: ref(x, st, cw, **kw), (False, True))
+                    lambda: ref(x, st, cw, **kw), (False, True),
+                    work(2 * 9 * c * c * (nf or 1) * h * w, (x, st), (cw,),
+                         lib_conv(x, cw)))
         return make
 
     def k6(h, w, c, causal):
@@ -327,7 +386,9 @@ def _sites():
                                                      None, c2, None, **kw),
                     lambda: bibuffer_chain_reference(x, s1, s2, c1, None, c2,
                                                      None, **kw),
-                    (False, True, False))
+                    (False, True, False),
+                    work(2 * 2 * 9 * c * c * h * w, (x, s1, s2), (c1, c2),
+                         None))
         return make
 
     def k7(hw, c, co, shift, add2):
@@ -341,14 +402,15 @@ def _sites():
             kw = dict(t_len=TRAIN_T, shift=shift)
 
             def cudnn_bf16():
-                v = x if x2 is None else x + x2
-                if shift != 'none':
-                    v = temporal_shift(v.reshape(TRAIN_N, TRAIN_T, hw, hw, c),
-                                       8, 'TSM').reshape(v.shape)
+                v = shifted(x if x2 is None else x + x2, TRAIN_T, shift)
                 return conv2d_weight_grad(v, dz, (co, c, 3, 3))
+            v = shifted(x if x2 is None else x + x2, TRAIN_T, shift)
             return (lambda: conv3x3_dw(x, dz, x2, **kw),
                     lambda: conv3x3_dw_reference(x, dz, x2, **kw),
-                    cudnn_bf16, None)
+                    cudnn_bf16, None,
+                    work(2 * 9 * c * co * TRAIN_N * TRAIN_T * hw * hw,
+                         (x, x2, dz), (),
+                         lambda: conv2d_weight_grad(v, dz, (co, c, 3, 3))))
         return make
 
     def v1(h, w, c):
@@ -356,9 +418,12 @@ def _sites():
             x = act_in((T, h, w, c), g)
             cw = conv(c, c, g)
             kw = dict(t_len=T, shift='tsm', act='relu6')
+            v = shifted(x, T, 'tsm')
             return (lambda: shift_conv_fused_v1(x, cw, None, t_len=T),
                     lambda: conv3x3_reference(x.float(), cw, **kw),
-                    lambda: conv3x3_reference(x, cw, **kw), None)
+                    lambda: conv3x3_reference(x, cw, **kw), None,
+                    work(2 * 9 * c * c * T * h * w, (x,), (cw,),
+                         lib_conv(v, cw)))
         return make
 
     fwd = [
@@ -469,16 +534,20 @@ def _check_site(name, got, ref, exact):
 
 
 def phase_kernels():
-    """Per kernel: max err; ms / plain_ms at the counts of its unit (the
-    KERNELS table). Also the kernel and plain ms of one steady push and of
-    one push_block over all kernels."""
+    """Per kernel: max err; ms, plain_ms, library_ms and bound_ms at the
+    counts of its unit (the KERNELS table), library_ms None where a site of
+    the unit has no one-call library counterpart; bound_by the resource
+    whose time dominates the summed bound. Also the kernel and plain ms of
+    one steady push and of one push_block over all kernels."""
     g = torch.Generator(device='cuda').manual_seed(SEED)
-    summary = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0}
+    summary = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
+                   'library_ms': 0.0, 'bound_ms': 0.0, 'ops_ms': 0.0,
+                   'bytes_ms': 0.0}
                for k in KERNELS}
-    per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0}
+    per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
                 for u in ('forward', 'push', 'push_block', 'train_step')}
     for kernel, variant, count, unit, make in _sites():
-        run, plain32, plain_bf16, exact = make(g)
+        run, plain32, plain_bf16, exact, wk = make(g)
         got = run()
         torch.cuda.synchronize()
         ref = plain32()
@@ -486,22 +555,39 @@ def phase_kernels():
         del ref
         ms = median_ms(run)
         plain_ms = median_ms(plain_bf16)
-        out = got[0] if isinstance(got, tuple) else got
+        lib_ms = median_ms(wk['library']) if wk['library'] else None
+        outs = got if isinstance(got, tuple) else (got,)
+        n_bytes = wk['in_bytes'] + nbytes(*outs)
+        ops_ms, bytes_ms = bound_ms(wk['flops'], n_bytes)
+        bound = max(ops_ms, bytes_ms)
         emit({'phase': 'kernel', 'kernel': kernel, 'variant': variant,
-              'per': unit, 'shape_out': list(out.shape), 'max_abs_err': err,
-              'tol': tol, 'exact_states': bool(exact), 'ms': ms,
-              'plain_ms': plain_ms, 'count': count})
+              'per': unit, 'shape_out': list(outs[0].shape),
+              'max_abs_err': err, 'tol': tol, 'exact_states': bool(exact),
+              'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
+              'flops': wk['flops'], 'bytes': n_bytes, 'bound_ms': bound,
+              'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
+              'tflops': wk['flops'] / ms / 1e9, 'count': count})
         s = summary[kernel]
         s['max_abs_err'] = max(s['max_abs_err'], err)
         if unit == KERNELS[kernel][3]:
             s['ms'] += count * ms
             s['plain_ms'] += count * plain_ms
+            s['bound_ms'] += count * bound
+            s['ops_ms'] += count * ops_ms
+            s['bytes_ms'] += count * bytes_ms
+            if s['library_ms'] is not None and count:
+                s['library_ms'] = (None if lib_ms is None
+                                   else s['library_ms'] + count * lib_ms)
         if kernel not in ALIASES:
             per_unit[unit]['ms'] += count * ms
             per_unit[unit]['plain_ms'] += count * plain_ms
-        del got, out
+            per_unit[unit]['bound_ms'] += count * bound
+        del got, outs
         torch.cuda.empty_cache()
     emit({'phase': 'kernel_sums', 'per_unit': per_unit})
+    for s in summary.values():
+        s['bound_by'] = ('operations' if s.pop('ops_ms') >= s.pop('bytes_ms')
+                         else 'bytes')
     return summary
 
 
@@ -1076,8 +1162,10 @@ def _kernel_group(name):
     n = name.lower()
     if 'conv3x3_dw' in n:
         return 'K7 conv3x3_dw'
-    if 'conv3x3_kernel' in n:       # conv3x3_kernel<T, PS>: PS true is K4
-        return 'K4 conv_ps' if ', true>' in n else 'K1 conv3x3'
+    if 'conv_ps' in n:
+        return 'K4 conv_ps'
+    if 'conv3x3_kernel' in n:
+        return 'K1 conv3x3'
     for key, group in (('bibuffer', 'K5/K6'), ('conv_chain', 'K2 conv_chain'),
                        ('conv_s2', 'K3 conv_s2'), ('dgrad', 'cuDNN dgrad'),
                        ('wgrad', 'cuDNN wgrad'), ('reduce_kernel', 'sums'),
@@ -1300,7 +1388,9 @@ def main():
         {'name': k, 'route': 'cuda', 'source': src, 'replaces': rep,
          'launches': launches[k], 'max_abs_err': summary[k]['max_abs_err'],
          'ms': summary[k]['ms'], 'plain_ms': summary[k]['plain_ms'],
-         'per': per}
+         'bound_ms': summary[k]['bound_ms'],
+         'bound_by': summary[k]['bound_by'],
+         'library_ms': summary[k]['library_ms'], 'per': per}
         for k, (_, src, rep, per) in KERNELS.items()]})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': torch.cuda.device_count()}})

@@ -83,15 +83,24 @@ def test_conv3x3_kernel(dev, dtype, case):
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('shape', [(2, 8, 16, 64, 512), (3, 11, 21, 32, 64)])
+@pytest.mark.parametrize('shape', [
+    (2, 8, 16, 64, 512), (3, 11, 21, 32, 64),
+    # one frame (a streaming push); c4 = 128 / 64 / 16; sizes that are not
+    # multiples of the 16 x 16 tile
+    (1, 17, 35, 128, 512), (1, 9, 20, 64, 256), (1, 16, 32, 32, 64),
+    # c4 % 8 != 0 (scalar epilogue); Cin % 8 != 0 (scalar loader)
+    (2, 5, 7, 16, 12), (1, 6, 9, 4, 32)])
 def test_conv_ps_kernel(dev, dtype, shape):
     n, h, w, c, co = shape
     rng = np.random.default_rng(2)
     x = _t(rng, (n, h, w, c), 1.0, dev).to(dtype)
     wt = _t(rng, (co, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
     b = _t(rng, (co,), 0.1, dev)
+    before = conv_ps.launches
     got = conv_ps(x, wt, b)
+    assert conv_ps.launches == before + 1
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     _close(got, conv_ps_reference(x.float(), wt, b), dtype)
 
 
@@ -345,7 +354,17 @@ _DW_CASES = {'c64': (6, 16, 32, 64, 64, 'none', False),
              'causal': (6, 16, 32, 128, 64, 'causal', False),
              'ragged': (3, 13, 37, 20, 72, 'none', True),
              'cin4': (2, 12, 20, 4, 64, 'none', False),
-             'cout3': (2, 12, 20, 64, 3, 'none', False)}
+             'cout3': (2, 12, 20, 64, 3, 'none', False),
+             # H, W not multiples of the 8 x 8 tile
+             'ragged_hw': (3, 11, 13, 64, 64, 'none', False),
+             'cin4_ragged': (3, 11, 13, 4, 64, 'none', True),
+             'cout3_tsm': (6, 9, 17, 64, 3, 'tsm', False),
+             # clip edges with the addend: causal, and TSM with fold 4
+             # (8-channel groups straddle the shift regions)
+             'causal_x2': (6, 10, 12, 64, 64, 'causal', True),
+             'tsm_fold4_x2': (6, 9, 17, 32, 64, 'tsm', True),
+             # several channel blocks and pixel splits
+             'wide': (6, 12, 20, 128, 256, 'tsm', False)}
 
 
 @pytest.mark.parametrize('dtype', DTYPES)

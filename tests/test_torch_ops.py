@@ -128,6 +128,30 @@ def test_conv_ps_matches_pallas(nt):
     _check(got, _conv_ps_natural_xla(xj, wjj, bj))
 
 
+@pytest.mark.parametrize('c4', [16, 64, 128])
+def test_conv_ps_permuted_pack_matches_pallas(c4):
+    """K4's index map in plain PyTorch: a conv with the sub-pixel-major
+    packed weights (``order='ps'``), then packed channel block s written
+    to sub-pixel (s // 2, s % 2), equals conv_ps_reference and the Pallas
+    kernel in interpret mode."""
+    from bsvd_tpu.ops.conv3x3 import conv_ps_natural_pallas
+    from bsvd_tpu_torch.nn.layers import conv2d
+    from bsvd_tpu_torch.ops.conv3x3 import conv_ps_reference
+    rng = np.random.default_rng(30 + c4)
+    nt, h, w, c, co = 2, 4, 8, 8, 4 * c4
+    (x,) = _arrays(rng, (nt, h, w, c))
+    wj, wt, b = _conv_np(rng, c, co)
+    wp, bp = ConvWeights(wt, _t(b)).packed('cpu', torch.float32, order='ps')
+    assert wp.shape == (-(-co // 128) * 128, 3, 3, 16)
+    y = conv2d(_t(x), wp[:co, :, :, :c].permute(0, 3, 1, 2), bp[:co])
+    got = torch.empty((nt, 2 * h, 2 * w, c4))
+    for s in range(4):
+        got[:, s // 2::2, s % 2::2] = y[..., s * c4:(s + 1) * c4]
+    _check(got, conv_ps_reference(_t(x), wt, _t(b)))
+    _check(got, conv_ps_natural_pallas(jnp.asarray(x), jnp.asarray(wj),
+                                       jnp.asarray(b), bh=4, interpret=True))
+
+
 # ---- K3 conv_s2 ------------------------------------------------------------
 
 @pytest.mark.parametrize('act', ['relu6', 'relu', 'none'])
