@@ -273,7 +273,7 @@ def _stage_stream_step_block(p, st, xs, cfg):
 # whole net
 # ---------------------------------------------------------------------------
 
-def stream_init(cfg, n, h, w, dtype=torch.float32, device='cpu'):
+def stream_init(cfg, n, h, w, dtype=torch.float32, device='cuda'):
     """Zero streaming state for the whole net at input resolution (h, w)."""
     cfg.check_supported()
     return [_stage_stream_init(cfg, n, h, w, dtype, torch.device(device))
@@ -350,7 +350,7 @@ class StreamDenoiser:
 
     Example::
 
-        net = build_network(dict(type='BSVD', ...)).to('cuda')
+        net = build_network(dict(type='BSVD', ...))   # on the card
         sd = StreamDenoiser(net, None, batch=1, height=540, width=960,
                             dtype=torch.bfloat16)
         for frame in video:          # (1, H, W, 4): RGB + noise map

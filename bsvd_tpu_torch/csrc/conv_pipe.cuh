@@ -6,16 +6,18 @@
 // row r sits at chunk position c ^ f(r), so that any 8 consecutive rows read
 // at one logical chunk hit 8 distinct 16-byte bank groups: ldmatrix reads 8
 // rows of 16 bytes at once, and a tap's shifted window starts at any row.
+// (f is taken from the row index, or for a conv's input patch from the
+// pixel's column: PipeCfg::patch_off.)
 //
 // The operands of a 3x3 conv (or of its weight gradient) at one tap are the
 // tile shifted by a pixel offset. ldmatrix takes one row address per lane,
-// so the shift is free (K4 here, and K7's narrow blocks). wgmma reads its
-// shared-memory operand through a descriptor of 8-row x 16-byte core
-// matrices at fixed strides: K7's 64 x 64 block stores its patch
-// chunk-major ([8-channel chunk][pixel][8]) so that 8 consecutive pixels
-// are one core matrix at any pixel offset, and the shift becomes the
-// descriptor's start address (conv3x3_dw.cu). K4 on wgmma the same way is
-// the next step.
+// so the shift is free: the main loop below (K1 conv3x3, K3 conv_s2, K4
+// conv_ps) and K7's narrow blocks use it. wgmma reads its shared-memory
+// operand through a descriptor of 8-row x 16-byte core matrices at fixed
+// strides: K7's 64 x 64 block stores its patch chunk-major ([8-channel
+// chunk][pixel][8]) so that 8 consecutive pixels are one core matrix at any
+// pixel offset, and the shift becomes the descriptor's start address
+// (conv3x3_dw.cu). K1 and K4 on wgmma the same way is the next step.
 
 #pragma once
 
@@ -77,66 +79,126 @@ __device__ __forceinline__ int swz(int r, int c) {
   return (r * CH + (c ^ ((r / (8 / CH)) & (CH - 1)))) * 8;
 }
 
-// ---- K4's pipelined implicit GEMM ------------------------------------------
-//
-// One block: a 16 x 16 output tile (GEMM M = 256 pixels) times 128 output
-// channels (N), K = 9 taps x CinP, in stages of 16 input channels. A stage
-// holds the 18 x 18 halo patch (rows: pixels, 2 chunks) and the 9 x 128
-// weight rows of its 16 channels (rows: tap * 128 + n, 2 chunks); kPipeStages
-// stages are in flight. Warps: 4 (4 output rows each) x 2 (64 channels
-// each); acc[mt][nt][e] is output row wm * 4 + mt, column g + 8 * (e / 2),
-// channel wn * 64 + nt * 8 + 2 * tg + e % 2.
+// Two bf16 pairs added, each sum rounded once (an A fragment of x + x2).
+__device__ __forceinline__ uint32_t add_bf16x2(uint32_t a, uint32_t b) {
+  __nv_bfloat162 s = __hadd2(*reinterpret_cast<const __nv_bfloat162*>(&a),
+                             *reinterpret_cast<const __nv_bfloat162*>(&b));
+  return *reinterpret_cast<const uint32_t*>(&s);
+}
 
-constexpr int kPipeTH = 16, kPipeTW = 16;
-constexpr int kPipePH = kPipeTH + 2, kPipePW = kPipeTW + 2;
-constexpr int kPipeBN = 128;
-constexpr int kPipeKC = 16;
-constexpr int kPipeStages = 4;
-constexpr int kPipePatch = kPipePH * kPipePW * kPipeKC;   // elements
-constexpr int kPipeWts = 9 * kPipeBN * kPipeKC;
-constexpr int kPipeStage = kPipePatch + kPipeWts;
-constexpr size_t kPipeSmem = (size_t)kPipeStages * kPipeStage * sizeof(bf16);
+// ---- the pipelined implicit GEMM of a 3x3 conv ------------------------------
+//
+// One block: a TH x 16 output tile (GEMM M = 16 TH pixels) times BN output
+// channels (N), K = 9 taps x CinP, in slices of 16 input channels. A stage
+// holds NX input patches of the slice (x, and x2 where a second input is
+// summed; rows: pixels, 2 chunks) and its 9 x BN weight rows (rows
+// tap * BN + n, 2 chunks); STAGES - 1 slices are in flight while one is
+// multiplied, with one barrier a slice. Stride S = 2 reads the patch at
+// every other column, so its even and odd columns are stored as two
+// sub-tiles ((py * 2 + px % 2) * SW + px / 2): a tap's 16 output pixels
+// read 16 consecutive rows and ldmatrix stays conflict-free (8 rows at
+// stride 2 of a patch stored py * PW + px fall on 4 bank groups).
+// Warps: 4 (MT = TH / 4 output rows each) x 2 (BN / 2 channels each);
+// acc[mt][nt][e] is output row wm * MT + mt, column g + 8 * (e / 2),
+// channel wn * BN / 2 + nt * 8 + 2 * tg + e % 2.
+//
+// Blocks: a grid (tiles * CoutP / BN, N) whose fastest index is the output
+// channel block, so the blocks that read one input tile run together and
+// the tile comes from HBM once (pipe_block).
+
+template <int S_, int TH_, int BN_, int NX_, int STAGES_>
+struct PipeCfg {
+  static constexpr int S = S_, TH = TH_, TW = 16, BN = BN_, NX = NX_;
+  static constexpr int STAGES = STAGES_;
+  static constexpr int KC = 16;                 // input channels a slice
+  static constexpr int MT = TH / 4, NT = BN / 16;
+  static constexpr int PH = (TH - 1) * S + 3, PW = (TW - 1) * S + 3;
+  static constexpr int SW = TW + 1;             // columns of one parity
+  static constexpr int PROWS = S == 2 ? PH * 2 * SW : PH * PW;
+  static constexpr int PATCH = PROWS * KC;      // elements
+  static constexpr int WTS = 9 * BN * KC;
+  static constexpr int STAGE = NX * PATCH + WTS;
+  static constexpr int OS = BN + 8;             // staging row stride
+  static constexpr size_t SMEM = (size_t)STAGES * STAGE * sizeof(bf16);
+  // two blocks an SM where two rings fit (228 KB an SM, 1 KB a block)
+  static constexpr int MIN_BLOCKS = 2 * (SMEM + 1024) <= 233472 ? 2 : 1;
+  static_assert(TH % 4 == 0 && BN % 32 == 0 && (S == 1 || S == 2),
+                "tile shape");
+  static_assert(SMEM <= 232448, "ring exceeds a block's shared memory");
+  static_assert((size_t)TH * TW * OS * sizeof(bf16) <= SMEM,
+                "staging tile must fit in the ring");
+
+  // Element offset of chunk c of patch pixel (py, px). The chunk's swizzle
+  // is keyed on the pixel's column within its (sub-)row: 8 consecutive
+  // columns of one row at one logical chunk fall on 8 distinct 16-byte bank
+  // groups, and the offset is linear in py, so a tap's fragment addresses
+  // are one per-lane base for each kx plus constants.
+  static __device__ __forceinline__ int patch_off(int py, int px, int c) {
+    const int col = S == 2 ? px >> 1 : px;
+    const int r = S == 2 ? (py * 2 + (px & 1)) * SW + col : py * PW + px;
+    return (r * 2 + (c ^ ((col >> 2) & 1))) * 8;
+  }
+};
 
 struct PipeSrc {
   const bf16* x;     // (N, H, W, C)
+  const bf16* x2;    // (N, H, W, C), summed with x where NX == 2
   const bf16* w;     // packed (CoutP, 3, 3, CinP)
   int H, W, C, CinP;
+  int t_len, fold, shift;   // temporal shift (conv_common.cuh src_frame)
   int vec;           // C % 8 == 0 and 16-byte aligned: cp.async the patch
 };
 
-// Start the copies of K slice k0 into stage ``st``. Patch chunks outside the
-// image or past C are zero-filled; without ``vec`` the patch is read
-// element by element and stored synchronously (visible after the barrier
-// that precedes its use, like the copies).
+// Start the copies of K slice k0 into stage ``st``; the patch's (0, 0) is
+// image pixel (iy0, ix0) of frame n before the shift. Thread t copies chunk
+// t % 2 (channels c0..c0+7) of every other row, so the frame that the
+// temporal shift assigns to its chunk is fixed for the slice; the chunk is
+// zero-filled at a clip edge, outside the image or past C. A chunk that
+// straddles two shift regions (fold % 8 != 0), and every chunk without
+// ``vec``, is read element by element and stored synchronously (visible
+// after the barrier that precedes its use, like the copies).
+template <class C>
 __device__ __forceinline__ void pipe_load(bf16* st, const PipeSrc& s, int n,
-                                          int oy0, int ox0, int n0, int k0) {
-  bf16* patch = st;
-  bf16* wsm = st + kPipePatch;
-  const int tid = threadIdx.x;
-  const bf16* wb = s.w + (long long)n0 * 9 * s.CinP + k0;
+                                          int iy0, int ix0, int n0, int k0) {
+  const int tid = threadIdx.x, c = tid & 1, c0 = k0 + c * 8;
+  // weights: smem row tap * BN + nn, chunk c (pass i: rows 128 i ..)
+  bf16* wsm = st + C::NX * C::PATCH;
+  constexpr int kWRows = 9 * C::BN, kPass = kThreads / 2;
 #pragma unroll
-  for (int i = 0; i < 9 * kPipeBN * 2 / kThreads; ++i) {
-    const int q = tid + i * kThreads;
-    const int row = q >> 1, c = q & 1;          // row = n * 9 + tap
-    const int nn = row / 9, tap = row - nn * 9;
-    cp_async16(wsm + swz<2>(tap * kPipeBN + nn, c),
-               wb + (long long)row * s.CinP + c * 8, true);
+  for (int i = 0; i < (kWRows + kPass - 1) / kPass; ++i) {
+    const int r = (tid >> 1) + i * kPass;
+    if (kWRows % kPass == 0 || r < kWRows) {
+      const int tap = r / C::BN, nn = r % C::BN;
+      cp_async16(wsm + swz<2>(r, c),
+                 s.w + ((long long)(n0 + nn) * 9 + tap) * s.CinP + c0, true);
+    }
   }
-  for (int q = tid; q < kPipePH * kPipePW * 2; q += kThreads) {
-    const int pix = q >> 1, c = q & 1;
-    const int py = pix / kPipePW, px = pix - py * kPipePW;
-    const int y = oy0 - 1 + py, x = ox0 - 1 + px, c0 = k0 + c * 8;
-    const bool in = y >= 0 && y < s.H && x >= 0 && x < s.W && c0 < s.C;
-    bf16* dst = patch + swz<2>(pix, c);
-    const long long off = (((long long)n * s.H + y) * s.W + x) * s.C + c0;
-    if (s.vec) {
-      cp_async16(dst, in ? s.x + off : s.x, in);
+  const int f = src_frame(c0, n, s.shift, s.t_len, s.fold);
+  const bool live = c0 < s.C && f >= 0;
+  const bool whole = s.vec && region_of(c0, s.shift, s.fold) ==
+                                  region_of(c0 + 7, s.shift, s.fold);
+  const long long fbase = (long long)(live ? f : 0) * s.H * s.W * s.C + c0;
+  for (int pix = tid >> 1; pix < C::PH * C::PW; pix += kPass) {
+    const int py = pix / C::PW, px = pix - py * C::PW;
+    const int y = iy0 + py, x = ix0 + px;
+    const bool in = (unsigned)y < (unsigned)s.H && (unsigned)x < (unsigned)s.W;
+    bf16* dst = st + C::patch_off(py, px, c);
+    if (whole) {
+      const bool ok = in && live;
+      const long long off = ok ? fbase + ((long long)y * s.W + x) * s.C : 0;
+      cp_async16(dst, s.x + off, ok);
+      if (C::NX == 2) cp_async16(dst + C::PATCH, s.x2 + off, ok);
     } else {
-      float v[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        v[j] = in && c0 + j < s.C ? __bfloat162float(s.x[off + j]) : 0.f;
-      store8(dst, v);
+      const bf16 zero = __float2bfloat16(0.f);
+      for (int j = 0; j < 8; ++j) {
+        const int cj = c0 + j;
+        const int fj = src_frame(cj, n, s.shift, s.t_len, s.fold);
+        const bool ok = in && cj < s.C && fj >= 0;
+        const long long off =
+            (((long long)fj * s.H + y) * s.W + x) * s.C + cj;
+        dst[j] = ok ? s.x[off] : zero;
+        if (C::NX == 2) dst[C::PATCH + j] = ok ? s.x2[off] : zero;
+      }
     }
   }
 }
@@ -144,24 +206,25 @@ __device__ __forceinline__ void pipe_load(bf16* st, const PipeSrc& s, int n,
 // The whole K loop of one block tile into acc (zeroed here). Leaves every
 // copy complete and the ring free (the caller may reuse the shared memory
 // after a __syncthreads).
-__device__ __forceinline__ void pipe_conv_tile(float (&acc)[4][8][4],
-                                               const PipeSrc& s, bf16* sm,
-                                               int n, int oy0, int ox0,
-                                               int n0) {
+template <class C>
+__device__ __forceinline__ void pipe_conv_tile(
+    float (&acc)[C::MT][C::NT][4], const PipeSrc& s, bf16* sm, int n,
+    int oy0, int ox0, int n0) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wm = warp >> 1, wn = warp & 1;
 #pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
+  for (int mt = 0; mt < C::MT; ++mt)
 #pragma unroll
-    for (int nt = 0; nt < 8; ++nt)
+    for (int nt = 0; nt < C::NT; ++nt)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0.f;
 
-  const int nk = s.CinP / kPipeKC;
+  const int iy0 = oy0 * C::S - 1, ix0 = ox0 * C::S - 1;
+  const int nk = s.CinP / C::KC;
 #pragma unroll
-  for (int st = 0; st < kPipeStages - 1; ++st) {
-    if (st < nk) pipe_load(sm + st * kPipeStage, s, n, oy0, ox0, n0,
-                           st * kPipeKC);
+  for (int st = 0; st < C::STAGES - 1; ++st) {
+    if (st < nk)
+      pipe_load<C>(sm + st * C::STAGE, s, n, iy0, ix0, n0, st * C::KC);
     cp_async_commit();
   }
   // A (x4): matrices (px 0-7, k 0-7), (px 8-15, k 0-7), (px 0-7, k 8-15),
@@ -169,35 +232,42 @@ __device__ __forceinline__ void pipe_conv_tile(float (&acc)[4][8][4],
   // (n 0-7, k 8-15), (n 8-15, k 0-7), (n 8-15, k 8-15).
   const int a_px = (lane & 7) + ((lane >> 3) & 1) * 8, a_c = lane >> 4;
   const int b_n = ((lane >> 4) << 3) + (lane & 7), b_c = (lane >> 3) & 1;
-  int b_off[4];
-#pragma unroll
-  for (int jj = 0; jj < 4; ++jj) b_off[jj] = swz<2>(wn * 64 + jj * 16 + b_n, b_c);
+  // rows 16 apart keep the swizzle: channel group jj is at + jj * 16 rows
+  const int b_off = swz<2>(wn * (C::BN / 2) + b_n, b_c);
 
   for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<kPipeStages - 2>();
+    cp_async_wait<C::STAGES - 2>();
     __syncthreads();                 // stage kt landed; stage kt-1 consumed
-    const int nxt = kt + kPipeStages - 1;
+    const int nxt = kt + C::STAGES - 1;
     if (nxt < nk)
-      pipe_load(sm + (nxt % kPipeStages) * kPipeStage, s, n, oy0, ox0, n0,
-                nxt * kPipeKC);
+      pipe_load<C>(sm + (nxt % C::STAGES) * C::STAGE, s, n, iy0, ix0, n0,
+                   nxt * C::KC);
     cp_async_commit();
-    const bf16* st = sm + (kt % kPipeStages) * kPipeStage;
-    const uint32_t pbase = smem_u32(st), wbase = smem_u32(st + kPipePatch);
+    const bf16* st = sm + (kt % C::STAGES) * C::STAGE;
+    const uint32_t pbase = smem_u32(st);
+    const uint32_t wbase = smem_u32(st + C::NX * C::PATCH);
 #pragma unroll
     for (int tap = 0; tap < 9; ++tap) {
       const int ky = tap / 3, kx = tap % 3;
-      uint32_t af[4][4];
+      uint32_t af[C::MT][4];
 #pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int pix = (wm * 4 + mt + ky) * kPipePW + a_px + kx;
-        ldsm_x4(af[mt], pbase + 2 * swz<2>(pix, a_c));
+      for (int mt = 0; mt < C::MT; ++mt) {
+        const int off = C::patch_off((wm * C::MT + mt) * C::S + ky,
+                                     a_px * C::S + kx, a_c);
+        ldsm_x4(af[mt], pbase + 2 * off);
+        if constexpr (C::NX == 2) {
+          uint32_t a2[4];
+          ldsm_x4(a2, pbase + 2 * (C::PATCH + off));
+#pragma unroll
+          for (int i = 0; i < 4; ++i) af[mt][i] = add_bf16x2(af[mt][i], a2[i]);
+        }
       }
 #pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
+      for (int jj = 0; jj < C::NT / 2; ++jj) {
         uint32_t bfr[4];
-        ldsm_x4(bfr, wbase + 2 * (tap * kPipeBN * kPipeKC + b_off[jj]));
+        ldsm_x4(bfr, wbase + 2 * ((tap * C::BN + jj * 16) * C::KC + b_off));
 #pragma unroll
-        for (int mt = 0; mt < 4; ++mt) {
+        for (int mt = 0; mt < C::MT; ++mt) {
           mma_bf16(acc[mt][2 * jj], af[mt], bfr);
           mma_bf16(acc[mt][2 * jj + 1], af[mt], bfr + 2);
         }
@@ -205,6 +275,103 @@ __device__ __forceinline__ void pipe_conv_tile(float (&acc)[4][8][4],
     }
   }
   cp_async_wait<0>();
+}
+
+// The block's output tile and channel block (see the grid above).
+struct PipeBlock {
+  int n, oy0, ox0, n0;
+};
+
+template <class C>
+__device__ __forceinline__ PipeBlock pipe_block(int Wo, int CoutP) {
+  const int nb = CoutP / C::BN;
+  const int tile = blockIdx.x / nb, cb = blockIdx.x - tile * nb;
+  const int tiles_x = cdiv(Wo, C::TW);
+  const int ty = tile / tiles_x, tx = tile - ty * tiles_x;
+  return {static_cast<int>(blockIdx.y), ty * C::TH, tx * C::TW, cb * C::BN};
+}
+
+// Epilogue, first half: bias (packed, CoutP entries) and act in fp32, one
+// rounding to bf16, into the staging tile ``os`` [TH * TW][OS] (the ring,
+// after a barrier). The row stride OS = BN + 8 spreads a warp's pair stores
+// over the banks.
+template <class C>
+__device__ __forceinline__ void pipe_stage_out(
+    const float (&acc)[C::MT][C::NT][4], const float* bias, int n0, int act,
+    bf16* os) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tg = lane & 3;
+#pragma unroll
+  for (int mt = 0; mt < C::MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < C::NT; ++nt) {
+      const int c = wn * (C::BN / 2) + nt * 8 + 2 * tg;
+      const float b0 = bias[n0 + c], b1 = bias[n0 + c + 1];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = (wm * C::MT + mt) * C::TW + g + 8 * h;
+        *reinterpret_cast<__nv_bfloat162*>(os + r * C::OS + c) =
+            __floats2bfloat162_rn(apply_act(acc[mt][nt][2 * h] + b0, act),
+                                  apply_act(acc[mt][nt][2 * h + 1] + b1, act));
+      }
+    }
+}
+
+// Epilogue, second half (after a barrier): each output pixel's run of the
+// block's channels, 16 bytes a store where ``vec_out`` (every 8-channel run
+// lands 16-byte aligned), else element by element. ``off(n, oy, ox, o)`` is
+// the element offset of channel o of output pixel (oy, ox) of frame n in y.
+template <class C, class Off>
+__device__ __forceinline__ void pipe_store(const bf16* os, bf16* y,
+                                           const PipeBlock& blk, int Ho,
+                                           int Wo, int Cout, bool vec_out,
+                                           Off off) {
+  constexpr int kChunks = C::BN / 8;
+  for (int q = threadIdx.x; q < C::TH * C::TW * kChunks; q += kThreads) {
+    const int r = q / kChunks, ch = q - r * kChunks;
+    const int oy = blk.oy0 + r / C::TW, ox = blk.ox0 + r % C::TW;
+    const int o = blk.n0 + ch * 8;
+    if (oy >= Ho || ox >= Wo || o >= Cout) continue;
+    const bf16* src = os + r * C::OS + ch * 8;
+    if (vec_out) {
+      *reinterpret_cast<uint4*>(y + off(blk.n, oy, ox, o)) =
+          *reinterpret_cast<const uint4*>(src);
+    } else {
+      for (int e = 0; e < 8 && o + e < Cout; ++e)
+        y[off(blk.n, oy, ox, o + e)] = src[e];
+    }
+  }
+}
+
+// The body of a pipelined conv kernel (grid of pipe_launch): this block's
+// K loop, then the epilogue through the freed ring into y (Ho x Wo output
+// frames, ``off`` as in pipe_store).
+template <class C, class Off>
+__device__ __forceinline__ void pipe_conv_block(const PipeSrc& s,
+                                                const float* bias, int act,
+                                                bf16* y, int Ho, int Wo,
+                                                int CoutP, int Cout,
+                                                bool vec_out, Off off) {
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
+  const PipeBlock blk = pipe_block<C>(Wo, CoutP);
+  float acc[C::MT][C::NT][4];
+  pipe_conv_tile<C>(acc, s, sm, blk.n, blk.oy0, blk.ox0, blk.n0);
+  __syncthreads();                   // the ring becomes the staging tile
+  pipe_stage_out<C>(acc, bias, blk.n0, act, sm);
+  __syncthreads();
+  pipe_store<C>(sm, y, blk, Ho, Wo, Cout, vec_out, off);
+}
+
+// Launch a pipelined kernel over an Ho x Wo output of N frames.
+template <class C, class Args>
+inline int pipe_launch(void (*kern)(Args), const Args& a, int Ho, int Wo,
+                       int CoutP, int N, cudaStream_t stream) {
+  cudaError_t e = set_smem(kern, C::SMEM);
+  if (e != cudaSuccess) return (int)e;
+  dim3 grid(cdiv(Ho, C::TH) * cdiv(Wo, C::TW) * (CoutP / C::BN), N);
+  kern<<<grid, kThreads, C::SMEM, stream>>>(a);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace bsvd

@@ -26,7 +26,9 @@
 //   tap shift a per-lane row address);
 // - the epilogue adds the bias, rounds to bf16 once, stages the tile in
 //   shared memory and writes each pixel's run of channels of a sub-pixel
-//   with 16-byte stores.
+//   with 16-byte stores;
+// - the output-channel block is the fastest grid index, so the 2 or 4
+//   blocks that read one input tile run together.
 // The fp32 instantiation keeps the simple FMA walk of conv_common.cuh
 // (conv_region): it is the exactness reference of the card's parity
 // checks, not a speed path.
@@ -51,58 +53,18 @@ __device__ __forceinline__ long long ps_offset(const PsArgs& a, int n, int oy,
           (s & 1)) * c4 + k;
 }
 
-constexpr int kPsOS = kPipeBN + 8;   // staging row stride (bank spread)
+using PsCfg = PipeCfg<1, 16, 128, 1, 4>;
 
-__global__ void __launch_bounds__(kThreads, 1) conv_ps_bf16_kernel(PsArgs a) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  bf16* sm = reinterpret_cast<bf16*>(smem_raw);
-  const int tiles_x = cdiv(a.W, kPipeTW);
-  const int ty = blockIdx.x / tiles_x, tx = blockIdx.x - ty * tiles_x;
-  const int n0 = blockIdx.y * kPipeBN, n = blockIdx.z;
-  const int oy0 = ty * kPipeTH, ox0 = tx * kPipeTW;
-
-  PipeSrc s{static_cast<const bf16*>(a.x), static_cast<const bf16*>(a.w),
-            a.H, a.W, a.Cin, a.CinP, a.vec};
-  float acc[4][8][4];
-  pipe_conv_tile(acc, s, sm, n, oy0, ox0, n0);
-  __syncthreads();                   // the ring becomes the staging tile
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int wm = warp >> 1, wn = warp & 1, g = lane >> 2, tg = lane & 3;
-  bf16* os = sm;                     // [256 pixels][kPsOS]
-#pragma unroll
-  for (int mt = 0; mt < 4; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 8; ++nt) {
-      const int c = wn * 64 + nt * 8 + 2 * tg;
-      const float b0 = a.b[n0 + c], b1 = a.b[n0 + c + 1];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int r = (wm * 4 + mt) * kPipeTW + g + 8 * h;
-        *reinterpret_cast<__nv_bfloat162*>(os + r * kPsOS + c) =
-            __floats2bfloat162_rn(acc[mt][nt][2 * h] + b0,
-                                  acc[mt][nt][2 * h + 1] + b1);
-      }
-    }
-  __syncthreads();
-
-  bf16* y = static_cast<bf16*>(a.y);
-  const bool vec_out = (a.Cout / 4) % 8 == 0;
-  constexpr int kChunks = kPipeBN / 8;
-  for (int q = threadIdx.x; q < kPipeTH * kPipeTW * kChunks; q += kThreads) {
-    const int r = q / kChunks, ch = q - r * kChunks;
-    const int oy = oy0 + r / kPipeTW, ox = ox0 + r % kPipeTW;
-    const int o = n0 + ch * 8;
-    if (oy >= a.H || ox >= a.W || o >= a.Cout) continue;
-    const bf16* src = os + r * kPsOS + ch * 8;
-    if (vec_out) {
-      *reinterpret_cast<uint4*>(y + ps_offset(a, n, oy, ox, o)) =
-          *reinterpret_cast<const uint4*>(src);
-    } else {
-      for (int e = 0; e < 8 && o + e < a.Cout; ++e)
-        y[ps_offset(a, n, oy, ox, o + e)] = src[e];
-    }
-  }
+__global__ void __launch_bounds__(kThreads, PsCfg::MIN_BLOCKS)
+conv_ps_bf16_kernel(PsArgs a) {
+  PipeSrc s{static_cast<const bf16*>(a.x), nullptr,
+            static_cast<const bf16*>(a.w), a.H, a.W, a.Cin, a.CinP,
+            1, 0, kShiftNone, a.vec};
+  pipe_conv_block<PsCfg>(s, a.b, kActNone, static_cast<bf16*>(a.y), a.H, a.W,
+                         a.CoutP, a.Cout, (a.Cout / 4) % 8 == 0,
+                         [&](int n, int oy, int ox, int o) {
+                           return ps_offset(a, n, oy, ox, o);
+                         });
 }
 
 // fp32: conv_common.cuh's FMA walk (8 x 16 tile, 64 channels a block).
@@ -133,15 +95,9 @@ __global__ void __launch_bounds__(kThreads) conv_ps_fma_kernel(PsArgs a) {
 }
 
 static int launch_ps(const PsArgs& a, int bf16_path, cudaStream_t stream) {
-  if (bf16_path) {
-    auto kern = conv_ps_bf16_kernel;
-    cudaError_t e = set_smem(kern, kPipeSmem);
-    if (e != cudaSuccess) return (int)e;
-    dim3 grid(cdiv(a.H, kPipeTH) * cdiv(a.W, kPipeTW), a.CoutP / kPipeBN,
-              a.N);
-    kern<<<grid, kThreads, kPipeSmem, stream>>>(a);
-    return (int)cudaGetLastError();
-  }
+  if (bf16_path)
+    return pipe_launch<PsCfg>(conv_ps_bf16_kernel, a, a.H, a.W, a.CoutP, a.N,
+                              stream);
   size_t smem = ((kTH + 2) * (kTW + 2) * kKS + kWTile) * sizeof(float);
   auto kern = conv_ps_fma_kernel;
   cudaError_t e = set_smem(kern, smem);

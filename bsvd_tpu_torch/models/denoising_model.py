@@ -51,7 +51,7 @@ class DenoisingModel(BaseModel):
     def __init__(self, opt, device=None):
         super().__init__(opt)
         self.device = torch.device(device or opt.get('device', 'cuda'))
-        net = build_network(opt['network_g'])
+        net = build_network(opt['network_g'], self.device)
         self.cfg = net.cfg
         path = opt.get('path') or {}
         load_path = path.get('pretrain_network_g')
@@ -60,7 +60,7 @@ class DenoisingModel(BaseModel):
             net.load_params(self.load_network(
                 load_path, None if key == 'None' else key,
                 path.get('strict_load_g', True)))
-        self.net = net.to(self.device)
+        self.net = net
         self.ema_params = None
         if self.is_train:
             self.init_training_settings()

@@ -5,7 +5,8 @@ versions use) and packs them for the CUDA kernels once, at first CUDA use:
 ``(CoutP, 3, 3, CinP)`` contiguous in the activation dtype, CinP rounded up
 to 16 and CoutP to 64 with zeros, and an fp32 bias of CoutP, on the
 activations' device. K4 takes its own order (``order='ps'``): output rows
-sub-pixel-major and CoutP rounded up to 128. Modules keep their
+sub-pixel-major and CoutP rounded up to 128; K3 takes CoutP rounded up to
+128 in torch's order (``cout_mult=128``). Modules keep their
 ConvWeights per (device, dtype), so packing happens once, not per call; a
 packed copy is made anew when its weight or bias has changed in place since
 (an optimizer step). A wrapper also takes a bare weight tensor and packs it
@@ -44,20 +45,26 @@ class ConvWeights:
     def cin(self):
         return self.w.shape[1]
 
-    def packed(self, device, dtype, cin_mult=16, order='oc'):
+    def packed(self, device, dtype, cin_mult=16, order='oc', cout_mult=None):
         """(w_packed, b_packed) on ``device`` (the activations'); ``cin_mult``
         64 for a chain's second conv, whose K runs over the padded
-        intermediate. ``order`` 'oc' keeps torch's output channel order;
+        intermediate. ``order`` 'oc' keeps torch's output channel order,
+        CoutP a multiple of ``cout_mult`` (64 unless given: 128 for K3);
         'ps' (K4) puts packed row ``s * c4 + k`` = torch channel
-        ``k * 4 + s`` (``ps_order``), CoutP a multiple of 128."""
+        ``k * 4 + s`` (``ps_order``), CoutP a multiple of 128 and of
+        nothing else."""
         if order not in ('oc', 'ps'):
             raise ValueError(f'pack order must be oc or ps, got {order!r}')
-        key = (torch.device(device), dtype, cin_mult, order)
+        if order == 'ps' and cout_mult not in (None, 128):
+            raise ValueError(f"pack order 'ps' pads CoutP to a multiple of "
+                             f"128, not {cout_mult}")
+        cout_mult = cout_mult or (128 if order == 'ps' else 64)
+        key = (torch.device(device), dtype, cin_mult, order, cout_mult)
         stamp = (self.w._version, self.b._version)
         hit = self._packed.get(key)
         if hit is None or hit[0] != stamp:
             cinp = round_up(self.cin, cin_mult)
-            coutp = round_up(self.cout, 128 if order == 'ps' else 64)
+            coutp = round_up(self.cout, cout_mult)
             rows = (ps_order(self.cout, self.w.device) if order == 'ps'
                     else slice(None))
             with torch.no_grad():

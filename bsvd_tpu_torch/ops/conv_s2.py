@@ -2,7 +2,8 @@
 
 Counterpart of bsvd_tpu/ops/conv_s2.py ``conv_s2_pallas``, in natural
 layout (the TPU kernel's width-folded weights are not ported); the CUDA
-kernel is ``csrc/conv_s2.cu``. CPU tensors run ``conv_s2_reference``;
+kernel is ``csrc/conv_s2.cu``, whose bf16 block holds 128 output channels
+(weights packed with CoutP a multiple of 128). CPU tensors run ``conv_s2_reference``;
 CUDA tensors launch the kernel or raise. ``conv_s2.launches`` counts.
 
 Differentiable as an autograd Function with conv_s2.py _s2_bwd's backward:
@@ -37,7 +38,7 @@ def conv_s2(x, w, b=None, act='relu6'):
     if is_cpu(x):
         return conv_s2_reference(x, cw, act=act)
     (x,) = check_cuda('conv_s2', x)
-    wp, bp = cw.packed(x.device, x.dtype)
+    wp, bp = cw.packed(x.device, x.dtype, cout_mult=128)
     y = torch.empty((nt, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1, cw.cout),
                     dtype=x.dtype, device=x.device)
     err = _build.lib().bsvd_conv_s2(

@@ -24,7 +24,8 @@ Phases, each printed as one JSON object on its own line:
    the plain version exactly. Train sites (8 clips x 11 frames of 96x96,
    the c64 train step's 28 weight gradients): K7 conv3x3_dw against the
    fp32 weight gradient of the same bf16 values, its plain time that of
-   cuDNN's bf16 wgrad (the shift and addend materialised first). The
+   cuDNN's bf16 wgrad (the shift and addend materialised first), and K1 at
+   the 4 chain intermediates that the step's backward recomputes. The
    generation-1 shift-conv entry (``shift_conv_fused_v1``, K1 with no
    second input) at its whole-clip sites.
 3. MIMO main path: ``build_network`` BSVD-c64 (random weights from a seed),
@@ -295,18 +296,20 @@ def _sites():
         w, b = cw.w.to(torch.bfloat16), cw.b.to(torch.bfloat16)
         return lambda: conv2d(v, w, b, stride=stride)
 
-    def k1(h, w, c, shift, add2, nt=T):
+    def k1(h, w, c, shift, add2, nt=T, cout=None):
+        cout = cout or c
+
         def make(g):
             x = act_in((nt, h, w, c), g)
             x2 = act_in((nt, h, w, c), g) if add2 else None
-            cw = conv(c, c, g)
+            cw = conv(c, cout, g)
             kw = dict(t_len=nt, shift=shift, act='relu6')
             v = shifted(x if x2 is None else x + x2, nt, shift)
             return (lambda: conv3x3(x, cw, x2=x2, **kw),
                     lambda: conv3x3_reference(*f32(x), cw, x2=f32(x2)[0],
                                               **kw),
                     lambda: conv3x3_reference(x, cw, x2=x2, **kw), None,
-                    work(2 * 9 * c * c * nt * h * w, (x, x2), (cw,),
+                    work(2 * 9 * c * cout * nt * h * w, (x, x2), (cw,),
                          lib_conv(v, cw)))
         return make
 
@@ -468,6 +471,17 @@ def _sites():
                                                  False)),
     ]
     assert sum(n for _, _, n, _ in train) == PER_TRAIN_STEP['conv3x3_dw']
+    # the train step's 4 chain intermediates recomputed by K1 (64-channel
+    # blocks)
+    nt_train = TRAIN_N * TRAIN_T
+    train += [
+        ('conv3x3', 'chain_inc_96x96_4_64', 2,
+         k1(TRAIN_HW, TRAIN_HW, 4, 'none', False, nt_train, 64)),
+        ('conv3x3', 'chain_add2_96x96_64_64', 2,
+         k1(TRAIN_HW, TRAIN_HW, 64, 'none', True, nt_train, 64)),
+    ]
+    assert sum(n for k, _, n, _ in train if k == 'conv3x3') == \
+        PER_TRAIN_STEP['conv3x3'] - PER_FORWARD['conv3x3']
     # per-frame streaming sites; the chain runs at 128 channels, two K5
     # steps at 256 (CHAIN_MAX_C); the other route at each width is timed
     # with count 0
@@ -638,7 +652,7 @@ def _check_out(out, clip):
 
 
 def phase_main(clips):
-    nets = {mode: build_network(dict(C64, shift_mode=mode)).to('cuda')
+    nets = {mode: build_network(dict(C64, shift_mode=mode))
             for mode in ('TSM', 'TSM_toFutureOnly')}
     outs = {}
     torch.cuda.reset_peak_memory_stats()
@@ -1164,7 +1178,7 @@ def _kernel_group(name):
         return 'K7 conv3x3_dw'
     if 'conv_ps' in n:
         return 'K4 conv_ps'
-    if 'conv3x3_kernel' in n:
+    if 'bsvd::conv3x3_' in n:
         return 'K1 conv3x3'
     for key, group in (('bibuffer', 'K5/K6'), ('conv_chain', 'K2 conv_chain'),
                        ('conv_s2', 'K3 conv_s2'), ('dgrad', 'cuDNN dgrad'),

@@ -55,7 +55,8 @@ def test_pth_file_loads(tmp_path, prefix):
     torch.save({'params': sd, 'params_ema': sd}, path)
     _assert_state_equal(to_tsn_state_dict(load_tsn_state_dict(path, cfg), cfg),
                         ref)
-    net = build_network(dict(_KW, type='BSVD', pretrain_ckpt=str(path)))
+    net = build_network(dict(_KW, type='BSVD', pretrain_ckpt=str(path)),
+                        device='cpu')
     _assert_state_equal(to_tsn_state_dict(net.param_tree(), cfg), ref)
 
 
@@ -77,7 +78,7 @@ def test_key_map_matches_jax():
 def test_module_prepared_cache_follows_loads():
     """Packed/cast weights are cached per (device, dtype) and rebuilt when
     the parameters change."""
-    net = build_network(dict(_KW, type='BSVD', seed=1))
+    net = build_network(dict(_KW, type='BSVD', seed=1), device='cpu')
     a = net.prepared('cpu', torch.float32)
     assert net.prepared('cpu', torch.float32) is a
     _, ref = _jax_state(33)

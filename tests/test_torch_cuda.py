@@ -2,7 +2,8 @@
 
 Every test here needs a CUDA device (and ``nvcc`` for the first build); it
 skips elsewhere. Shapes are small and ragged (sizes that are not multiples
-of the 8 x 16 tile, Cin = 3 / 4, Cout = 3) so every masking path runs.
+of the 8 x 16 or 16 x 16 tiles, Cin = 3 / 4, Cout = 3) so every masking
+path runs.
 
 Tolerances: fp32 kernels against the fp32 plain version (cuDNN with TF32
 off) differ only in summation order: 1e-4 relative to max|ref|. bf16
@@ -57,18 +58,35 @@ def _close(got, ref, dtype):
 DTYPES = [torch.float32, torch.bfloat16]
 
 
+# (clips, t_len, H, W, C, Cout, shift, x2): C = 64 / Cout 64 runs the
+# 64-channel block, Cout 72 / 128 / 256 the 128-channel one
+_C3_CASES = {'plain': (2, 3, 16, 32, 64, 64, 'none', False),
+             'tsm': (2, 3, 16, 32, 64, 64, 'tsm', False),
+             'tsm_x2': (2, 3, 16, 32, 64, 64, 'tsm', True),
+             'causal': (2, 3, 16, 32, 64, 64, 'causal', False),
+             'ragged': (2, 3, 13, 37, 32, 72, 'none', False),
+             'odd_c': (2, 3, 9, 17, 20, 3, 'none', False),
+             # fold 5: 16-byte chunks straddle the shift regions
+             'tsm_fold5': (2, 3, 12, 20, 40, 64, 'tsm', False),
+             'tsm_fold5_x2': (2, 3, 12, 20, 40, 128, 'tsm', True),
+             'causal_x2': (2, 3, 16, 32, 64, 64, 'causal', True),
+             'tsm_x2_c128': (2, 3, 17, 20, 128, 128, 'tsm', True),
+             'cout256': (2, 3, 12, 20, 128, 256, 'tsm', False),
+             # one frame (the drain conv), sizes not multiples of 16 x 16
+             'one_frame': (1, 1, 19, 37, 128, 128, 'none', False),
+             'one_frame_c256': (1, 1, 9, 20, 256, 256, 'none', False),
+             # the train step's chain recompute: Cin 4 with the addend
+             'cin4_x2': (2, 3, 13, 21, 4, 64, 'none', True),
+             'c64_x2': (2, 3, 18, 20, 64, 64, 'none', True)}
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('case', ['plain', 'tsm', 'tsm_x2', 'causal',
-                                  'ragged', 'odd_c'])
+@pytest.mark.parametrize('case', sorted(_C3_CASES))
 def test_conv3x3_kernel(dev, dtype, case):
     rng = np.random.default_rng(1)
-    t_len, n = 3, 2
-    h, w, c, co = {'ragged': (13, 37, 32, 72), 'odd_c': (9, 17, 20, 3)}.get(
-        case, (16, 32, 64, 64))
-    shift = {'tsm': 'tsm', 'tsm_x2': 'tsm', 'causal': 'causal'}.get(case,
-                                                                    'none')
+    n, t_len, h, w, c, co, shift, add2 = _C3_CASES[case]
     x = _t(rng, (n * t_len, h, w, c), 1.0, dev).to(dtype)
-    x2 = _t(rng, x.shape, 1.0, dev).to(dtype) if case == 'tsm_x2' else None
+    x2 = _t(rng, x.shape, 1.0, dev).to(dtype) if add2 else None
     wt = _t(rng, (co, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
     b = _t(rng, (co,), 0.1, dev)
     before = conv3x3.launches
@@ -105,16 +123,25 @@ def test_conv_ps_kernel(dev, dtype, shape):
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('shape', [(2, 16, 32, 64, 128), (3, 13, 35, 4, 64),
-                                   (1, 10, 18, 128, 256)])
+@pytest.mark.parametrize('shape', [
+    (2, 16, 32, 64, 128), (3, 13, 35, 4, 64), (1, 10, 18, 128, 256),
+    # one frame over several 16 x 16 output tiles, odd H and W
+    (1, 33, 47, 64, 128),
+    # odd H and W, Cout 256 (two channel blocks a tile)
+    (2, 35, 67, 128, 256),
+    # Cout % 8 != 0 (scalar epilogue), Cin % 8 != 0 (scalar loader)
+    (2, 11, 21, 16, 20), (1, 9, 7, 12, 40)])
 def test_conv_s2_kernel(dev, dtype, shape):
     n, h, w, c, co = shape
     rng = np.random.default_rng(3)
     x = _t(rng, (n, h, w, c), 1.0, dev).to(dtype)
     wt = _t(rng, (co, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
     b = _t(rng, (co,), 0.1, dev)
+    before = conv_s2.launches
     got = conv_s2(x, wt, b, act='relu6')
+    assert conv_s2.launches == before + 1
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     _close(got, conv_s2_reference(x.float(), wt, b, act='relu6'), dtype)
 
 

@@ -83,3 +83,29 @@ def test_dw_plan_covers_every_tile_once(site, dtype):
         assert cfg == (1 if ci <= 16 else 2 if co <= 16 else 0)
         blocks = (coutp // cob) * (cinp // cib) * splits
         assert blocks <= max(sms, (coutp // cob) * (cinp // cib))
+
+
+def test_oc_pack_pads_cout_to_its_multiple():
+    """K3's pack (CoutP a multiple of 128, torch's channel order) is cached
+    under its own key beside the 64-multiple pack of the other kernels;
+    K4's order takes no multiple but 128."""
+    g = torch.Generator().manual_seed(1)
+    cw = ConvWeights(torch.randn((72, 20, 3, 3), generator=g),
+                     torch.randn((72,), generator=g))
+    w64, b64 = cw.packed('cpu', torch.float32)
+    w128, b128 = cw.packed('cpu', torch.float32, cout_mult=128)
+    assert w64.shape == (128, 3, 3, 32) and w128.shape == (128, 3, 3, 32)
+    cw8 = ConvWeights(cw.w[:8], cw.b[:8])
+    assert cw8.packed('cpu', torch.float32)[0].shape[0] == 64
+    w8, b8 = cw8.packed('cpu', torch.float32, cout_mult=128)
+    assert w8.shape == (128, 3, 3, 32) and b8.shape == (128,)
+    torch.testing.assert_close(w8[:8, :, :, :20], cw8.w.permute(0, 2, 3, 1),
+                               rtol=0, atol=0)
+    assert w8[8:].abs().sum() == 0 and b8[8:].abs().sum() == 0
+    assert cw.packed('cpu', torch.float32, cout_mult=128)[0] is w128
+    torch.testing.assert_close(w128, w64, rtol=0, atol=0)
+    # K4's order has one multiple: asking it for another raises
+    assert cw8.packed('cpu', torch.float32, order='ps',
+                      cout_mult=128)[0].shape[0] == 128
+    with pytest.raises(ValueError, match='128'):
+        cw8.packed('cpu', torch.float32, order='ps', cout_mult=64)

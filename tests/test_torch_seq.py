@@ -93,7 +93,7 @@ def test_synthetic_clip_psnr_anchor():
              ).astype(np.float32)
     g = golden('synthetic_clip_psnr', lambda: pytest.skip('fixture missing'))
 
-    net = build_network(dict(opt, type='BSVD'))
+    net = build_network(dict(opt, type='BSVD'), device='cpu')
     net.load_params(load_tsn_state_dict(state, pcfg))
     out = denoise_seq(net, None, noisy[0], noise_sigma=sigma, temp_psz=-1)
     np.testing.assert_allclose(out, g['ref_den'][0], rtol=1e-4, atol=1e-4)

@@ -214,7 +214,7 @@ def test_stream_step_block_equals_steps():
     """stream_step_block == F stream_step calls from a primed state."""
     _, _, cfg, params = _pair(42)
     x = torch.from_numpy(_clip(43, 1, 21, 16, 16, 4))
-    state = stream_init(cfg, 1, 16, 16)
+    state = stream_init(cfg, 1, 16, 16, device='cpu')
     for i in range(16):
         state, _ = stream_step(params, state, x[:, i], cfg)
     s_ref = [dict(st, **{k: dict(st[k], buf=st[k]['buf'].clone())
@@ -268,7 +268,7 @@ def test_denoise_seq_streaming_equals_mimo_and_jax(over):
 def test_stream_denoiser_from_build_network():
     """build_network -> StreamDenoiser on the module (its cached weights)
     == the module's MIMO forward; numpy frames are accepted."""
-    net = build_network(dict(_KW, type='BSVD', seed=3))
+    net = build_network(dict(_KW, type='BSVD', seed=3), device='cpu')
     rng = np.random.default_rng(48)
     x = rng.uniform(0, 1, (1, 18, 16, 16, 4)).astype(np.float32)
     sd = StreamDenoiser(net, None, batch=1, height=16, width=16)

@@ -96,7 +96,7 @@ def test_bsvd_module_forward_and_registry():
     """build_network -> BSVD module; (N, F, C, H, W) IO with a noise map
     equals wnet_apply on the channels-last input."""
     opt = dict(SMALL_NET2D_OPT, type='BSVD', seed=5)
-    net = build_network(opt)
+    net = build_network(opt, device='cpu')
     assert isinstance(net, BSVD)
     rng = np.random.default_rng(6)
     x = torch.from_numpy(rng.uniform(0, 1, (1, 4, 3, 16, 16))
@@ -107,21 +107,35 @@ def test_bsvd_module_forward_and_registry():
                      torch.cat([x, nm], 2).permute(0, 1, 3, 4, 2), net.cfg)
     np.testing.assert_allclose(y.numpy(),
                                ref.permute(0, 1, 4, 2, 3).numpy(), **TOL)
-    assert build_network(dict(opt, type='BufferConv')).cfg == net.cfg
+    assert build_network(dict(opt, type='BufferConv'),
+                         device='cpu').cfg == net.cfg
 
 
 def test_tsn_module_options():
     net = build_network({'type': 'TSN', 'num_segments': 5,
                          'shift_type': 'TSM_toFutureOnly',
-                         'net2d_opt': dict(SMALL_NET2D_OPT)})
+                         'net2d_opt': dict(SMALL_NET2D_OPT)}, device='cpu')
     assert isinstance(net, TSN)
     assert net.cfg.shift_mode == 'TSM_toFutureOnly'
     assert net.cfg.chns == (16, 32, 64) and net.shift_num == 16
 
 
+def test_build_network_defaults_to_the_card(monkeypatch):
+    """The inference entry builds on 'cuda' unless asked for the CPU, and
+    raises without a card instead of returning a CPU module."""
+    import inspect
+    assert inspect.signature(build_network).parameters['device'].default \
+        == 'cuda'
+    monkeypatch.setattr(torch.cuda, 'is_available', lambda: False)
+    with pytest.raises(RuntimeError, match='no CUDA device'):
+        build_network(dict(SMALL_NET2D_OPT, type='BSVD'))
+    net = build_network(dict(SMALL_NET2D_OPT, type='BSVD'), device='cpu')
+    assert next(net.parameters()).device.type == 'cpu'
+
+
 def test_seeded_init_is_deterministic():
-    a = build_network(dict(SMALL_NET2D_OPT, type='BSVD', seed=7))
-    b = build_network(dict(SMALL_NET2D_OPT, type='BSVD', seed=7))
+    a = build_network(dict(SMALL_NET2D_OPT, type='BSVD', seed=7), 'cpu')
+    b = build_network(dict(SMALL_NET2D_OPT, type='BSVD', seed=7), 'cpu')
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
