@@ -15,7 +15,8 @@ back from the device. Per site:
 - steady (valid input, primed buffer; every causal step): K5
   ``bibuffer_conv``, or K6 ``bibuffer_chain`` for a whole MemCvBlock when
   both its buffers are primed and it is at most ``CHAIN_MAX_C`` channels
-  wide (the TPU's routing: the chain at 128 channels, two steps at 256);
+  wide (the TPU routes the chain at 128 channels, two steps at 256; on the
+  H100 two K5 steps beat K6 at both widths, so no MemCvBlock takes it);
 - drain (invalid input, primed buffer): the input assembled with
   ``torch.cat`` and K1 ``conv3x3`` (shift 'none');
 - fill (valid input, empty buffer): no conv, the frame is stored;
@@ -44,8 +45,11 @@ from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
 from bsvd_tpu_torch.ops.conv_chain import conv_chain, conv_chain_add2_res
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 
-# widest MemCvBlock (input or intermediate channels) that runs as one K6
-CHAIN_MAX_C = 128
+# widest MemCvBlock (input or intermediate channels) that runs as one K6:
+# none. Two K5 steps take 0.39 ms at 270x480x128 against K6's 0.86 (NVIDIA
+# H100 80GB HBM3, 700 W; chip_smoke.py phase 2, PERF.md), so K6 waits for
+# its rebuild on K2's chain loop
+CHAIN_MAX_C = 0
 
 _CV_SITES = ('down0', 'down1', 'up2', 'up1')
 

@@ -16,12 +16,23 @@
 // lanes [:f], not [f:2f]), i = 1 -> [x_1[:f], B[f:2f], x_0[2f:]]. Causal:
 // [x_{i-1}[:2f], x_i[2f:]] with x_{-1} = B. The next state is
 // [x_{F-2}[f:2f], x_{F-1}[f:]] (F = 1: [B[f:2f], x_0[f:]]); causal x_{F-1}.
-// The channel rule lives in the tile loader (read_group below), so the
-// assembled input never exists in device memory; the conv is K1's tile
-// machinery (conv_common.cuh). Blocks run over (tile, 64 output channels,
-// frame x stream) in any order, so none may write B: the next state goes to
-// a separate tensor, copied by the blocks of the first channel group of the
-// last frame (a pure copy, bit-exact).
+// The channel rule lives in the tile loader, so the assembled input never
+// exists in device memory. bf16: K1's pipelined loop (conv_pipe.cuh
+// pipe_conv_block) with its own loader source (BiPipeSrc: for frame z = i
+// * N + stream and chunk c0, the base pointer of x_i, x_{i-1}, x_{i-2} or
+// B, B's channel offset c0 - f in region 1 at i = 0; a chunk that
+// straddles two regions, and every chunk without ``vec``, is read element
+// by element). The tile follows the grid: 16 x 16 x 128 with a 4-stage
+// ring (one block an SM) where it holds at least kBigTileWaves waves of
+// those blocks on the device's SMs (push_block's F = 8: 16-31 waves), else
+// K3's 8 x 16 x 128 with 2 stages (two blocks an SM: the one-frame sites
+// of a push are 2-4 waves, and the second block hides each block's fill
+// and epilogue); 64-channel blocks where CoutP is not a multiple of 128.
+// fp32: conv_common.cuh's FMA walk (read_group below). Blocks run over
+// (tile, channel block, frame x stream) in any order, so none may write B:
+// the next state goes to a separate tensor, copied by the blocks of the
+// first channel block of the last frame, each its own tile (a pure copy,
+// bit-exact).
 //
 // K6 replaces bibuffer_chain_pallas -> _kernel_bibuf_chain: both buffered
 // convs of a MemCvBlock. As K2 (conv_chain.cu), a block recomputes conv1
@@ -34,11 +45,11 @@
 //
 // What bounds them on the H100: tensor-core FLOPs, as K1 / K2 (per frame
 // 135x240x256 and 270x480x128 at the BSVD-c64 sites); the state copy adds
-// one read and one write of a frame. K6 pays K2's halo recompute of conv1
-// (1.41x conv1's FLOPs, 1.5x as issued) to keep the intermediate out of
-// device memory.
+// one read and one write of a frame. K6 (still the synchronous
+// conv_region, bf16 too) pays a halo recompute of conv1 (1.41x conv1's
+// FLOPs, 1.5x as issued) to keep the intermediate out of device memory.
 
-#include "conv_common.cuh"
+#include "conv_pipe.cuh"
 
 namespace bsvd {
 
@@ -111,15 +122,15 @@ __device__ __forceinline__ void read_group(const BiSrc<T>& s, int n, int y,
   }
 }
 
-// Next packed state of stream st for the block's 8 x 16 tile.
+// Next packed state of stream st for the block's th x tw tile.
 template <typename T>
 __device__ void copy_next_state(T* bn, const BiSrc<T>& s, int F, int st,
-                                int oy0, int ox0) {
+                                int oy0, int ox0, int th, int tw) {
   const long long base = (long long)st * s.H * s.W * s.C;
   const int G = s.vec ? s.C / 8 : s.C;     // units per pixel
-  for (int u = threadIdx.x; u < kTH * kTW * G; u += kThreads) {
+  for (int u = threadIdx.x; u < th * tw * G; u += kThreads) {
     int r = u / G, g = u - r * G;
-    int oy = oy0 + r / kTW, ox = ox0 + r % kTW;
+    int oy = oy0 + r / tw, ox = ox0 + r % tw;
     if (oy >= s.H || ox >= s.W) continue;
     long long pix = (long long)oy * s.W + ox;
     if (s.vec) {
@@ -129,6 +140,48 @@ __device__ void copy_next_state(T* bn, const BiSrc<T>& s, int F, int st,
     }
   }
 }
+
+// K5's loader source on the pipelined loop (conv_pipe.cuh pipe_load).
+struct BiPipeSrc : BiSrc<bf16> {
+  const bf16* w;     // packed (CoutP, 3, 3, CinP)
+  int CinP;
+
+  // Channels c0..c0+7 of conv input frame z = i * N + stream, by bi_elem's
+  // rule: one tensor frame and channel offset for the whole slice.
+  __device__ __forceinline__ PipeChunk chunk(int z, int c0) const {
+    const int i = z / N, st = z - i * N, f = fold;
+    const long long fr = (long long)H * W * C;
+    const bf16* bst = b + st * fr;
+    const bf16* xi = x + ((long long)i * N + st) * fr;     // x_i
+    const bf16* p;
+    int c = c0;
+    if (causal) {
+      p = c0 >= 2 * f ? xi : (i == 0 ? bst : xi - N * fr);
+    } else if (c0 < f) {
+      p = xi;
+    } else if (c0 < 2 * f) {
+      p = i <= 1 ? bst : xi - 2 * N * fr;
+      if (i == 0) c = c0 - f;
+    } else {
+      p = i == 0 ? bst : xi - N * fr;
+    }
+    return {p, nullptr, c, c0 < C,
+            vec && bi_region(c0, f) == bi_region(c0 + 7, f)};
+  }
+
+  // Element by element (a chunk that straddles two regions, or no vec):
+  // each channel by chunk()'s rule.
+  template <int NX, int P>
+  __device__ __forceinline__ void elems8(bf16* dst, int z, int y, int xx,
+                                         int c0, bool in) const {
+    const long long pix = ((long long)y * W + xx) * C;
+#pragma unroll 1
+    for (int j = 0; j < 8; ++j) {
+      const PipeChunk e = chunk(z, c0 + j);
+      dst[j] = in && e.live ? e.x[e.base + pix] : __float2bfloat16(0.f);
+    }
+  }
+};
 
 // ---- K5 -------------------------------------------------------------------
 
@@ -154,9 +207,31 @@ __device__ __forceinline__ BiSrc<T> bi_src(const void* x, const void* b,
   return s;
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kThreads) bibuf_kernel(BiArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+template <class C>
+__global__ void __launch_bounds__(kThreads, C::MIN_BLOCKS)
+bibuf_bf16_kernel(BiArgs a) {
+  BiPipeSrc s;
+  static_cast<BiSrc<bf16>&>(s) = bi_src<bf16>(a.x, a.b, a.N, a.H, a.W, a.C,
+                                              a.fold, a.causal, a.vec);
+  s.w = static_cast<const bf16*>(a.w);
+  s.CinP = a.CinP;
+  pipe_conv_block<C>(s, a.bias, a.act, static_cast<bf16*>(a.y), a.H, a.W,
+                     a.CoutP, a.Cout, a.Cout % 8 == 0,
+                     [&](int z, int oy, int ox, int o) {
+                       return (((long long)z * a.H + oy) * a.W + ox) *
+                                  a.Cout + o;
+                     });
+  const PipeBlock blk = pipe_block<C>(a.W, a.CoutP);
+  const int i = blk.n / a.N;
+  if (blk.n0 == 0 && i == a.F - 1)
+    copy_next_state(static_cast<bf16*>(a.bn), s, a.F, blk.n - i * a.N,
+                    blk.oy0, blk.ox0, C::TH, C::TW);
+}
+
+// fp32: conv_common.cuh's FMA walk (8 x 16 tile, 64 channels a block).
+__global__ void __launch_bounds__(kThreads) bibuf_fma_kernel(BiArgs a) {
+  using T = float;
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   T* patch = reinterpret_cast<T*>(smem_raw);
   T* wsm = patch + (kTH + 2) * (kTW + 2) * kKS;
 
@@ -185,13 +260,39 @@ __global__ void __launch_bounds__(kThreads) bibuf_kernel(BiArgs a) {
 
   const int i = z / a.N;
   if (blockIdx.y == 0 && i == a.F - 1)
-    copy_next_state(static_cast<T*>(a.bn), s, a.F, z - i * a.N, oy0, ox0);
+    copy_next_state(static_cast<T*>(a.bn), s, a.F, z - i * a.N, oy0, ox0,
+                    kTH, kTW);
 }
 
-template <typename T>
-static int launch_bibuf(const BiArgs& a, cudaStream_t stream) {
+template <class C>
+static int launch_bibuf_pipe(const BiArgs& a, cudaStream_t stream) {
+  return pipe_launch<C>(bibuf_bf16_kernel<C>, a, a.H, a.W, a.CoutP,
+                        a.F * a.N, stream);
+}
+
+// The grid, in waves of 16 x 16 x 128 blocks one an SM, from which that
+// tile beats 8 x 16 x 128 at two an SM (tools/torch_kernel_variants.py
+// --group k5; PERF.md).
+constexpr int kBigTileWaves = 8;
+
+static int launch_bibuf(const BiArgs& a, int bf16_path, cudaStream_t stream) {
+  if (bf16_path) {
+    if (a.CoutP % 128 != 0)
+      return launch_bibuf_pipe<PipeCfg<1, 16, 64, 1, 4>>(a, stream);
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    const long long blocks = (long long)cdiv(a.H, 16) * cdiv(a.W, 16) *
+                             (a.CoutP / 128) * a.F * a.N;
+    return blocks >= (long long)kBigTileWaves * sms
+               ? launch_bibuf_pipe<PipeCfg<1, 16, 128, 1, 4>>(a, stream)
+               : launch_bibuf_pipe<PipeCfg<1, 8, 128, 1, 2>>(a, stream);
+  }
+  using T = float;
   size_t smem = ((kTH + 2) * (kTW + 2) * kKS + kWTile) * sizeof(T);
-  auto kern = bibuf_kernel<T>;
+  auto kern = bibuf_fma_kernel;
   cudaError_t e = set_smem(kern, smem);
   if (e != cudaSuccess) return (int)e;
   dim3 grid(cdiv(a.H, kTH) * cdiv(a.W, kTW), a.CoutP / kBN, a.F * a.N);
@@ -222,7 +323,7 @@ constexpr int kBMT1 = 3;                           // 4 * 3 * 16 = 192 >= 180
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads) bibuf_chain_kernel(BiChainArgs a) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
+  extern __shared__ __align__(128) unsigned char smem_raw[];
   T* patch = reinterpret_cast<T*>(smem_raw);
   T* wsm = patch + kBPH * kBPW * kKS;
   T* interm = wsm + kWTile;
@@ -300,7 +401,7 @@ __global__ void __launch_bounds__(kThreads) bibuf_chain_kernel(BiChainArgs a) {
     });
   }
 
-  copy_next_state(static_cast<T*>(a.s1n), s, 1, st, oy0, ox0);
+  copy_next_state(static_cast<T*>(a.s1n), s, 1, st, oy0, ox0, kTH, kTW);
 }
 
 template <typename T>
@@ -331,9 +432,7 @@ extern "C" int bsvd_bibuffer(int dtype, const void* x, const void* b,
                              int causal, int act, int vec, void* stream) {
   bsvd::BiArgs a{x, b, w, static_cast<const float*>(bias), y, bn, F, N, H,
                  W, C, CinP, Cout, CoutP, fold, causal, act, vec};
-  auto s = static_cast<cudaStream_t>(stream);
-  return dtype == 1 ? bsvd::launch_bibuf<bsvd::bf16>(a, s)
-                    : bsvd::launch_bibuf<float>(a, s);
+  return bsvd::launch_bibuf(a, dtype == 1, static_cast<cudaStream_t>(stream));
 }
 
 // x / s1 / s1n (N, H, W, C), s2 / s2n (N, H, W, C1), y (N, H, W, Cout).

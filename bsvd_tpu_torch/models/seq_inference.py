@@ -25,8 +25,10 @@ def _memory_budget(device, frac=0.8):
 
 
 def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
-                mode='mimo', compute_dtype=None):
-    """Denoise a frame sequence as one whole clip.
+                future_buffer_len=0, mode='mimo', compute_dtype=None,
+                mesh=None, host_chunks=False, device_program=False):
+    """Denoise a frame sequence as one whole clip (the JAX signature and
+    argument order).
 
     Args:
         params: a BSVD / TSN module (its cached, packed weights are used;
@@ -35,15 +37,25 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
         seq: (T, C, H, W) float array in [0, 1] (reference layout).
         noise_sigma: noise std in [0, 1] units (a constant noise-map
             channel is appended), or None for blind nets.
+        temp_psz, future_buffer_len: the chunked protocol; only the whole
+            clip (``temp_psz`` -1 or >= T) is ported, where the look-ahead
+            changes nothing.
         mode: 'mimo' (one batched forward) or 'streaming' (frame by
             frame through the buffered pipeline, drained at the end).
         compute_dtype: torch dtype the input and weights are cast to
             (e.g. torch.bfloat16); None keeps the sequence's dtype.
+        mesh: must be None (spatial sharding is not ported).
+        host_chunks, device_program: how the JAX package runs the chunked
+            protocol; nothing to choose on the whole clip.
     Returns:
         (T, out_ch, H, W) numpy float32 clipped to [0, 1].
     """
     if mode not in ('mimo', 'streaming'):
         raise ValueError(f"mode must be 'mimo' or 'streaming', got {mode!r}")
+    if mesh is not None:
+        raise NotImplementedError('denoise_seq(mesh=...): spatial sharding '
+                                  'waits for the parallel port (ROADMAP.md '
+                                  'Queue 1 item 5)')
     seq = torch.as_tensor(np.asarray(seq))
     t, c, h, w = seq.shape
     if not (temp_psz == -1 or temp_psz >= t):

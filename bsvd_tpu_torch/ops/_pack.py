@@ -6,7 +6,8 @@ versions use) and packs them for the CUDA kernels once, at first CUDA use:
 to 16 and CoutP to 64 with zeros, and an fp32 bias of CoutP, on the
 activations' device. K4 takes its own order (``order='ps'``): output rows
 sub-pixel-major and CoutP rounded up to 128; K3 takes CoutP rounded up to
-128 in torch's order (``cout_mult=128``). Modules keep their
+128 in torch's order (``cout_mult=128``), K2's bf16 3-channel head 16
+(``conv_chain.packed_w2``). Modules keep their
 ConvWeights per (device, dtype), so packing happens once, not per call; a
 packed copy is made anew when its weight or bias has changed in place since
 (an optimizer step). A wrapper also takes a bare weight tensor and packs it
@@ -49,7 +50,8 @@ class ConvWeights:
         """(w_packed, b_packed) on ``device`` (the activations'); ``cin_mult``
         64 for a chain's second conv, whose K runs over the padded
         intermediate. ``order`` 'oc' keeps torch's output channel order,
-        CoutP a multiple of ``cout_mult`` (64 unless given: 128 for K3);
+        CoutP a multiple of ``cout_mult`` (64 unless given: 128 for K3,
+        16 for K2's bf16 head);
         'ps' (K4) puts packed row ``s * c4 + k`` = torch channel
         ``k * 4 + s`` (``ps_order``), CoutP a multiple of 128 and of
         nothing else."""

@@ -6,8 +6,10 @@ Variants: ``conv_chain`` (inc), ``conv_chain_add2`` (conv1 reads x + x2)
 and ``conv_chain_add2_res`` (also out[..., c] = x_res[..., c] - y[..., c]
 for c < res_ch, the natural-layout per-stage residual; x_res keeps its own
 channel count). CPU tensors run ``conv_chain_reference``; CUDA tensors
-launch the kernel or raise. ``conv_chain.launches`` counts launches of all
-three variants.
+launch the kernel or raise (both kernels keep the whole intermediate in
+shared memory: bf16 takes up to 256 channels, 192 with x2, fp32 192; a
+wider one is refused at launch with CUDA's error; every WNet chain has
+64). ``conv_chain.launches`` counts launches of all three variants.
 
 All three are differentiable, with conv_chain.py _chain_direct_bwd's
 backward: the act2 mask from the saved output and only the intermediate h
@@ -41,6 +43,15 @@ def conv_chain_reference(x, w1, b1, w2, b2, act1='relu6', act2='none',
     return y
 
 
+def packed_w2(c2w, device, dtype):
+    """conv2's weights as K2 takes them: (CoutP, 3, 3, C1P), K over the
+    intermediate's channels padded to 64. bf16 packs CoutP to 16 where Cout
+    <= 16 (the 3-channel head: conv2's N block is 16 channels, not 64),
+    else to 64; the fp32 kernel's blocks are 64 channels."""
+    narrow = dtype == torch.bfloat16 and c2w.cout <= 16
+    return c2w.packed(device, dtype, 64, cout_mult=16 if narrow else 64)
+
+
 def _chain(x, x2, x_res, w1, b1, w2, b2, act1, act2, res_ch):
     c1w, c2w = as_weights(w1, b1), as_weights(w2, b2)
     nt, h, w_, c = x.shape
@@ -63,13 +74,14 @@ def _chain(x, x2, x_res, w1, b1, w2, b2, act1, act2, res_ch):
     x, x2, x_res = check_cuda('conv_chain', x, x2,
                               x_res if res_ch else None)
     w1p, b1p = c1w.packed(x.device, x.dtype)          # (C1P, 3, 3, CinP)
-    w2p, b2p = c2w.packed(x.device, x.dtype, 64)      # (CoutP, 3, 3, C1P)
+    w2p, b2p = packed_w2(c2w, x.device, x.dtype)      # (CoutP, 3, 3, C1P)
     y = torch.empty((nt, h, w_, c2w.cout), dtype=x.dtype, device=x.device)
     err = _build.lib().bsvd_conv_chain(
         int(x.dtype == torch.bfloat16), ptr(x), ptr(x2), ptr(x_res),
         ptr(w1p), ptr(b1p), ptr(w2p), ptr(b2p), ptr(y), nt, h, w_, c,
         w1p.shape[-1], c1w.cout, w1p.shape[0], c2w.cout, w2p.shape[0],
-        0 if x_res is None else x_res.shape[-1], res_ch, act_code(act1), act_code(act2), vec_ok(c, x, x2),
+        0 if x_res is None else x_res.shape[-1], res_ch, act_code(act1),
+        act_code(act2), vec_ok(c, x, x2),
         _build.stream_ptr(x))
     _build.check(err, 'conv_chain')
     conv_chain.launches += 1

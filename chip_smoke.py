@@ -16,10 +16,13 @@ Phases, each printed as one JSON object on its own line:
    input read once and each output written once, at 3.35 TB/s, whichever
    is longer) and the time of one cuDNN call that does the site's conv
    arithmetic on inputs prepared beforehand (``library_ms``; none for the
-   two-conv K2 and K6). Whole-clip sites (10
+   two-conv K2 and K6, which get ``library_pair_ms`` instead: the site's
+   two cuDNN convs, each on its input prepared beforehand, the
+   intermediate included). Whole-clip sites (10
    frames): K1 conv3x3, K2 conv_chain, K3 conv_s2, K4 conv_ps. Streaming
    sites (one frame, or 8 for push_block): K5 bibuffer_conv (F = 1) and
-   bibuffer_multi (F = 8), K6 bibuffer_chain, and K1 (shift 'none', the
+   bibuffer_multi (F = 8), K6 bibuffer_chain (K5 and K6 at both widths:
+   the route not taken is timed with count 0), and K1 (shift 'none', the
    drain conv), K2, K3, K4 at one frame. K5 states and K6's s1' must equal
    the plain version exactly. Train sites (8 clips x 11 frames of 96x96,
    the c64 train step's 28 weight gradients): K7 conv3x3_dw against the
@@ -39,16 +42,23 @@ Phases, each printed as one JSON object on its own line:
    against fp32 kernels at 540p (max |diff| and PSNR).
 5. streaming main path, both nets: ``StreamDenoiser`` push of a 24-frame
    540x960 bf16 clip, then flush (F.conv2d made to raise); the launches of
-   every push must match the port's fill / steady / drain rule (steady:
-   K2 4, K3 4, K4 4, K5 8, K6 4, K1 0) and a steady push_block of 8
-   frames must launch K5 16 times and K2 / K3 / K4 4 times. The 24 outputs,
+   every push must match the port's fill / steady / drain rule and
+   MemCvBlock route (``archs/streaming.CHAIN_MAX_C``: a MemCvBlock no
+   wider runs as one K6 when both its buffers are primed, a wider one as
+   two K5 steps; steady: K2 4, K3 4, K4 4, K1 0, and K5 8 / K6 4 with the
+   chain at 128 channels, K5 16 / K6 0 with every MemCvBlock on K5), and a
+   steady push_block of 8 frames must launch K5 16 times and K2 / K3 / K4
+   4 times. The 24 outputs,
    and the push_block's, against fp32 MIMO by PSNR (no more than 1 dB below
    bf16 MIMO's). Then steady ms/frame of push (64 pushes, best of 3) and
    of push_block(8), state bytes, peak memory, and the device idle share
    of 16 steady pushes under ``torch.profiler``.
 6. streaming parity: fp32 streaming kernels against fp32 MIMO kernels on a
-   reduced clip (1e-4 x max|ref|), and ``denoise_seq(mode='streaming')``
-   of a 10-frame clip against ``mode='mimo'`` by the same PSNR rule.
+   reduced clip (1e-4 x max|ref|), by the port's MemCvBlock route and
+   again by the other one (``CHAIN_MAX_C`` set for that run: the route not
+   on the main path, K6 or two K5, still runs through ``_memcv_step``),
+   and ``denoise_seq(mode='streaming')`` of a 10-frame clip against
+   ``mode='mimo'`` by the same PSNR rule.
 7. train_grad: one fp32 ``DenoisingModel`` step of the full-width c64 TSN
    on 2 clips x 5 frames of 64x64, kernels on the card against the plain
    path on the CPU (same weights and batch): the loss and every gradient
@@ -76,12 +86,17 @@ Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
 phases 3, 5 and 8 (counters set to 0 before each run, read after), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
-/ ``bound_ms``, the phase-2 site medians and bounds summed at the counts of
+/ ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
+summed at the counts of
 one bidirectional unit of work (``bound_by``: ``operations`` or ``bytes``,
 whichever dominates the summed bound), named by
 ``per``: a 10-frame forward (K1-K4 and the generation-1 entry), a steady
 push (K5 bibuffer_conv, K6), a steady push_block of 8 frames (K5
-bibuffer_multi) or a c64 train step at batch 8 (K7).
+bibuffer_multi) or a c64 train step at batch 8 (K7). Where the main path
+routes every MemCvBlock through K5 (``CHAIN_MAX_C`` 0), K6 is off it: its
+``launches`` are 0, its times one launch at each bidirectional site
+(``per`` says so), and ``off_path_launches`` holds each kernel's launches
+in phase 6's other-route run.
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -103,8 +118,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from bsvd_tpu_torch.archs import build_network  # noqa: E402
-from bsvd_tpu_torch.archs.streaming import (CHAIN_MAX_C,  # noqa: E402
-                                            StreamDenoiser, streaming_apply)
+from bsvd_tpu_torch.archs import streaming  # noqa: E402
+from bsvd_tpu_torch.archs.streaming import (StreamDenoiser,  # noqa: E402
+                                            streaming_apply)
 from bsvd_tpu_torch.archs.wnet_arch import wnet_apply  # noqa: E402
 from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
     noisy_batch, synthetic_clips)
@@ -168,6 +184,9 @@ KERNELS = {
 # so the per-unit sums leave it out
 ALIASES = ('shift_conv_fused_v1',)
 NOT_STREAMED = ('conv3x3_dw', 'shift_conv_fused_v1')
+# widths of a stage's MemCvBlocks in order (down0, down1, up2, up1): C64's
+# chns[1], chns[2], chns[2], chns[1]
+MEMCV_C = (128, 256, 256, 128)
 PER_FORWARD = {'conv3x3': 16, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
                'shift_conv_fused_v1': 14}
 # a c64 train step: the forward, then K7 for the 16 shift sites, 8 chain
@@ -175,12 +194,31 @@ PER_FORWARD = {'conv3x3': 16, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
 PER_TRAIN_STEP = dict(PER_FORWARD, conv3x3=20, conv3x3_dw=28)
 # streaming: 24 frames pushed, push_block of 8, timing over 64 frames
 STREAM_T, BLOCK_F, TIMED = 24, 8, 64
-PER_STEADY_PUSH = {'conv3x3': 0, 'conv_chain': 4, 'conv_s2': 4, 'conv_ps': 4,
-                   'bibuffer_conv': 8, 'bibuffer_multi': 0,
-                   'bibuffer_chain': 4, 'conv3x3_dw': 0,
-                   'shift_conv_fused_v1': 0}
-PER_BLOCK = dict(PER_STEADY_PUSH, bibuffer_conv=0, bibuffer_multi=16,
-                 bibuffer_chain=0)
+STAGES = 2
+
+
+def chained(c, chain_max_c=None):
+    """Whether a MemCvBlock of c channels runs as one K6 when primed
+    (archs/streaming.py _memcv_step), by ``CHAIN_MAX_C`` or the value
+    given."""
+    return c <= (streaming.CHAIN_MAX_C if chain_max_c is None
+                 else chain_max_c)
+
+
+def per_steady_push(chain_max_c=None):
+    """Launches of a steady push: each stage runs its inc and outc chains,
+    two stride-2 convs, two up convs and its MemCvBlocks, each one K6 or
+    two K5 steps."""
+    n6 = STAGES * sum(chained(c, chain_max_c) for c in MEMCV_C)
+    return {'conv3x3': 0, 'conv_chain': 2 * STAGES, 'conv_s2': 2 * STAGES,
+            'conv_ps': 2 * STAGES,
+            'bibuffer_conv': 2 * (STAGES * len(MEMCV_C) - n6),
+            'bibuffer_multi': 0, 'bibuffer_chain': n6, 'conv3x3_dw': 0,
+            'shift_conv_fused_v1': 0}
+
+
+PER_BLOCK = dict(per_steady_push(), bibuffer_conv=0,
+                 bibuffer_multi=2 * STAGES * len(MEMCV_C), bibuffer_chain=0)
 # the train slice: options/train/bsvd_c64_unblind.yml (batch 8 x 11 frames
 # of 96 x 96); the parity step's reduced batch
 TRAIN_N, TRAIN_T, TRAIN_HW = 8, 11, 96
@@ -254,17 +292,31 @@ def psnr(got, ref):
 # phase 2: every kernel variant of both paths, at its site shapes
 # ---------------------------------------------------------------------------
 
+# the route of phase 6's run by the chain where the push takes K5 (the
+# TPU's: one K6 for each 128-channel MemCvBlock)
+CHAIN_ROUTE = 128
+
+
+def k6_on_path():
+    """Whether a steady push runs K6 (some MemCvBlock chained)."""
+    return any(chained(c) for c in MEMCV_C)
+
+
 def _sites():
-    """(kernel, variant, count, unit, make(g) -> (kernel call, plain call in
-    fp32, plain call in bf16, exact, work)): ``count`` is the site's
-    launches per ``unit`` of work of the bidirectional net ('forward': a
-    10-frame MIMO forward; 'push': a steady push; 'block': a steady
-    push_block of 8); ``exact`` flags the outputs (of a tuple) that must
-    equal the plain version bit for bit; ``work`` holds the site's
-    ``flops``, its input bytes ``in_bytes`` and ``library``, one cuDNN call
-    that does the site's conv arithmetic on inputs prepared beforehand
-    (the shift and addend materialised, K4's shuffle left out), or None
-    where the site is two convs (K2, K6)."""
+    """(kernel, variant, count, own, unit, make(g) -> (kernel call, plain
+    call in fp32, plain call in bf16, exact, work)): ``count`` is the
+    site's launches per ``unit`` of work of the bidirectional net
+    ('forward': a 10-frame MIMO forward; 'push': a steady push; 'block': a
+    steady push_block of 8), ``own`` the count at which the site enters its
+    kernel's own sum (``count``; K6 off the push: one launch of each
+    bidirectional site); ``exact`` flags
+    the outputs (of a tuple) that must equal the plain version bit for bit;
+    ``work`` holds the site's ``flops``, its input bytes ``in_bytes``,
+    ``library``, one cuDNN call that does the site's conv arithmetic on
+    inputs prepared beforehand (the shift and addend materialised, K4's
+    shuffle left out), or None where the site is two convs (K2, K6), and
+    ``pair``, those two convs' cuDNN calls, each on its input prepared
+    beforehand (None elsewhere)."""
     h2, w2, h4, w4 = H // 2, W // 2, H // 4, W // 4
 
     def conv(cin, cout, g):
@@ -287,14 +339,20 @@ def _sites():
         return temporal_shift(v.reshape(v.shape[0] // nt, nt, *v.shape[1:]),
                               8, mode).reshape(v.shape)
 
-    def work(flops, inputs, cws, library):
+    def work(flops, inputs, cws, library, pair=None):
         return {'flops': flops, 'in_bytes': nbytes(*inputs) + wbytes(*cws),
-                'library': library}
+                'library': library, 'pair': pair}
 
     def lib_conv(v, cw, stride=1):
         """The library's conv of v, weights cast to bf16 once, here."""
         w, b = cw.w.to(torch.bfloat16), cw.b.to(torch.bfloat16)
         return lambda: conv2d(v, w, b, stride=stride)
+
+    def lib_pair(v1, c1, v2, c2):
+        """The library's two convs of a chain site, conv1 on v1 and conv2
+        on v2 (the intermediate's shape), each prepared beforehand."""
+        f1, f2 = lib_conv(v1, c1), lib_conv(v2, c2)
+        return lambda: (f1(), f2())
 
     def k1(h, w, c, shift, add2, nt=T, cout=None):
         cout = cout or c
@@ -318,6 +376,7 @@ def _sites():
             x = act_in((nt, H, W, c), g)
             c1, c2 = conv(c, 64, g), conv(64, cout, g)
             flops = 2 * 9 * (c * 64 + 64 * cout) * nt * H * W
+            mid = act_in((nt, H, W, 64), g)
             if not cres:
                 return (lambda: conv_chain(x, c1, None, c2, None, 'relu6',
                                            'relu6'),
@@ -325,7 +384,8 @@ def _sites():
                                                      None, 'relu6', 'relu6'),
                         lambda: conv_chain_reference(x, c1, None, c2, None,
                                                      'relu6', 'relu6'), None,
-                        work(flops, (x,), (c1, c2), None))
+                        work(flops, (x,), (c1, c2), None,
+                             lib_pair(x, c1, mid, c2)))
             x2, xr = act_in(x.shape, g), act_in((nt, H, W, cres), g)
             return (lambda: conv_chain_add2_res(x, x2, xr, c1, None, c2, None,
                                                 'relu6', 'none', 3),
@@ -335,7 +395,8 @@ def _sites():
                     lambda: conv_chain_reference(
                         x, c1, None, c2, None, 'relu6', 'none', x2=x2,
                         x_res=xr, res_ch=3), None,
-                    work(flops, (x, x2, xr), (c1, c2), None))
+                    work(flops, (x, x2, xr), (c1, c2), None,
+                         lib_pair(x + x2, c1, mid, c2)))
         return make
 
     def k3(h, w, c, cout, nt=T):
@@ -391,7 +452,7 @@ def _sites():
                                                      None, **kw),
                     (False, True, False),
                     work(2 * 2 * 9 * c * c * h * w, (x, s1, s2), (c1, c2),
-                         None))
+                         None, lib_pair(x, c1, s2, c2)))
         return make
 
     def k7(hw, c, co, shift, add2):
@@ -482,17 +543,28 @@ def _sites():
     ]
     assert sum(n for k, _, n, _ in train if k == 'conv3x3') == \
         PER_TRAIN_STEP['conv3x3'] - PER_FORWARD['conv3x3']
-    # per-frame streaming sites; the chain runs at 128 channels, two K5
-    # steps at 256 (CHAIN_MAX_C); the other route at each width is timed
-    # with count 0
-    assert CHAIN_MAX_C == 128
+    # per-frame streaming sites: a push's MemCvBlocks of each width (4: two
+    # a stage) run as one K6 or two K5 steps by CHAIN_MAX_C; the other
+    # route at each width is timed with count 0
+    n_at = {c: STAGES * MEMCV_C.count(c) for c in set(MEMCV_C)}
+
+    def n5(c):
+        return 0 if chained(c) else 2 * n_at[c]
+
+    def n6(c):
+        return n_at[c] if chained(c) else 0
     stream = [
-        ('bibuffer_conv', 'bidir_135x240_c256', 8, k5(h4, w4, 256, False)),
+        ('bibuffer_conv', 'bidir_135x240_c256', n5(256),
+         k5(h4, w4, 256, False)),
         ('bibuffer_conv', 'causal_135x240_c256', 0, k5(h4, w4, 256, True)),
-        ('bibuffer_conv', 'bidir_270x480_c128', 0, k5(h2, w2, 128, False)),
-        ('bibuffer_chain', 'bidir_270x480_c128', 4, k6(h2, w2, 128, False)),
+        ('bibuffer_conv', 'bidir_270x480_c128', n5(128),
+         k5(h2, w2, 128, False)),
+        ('bibuffer_conv', 'causal_270x480_c128', 0, k5(h2, w2, 128, True)),
+        ('bibuffer_chain', 'bidir_270x480_c128', n6(128),
+         k6(h2, w2, 128, False)),
         ('bibuffer_chain', 'causal_270x480_c128', 0, k6(h2, w2, 128, True)),
-        ('bibuffer_chain', 'bidir_135x240_c256', 0, k6(h4, w4, 256, False)),
+        ('bibuffer_chain', 'bidir_135x240_c256', n6(256),
+         k6(h4, w4, 256, False)),
         ('conv3x3', 'drain_270x480_c128', 0, k1(h2, w2, 128, 'none', False,
                                                 nt=1)),
         ('conv3x3', 'drain_135x240_c256', 0, k1(h4, w4, 256, 'none', False,
@@ -509,19 +581,28 @@ def _sites():
         ('conv_ps', 'ps_270x480_128_256', 2, k4(h2, w2, 128, 256, nt=1)),
     ]
     block = [
-        ('bibuffer_multi', f'bidir_f{BLOCK_F}_270x480_c128', 8,
+        ('bibuffer_multi', f'bidir_f{BLOCK_F}_270x480_c128', n_at[128] * 2,
          k5(h2, w2, 128, False, BLOCK_F)),
-        ('bibuffer_multi', f'bidir_f{BLOCK_F}_135x240_c256', 8,
+        ('bibuffer_multi', f'bidir_f{BLOCK_F}_135x240_c256', n_at[256] * 2,
          k5(h4, w4, 256, False, BLOCK_F)),
         ('bibuffer_multi', f'causal_f{BLOCK_F}_270x480_c128', 0,
          k5(h2, w2, 128, True, BLOCK_F)),
         ('bibuffer_multi', f'causal_f{BLOCK_F}_135x240_c256', 0,
          k5(h4, w4, 256, True, BLOCK_F)),
     ]
-    return ([(k, v, n, 'forward', m) for k, v, n, m in fwd]
-            + [(k, v, n, 'push', m) for k, v, n, m in stream]
-            + [(k, v, n, 'push_block', m) for k, v, n, m in block]
-            + [(k, v, n, 'train_step', m) for k, v, n, m in train])
+    per_push = per_steady_push()
+    assert all(sum(n for k, _, n, _ in stream if k == name) == per_push[name]
+               for name in ('bibuffer_conv', 'bibuffer_chain', 'conv_chain',
+                            'conv_s2', 'conv_ps'))
+    assert sum(n for _, _, n, _ in block) == PER_BLOCK['bibuffer_multi']
+    def own(k, v, n):
+        if k != 'bibuffer_chain' or k6_on_path():
+            return n
+        return 0 if v.startswith('causal') else 1
+    return ([(k, v, n, n, 'forward', m) for k, v, n, m in fwd]
+            + [(k, v, n, own(k, v, n), 'push', m) for k, v, n, m in stream]
+            + [(k, v, n, n, 'push_block', m) for k, v, n, m in block]
+            + [(k, v, n, n, 'train_step', m) for k, v, n, m in train])
 
 
 def _check_site(name, got, ref, exact):
@@ -548,19 +629,20 @@ def _check_site(name, got, ref, exact):
 
 
 def phase_kernels():
-    """Per kernel: max err; ms, plain_ms, library_ms and bound_ms at the
-    counts of its unit (the KERNELS table), library_ms None where a site of
-    the unit has no one-call library counterpart; bound_by the resource
-    whose time dominates the summed bound. Also the kernel and plain ms of
-    one steady push and of one push_block over all kernels."""
+    """Per kernel: max err; ms, plain_ms, library_ms, library_pair_ms and
+    bound_ms at the counts of its unit (the KERNELS table; K6 off the push:
+    one launch of each bidirectional site), library_ms (library_pair_ms) None where a site of
+    the unit has no one-call (two-call) library counterpart; bound_by the
+    resource whose time dominates the summed bound. Also the kernel and
+    plain ms of one steady push and of one push_block over all kernels."""
     g = torch.Generator(device='cuda').manual_seed(SEED)
     summary = {k: {'max_abs_err': 0.0, 'ms': 0.0, 'plain_ms': 0.0,
-                   'library_ms': 0.0, 'bound_ms': 0.0, 'ops_ms': 0.0,
-                   'bytes_ms': 0.0}
+                   'library_ms': 0.0, 'library_pair_ms': 0.0,
+                   'bound_ms': 0.0, 'ops_ms': 0.0, 'bytes_ms': 0.0}
                for k in KERNELS}
     per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
                 for u in ('forward', 'push', 'push_block', 'train_step')}
-    for kernel, variant, count, unit, make in _sites():
+    for kernel, variant, count, own, unit, make in _sites():
         run, plain32, plain_bf16, exact, wk = make(g)
         got = run()
         torch.cuda.synchronize()
@@ -570,6 +652,7 @@ def phase_kernels():
         ms = median_ms(run)
         plain_ms = median_ms(plain_bf16)
         lib_ms = median_ms(wk['library']) if wk['library'] else None
+        pair_ms = median_ms(wk['pair']) if wk['pair'] else None
         outs = got if isinstance(got, tuple) else (got,)
         n_bytes = wk['in_bytes'] + nbytes(*outs)
         ops_ms, bytes_ms = bound_ms(wk['flops'], n_bytes)
@@ -578,20 +661,22 @@ def phase_kernels():
               'per': unit, 'shape_out': list(outs[0].shape),
               'max_abs_err': err, 'tol': tol, 'exact_states': bool(exact),
               'ms': ms, 'plain_ms': plain_ms, 'library_ms': lib_ms,
+              'library_pair_ms': pair_ms,
               'flops': wk['flops'], 'bytes': n_bytes, 'bound_ms': bound,
               'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
               'tflops': wk['flops'] / ms / 1e9, 'count': count})
         s = summary[kernel]
         s['max_abs_err'] = max(s['max_abs_err'], err)
         if unit == KERNELS[kernel][3]:
-            s['ms'] += count * ms
-            s['plain_ms'] += count * plain_ms
-            s['bound_ms'] += count * bound
-            s['ops_ms'] += count * ops_ms
-            s['bytes_ms'] += count * bytes_ms
-            if s['library_ms'] is not None and count:
-                s['library_ms'] = (None if lib_ms is None
-                                   else s['library_ms'] + count * lib_ms)
+            s['ms'] += own * ms
+            s['plain_ms'] += own * plain_ms
+            s['bound_ms'] += own * bound
+            s['ops_ms'] += own * ops_ms
+            s['bytes_ms'] += own * bytes_ms
+            for key, t in (('library_ms', lib_ms),
+                           ('library_pair_ms', pair_ms)):
+                if s[key] is not None and own:
+                    s[key] = None if t is None else s[key] + own * t
         if kernel not in ALIASES:
             per_unit[unit]['ms'] += count * ms
             per_unit[unit]['plain_ms'] += count * plain_ms
@@ -600,6 +685,8 @@ def phase_kernels():
         torch.cuda.empty_cache()
     emit({'phase': 'kernel_sums', 'per_unit': per_unit})
     for s in summary.values():
+        if not s['library_pair_ms']:
+            s['library_pair_ms'] = None
         s['bound_by'] = ('operations' if s.pop('ops_ms') >= s.pop('bytes_ms')
                          else 'bytes')
     return summary
@@ -744,15 +831,14 @@ def phase_parity(nets, clips, outs):
 # phase 5: the streaming main path
 # ---------------------------------------------------------------------------
 
-def expected_step(p, t_len, causal, wide=(False, True, True, False),
-                  stage_num=2):
+def expected_step(p, t_len, causal):
     """Launches of streaming step p (0-based; p >= t_len are the flush's
     drain steps) over a t_len-frame clip, by archs/streaming.py's rule,
     derived here from frame indices alone. Stage s's temporal conv k (8s ..
     8s+7: down0, down1, up2, up1, two each) reads frame p - k at step p
     and holds frame p - k - 1: it outputs iff that frame exists, through
     K5 if its input exists too (steady) and K1 if not (drain). A
-    MemCvBlock no wider than CHAIN_MAX_C (``wide`` False) runs as one K6
+    MemCvBlock no wider than CHAIN_MAX_C (``chained``) runs as one K6
     when both its convs are steady. The causal net has no delay: every
     site runs steady on every valid frame."""
     c = dict.fromkeys(KERNELS, 0)
@@ -760,20 +846,20 @@ def expected_step(p, t_len, causal, wide=(False, True, True, False),
     def ok(j):
         return 0 <= j < t_len
 
-    for s in range(stage_num):
+    for s in range(STAGES):
         if causal:
             if ok(p):
-                for k, n in PER_STEADY_PUSH.items():
-                    c[k] += n // stage_num
+                for k, n in per_steady_push().items():
+                    c[k] += n // STAGES
             continue
         base = 8 * s
         q = p - base                       # frame at the stage's input
         if ok(q):                          # inc, down0's stride-2 conv
             c['conv_chain'] += 1
             c['conv_s2'] += 1
-        for j, is_wide in enumerate(wide):
+        for j, width in enumerate(MEMCV_C):
             k1 = base + 2 * j
-            if not is_wide and all(ok(p - k1 - d) for d in range(3)):
+            if chained(width) and all(ok(p - k1 - d) for d in range(3)):
                 c['bibuffer_chain'] += 1
                 continue
             for k in (k1, k1 + 1):
@@ -928,7 +1014,7 @@ def phase_stream(nets, clip):
             if got != expected_step(p, STREAM_T, causal):
                 raise AssertionError(f'{mode}: push {p} launched {got}, '
                                      f'expected {expected_step(p, STREAM_T, causal)}')
-            if lat <= p and got != PER_STEADY_PUSH:
+            if lat <= p and got != per_steady_push():
                 raise AssertionError(f'{mode}: steady push {p}: {got}')
         want = dict.fromkeys(KERNELS, 0)
         for p in range(STREAM_T, STREAM_T + lat):
@@ -1002,30 +1088,55 @@ def phase_stream(nets, clip):
 # ---------------------------------------------------------------------------
 
 def phase_stream_parity(nets, clips, outs, out32):
-    """fp32 streaming kernels against fp32 MIMO kernels on a reduced clip;
-    denoise_seq(mode='streaming') of a 540p clip against mode='mimo'.
-    Returns the launches of the denoise_seq run."""
+    """fp32 streaming kernels against fp32 MIMO kernels on a reduced clip,
+    by the port's MemCvBlock route and by the other one; denoise_seq(mode=
+    'streaming') of a 540p clip against mode='mimo'. Returns the launches
+    of the denoise_seq run (a main path) and those of the other-route runs
+    (off it)."""
     rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.uniform(0, 1, (1, 20, 128, 224, 4))
                          .astype(np.float32)).cuda()
+    # the route the main path does not take: K6 for the 128-channel
+    # MemCvBlocks (the TPU's route; fp32 K6 holds no 256-channel
+    # intermediate), or two K5 steps for every one
+    main_route = streaming.CHAIN_MAX_C
+    other_route = CHAIN_ROUTE if main_route < CHAIN_ROUTE else 0
+    off_path = dict.fromkeys(KERNELS, 0)
     for mode, net in nets.items():
         p = net.prepared('cuda', torch.float32)
         with torch.no_grad():
             ref = wnet_apply(p, x, net.cfg)
-            got = streaming_apply(p, x, net.cfg)
-        err, scale = rel_err(got, ref)
-        emit({'phase': 'stream_parity_fp32', 'shift_mode': mode,
-              'shape': list(x.shape), 'max_abs_err': err,
-              'tol': FP32_TOL * scale})
-        if not err <= FP32_TOL * scale:
-            raise AssertionError(f'{mode}: fp32 streaming vs MIMO: {err}')
+        for route in (main_route, other_route):
+            streaming.CHAIN_MAX_C = route
+            try:
+                reset_counts()
+                with torch.no_grad():
+                    got = streaming_apply(p, x, net.cfg)
+                run = counts()
+            finally:
+                streaming.CHAIN_MAX_C = main_route
+            err, scale = rel_err(got, ref)
+            emit({'phase': 'stream_parity_fp32', 'shift_mode': mode,
+                  'chain_max_c': route, 'shape': list(x.shape),
+                  'max_abs_err': err, 'tol': FP32_TOL * scale,
+                  'launches': run})
+            if not err <= FP32_TOL * scale:
+                raise AssertionError(f'{mode}, CHAIN_MAX_C {route}: fp32 '
+                                     f'streaming vs MIMO: {err}')
+            if route == other_route:
+                for k, v in run.items():
+                    off_path[k] += v
+    took = 'bibuffer_chain' if other_route else 'bibuffer_conv'
+    if not off_path[took] > 0:
+        raise AssertionError(f'the other route (CHAIN_MAX_C {other_route}) '
+                             f'never launched {took}')
 
     clean, noisy = clips[0]
     reset_counts()
     with _NoConv2d():
         s16 = denoise_seq(nets['TSM'], None, noisy, noise_sigma=SIGMA,
                           mode='streaming', compute_dtype=torch.bfloat16)
-    launches = counts()
+    seq = counts()
     _check_out(s16, clean)
     to_t = torch.from_numpy
     psnr_s, psnr_m = psnr(to_t(s16), to_t(out32)), psnr(to_t(outs['TSM'][0]),
@@ -1033,11 +1144,11 @@ def phase_stream_parity(nets, clips, outs, out32):
     emit({'phase': 'denoise_seq_streaming', 'frames': T,
           'psnr_db_vs_fp32_mimo': {'streaming_bf16': psnr_s,
                                    'mimo_bf16': psnr_m},
-          'launches': launches})
+          'launches': seq})
     if not psnr_s > psnr_m - 1.0:
         raise AssertionError(f"denoise_seq(mode='streaming') {psnr_s} dB, "
                              f"mode='mimo' {psnr_m} dB")
-    return launches
+    return seq, off_path
 
 
 # ---------------------------------------------------------------------------
@@ -1386,17 +1497,25 @@ def main():
     out32 = phase_parity(nets, clips, outs)
     clip24 = _clips(np.random.default_rng(SEED + 3), 1, STREAM_T)[0]
     stream_launches = phase_stream(nets, clip24)
-    seq_launches = phase_stream_parity(nets, clips, outs, out32)
+    seq_launches, off_path = phase_stream_parity(nets, clips, outs, out32)
+    # K6 is off the streaming main path when every MemCvBlock takes K5
+    off_route = () if k6_on_path() else ('bibuffer_chain',)
     for k in KERNELS:
-        if k not in NOT_STREAMED and not stream_launches[k] > 0:
+        if (k not in NOT_STREAMED + off_route
+                and not stream_launches[k] > 0):
             raise AssertionError(f'{k} never launched on the streaming path')
         launches[k] += stream_launches[k] + seq_launches[k]
     phase_train_grad()
     train_launches = phase_train()
     for k in KERNELS:
         launches[k] += train_launches[k]
-        if not launches[k] > 0:
+        if k not in off_route and not launches[k] > 0:
             raise AssertionError(f'{k} never launched on a main path')
+        if k in off_route and launches[k]:
+            raise AssertionError(f'{k} launched on a main path off its route')
+    per = {k: v[3] for k, v in KERNELS.items()}
+    for k in off_route:
+        per[k] = 'one launch at each bidirectional site (off the main path)'
 
     emit({'kernels': [
         {'name': k, 'route': 'cuda', 'source': src, 'replaces': rep,
@@ -1404,8 +1523,10 @@ def main():
          'ms': summary[k]['ms'], 'plain_ms': summary[k]['plain_ms'],
          'bound_ms': summary[k]['bound_ms'],
          'bound_by': summary[k]['bound_by'],
-         'library_ms': summary[k]['library_ms'], 'per': per}
-        for k, (_, src, rep, per) in KERNELS.items()]})
+         'library_ms': summary[k]['library_ms'],
+         'library_pair_ms': summary[k]['library_pair_ms'], 'per': per[k],
+         'off_path_launches': off_path[k]}
+        for k, (_, src, rep, _) in KERNELS.items()]})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': torch.cuda.device_count()}})
 

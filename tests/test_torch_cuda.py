@@ -2,8 +2,8 @@
 
 Every test here needs a CUDA device (and ``nvcc`` for the first build); it
 skips elsewhere. Shapes are small and ragged (sizes that are not multiples
-of the 8 x 16 or 16 x 16 tiles, Cin = 3 / 4, Cout = 3) so every masking
-path runs.
+of the 8 x 16 or 16 x 16 tiles, nor of K2's 8 x 30 or 14 x 30, Cin = 3 /
+4, Cout = 3) so every masking path runs.
 
 Tolerances: fp32 kernels against the fp32 plain version (cuDNN with TF32
 off) differ only in summation order: 1e-4 relative to max|ref|. bf16
@@ -145,19 +145,33 @@ def test_conv_s2_kernel(dev, dtype, shape):
     _close(got, conv_s2_reference(x.float(), wt, b, act='relu6'), dtype)
 
 
+# (frames, H, W, C, C1, Cout, Cres, rc): the bf16 kernel's output tile is
+# 8 x 30 (a 10 x 32 intermediate) without x2, 14 x 30 (16 x 32) with x2 and
+# a 64-channel intermediate; Cout <= 16 takes the 16-channel head; C1 128 /
+# 192 runs conv1 in two / three 64-channel blocks and conv2's 64-channel
+# blocks in turn (x2 on 8 x 30 tiles)
+_CHAIN_CASES = {'inc4': (2, 16, 32, 4, 64, 64, 0, 0),
+                'inc64': (2, 16, 32, 64, 64, 64, 0, 0),
+                'outc64': (2, 16, 32, 64, 64, 64, 4, 3),
+                'tail3': (2, 16, 32, 64, 64, 3, 64, 3),
+                'ragged': (2, 11, 27, 20, 16, 24, 5, 3),
+                # several tiles down and across, H and W not multiples
+                'tiles_inc4': (3, 37, 67, 4, 64, 64, 0, 0),
+                'tiles_outc64': (3, 37, 67, 64, 64, 64, 4, 3),
+                'one_frame_inc64': (1, 50, 95, 64, 64, 64, 0, 0),
+                'one_frame_tail3': (1, 35, 61, 64, 64, 3, 4, 3),
+                'head16': (2, 21, 33, 64, 64, 16, 0, 0),
+                'wide128': (2, 21, 33, 128, 128, 128, 0, 0),
+                'wide128_res': (2, 21, 33, 128, 128, 128, 128, 3),
+                'wide192_cout200_res': (1, 19, 40, 64, 192, 200, 64, 3),
+                'wide128_tail3': (1, 17, 31, 128, 128, 3, 4, 3)}
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('case', ['inc4', 'inc64', 'outc64', 'tail3',
-                                  'ragged'])
+@pytest.mark.parametrize('case', sorted(_CHAIN_CASES))
 def test_conv_chain_kernel(dev, dtype, case):
     rng = np.random.default_rng(4)
-    n, h, w = 2, 16, 32
-    c, c1, co, cres, rc = {'inc4': (4, 64, 64, 0, 0),
-                           'inc64': (64, 64, 64, 0, 0),
-                           'outc64': (64, 64, 64, 4, 3),
-                           'tail3': (64, 64, 3, 64, 3),
-                           'ragged': (20, 16, 24, 5, 3)}[case]
-    if case == 'ragged':
-        h, w = 11, 27
+    n, h, w, c, c1, co, cres, rc = _CHAIN_CASES[case]
     x = _t(rng, (n, h, w, c), 1.0, dev).to(dtype)
     x2 = _t(rng, x.shape, 1.0, dev).to(dtype) if rc else None
     xr = _t(rng, (n, h, w, cres), 1.0, dev).to(dtype) if rc else None
@@ -166,12 +180,15 @@ def test_conv_chain_kernel(dev, dtype, case):
     w2 = _t(rng, (co, c1, 3, 3), (2 / (9 * c1)) ** 0.5, dev)
     b2 = _t(rng, (co,), 0.1, dev)
     act2 = 'none' if rc else 'relu6'
+    before = conv_chain.launches
     if rc:
         got = conv_chain_add2_res(x, x2, xr, w1, b1, w2, b2, 'relu6', act2,
                                   rc)
     else:
         got = conv_chain(x, w1, b1, w2, b2, 'relu6', act2)
+    assert conv_chain.launches == before + 1
     torch.cuda.synchronize()
+    assert got.dtype == dtype
     ref = conv_chain_reference(
         x.float(), w1, b1, w2, b2, 'relu6', act2,
         x2=None if x2 is None else x2.float(),
@@ -202,6 +219,22 @@ def test_refused_launch_raises_and_clears(dev):
     y = conv3x3(x, torch.zeros((16, 16, 3, 3), device=dev))
     torch.cuda.synchronize()
     assert y.abs().sum().item() == 0
+
+
+def test_chain_bf16_refuses_wide_intermediate(dev):
+    """The bf16 chain kernel keeps the whole intermediate in shared memory:
+    one wider than fits (320 channels) is refused at launch with CUDA's
+    error and not counted; 256 runs."""
+    x = torch.zeros((1, 8, 16, 16), dtype=torch.bfloat16, device=dev)
+    before = conv_chain.launches
+    with pytest.raises(RuntimeError, match='CUDA error'):
+        conv_chain(x, torch.zeros((320, 16, 3, 3), device=dev), None,
+                   torch.zeros((16, 320, 3, 3), device=dev), None)
+    assert conv_chain.launches == before
+    y = conv_chain(x, torch.zeros((256, 16, 3, 3), device=dev), None,
+                   torch.zeros((16, 256, 3, 3), device=dev), None)
+    torch.cuda.synchronize()
+    assert conv_chain.launches == before + 1 and y.shape == (1, 8, 16, 16)
 
 
 def test_cpu_weights_are_packed_onto_the_card(dev):
@@ -236,19 +269,26 @@ def test_wnet_kernels_match_plain_path(dev, shift_mode):
 
 _BI_CASES = {'c16_ragged': (13, 37, 16, 24, 16),     # scalar loader path
              'c128': (10, 20, 128, 128, 128)}         # 16-byte loader path
+# K5 alone: Cout 256 (two channel blocks) at a size that is no multiple of
+# the 16 x 16 or 8 x 16 tile, where 8 frames x 2 streams take the 16 x 16
+# tile and one frame the 8 x 16; fold 5 (chunks straddle the regions)
+_K5_CASES = dict(_BI_CASES, c256=(100, 120, 256, 256, 256),
+                 fold5=(12, 20, 40, 40, 40))
 
 
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('case', sorted(_BI_CASES))
+@pytest.mark.parametrize('case', sorted(_K5_CASES))
 @pytest.mark.parametrize('causal', [False, True])
-@pytest.mark.parametrize('nf', [1, 2, 5])
-def test_bibuffer_multi_kernel(dev, nf, causal, case, dtype):
+@pytest.mark.parametrize('streams', [1, 2])
+@pytest.mark.parametrize('nf', [1, 2, 5, 8])
+def test_bibuffer_multi_kernel(dev, nf, streams, causal, case, dtype):
     from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_multi,
                                                   bibuffer_multi_reference)
-    h, w, c, co, _ = _BI_CASES[case]
+    h, w, c, co, _ = _K5_CASES[case]
     rng = np.random.default_rng(7)
-    x = _t(rng, (nf, h, w, c), 1.0, dev).to(dtype)
-    st = _t(rng, (1, h, w, c), 1.0, dev).to(dtype)
+    shape = (nf, h, w, c) if streams == 1 else (nf, streams, h, w, c)
+    x = _t(rng, shape, 1.0, dev).to(dtype)
+    st = _t(rng, (streams, h, w, c), 1.0, dev).to(dtype)
     wt = _t(rng, (co, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
     b = _t(rng, (co,), 0.1, dev)
     before = bibuffer_multi.launches
@@ -264,17 +304,24 @@ def test_bibuffer_multi_kernel(dev, nf, causal, case, dtype):
 
 @pytest.mark.parametrize('dtype', DTYPES)
 @pytest.mark.parametrize('causal', [False, True])
-def test_bibuffer_conv_kernel_streams(dev, causal, dtype):
-    """F = 1 over N = 3 streams (the per-push form)."""
+@pytest.mark.parametrize('shape', [(3, 12, 24, 64), (2, 100, 120, 256),
+                                   (2, 12, 20, 40)])
+def test_bibuffer_conv_kernel_streams(dev, shape, causal, dtype):
+    """F = 1 over N = 3 or 2 streams (the per-push form): 64 channels,
+    256 (two channel blocks, several tiles), fold 5."""
     from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_conv,
                                                   bibuffer_conv_reference)
     rng = np.random.default_rng(8)
-    x = _t(rng, (3, 12, 24, 64), 1.0, dev).to(dtype)
+    c = shape[-1]
+    x = _t(rng, shape, 1.0, dev).to(dtype)
     st = _t(rng, x.shape, 1.0, dev).to(dtype)
-    wt = _t(rng, (64, 64, 3, 3), (2 / (9 * 64)) ** 0.5, dev)
-    b = _t(rng, (64,), 0.1, dev)
+    wt = _t(rng, (c, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
+    b = _t(rng, (c,), 0.1, dev)
+    before = bibuffer_conv.launches
     y, ns = bibuffer_conv(x, st, wt, b, act='relu', causal=causal)
+    assert bibuffer_conv.launches == before + 1
     torch.cuda.synchronize()
+    assert y.dtype == dtype and ns.dtype == dtype
     ry, rs = bibuffer_conv_reference(x.float(), st.float(), wt, b,
                                      act='relu', causal=causal)
     _close(y, ry, dtype)
@@ -305,14 +352,21 @@ def test_bibuffer_chain_kernel(dev, causal, case, dtype):
     _close(n2, r2, dtype)
 
 
+@pytest.mark.parametrize('chain_max_c', [None, 0, 128])
 @pytest.mark.parametrize('batch', [1, 2])
 @pytest.mark.parametrize('shift_mode', ['TSM', 'TSM_toFutureOnly'])
-def test_stream_denoiser_kernels_match_plain_path(dev, shift_mode, batch):
+def test_stream_denoiser_kernels_match_plain_path(dev, shift_mode, batch,
+                                                  chain_max_c, monkeypatch):
     """A small net streamed on the card (push, push_block, flush) in fp32
-    against the plain streaming path on the CPU, for 1 and 2 streams."""
+    against the plain streaming path on the CPU, for 1 and 2 streams, by
+    the port's MemCvBlock route (None) and by each route forced: every
+    MemCvBlock by two K5 steps (``CHAIN_MAX_C`` 0) or by K6 (128)."""
+    from bsvd_tpu_torch.archs import streaming
     from bsvd_tpu_torch.archs.streaming import StreamDenoiser
     from bsvd_tpu_torch.archs.wnet_arch import (WNetConfig, prepare_params,
                                                 wnet_init)
+    if chain_max_c is not None:
+        monkeypatch.setattr(streaming, 'CHAIN_MAX_C', chain_max_c)
     cfg = WNetConfig(chns=(16, 32, 64), mid_ch=16, interm_ch=16,
                      norm='none', act='relu6', shift_mode=shift_mode)
     params = wnet_init(cfg, seed=1)

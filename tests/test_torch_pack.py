@@ -109,3 +109,45 @@ def test_oc_pack_pads_cout_to_its_multiple():
                       cout_mult=128)[0].shape[0] == 128
     with pytest.raises(ValueError, match='128'):
         cw8.packed('cpu', torch.float32, order='ps', cout_mult=64)
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('cout', [3, 16, 24, 64])
+def test_chain_w2_pack_narrow_head(cout, dtype):
+    """K2's conv2 weights: K over the intermediate's 64 padded channels;
+    bf16 packs CoutP to 16 where Cout <= 16 (the 3-channel head), else
+    to 64, as the fp32 kernel always does; zero padded, the bias fp32 of
+    CoutP entries."""
+    from bsvd_tpu_torch.ops.conv_chain import packed_w2
+    g = torch.Generator().manual_seed(1)
+    w = torch.randn((cout, 20, 3, 3), generator=g)
+    b = torch.randn((cout,), generator=g)
+    wp, bp = packed_w2(ConvWeights(w, b), 'cpu', dtype)
+    coutp = 16 if dtype == torch.bfloat16 and cout <= 16 else 64
+    assert wp.shape == (coutp, 3, 3, 64) and wp.dtype == dtype
+    assert bp.shape == (coutp,) and bp.dtype == torch.float32
+    torch.testing.assert_close(wp[:cout, :, :, :20],
+                               w.permute(0, 2, 3, 1).to(dtype),
+                               rtol=0, atol=0)
+    assert wp[cout:].abs().sum() == 0 and wp[..., 20:].abs().sum() == 0
+    torch.testing.assert_close(bp[:cout], b, rtol=0, atol=0)
+    assert bp[cout:].abs().sum() == 0
+
+
+@pytest.mark.parametrize('dtype', [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize('cout', [3, 200])
+def test_chain_w2_pack_wide_intermediate(cout, dtype):
+    """K2's conv2 weights behind a 130-channel intermediate: K padded to
+    192 (three of the kernel's 64-channel conv1 blocks), CoutP to 16 for
+    the bf16 head, else to 256 (four conv2 blocks)."""
+    from bsvd_tpu_torch.ops.conv_chain import packed_w2
+    g = torch.Generator().manual_seed(2)
+    w = torch.randn((cout, 130, 3, 3), generator=g)
+    wp, bp = packed_w2(ConvWeights(w, torch.zeros(cout)), 'cpu', dtype)
+    coutp = (16 if dtype == torch.bfloat16 and cout <= 16
+             else -(-cout // 64) * 64)
+    assert wp.shape == (coutp, 3, 3, 192) and bp.shape == (coutp,)
+    torch.testing.assert_close(wp[:cout, :, :, :130],
+                               w.permute(0, 2, 3, 1).to(dtype),
+                               rtol=0, atol=0)
+    assert wp[cout:].abs().sum() == 0 and wp[..., 130:].abs().sum() == 0

@@ -117,3 +117,33 @@ def test_whole_clip_temp_psz_at_least_t_is_whole_clip():
     a = denoise_seq(params, pcfg, seq, noise_sigma=0.1, temp_psz=-1)
     b = denoise_seq(params, pcfg, seq, noise_sigma=0.1, temp_psz=6)
     np.testing.assert_array_equal(a, b)
+
+
+@pytest.mark.parametrize('mode', ['mimo', 'streaming'])
+def test_jax_signature_runs_the_whole_clip(mode):
+    """A call written for the JAX signature (its argument order, its
+    look-ahead and chunk-loop switches) runs the whole clip: on it
+    ``future_buffer_len``, ``host_chunks`` and ``device_program`` change
+    nothing, as in the JAX package, which gives the same frames."""
+    from bsvd_tpu.models.seq_inference import denoise_seq as jax_denoise
+    jcfg, jparams, pcfg, params = _pair(28)
+    seq = _clip(29)
+    plain = denoise_seq(params, pcfg, seq, noise_sigma=0.1, mode=mode)
+    positional = denoise_seq(params, pcfg, seq, 0.1, -1, 2, mode, None, None,
+                             True, True)
+    keyword = denoise_seq(params, pcfg, seq, noise_sigma=0.1, temp_psz=-1,
+                          future_buffer_len=2, mode=mode, host_chunks=True,
+                          device_program=True)
+    np.testing.assert_array_equal(positional, plain)
+    np.testing.assert_array_equal(keyword, plain)
+    ref = jax_denoise(jparams, jcfg, seq, 0.1, -1, 2, mode)
+    np.testing.assert_allclose(plain, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_mesh_raises_not_implemented():
+    """Spatial sharding is not ported: a mesh raises NotImplementedError,
+    never a TypeError."""
+    _, _, pcfg, params = _pair(30)
+    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
+        denoise_seq(params, pcfg, _clip(31), noise_sigma=0.1,
+                    mesh=object())

@@ -2,15 +2,28 @@
 """One-off measurements behind the layout choices of the port's pipelined
 conv kernels, on one NVIDIA GPU.
 
-    python3 tools/torch_kernel_variants.py --ptxas     # the figures only
-    python3 tools/torch_kernel_variants.py [--out variants.json]
+    python3 tools/torch_kernel_variants.py --ptxas [--csrc DIR]  # figures
+    python3 tools/torch_kernel_variants.py [--group k3|k5] [--out FILE]
 
 ``--ptxas`` prints what ``nvcc -Xptxas -v`` reports (registers, spills)
-for the kernels of the pipelined sources. Without it the tool also times
-K3 conv_s2 as the sources hold it (8 x 16 output tiles, a 2-stage ring,
-two blocks an SM) against layouts they do not keep: 16 x 16 tiles with 3
-stages and 8 x 16 tiles with 4 (one block an SM), and the input patch
-stored unsplit (py * PW + px, not split by column parity).
+for the kernels of the pipelined sources (of ``--csrc``, by default the
+package's; another tree's to compare). Without it the tool also times a
+group of layouts that the sources do not keep against the sources:
+
+- ``k3``: K3 conv_s2 as the sources hold it (8 x 16 output tiles, a
+  2-stage ring, two blocks an SM) against 16 x 16 tiles with 3 stages and
+  8 x 16 tiles with 4 (one block an SM), and the input patch stored
+  unsplit (py * PW + px, not split by column parity);
+- ``k5``: K5 at a push's one-frame sites (bibuffer_conv), at
+  push_block's 8-frame sites and at 2 and 4 frames (bibuffer_multi), the
+  sources' choice by the grid's waves against the 8 x 16 tile with 2
+  stages (two blocks an SM) and the 16 x 16 tile with 4 stages (one block
+  an SM) everywhere;
+- ``k2``: K2 conv_chain at its forward and push sites, the sources'
+  output tiles (8 x 30 with 2 stages, two blocks an SM, without x2; 14 x
+  30, one block an SM, with x2) against 14 x 30 with 3 stages without x2
+  too.
+
 A dropped layout is rebuilt from a copy of ``bsvd_tpu_torch/csrc`` with
 the text edits listed in ``VARIANTS``, in its own directory under the
 gitignored ``bsvd_tpu_torch/_build/variants/``; the product sources keep
@@ -40,9 +53,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent.parent
 CSRC = ROOT / 'bsvd_tpu_torch' / 'csrc'
 S2_CFG = 'using S2Cfg = PipeCfg<2, 8, 128, 1, 2>;'
+K5_SMALL = ': launch_bibuf_pipe<PipeCfg<1, 8, 128, 1, 2>>(a, stream);'
+K5_BIG = '? launch_bibuf_pipe<PipeCfg<1, 16, 128, 1, 4>>(a, stream)'
+K2_NOX2 = ('ChainCfg<1, 16, 8, 2>', 'ChainCfg<1, 64, 8, 2>')
 # name -> {source file: [(text, replacement), ...]}
 VARIANTS = {
     'kept': {},
+    'k5_16x16': {'bibuffer_conv.cu': [
+        (K5_SMALL, K5_SMALL.replace('<1, 8, 128, 1, 2>', '<1, 16, 128, 1, 4>'))]},
+    'k5_8x16': {'bibuffer_conv.cu': [
+        (K5_BIG, K5_BIG.replace('<1, 16, 128, 1, 4>', '<1, 8, 128, 1, 2>'))]},
+    'k2_th14': {'conv_chain.cu': [(c, c.replace(', 8, 2>', ', 14, 3>'))
+                                  for c in K2_NOX2]},
+
     'th8_4stage': {'conv_s2.cu': [
         (S2_CFG, 'using S2Cfg = PipeCfg<2, 8, 128, 1, 4>;')]},
     'th16_3stage': {'conv_s2.cu': [
@@ -53,14 +76,35 @@ VARIANTS = {
         ('const int r = S == 2 ? (py * 2 + (px & 1)) * SW + col : '
          'py * PW + px;', 'const int r = py * PW + px;')]},
 }
-ORDER = ['kept', 'th8_4stage', 'unsplit', 'th16_3stage', 'kept',
-         'th16_3stage', 'unsplit', 'th8_4stage', 'kept']
+# the variants of each group, in turns, the kept sources first, in the
+# middle and last
+GROUPS = {'k3': ['kept', 'th8_4stage', 'unsplit', 'th16_3stage', 'kept',
+                 'th16_3stage', 'unsplit', 'th8_4stage', 'kept'],
+          'k5': ['kept', 'k5_16x16', 'k5_8x16', 'kept', 'k5_8x16',
+                 'k5_16x16', 'kept'],
+          'k2': ['kept', 'k2_th14', 'kept', 'k2_th14', 'kept']}
 # (frames, H, W, Cin, Cout) of K3's sites in a BSVD-c64 forward and push
 S2_SITES = [(10, 540, 960, 64, 128), (10, 270, 480, 128, 256),
             (1, 540, 960, 64, 128), (1, 270, 480, 128, 256)]
 # (frames, H, W, Cin, Cout): K1 with x2 at the train step's chain site
 K1_SITES = [(88, 96, 96, 64, 64), (88, 96, 96, 64, 128)]
-PIPE_SOURCES = ('conv3x3.cu', 'conv_s2.cu', 'conv_ps.cu')
+# (frames, Cin, Cres, Cout): K2's sites of a forward (10 frames of 540x960)
+# and a push (one); Cres > 0: x2 and the residual on 3 channels
+K2_SITES = [(nt, c, cres, co) for nt in (10, 1)
+            for c, cres, co in ((4, 0, 64), (64, 0, 64), (64, 4, 64),
+                                (64, 64, 3))]
+# (frames, H, W, C, causal): K5 at the sites of a push (one frame) and of
+# a push_block (8), and the bidirectional ones at 2 and 4 frames, where
+# the grid of 16 x 16 blocks is 4.1, 7.7, 8.2 and 15.5 waves of 132 SMs:
+# around the kernel's choice of tile
+K5_SITES = [(f, h, w, c, causal)
+            for f in (1, 2, 4, 8)
+            for h, w, c, causal in ((270, 480, 128, False),
+                                    (135, 240, 256, False),
+                                    (135, 240, 256, True))
+            if f in (1, 8) or not causal]
+PIPE_SOURCES = ('conv3x3.cu', 'conv_s2.cu', 'conv_ps.cu', 'bibuffer_conv.cu',
+                'conv_chain.cu')
 
 
 def variant_csrc(name):
@@ -99,11 +143,18 @@ def timed(fn):
     return statistics.median(times)
 
 
-def child(name):
+def child(name, group):
     sys.path.insert(0, str(ROOT))
     import torch
     from bsvd_tpu_torch.ops import _build
     from bsvd_tpu_torch.ops._pack import ConvWeights
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_conv,
+                                                  bibuffer_conv_reference,
+                                                  bibuffer_multi,
+                                                  bibuffer_multi_reference)
+    from bsvd_tpu_torch.ops.conv_chain import (conv_chain,
+                                               conv_chain_add2_res,
+                                               conv_chain_reference)
     from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv3x3_reference
     from bsvd_tpu_torch.ops.conv_s2 import conv_s2, conv_s2_reference
     if not torch.cuda.is_available():
@@ -123,6 +174,10 @@ def child(name):
 
     def site(kernel, shape, run, ref):
         got, want = run(), ref()
+        if isinstance(got, tuple):            # K5: (y, next state)
+            if not torch.equal(got[1].float(), want[1]):
+                raise AssertionError(f'{name} {kernel} {shape}: state')
+            got, want = got[0], want[0]
         err = (got.float() - want).abs().max().item()
         tol = 2 ** -6 * max(1.0, want.abs().max().item())
         if not err <= tol:
@@ -132,6 +187,38 @@ def child(name):
                 'max_abs_err': err}
 
     out = {'variant': name, 'edits': VARIANTS[name], 'sites': []}
+    if group == 'k2':
+        for nt, c, cres, co in K2_SITES:
+            x, c1, c2 = act_in((nt, 540, 960, c)), weights(c, 64), \
+                weights(64, co)
+            if cres:
+                x2, xr = act_in(x.shape), act_in((nt, 540, 960, cres))
+                run = (lambda: conv_chain_add2_res(x, x2, xr, c1, None, c2,
+                                                   None, 'relu6', 'none', 3))
+                ref = (lambda: conv_chain_reference(
+                    x.float(), c1, None, c2, None, 'relu6', 'none',
+                    x2=x2.float(), x_res=xr.float(), res_ch=3))
+            else:
+                run = (lambda: conv_chain(x, c1, None, c2, None, 'relu6',
+                                          'relu6'))
+                ref = (lambda: conv_chain_reference(x.float(), c1, None, c2,
+                                                    None, 'relu6', 'relu6'))
+            out['sites'].append(site('conv_chain', (nt, c, cres, co), run,
+                                     ref))
+        print(json.dumps(out), flush=True)
+        return
+    if group == 'k5':
+        for f, h, w, c, causal in K5_SITES:
+            x, st, cw = act_in((f, h, w, c)), act_in((1, h, w, c)), \
+                weights(c, c)
+            fn, ref = ((bibuffer_conv, bibuffer_conv_reference) if f == 1
+                       else (bibuffer_multi, bibuffer_multi_reference))
+            out['sites'].append(site(
+                fn.__name__, (f, h, w, c, causal),
+                lambda: fn(x, st, cw, causal=causal),
+                lambda: ref(x.float(), st.float(), cw, causal=causal)))
+        print(json.dumps(out), flush=True)
+        return
     for nt, h, w, c, co in S2_SITES:
         x, cw = act_in((nt, h, w, c)), weights(c, co)
         out['sites'].append(site(
@@ -148,18 +235,21 @@ def child(name):
     print(json.dumps(out), flush=True)
 
 
-def ptxas():
+def ptxas(csrc=CSRC):
     """Registers, spills and shared memory of each kernel of the pipelined
-    sources, as ``nvcc -Xptxas -v`` reports them."""
+    sources in ``csrc``, as ``nvcc -Xptxas -v`` reports them."""
     sys.path.insert(0, str(ROOT))
     from bsvd_tpu_torch.ops import _build
+    procs = [(src, subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o',
+         os.devnull, str(Path(csrc) / src)], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True))
+        for src in PIPE_SOURCES if (Path(csrc) / src).exists()]
     lines = []
-    for src in PIPE_SOURCES:
-        res = subprocess.run(
-            [_build._nvcc(), *_build.NVCC_FLAGS, '-Xptxas', '-v', '-c', '-o',
-             os.devnull, str(CSRC / src)],
-            capture_output=True, text=True, check=True)
-        log = res.stdout + res.stderr
+    for src, proc in procs:
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise SystemExit(f'nvcc failed on {src}:\n{log}')
         lines += [f'{src}: {ln.strip()}' for ln in log.splitlines()
                   if re.search(r'Compiling entry|Used \d+ registers|spill',
                                ln)]
@@ -169,21 +259,23 @@ def ptxas():
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument('--child', choices=sorted(VARIANTS))
+    ap.add_argument('--group', choices=sorted(GROUPS), default='k3')
     ap.add_argument('--ptxas', action='store_true')
+    ap.add_argument('--csrc', default=str(CSRC))
     ap.add_argument('--out')
     args = ap.parse_args()
     if args.child:
-        child(args.child)
+        child(args.child, args.group)
         return
-    lines = ptxas()
+    lines = ptxas(args.csrc)
     print('\n'.join(lines), flush=True)
     if args.ptxas:
         return
     runs = []
-    for name in ORDER:
+    for name in GROUPS[args.group]:
         res = subprocess.run([sys.executable, os.path.abspath(__file__),
-                              '--child', name], capture_output=True,
-                             text=True)
+                              '--child', name, '--group', args.group],
+                             capture_output=True, text=True)
         if res.returncode != 0:
             raise SystemExit(f'{name} failed:\n{res.stdout}\n{res.stderr}')
         print(res.stdout.strip(), flush=True)
