@@ -14,9 +14,10 @@ back from the device. Per site:
 
 - steady (valid input, primed buffer; every causal step): K5
   ``bibuffer_conv``, or K6 ``bibuffer_chain`` for a whole MemCvBlock when
-  both its buffers are primed and it is at most ``CHAIN_MAX_C`` channels
-  wide (the TPU routes the chain at 128 channels, two steps at 256; on the
-  H100 two K5 steps beat K6 at both widths, so no MemCvBlock takes it);
+  both its buffers are primed and ``chain_route`` takes it (at most
+  ``CHAIN_MAX_C`` channels wide; the TPU routes the chain at 128 channels,
+  two steps at 256; on the H100 two K5 steps beat K6 at both widths in
+  both modes, so no MemCvBlock takes it);
 - drain (invalid input, primed buffer): the input assembled with
   ``torch.cat`` and K1 ``conv3x3`` (shift 'none');
 - fill (valid input, empty buffer): no conv, the frame is stored;
@@ -45,10 +46,13 @@ from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
 from bsvd_tpu_torch.ops.conv_chain import conv_chain, conv_chain_add2_res
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 
-# widest MemCvBlock (input or intermediate channels) that runs as one K6:
-# none. Two K5 steps take 0.39 ms at 270x480x128 against K6's 0.86 (NVIDIA
-# H100 80GB HBM3, 700 W; chip_smoke.py phase 2, PERF.md), so K6 waits for
-# its rebuild on K2's chain loop
+# widest MemCvBlock (input or intermediate channels) whose step runs as
+# one K6: none. K6 (the pipelined loop, the halo recompute only for the y1
+# lanes conv2 reads) takes 0.53-0.61 / 0.55-0.65 ms bidirectional and
+# 0.63-0.70 / 0.71-0.78 causal at 270x480x128 / 135x240x256, two K5 steps
+# 0.32-0.41 in either mode (NVIDIA H100 80GB HBM3, 700.00 W;
+# tools/torch_kernel_variants.py --group k6, chip_smoke.py phase 2,
+# PERF.md): every MemCvBlock takes two K5 steps, in both modes
 CHAIN_MAX_C = 0
 
 _CV_SITES = ('down0', 'down1', 'up2', 'up1')
@@ -94,13 +98,21 @@ def _bibuffer_step(cw, st, x, act, fold_div, causal):
     return {'packed': nb, 'has_center': True}, None
 
 
+def chain_route(width, max_c=None):
+    """Whether a primed MemCvBlock ``width`` channels wide (input or
+    intermediate) runs as one K6 ``bibuffer_chain`` rather than two K5
+    steps: up to ``CHAIN_MAX_C`` channels (or ``max_c``), bidirectional
+    and causal alike (K6 loses to two K5 steps in both modes)."""
+    return width <= (CHAIN_MAX_C if max_c is None else max_c)
+
+
 def _memcv_step(p, pair, x, cfg):
     """MemCvBlock: two buffered shift convs (+ act)."""
     c1, c2 = _cw(p['c1']), _cw(p['c2'])
     causal = _is_causal(cfg)
     primed = causal or (pair[0]['has_center'] and pair[1]['has_center'])
     if (x is not None and primed
-            and max(c1.cin, c1.cout) <= CHAIN_MAX_C):
+            and chain_route(max(c1.cin, c1.cout))):
         y, s1, s2 = bibuffer_chain(x, pair[0]['packed'], pair[1]['packed'],
                                    c1, None, c2, None, fold_div=cfg.fold_div,
                                    act=cfg.act, act2=cfg.act, causal=causal)

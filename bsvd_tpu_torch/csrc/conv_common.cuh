@@ -9,12 +9,11 @@
 // accumulate). The fp32 instantiation runs the same tile walk with FMAs and
 // exists for exact parity checks.
 //
-// Who walks it (conv_region): K6 bibuffer_chain in bf16, and every fp32
-// kernel (the exactness references of the card checks). The bf16 paths of
-// K1 conv3x3, K2 conv_chain, K3 conv_s2, K4 conv_ps and K5 bibuffer_conv /
-// bibuffer_multi run the pipelined loop of conv_pipe.cuh instead (cp.async
-// ring, ldmatrix, staged 16-byte stores); K7 conv3x3_dw has its own
-// (conv3x3_dw.cu).
+// Who walks it (conv_region): every fp32 kernel (the exactness references
+// of the card checks). The bf16 paths of K1 conv3x3, K2 conv_chain, K3
+// conv_s2, K4 conv_ps, K5 bibuffer_conv / bibuffer_multi and K6
+// bibuffer_chain run the pipelined loop of conv_pipe.cuh instead (cp.async
+// ring, ldmatrix fragments); K7 conv3x3_dw has its own (conv3x3_dw.cu).
 //
 // Layouts: activations NHWC (channels-last), weights packed once per
 // device/dtype as (CoutP, 3, 3, CinP) with CinP a multiple of 16 and CoutP

@@ -4,10 +4,10 @@
 //
 // Who walks it: K1 conv3x3, K3 conv_s2, K4 conv_ps and K5 bibuffer_conv /
 // bibuffer_multi through pipe_conv_block (K5 with its own loader source,
-// BiPipeSrc in bibuffer_conv.cu), and K2 conv_chain, whose conv1 is
-// pipe_load + pipe_mma_stage on a 10 x 32 or 16 x 32 tile and whose conv2
-// reads the intermediate from shared memory (conv_chain.cu). K6
-// bibuffer_chain and every fp32 kernel still walk conv_common.cuh's
+// BiPipeSrc in bibuffer_conv.cu), and K2 conv_chain and K6 bibuffer_chain,
+// whose conv1 is pipe_load + pipe_mma_stage on tiles 32 pixels wide and
+// whose conv2 reads the intermediate from shared memory (conv_chain.cu,
+// bibuffer_conv.cu). Every fp32 kernel still walks conv_common.cuh's
 // conv_region; K7 has its own wgmma loop (conv3x3_dw.cu).
 //
 // A tile row is one pixel of 8 * CH channels (CH 16-byte chunks). Chunk c of

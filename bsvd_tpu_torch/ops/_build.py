@@ -33,7 +33,7 @@ _SIGNATURES = {
     'bsvd_conv_s2': [_I] + [_P] * 4 + [_I] * 9 + [_P],
     'bsvd_conv_chain': [_I] + [_P] * 8 + [_I] * 14 + [_P],
     'bsvd_bibuffer': [_I] + [_P] * 6 + [_I] * 12 + [_P],
-    'bsvd_bibuffer_chain': [_I] + [_P] * 10 + [_I] * 15 + [_P],
+    'bsvd_bibuffer_chain': [_I] + [_P] * 10 + [_I] * 16 + [_P],
     'bsvd_conv3x3_dw': [_I] + [_P] * 5 + [_I] * 14 + [_P],
 }
 

@@ -151,16 +151,17 @@ bibuffer_multi.launches = 0
 
 def bibuffer_chain(x, s1, s2, w1, b1, w2, b2, *, fold_div=8, act='relu6',
                    act2='relu6', causal=False):
-    """Both buffered convs of a MemCvBlock in one launch, the intermediate
-    kept in shared memory.
+    """Both buffered convs of a MemCvBlock in one launch, the lanes of the
+    intermediate that conv2 reads kept in shared memory.
 
     Args:
         x, s1: (N, H, W, C) live frame and conv1's packed buffer; s2:
             (N, H, W, C1) conv2's packed buffer.
         w1: (C1, C, 3, 3), w2: (Cout, C1, 3, 3) or ConvWeights.
     Returns:
-        (y (N, H, W, Cout), s1', s2'); s2' carries conv1's output rounded to
-        x's dtype, so it is close to, not bit-equal with, two steps.
+        (y (N, H, W, Cout), s1', s2'), two ``bibuffer_conv`` steps: in bf16
+        on the card their very bits (the kernel sums and rounds as K5
+        does); in fp32 within summation order.
     """
     c1w, c2w = as_weights(w1, b1), as_weights(w2, b2)
     n, h, w_, c = x.shape
@@ -180,12 +181,13 @@ def bibuffer_chain(x, s1, s2, w1, b1, w2, b2, *, fold_div=8, act='relu6',
     y = torch.empty((n, h, w_, c2w.cout), dtype=x.dtype, device=x.device)
     s1n, s2n = torch.empty_like(s1), torch.empty_like(s2)
     vec = vec_ok(c, x, s1, s1n) and fold1 % 8 == 0
+    vec2 = vec_ok(c1w.cout, s2, s2n) and fold2 % 8 == 0
     err = _build.lib().bsvd_bibuffer_chain(
         int(x.dtype == torch.bfloat16), ptr(x), ptr(s1), ptr(s2), ptr(w1p),
         ptr(b1p), ptr(w2p), ptr(b2p), ptr(y), ptr(s1n), ptr(s2n), n, h, w_,
         c, w1p.shape[-1], c1w.cout, w1p.shape[0], c2w.cout, w2p.shape[0],
         fold1, fold2, int(causal), act_code(act), act_code(act2), int(vec),
-        _build.stream_ptr(x))
+        int(vec2), _build.stream_ptr(x))
     _build.check(err, 'bibuffer_chain')
     bibuffer_chain.launches += 1
     return y, s1n, s2n

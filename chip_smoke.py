@@ -21,11 +21,14 @@ Phases, each printed as one JSON object on its own line:
    intermediate included). Whole-clip sites (10
    frames): K1 conv3x3, K2 conv_chain, K3 conv_s2, K4 conv_ps. Streaming
    sites (one frame, or 8 for push_block): K5 bibuffer_conv (F = 1) and
-   bibuffer_multi (F = 8), K6 bibuffer_chain (K5 and K6 at both widths:
-   the route not taken is timed with count 0), and K1 (shift 'none', the
-   drain conv), K2, K3, K4 at one frame. K5 states and K6's s1' must equal
-   the plain version exactly. Train sites (8 clips x 11 frames of 96x96,
-   the c64 train step's 28 weight gradients): K7 conv3x3_dw against the
+   bibuffer_multi (F = 8), K6 bibuffer_chain (K5 and K6 at both widths and
+   in both modes: the route not taken is timed with count 0; each K6 site
+   also against the two K5 steps on its inputs, ``two_k5_ms``, and
+   ``equals_two_k5``, whether y, s1' and s2' are the same bits: a report),
+   and K1 (shift 'none', the drain conv), K2, K3, K4 at one frame. K5
+   states and K6's s1' must equal the plain version exactly. Train sites
+   (8 clips x 11 frames of 96x96, the c64 train step's 28 weight
+   gradients): K7 conv3x3_dw against the
    fp32 weight gradient of the same bf16 values, its plain time that of
    cuDNN's bf16 wgrad (the shift and addend materialised first), and K1 at
    the 4 chain intermediates that the step's backward recomputes. The
@@ -43,12 +46,12 @@ Phases, each printed as one JSON object on its own line:
 5. streaming main path, both nets: ``StreamDenoiser`` push of a 24-frame
    540x960 bf16 clip, then flush (F.conv2d made to raise); the launches of
    every push must match the port's fill / steady / drain rule and
-   MemCvBlock route (``archs/streaming.CHAIN_MAX_C``: a MemCvBlock no
-   wider runs as one K6 when both its buffers are primed, a wider one as
-   two K5 steps; steady: K2 4, K3 4, K4 4, K1 0, and K5 8 / K6 4 with the
-   chain at 128 channels, K5 16 / K6 0 with every MemCvBlock on K5), and a
-   steady push_block of 8 frames must launch K5 16 times and K2 / K3 / K4
-   4 times. The 24 outputs,
+   MemCvBlock route (``archs/streaming.chain_route``: a MemCvBlock that it
+   chains runs as one K6 when both its buffers are primed, any other as
+   two K5 steps; steady: K2 4, K3 4, K4 4, K1 0, and K6 8 / K5 0 where
+   every MemCvBlock chains, K5 16 / K6 0 where none does), and a steady
+   push_block of 8 frames must launch K5 16 times and K2 / K3 / K4 4
+   times. The 24 outputs,
    and the push_block's, against fp32 MIMO by PSNR (no more than 1 dB below
    bf16 MIMO's). Then steady ms/frame of push (64 pushes, best of 3) and
    of push_block(8), state bytes, peak memory, and the device idle share
@@ -198,11 +201,10 @@ STAGES = 2
 
 
 def chained(c, chain_max_c=None):
-    """Whether a MemCvBlock of c channels runs as one K6 when primed
-    (archs/streaming.py _memcv_step), by ``CHAIN_MAX_C`` or the value
-    given."""
-    return c <= (streaming.CHAIN_MAX_C if chain_max_c is None
-                 else chain_max_c)
+    """Whether a primed MemCvBlock of c channels runs as one K6 (the
+    route of archs/streaming.py ``chain_route``, by ``CHAIN_MAX_C`` or the
+    value given)."""
+    return streaming.chain_route(c, chain_max_c)
 
 
 def per_steady_push(chain_max_c=None):
@@ -292,9 +294,9 @@ def psnr(got, ref):
 # phase 2: every kernel variant of both paths, at its site shapes
 # ---------------------------------------------------------------------------
 
-# the route of phase 6's run by the chain where the push takes K5 (the
-# TPU's: one K6 for each 128-channel MemCvBlock)
-CHAIN_ROUTE = 128
+# the route of phase 6's run by the chain where the push takes K5: one K6
+# for every MemCvBlock (256 channels and under), in both modes
+CHAIN_ROUTE = 256
 
 
 def k6_on_path():
@@ -339,9 +341,9 @@ def _sites():
         return temporal_shift(v.reshape(v.shape[0] // nt, nt, *v.shape[1:]),
                               8, mode).reshape(v.shape)
 
-    def work(flops, inputs, cws, library, pair=None):
+    def work(flops, inputs, cws, library, pair=None, twin=None):
         return {'flops': flops, 'in_bytes': nbytes(*inputs) + wbytes(*cws),
-                'library': library, 'pair': pair}
+                'library': library, 'pair': pair, 'twin': twin}
 
     def lib_conv(v, cw, stride=1):
         """The library's conv of v, weights cast to bf16 once, here."""
@@ -444,6 +446,12 @@ def _sites():
             x, s1, s2 = (act_in((1, h, w, c), g) for _ in range(3))
             c1, c2 = conv(c, c, g), conv(c, c, g)
             kw = dict(act='relu6', act2='relu6', causal=causal)
+
+            def two_k5():
+                """The route's other form: two K5 steps (y, s1', s2')."""
+                y1, n1 = bibuffer_conv(x, s1, c1, act='relu6', causal=causal)
+                y, n2 = bibuffer_conv(y1, s2, c2, act='relu6', causal=causal)
+                return y, n1, n2
             return (lambda: bibuffer_chain(x, s1, s2, c1, None, c2, None,
                                            **kw),
                     lambda: bibuffer_chain_reference(*f32(x, s1, s2), c1,
@@ -452,7 +460,7 @@ def _sites():
                                                      None, **kw),
                     (False, True, False),
                     work(2 * 2 * 9 * c * c * h * w, (x, s1, s2), (c1, c2),
-                         None, lib_pair(x, c1, s2, c2)))
+                         None, lib_pair(x, c1, s2, c2), two_k5))
         return make
 
     def k7(hw, c, co, shift, add2):
@@ -565,6 +573,7 @@ def _sites():
         ('bibuffer_chain', 'causal_270x480_c128', 0, k6(h2, w2, 128, True)),
         ('bibuffer_chain', 'bidir_135x240_c256', n6(256),
          k6(h4, w4, 256, False)),
+        ('bibuffer_chain', 'causal_135x240_c256', 0, k6(h4, w4, 256, True)),
         ('conv3x3', 'drain_270x480_c128', 0, k1(h2, w2, 128, 'none', False,
                                                 nt=1)),
         ('conv3x3', 'drain_135x240_c256', 0, k1(h4, w4, 256, 'none', False,
@@ -653,6 +662,15 @@ def phase_kernels():
         plain_ms = median_ms(plain_bf16)
         lib_ms = median_ms(wk['library']) if wk['library'] else None
         pair_ms = median_ms(wk['pair']) if wk['pair'] else None
+        twin = {}
+        if wk['twin']:
+            # K6 against the two K5 steps the route takes instead: bit for
+            # bit (a report) and time
+            other = wk['twin']()
+            twin = {'equals_two_k5': {k: torch.equal(a, b) for k, a, b in
+                                      zip(('y', 's1n', 's2n'), got, other)},
+                    'two_k5_ms': median_ms(wk['twin'])}
+            del other
         outs = got if isinstance(got, tuple) else (got,)
         n_bytes = wk['in_bytes'] + nbytes(*outs)
         ops_ms, bytes_ms = bound_ms(wk['flops'], n_bytes)
@@ -664,7 +682,7 @@ def phase_kernels():
               'library_pair_ms': pair_ms,
               'flops': wk['flops'], 'bytes': n_bytes, 'bound_ms': bound,
               'bound_by': 'operations' if ops_ms >= bytes_ms else 'bytes',
-              'tflops': wk['flops'] / ms / 1e9, 'count': count})
+              'tflops': wk['flops'] / ms / 1e9, 'count': count, **twin})
         s = summary[kernel]
         s['max_abs_err'] = max(s['max_abs_err'], err)
         if unit == KERNELS[kernel][3]:
@@ -838,8 +856,8 @@ def expected_step(p, t_len, causal):
     8s+7: down0, down1, up2, up1, two each) reads frame p - k at step p
     and holds frame p - k - 1: it outputs iff that frame exists, through
     K5 if its input exists too (steady) and K1 if not (drain). A
-    MemCvBlock no wider than CHAIN_MAX_C (``chained``) runs as one K6
-    when both its convs are steady. The causal net has no delay: every
+    MemCvBlock that the route chains (``chained``) runs as one K6 when
+    both its convs are steady. The causal net has no delay: every
     site runs steady on every valid frame."""
     c = dict.fromkeys(KERNELS, 0)
 
@@ -1096,9 +1114,8 @@ def phase_stream_parity(nets, clips, outs, out32):
     rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.uniform(0, 1, (1, 20, 128, 224, 4))
                          .astype(np.float32)).cuda()
-    # the route the main path does not take: K6 for the 128-channel
-    # MemCvBlocks (the TPU's route; fp32 K6 holds no 256-channel
-    # intermediate), or two K5 steps for every one
+    # the route the main path does not take: K6 for every MemCvBlock up to
+    # CHAIN_ROUTE channels, or two K5 steps for every one
     main_route = streaming.CHAIN_MAX_C
     other_route = CHAIN_ROUTE if main_route < CHAIN_ROUTE else 0
     off_path = dict.fromkeys(KERNELS, 0)

@@ -164,6 +164,62 @@ def test_bibuffer_chain_matches_pallas(causal):
     np.testing.assert_allclose(gs2.numpy(), np.asarray(ps2), **TOL)
 
 
+# (C, C1, Cout): fold 5 (conv2's 16-channel slices straddle the y1 and s2
+# lanes), C1 != C != Cout
+_CHAIN_SHAPES = {'fold5': (40, 40, 40), 'c16_c32_c24': (16, 32, 24)}
+
+
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('shape', sorted(_CHAIN_SHAPES))
+def test_bibuffer_chain_shapes_match_pallas(shape, causal):
+    from bsvd_tpu.ops.bibuffer_conv import bibuffer_chain_pallas
+    c, c1, co = _CHAIN_SHAPES[shape]
+    rng = np.random.default_rng(59)
+    x, s1, s2 = (_arr(rng, (1, H, W, c)), _arr(rng, (1, H, W, c)),
+                 _arr(rng, (1, H, W, c1)))
+    w1j, w1t, b1, b1t = _conv_np(rng, c, c1)
+    w2j, w2t, b2, b2t = _conv_np(rng, c1, co)
+    py, ps1, ps2 = bibuffer_chain_pallas(
+        *map(jnp.asarray, (x, s1, s2, w1j, b1, w2j, b2)), bh=4,
+        causal=causal, interpret=True)
+    gy, gs1, gs2 = bibuffer_chain(*map(torch.from_numpy, (x, s1, s2)), w1t,
+                                  b1t, w2t, b2t, causal=causal)
+    assert gy.shape == (1, H, W, co)
+    np.testing.assert_allclose(gy.numpy(), np.asarray(py), **TOL)
+    np.testing.assert_array_equal(gs1.numpy(), np.asarray(ps1))
+    np.testing.assert_allclose(gs2.numpy(), np.asarray(ps2), **TOL)
+
+
+@pytest.mark.parametrize('causal', [False, True])
+def test_conv2_reads_only_the_chain_lanes(causal):
+    """The lane rule K6 relies on: y1's lanes [f2:] (bidirectional) or
+    [:2f2] (causal) reach s2' but not conv2's output, in JAX's oracle and
+    in the port's plain step alike."""
+    from bsvd_tpu.ops.bibuffer_conv import bibuffer_conv_reference
+    rng = np.random.default_rng(60)
+    c1 = 32
+    f2 = c1 // 8
+    y1, s2 = _arr(rng, (1, H, W, c1)), _arr(rng, (1, H, W, c1))
+    wj, wt, b, bt = _conv_np(rng, c1, CO)
+    unread = slice(0, 2 * f2) if causal else slice(f2, None)
+    y1b = y1.copy()
+    y1b[..., unread] = _arr(rng, y1b[..., unread].shape)
+    outs = []
+    for v in (y1, y1b):
+        jy, js = bibuffer_conv_reference(jnp.asarray(v), jnp.asarray(s2),
+                                         jnp.asarray(wj), jnp.asarray(b),
+                                         causal=causal)
+        ty, ts = bibuffer_conv(torch.from_numpy(v), torch.from_numpy(s2), wt,
+                               bt, causal=causal)
+        outs.append((np.asarray(jy), np.asarray(js), ty.numpy(), ts.numpy()))
+    (jy, js, ty, ts), (jy2, js2, ty2, ts2) = outs
+    np.testing.assert_array_equal(jy2, jy)
+    np.testing.assert_array_equal(ty2, ty)
+    assert not np.array_equal(js2, js) and not np.array_equal(ts2, ts)
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(ts2, js2)
+
+
 def test_bibuffer_chain_is_two_steps():
     """The chain's (y, s1', s2') == two single steps of the port."""
     rng = np.random.default_rng(58)

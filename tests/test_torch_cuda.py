@@ -328,13 +328,24 @@ def test_bibuffer_conv_kernel_streams(dev, shape, causal, dtype):
     assert torch.equal(ns.float(), rs)
 
 
+# K6 alone: 256 channels (four 64-channel blocks of y1, the 4 x 30 tile),
+# fold 5 (conv2's K slices straddle y1 and s2 lanes, elements and 16-byte
+# chunks), Cout != C1 (two channel blocks of y), and a grid large enough
+# for the 8 x 30 tile (2 x 18 x 16 blocks); sizes no multiple of the tiles
+_K6_CASES = dict(_BI_CASES, c256=(100, 120, 256, 256, 256),
+                 fold5=(12, 20, 40, 40, 40), cout96=(19, 33, 64, 64, 96),
+                 c128_8row=(138, 478, 128, 128, 128))
+
+
 @pytest.mark.parametrize('dtype', DTYPES)
-@pytest.mark.parametrize('case', sorted(_BI_CASES))
+@pytest.mark.parametrize('case', sorted(_K6_CASES))
 @pytest.mark.parametrize('causal', [False, True])
 def test_bibuffer_chain_kernel(dev, causal, case, dtype):
+    """K6 on N = 2 streams against the plain version in fp32: s1' and s2''s
+    lanes copied from s2 exactly, y and s2''s y1 lanes within tolerance."""
     from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain,
                                                   bibuffer_chain_reference)
-    h, w, c, c1, co = _BI_CASES[case]
+    h, w, c, c1, co = _K6_CASES[case]
     rng = np.random.default_rng(9)
     x = _t(rng, (2, h, w, c), 1.0, dev).to(dtype)
     s1 = _t(rng, x.shape, 1.0, dev).to(dtype)
@@ -343,16 +354,46 @@ def test_bibuffer_chain_kernel(dev, causal, case, dtype):
     b1 = _t(rng, (c1,), 0.1, dev)
     w2 = _t(rng, (co, c1, 3, 3), (2 / (9 * c1)) ** 0.5, dev)
     b2 = _t(rng, (co,), 0.1, dev)
+    before = bibuffer_chain.launches
     y, n1, n2 = bibuffer_chain(x, s1, s2, w1, b1, w2, b2, causal=causal)
+    assert bibuffer_chain.launches == before + 1
     torch.cuda.synchronize()
     ry, r1, r2 = bibuffer_chain_reference(x.float(), s1.float(), s2.float(),
                                           w1, b1, w2, b2, causal=causal)
+    assert y.dtype == n1.dtype == n2.dtype == dtype
     _close(y, ry, dtype)
     assert torch.equal(n1.float(), r1)
-    _close(n2, r2, dtype)
+    f2 = 0 if causal else c1 // 8           # s2' lanes copied from s2
+    assert torch.equal(n2[..., :f2].float(), r2[..., :f2])
+    _close(n2[..., f2:], r2[..., f2:], dtype)
 
 
-@pytest.mark.parametrize('chain_max_c', [None, 0, 128])
+@pytest.mark.parametrize('case', sorted(_K6_CASES))
+@pytest.mark.parametrize('causal', [False, True])
+def test_bibuffer_chain_kernel_equals_two_k5_steps(dev, causal, case):
+    """bf16 K6 sums y1 and y in K5's slice and tap order and rounds them
+    where K5 does: (y, s1', s2') are two K5 steps' bits."""
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain,
+                                                  bibuffer_conv)
+    h, w, c, c1, co = _K6_CASES[case]
+    rng = np.random.default_rng(11)
+    bf = torch.bfloat16
+    x = _t(rng, (2, h, w, c), 1.0, dev).to(bf)
+    s1 = _t(rng, x.shape, 1.0, dev).to(bf)
+    s2 = _t(rng, (2, h, w, c1), 1.0, dev).to(bf)
+    w1 = _t(rng, (c1, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
+    b1 = _t(rng, (c1,), 0.1, dev)
+    w2 = _t(rng, (co, c1, 3, 3), (2 / (9 * c1)) ** 0.5, dev)
+    b2 = _t(rng, (co,), 0.1, dev)
+    got = bibuffer_chain(x, s1, s2, w1, b1, w2, b2, causal=causal)
+    y1, r1 = bibuffer_conv(x, s1, w1, b1, causal=causal)
+    y, r2 = bibuffer_conv(y1, s2, w2, b2, causal=causal)
+    torch.cuda.synchronize()
+    for g, r in zip(got, (y, r1, r2)):
+        assert torch.equal(g, r)
+
+
+@pytest.mark.parametrize('chain_max_c', [None, 0, 128, 256])
 @pytest.mark.parametrize('batch', [1, 2])
 @pytest.mark.parametrize('shift_mode', ['TSM', 'TSM_toFutureOnly'])
 def test_stream_denoiser_kernels_match_plain_path(dev, shift_mode, batch,
@@ -360,14 +401,15 @@ def test_stream_denoiser_kernels_match_plain_path(dev, shift_mode, batch,
     """A small net streamed on the card (push, push_block, flush) in fp32
     against the plain streaming path on the CPU, for 1 and 2 streams, by
     the port's MemCvBlock route (None) and by each route forced: every
-    MemCvBlock by two K5 steps (``CHAIN_MAX_C`` 0) or by K6 (128)."""
+    MemCvBlock by two K5 steps (``CHAIN_MAX_C`` 0), the 32-channel ones by
+    K6 and the 160-channel ones by K5 (128), or every one by K6 (256)."""
     from bsvd_tpu_torch.archs import streaming
     from bsvd_tpu_torch.archs.streaming import StreamDenoiser
     from bsvd_tpu_torch.archs.wnet_arch import (WNetConfig, prepare_params,
                                                 wnet_init)
     if chain_max_c is not None:
         monkeypatch.setattr(streaming, 'CHAIN_MAX_C', chain_max_c)
-    cfg = WNetConfig(chns=(16, 32, 64), mid_ch=16, interm_ch=16,
+    cfg = WNetConfig(chns=(16, 32, 160), mid_ch=16, interm_ch=16,
                      norm='none', act='relu6', shift_mode=shift_mode)
     params = wnet_init(cfg, seed=1)
     rng = np.random.default_rng(10)

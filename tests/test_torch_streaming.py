@@ -248,6 +248,32 @@ def test_streaming_c64_widths(shift_mode):
         **TOL)
 
 
+@pytest.mark.parametrize('chain_max_c', [0, 128, 256])
+@pytest.mark.parametrize('shift_mode', ['TSM', 'TSM_toFutureOnly'])
+def test_streaming_apply_routes_match_jax(shift_mode, chain_max_c,
+                                          monkeypatch):
+    """streaming_apply by each MemCvBlock route (``CHAIN_MAX_C`` set: every
+    MemCvBlock by two K5 steps, the 16-channel ones by K6, or every one by
+    K6) against JAX streaming, with MemCvBlocks of 16 and 160 channels; the
+    chain wrapper runs exactly where ``chain_route`` says."""
+    from bsvd_tpu.archs.streaming import streaming_apply as jax_streaming
+    from bsvd_tpu_torch.archs import streaming
+    monkeypatch.setattr(streaming, 'CHAIN_MAX_C', chain_max_c)
+    widths = []
+
+    def counted(x, *args, **kw):
+        widths.append(x.shape[-1])
+        return bibuffer_chain(x, *args, **kw)
+    monkeypatch.setattr(streaming, 'bibuffer_chain', counted)
+    jcfg, jparams, pcfg, params = _pair(50, chns=(8, 16, 160),
+                                        shift_mode=shift_mode)
+    x = _clip(51, 1, 20, 16, 16, pcfg.effective_in_ch)
+    got = streaming_apply(params, torch.from_numpy(x), pcfg)
+    ref = np.asarray(jax_streaming(jparams, jnp.asarray(x), jcfg))
+    np.testing.assert_allclose(got.numpy(), ref, **TOL)
+    assert set(widths) == {c for c in (16, 160) if streaming.chain_route(c)}
+
+
 @pytest.mark.parametrize('over', [{}, dict(shift_mode='TSM_toFutureOnly'),
                                   dict(blind=True)])
 def test_denoise_seq_streaming_equals_mimo_and_jax(over):

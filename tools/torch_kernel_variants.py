@@ -3,12 +3,13 @@
 conv kernels, on one NVIDIA GPU.
 
     python3 tools/torch_kernel_variants.py --ptxas [--csrc DIR]  # figures
-    python3 tools/torch_kernel_variants.py [--group k3|k5] [--out FILE]
+    python3 tools/torch_kernel_variants.py [--group GROUP] [--out FILE]
 
 ``--ptxas`` prints what ``nvcc -Xptxas -v`` reports (registers, spills)
 for the kernels of the pipelined sources (of ``--csrc``, by default the
 package's; another tree's to compare). Without it the tool also times a
-group of layouts that the sources do not keep against the sources:
+group (k2, k3, k5, k6 or k6parts) of layouts that the sources do not
+keep against the sources:
 
 - ``k3``: K3 conv_s2 as the sources hold it (8 x 16 output tiles, a
   2-stage ring, two blocks an SM) against 16 x 16 tiles with 3 stages and
@@ -22,7 +23,18 @@ group of layouts that the sources do not keep against the sources:
 - ``k2``: K2 conv_chain at its forward and push sites, the sources'
   output tiles (8 x 30 with 2 stages, two blocks an SM, without x2; 14 x
   30, one block an SM, with x2) against 14 x 30 with 3 stages without x2
-  too.
+  too;
+- ``k6``: K6 bibuffer_chain at a push's MemCvBlock sites (270x480x128 and
+  135x240x256, one frame, bidirectional and causal), the sources' 6 x 30
+  tile with a 2-stage ring, two blocks an SM where they fit, against 8 x
+  30 and 4 x 30, a 3-stage ring, one block an SM (no register cap), and
+  every 64-channel block of conv1 on the tile's ring (no lane rule); the
+  kept sources' runs also time the two K5 steps the route takes instead;
+- ``k6parts``: where K6's time goes, timing only (the outputs are wrong by
+  design, so nothing is checked): K6 at the bidirectional sites and the
+  causal 128-channel one with a part switched off at run time (conv1,
+  conv2, the y / s2' stores, s2's ring loads, the state copies), and
+  conv1 alone at 8 x 30.
 
 A dropped layout is rebuilt from a copy of ``bsvd_tpu_torch/csrc`` with
 the text edits listed in ``VARIANTS``, in its own directory under the
@@ -56,6 +68,13 @@ S2_CFG = 'using S2Cfg = PipeCfg<2, 8, 128, 1, 2>;'
 K5_SMALL = ': launch_bibuf_pipe<PipeCfg<1, 8, 128, 1, 2>>(a, stream);'
 K5_BIG = '? launch_bibuf_pipe<PipeCfg<1, 16, 128, 1, 4>>(a, stream)'
 K2_NOX2 = ('ChainCfg<1, 16, 8, 2>', 'ChainCfg<1, 64, 8, 2>')
+K6_CFG = 'return launch_bichain_bf16<BiChainCfg<6, 2>>(a, stream);'
+K6_MINB = 'auto kern = 2 * (smem + 1024) <= 233472 ? bibuf_chain_bf16_kernel<K, 2>'
+# a condition false at run time that the compiler cannot fold away
+K6_OFF = 'a.act1 == 99'
+K6_NB2 = 'const int ks2 = cdiv(a.C1, 16), nb2 = a.CoutP / K::BN;'
+K6_HALO = ('ln.hb0 = a.causal ? (lo < nb1 ? lo : nb1) : 0;',
+           'ln.nh = a.causal ? nb1 - ln.hb0 : (hi < nb1 ? hi : nb1);')
 # name -> {source file: [(text, replacement), ...]}
 VARIANTS = {
     'kept': {},
@@ -65,6 +84,35 @@ VARIANTS = {
         (K5_BIG, K5_BIG.replace('<1, 16, 128, 1, 4>', '<1, 8, 128, 1, 2>'))]},
     'k2_th14': {'conv_chain.cu': [(c, c.replace(', 8, 2>', ', 14, 3>'))
                                   for c in K2_NOX2]},
+    'k6_th8': {'bibuffer_conv.cu': [(K6_CFG, K6_CFG.replace('<6,', '<8,'))]},
+    'k6_th4': {'bibuffer_conv.cu': [(K6_CFG, K6_CFG.replace('<6,', '<4,'))]},
+    'k6_halo_all': {'bibuffer_conv.cu': [
+        (K6_HALO[0], 'ln.hb0 = 0;'), (K6_HALO[1], 'ln.nh = nb1;')]},
+    'k6_1blk': {'bibuffer_conv.cu': [
+        (K6_MINB, K6_MINB.replace('2 * (smem + 1024) <= 233472', 'false'))]},
+    'k6_3stage': {'bibuffer_conv.cu': [
+        (K6_CFG, K6_CFG.replace('<6, 2>', '<6, 3>'))]},
+    'k6_no_conv2': {'bibuffer_conv.cu': [
+        (K6_NB2, K6_NB2.replace('a.CoutP / K::BN', '0'))]},
+    'k6_no_conv1': {'bibuffer_conv.cu': [
+        ('nb1 = a.C1P / 64, n1 = nb1 * nk1;', 'nb1 = 0, n1 = nb1 * nk1;')]},
+    'k6_no_stores': {'bibuffer_conv.cu': [
+        ('        if (own) {', f'        if (own && {K6_OFF}) {{'),
+        ('          if (o >= a.Cout) continue;',
+         f'          if (o >= a.Cout || !({K6_OFF})) continue;')]},
+    'k6_no_s2load': {'bibuffer_conv.cu': [
+        ('if (!ln.mid_slice(k0)) load_s2(sg, k0);',
+         f'if (!ln.mid_slice(k0) && {K6_OFF}) load_s2(sg, k0);')]},
+    'k6_no_copies': {'bibuffer_conv.cu': [
+        ('  if (!a.causal) copy_s2_lanes(s2n, s2, a, st, oy0, ox0, K::TH, '
+         'K::TW);', f'  if (!a.causal && {K6_OFF}) copy_s2_lanes(s2n, s2, a, '
+         'st, oy0, ox0, K::TH, K::TW);'),
+        ('  copy_next_state(static_cast<bf16*>(a.s1n), s, 1, st, oy0, ox0, '
+         'K::TH,', f'  if ({K6_OFF}) copy_next_state(static_cast<bf16*>'
+         '(a.s1n), s, 1, st, oy0, ox0, K::TH,')]},
+    'k6_th8_no_conv2': {'bibuffer_conv.cu': [
+        (K6_NB2, K6_NB2.replace('a.CoutP / K::BN', '0')),
+        (K6_CFG, K6_CFG.replace('<6,', '<8,'))]},
 
     'th8_4stage': {'conv_s2.cu': [
         (S2_CFG, 'using S2Cfg = PipeCfg<2, 8, 128, 1, 4>;')]},
@@ -82,7 +130,13 @@ GROUPS = {'k3': ['kept', 'th8_4stage', 'unsplit', 'th16_3stage', 'kept',
                  'th16_3stage', 'unsplit', 'th8_4stage', 'kept'],
           'k5': ['kept', 'k5_16x16', 'k5_8x16', 'kept', 'k5_8x16',
                  'k5_16x16', 'kept'],
-          'k2': ['kept', 'k2_th14', 'kept', 'k2_th14', 'kept']}
+          'k2': ['kept', 'k2_th14', 'kept', 'k2_th14', 'kept'],
+          'k6': ['kept', 'k6_th8', 'k6_th4', 'k6_halo_all', 'k6_1blk',
+                 'k6_3stage', 'kept', 'k6_3stage', 'k6_1blk', 'k6_halo_all',
+                 'k6_th4', 'k6_th8', 'kept'],
+          'k6parts': ['kept', 'k6_no_conv2', 'k6_no_conv1', 'k6_no_stores',
+                      'k6_no_s2load', 'k6_no_copies', 'k6_th8_no_conv2',
+                      'kept']}
 # (frames, H, W, Cin, Cout) of K3's sites in a BSVD-c64 forward and push
 S2_SITES = [(10, 540, 960, 64, 128), (10, 270, 480, 128, 256),
             (1, 540, 960, 64, 128), (1, 270, 480, 128, 256)]
@@ -103,6 +157,9 @@ K5_SITES = [(f, h, w, c, causal)
                                     (135, 240, 256, False),
                                     (135, 240, 256, True))
             if f in (1, 8) or not causal]
+# (H, W, C, causal): K6 at a push's MemCvBlock sites (C -> C -> C)
+K6_SITES = [(h, w, c, causal) for causal in (False, True)
+            for h, w, c in ((270, 480, 128), (135, 240, 256))]
 PIPE_SOURCES = ('conv3x3.cu', 'conv_s2.cu', 'conv_ps.cu', 'bibuffer_conv.cu',
                 'conv_chain.cu')
 
@@ -148,7 +205,9 @@ def child(name, group):
     import torch
     from bsvd_tpu_torch.ops import _build
     from bsvd_tpu_torch.ops._pack import ConvWeights
-    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_conv,
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain,
+                                                  bibuffer_chain_reference,
+                                                  bibuffer_conv,
                                                   bibuffer_conv_reference,
                                                   bibuffer_multi,
                                                   bibuffer_multi_reference)
@@ -174,7 +233,7 @@ def child(name, group):
 
     def site(kernel, shape, run, ref):
         got, want = run(), ref()
-        if isinstance(got, tuple):            # K5: (y, next state)
+        if isinstance(got, tuple):            # K5 / K6: (y, states)
             if not torch.equal(got[1].float(), want[1]):
                 raise AssertionError(f'{name} {kernel} {shape}: state')
             got, want = got[0], want[0]
@@ -205,6 +264,41 @@ def child(name, group):
                                                     None, 'relu6', 'relu6'))
             out['sites'].append(site('conv_chain', (nt, c, cres, co), run,
                                      ref))
+        print(json.dumps(out), flush=True)
+        return
+    if group == 'k6parts':
+        for h, w, c, causal in K6_SITES[:3]:
+            x, s1, s2 = (act_in((1, h, w, c)) for _ in range(3))
+            c1, c2 = weights(c, c), weights(c, c)
+            ms = timed(lambda: bibuffer_chain(x, s1, s2, c1, None, c2, None,
+                                              causal=causal))
+            out['sites'].append({'kernel': 'bibuffer_chain',
+                                 'shape': [h, w, c, causal], 'ms': ms})
+        print(json.dumps(out), flush=True)
+        return
+    if group == 'k6':
+        for h, w, c, causal in K6_SITES:
+            x, s1, s2 = (act_in((1, h, w, c)) for _ in range(3))
+            c1, c2 = weights(c, c), weights(c, c)
+            kw = dict(causal=causal)
+            out['sites'].append(site(
+                'bibuffer_chain', (h, w, c, causal),
+                lambda: bibuffer_chain(x, s1, s2, c1, None, c2, None, **kw),
+                lambda: bibuffer_chain_reference(x.float(), s1.float(),
+                                                 s2.float(), c1, None, c2,
+                                                 None, **kw)))
+            if name != 'kept':
+                continue
+
+            def two_k5():
+                y1, n1 = bibuffer_conv(x, s1, c1, **kw)
+                y, n2 = bibuffer_conv(y1, s2, c2, **kw)
+                return y, n1, n2
+            out['sites'].append(site(
+                'bibuffer_conv_x2', (h, w, c, causal), two_k5,
+                lambda: bibuffer_chain_reference(x.float(), s1.float(),
+                                                 s2.float(), c1, None, c2,
+                                                 None, **kw)))
         print(json.dumps(out), flush=True)
         return
     if group == 'k5':
