@@ -1,6 +1,7 @@
 """WNet, the W-shaped multi-stage temporal-shift U-Net denoiser, in
 PyTorch (counterpart of bsvd_tpu/archs/wnet_arch.py: WNetConfig, wnet_init,
-the natural-layout _stage_apply, wnet_apply and the BSVD / TSN wrappers).
+the natural-layout _stage_apply, wnet_apply, the chunked wnet_apply_chunk
+and the BSVD / TSN wrappers).
 
 Layout is ``(N, T, H, W, C)`` channels-last, as in the JAX package; the T
 axis merges into the batch of every conv. Each stage runs on four kernel
@@ -28,6 +29,7 @@ import torch
 from torch import nn
 
 from bsvd_tpu_torch.nn.layers import ACTS, conv_init
+from bsvd_tpu_torch.nn.shift import chunk_carry, chunk_frame0
 from bsvd_tpu_torch.ops._pack import ConvWeights
 from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
 from bsvd_tpu_torch.ops.conv_chain import conv_chain, conv_chain_add2_res
@@ -152,13 +154,17 @@ def _cw(leaf):
         leaf['w'], leaf.get('b'))
 
 
-def _cvblock(p, x, cfg, t_len, x_add=None):
+def _cvblock(p, x, cfg, t_len, x_add=None, sites=None):
     """Two temporal-shift convs + act (reference CvBlock); ``x_add`` is
-    summed into the first conv's input (up1's x1 + x2)."""
+    summed into the first conv's input (up1's x1 + x2). ``sites``: the
+    two convs' ``_ChunkShiftSite``s on the chunked path, else None."""
     c1, c2 = _cw(p['c1']), _cw(p['c2'])
     if cfg.shift_mode == 'none':
         x = conv3x3(x, c1, x2=x_add, act=cfg.act)
         return conv3x3(x, c2, act=cfg.act)
+    if sites is not None:
+        x = _chunk_shift_conv(c1, x, cfg, t_len, sites[0], x_add)
+        return _chunk_shift_conv(c2, x, cfg, t_len, sites[1])
     causal = 'toFutureOnly' in cfg.shift_mode
     if x_add is None:
         x = shift_conv(x, c1, None, t_len, cfg.fold_div, cfg.act, causal)
@@ -168,18 +174,23 @@ def _cvblock(p, x, cfg, t_len, x_add=None):
     return shift_conv(x, c2, None, t_len, cfg.fold_div, cfg.act, causal)
 
 
-def _stage_apply(p, x, cfg, t_len):
+def _stage_apply(p, x, cfg, t_len, sites=None):
     """One DenBlock stage on (N*T, H, W, C) frames, the natural-layout
-    stage of bsvd_tpu (wnet_arch.py _stage_apply)."""
+    stage of bsvd_tpu (wnet_arch.py _stage_apply). ``sites``: the stage's
+    8 ``_ChunkShiftSite``s on the chunked path, keyed by position as in
+    JAX: down0.cv c1 / c2, down1.cv, up2.cv, up1.cv."""
+    def pair(k):
+        return None if sites is None else sites[k:k + 2]
+
     x0 = conv_chain(x, _cw(p['inc']['c1']), None, _cw(p['inc']['c2']), None,
                     cfg.act, cfg.act)
     x1 = conv_s2(x0, _cw(p['down0']['conv']), act=cfg.act)
-    x1 = _cvblock(p['down0']['cv'], x1, cfg, t_len)
+    x1 = _cvblock(p['down0']['cv'], x1, cfg, t_len, sites=pair(0))
     x2 = conv_s2(x1, _cw(p['down1']['conv']), act=cfg.act)
-    x2 = _cvblock(p['down1']['cv'], x2, cfg, t_len)
-    x2 = _cvblock(p['up2']['cv'], x2, cfg, t_len)
+    x2 = _cvblock(p['down1']['cv'], x2, cfg, t_len, sites=pair(2))
+    x2 = _cvblock(p['up2']['cv'], x2, cfg, t_len, sites=pair(4))
     x2 = conv_ps(x2, _cw(p['up2']['conv']))
-    x1 = _cvblock(p['up1']['cv'], x1, cfg, t_len, x_add=x2)
+    x1 = _cvblock(p['up1']['cv'], x1, cfg, t_len, x_add=x2, sites=pair(6))
     x1 = conv_ps(x1, _cw(p['up1']['conv']))
     # outc: act(conv(x0 + x1)) -> conv, then the residual on the first
     # residual_ch channels (wnet_models.py:181): x[..., :rc] - y[..., :rc]
@@ -199,6 +210,94 @@ def wnet_apply(params, x, cfg):
     for i in range(cfg.stage_num):
         y = _stage_apply(params[f'stage{i}'], y, cfg, t)
     return y.reshape(n, t, h, w, y.shape[-1])
+
+
+# ---------------------------------------------------------------------------
+# chunked MIMO with per-site carries (bsvd_tpu/archs/wnet_arch.py
+# _ChunkShiftSite, _chunk_shift_conv_site, wnet_apply_chunk)
+# ---------------------------------------------------------------------------
+
+def _frames(v, t_len):
+    """(N*T, H, W, C) -> (N, T, H, W, C), a view."""
+    nt, h, w, c = v.shape
+    return v.view(nt // t_len, t_len, h, w, c)
+
+
+class _ChunkShiftSite:
+    """One carry-threaded temporal-shift site of the chunked protocol:
+    ``carry`` is what the previous chunk left at this site (None on the
+    first chunk: zeros), and ``record`` writes the outgoing carry into
+    slot ``idx`` of ``out``. The site's input is ``x`` (+ ``x_add`` at
+    up1's first conv), summed only on the frames and lanes read here."""
+
+    def __init__(self, cfg, carry, future, out, idx):
+        self.cfg, self.carry, self.future = cfg, carry, future
+        self.out, self.idx = out, idx
+
+    def _lanes(self, x, x_add, t_len):
+        """``lanes(j, lo, hi)`` of nn/shift.chunk_frame0 / chunk_carry over
+        the site's input, summing ``x_add`` only on what is read."""
+        def lanes(j, lo, hi):
+            f = _frames(x, t_len)[:, j, ..., lo:hi]
+            return f if x_add is None else (
+                f + _frames(x_add, t_len)[:, j, ..., lo:hi])
+        return lanes
+
+    def record(self, x, x_add, t_len):
+        """The outgoing carry, in the compute dtype."""
+        self.out[self.idx] = chunk_carry(
+            self._lanes(x, x_add, t_len), x.shape[-1], t_len, self.future,
+            self.cfg.fold_div, self.cfg.shift_mode)
+
+    def frame0(self, x, x_add, t_len):
+        """Frame 0's shifted input under the chunk boundary, (N, H, W, C)
+        contiguous (K1's 16-byte loader needs it)."""
+        return chunk_frame0(self._lanes(x, x_add, t_len), x.shape[-1], t_len,
+                            self.carry, self.cfg.fold_div,
+                            self.cfg.shift_mode)
+
+
+def _chunk_shift_conv(cw, x, cfg, t_len, site, x_add=None):
+    """A shift conv site of the chunked path. K1 runs the whole chunk with
+    the zero-boundary shift, which is already right on frames 1..T-1; frame
+    0, the only frame whose shifted input differs, is recomputed by K1 at
+    one frame from ``site.frame0`` and written into K1's output in place
+    (no second full tensor)."""
+    causal = 'toFutureOnly' in cfg.shift_mode
+    if x_add is None:
+        y = shift_conv(x, cw, None, t_len, cfg.fold_div, cfg.act, causal)
+    else:
+        y = shift_conv_add2(x, x_add, cw, None, t_len, cfg.fold_div, cfg.act,
+                            causal)
+    y0 = conv3x3(site.frame0(x, x_add, t_len), cw, act=cfg.act)
+    site.record(x, x_add, t_len)
+    _frames(y, t_len)[:, 0] = y0
+    return y
+
+
+def wnet_apply_chunk(params, x, cfg, carries, future_buffer_len=0):
+    """Forward one chunk (N, T, H, W, C_in) of the chunked MIMO protocol,
+    threading a carry through each of the ``cfg.shift_num`` shift sites.
+
+    Carries are keyed by position: site ``stage * 8 + k``, k in the order
+    of ``_stage_apply``'s ``sites``. ``carries`` is None on the first chunk
+    (the zero boundary). Returns (out (N, T, H, W, out_ch), new_carries);
+    with ``shift_mode='none'`` there is nothing to carry (all None).
+    Inference only: no autograd graph is recorded.
+    """
+    cfg.check_supported()
+    n, t, h, w, c = x.shape
+    per_stage = cfg.shift_num // cfg.stage_num
+    new_carries = [None] * cfg.shift_num
+    y = x.reshape(n * t, h, w, c)
+    with torch.no_grad():
+        for i in range(cfg.stage_num):
+            sites = [_ChunkShiftSite(
+                cfg, None if carries is None else carries[k],
+                future_buffer_len, new_carries, k)
+                for k in range(i * per_stage, (i + 1) * per_stage)]
+            y = _stage_apply(params[f'stage{i}'], y, cfg, t, sites)
+    return y.reshape(n, t, h, w, y.shape[-1]), new_carries
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,7 @@
-"""DenoisingModel, the training half (counterpart of bsvd_tpu/models/
-denoising_model.py: init_training_settings, _build_optimizer, feed_data,
-optimize_parameters, save, make_train_step).
+"""DenoisingModel (counterpart of bsvd_tpu/models/denoising_model.py): the
+training half (init_training_settings, _build_optimizer, feed_data,
+optimize_parameters, save, make_train_step) and the eval half (padding,
+test, the serial validation with its metrics, images and per-scene CSVs).
 
 It takes an options dict (what ``bsvd_tpu.utils.options.parse_options``
 returns for a train YAML; the card's machine has no PyYAML) and a device.
@@ -10,18 +11,35 @@ Adam update, then the EMA. With ``train.fp16`` the forward and backward
 run in bf16 while the master parameters, the loss, the optimizer state and
 the EMA stay fp32 (the JAX package's AMP).
 
+Evaluation: ``test`` denoises the fed clip by ``val``'s protocol
+(``temp_psz`` / ``future_buffer_len``, ``streaming_eval``, ``fp16`` as
+bf16), with the EMA parameters when they exist; ``validation`` scores each
+clip of a dataset (PSNR / SSIM on uint8 images, float PSNR) and writes its
+frames and per-scene CSVs.
+
 Not ported here: norm='bn' (the network raises), the perceptual loss (the
-zoo), validation and test (the eval protocol), data / spatial meshes.
+zoo), data / spatial meshes (validation runs clips one after another).
 """
 
+import csv
+import time
+from os import path as osp
+
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 from bsvd_tpu_torch.archs import build_network
-from bsvd_tpu_torch.archs.wnet_arch import _map_tree
+from bsvd_tpu_torch.archs.wnet_arch import (_map_tree, prepare_params,
+                                            wnet_apply)
 from bsvd_tpu_torch.losses import build_loss
+from bsvd_tpu_torch.metrics import calculate_metric
 from bsvd_tpu_torch.models.base_model import BaseModel
 from bsvd_tpu_torch.models.lr_scheduler import build_schedule
 from bsvd_tpu_torch.models.optim import Adam
+from bsvd_tpu_torch.models.seq_inference import denoise_seq
+from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
+from bsvd_tpu_torch.utils.logger import get_root_logger
 from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
@@ -62,6 +80,7 @@ class DenoisingModel(BaseModel):
                 path.get('strict_load_g', True)))
         self.net = net
         self.ema_params = None
+        self.center_frame_only = opt.get('center_frame_only', False)
         if self.is_train:
             self.init_training_settings()
 
@@ -121,12 +140,178 @@ class DenoisingModel(BaseModel):
         self.log_dict = self._train_step(batch, self.ema_params,
                                          self.ema_decay)
 
-    def test(self):
-        raise NotImplementedError('test / validation wait for the eval '
-                                  'protocol (ROADMAP.md Queue 1 item 4)')
+    # ---- eval --------------------------------------------------------------
+    def padding_input(self, seq):
+        """Reflect-pad H and W of a (T, C, H, W) tensor to multiples of 16
+        (the JAX package's eval padding, denoising_model.py:361-377; the
+        reference pads to 4). Returns (padded, padding_list)."""
+        window_size = 16
+        h, w = seq.shape[-2:]
+        mod_pad_h = (window_size - h % window_size) % window_size
+        mod_pad_w = (window_size - w % window_size) % window_size
+        padded = F.pad(torch.as_tensor(seq), (0, mod_pad_w, 0, mod_pad_h),
+                       mode='reflect')
+        return padded, [0, mod_pad_w, 0, mod_pad_h, 0, 0]
 
-    def validation(self, *args, **kwargs):
-        self.test()
+    def crop_output(self, padding_list):
+        pad_w1, pad_w2, pad_h1, pad_h2, tp1, tp2 = padding_list
+        _, f, _, h, w = self.output.shape
+        self.output = self.output[:, tp1:f - tp2, :, pad_h1:h - pad_h2,
+                                  pad_w1:w - pad_w2]
+
+    def test(self):
+        """Denoise the fed clip into ``self.output`` ((1, T, C, H, W) numpy
+        fp32) by ``val``'s protocol: reflect padding, ``temp_psz`` /
+        ``future_buffer_len``, ``streaming_eval``, ``fp16`` (bf16), the EMA
+        parameters when they exist.
+
+        ``val.reference_ema_branch: true`` with an EMA: the reference's EMA
+        branch (denoising_model.py:170-178), one plain forward of the EMA
+        parameters on the unpadded input, no chunking and no clamp."""
+        val_opt = self.opt.get('val') or {}
+        dtype = torch.bfloat16 if val_opt.get('fp16', False) else \
+            torch.float32
+        if (self.ema_params is not None
+                and val_opt.get('reference_ema_branch', False)):
+            x = self.lq if self.lq.ndim == 5 else self.lq[None]
+            if self.noise_map is not None:
+                nm = self.noise_map
+                x = torch.cat([x, (nm if nm.ndim == 5 else nm[None]).to(
+                    x.dtype)], dim=2)
+            p = prepare_params(self.ema_params, self.device, dtype)
+            with torch.no_grad():
+                out = wnet_apply(p, x.to(dtype).permute(0, 1, 3, 4, 2),
+                                 self.cfg)
+            self.output = out.permute(0, 1, 4, 2, 3).float().cpu().numpy()
+            return
+        # val items are (1, T, C, H, W): drop the batch axis
+        lq = self.lq[0] if self.lq.ndim == 5 else self.lq
+        padded_lq, padding_list = self.padding_input(lq)
+        sigma = None
+        if self.noise_map is not None:
+            sigma = float(self.noise_map.reshape(-1)[0])
+        params = self.ema_params if self.ema_params is not None else self.net
+        out = denoise_seq(
+            params, self.cfg, padded_lq, noise_sigma=sigma,
+            temp_psz=val_opt.get('temp_psz', -1),
+            future_buffer_len=val_opt.get('future_buffer_len', 0),
+            mode='streaming' if val_opt.get('streaming_eval', False)
+            else 'mimo', compute_dtype=dtype)
+        self.output = out[None]
+        self.crop_output(padding_list)
+
+    def validation(self, dataloader, current_iter, tb_logger, save_img=False):
+        """Score every clip of ``dataloader.dataset``; returns the metrics'
+        averages over clips (None where ``val`` names no metrics)."""
+        return self.nondist_validation(dataloader, current_iter, tb_logger,
+                                       save_img)
+
+    def _folder_metrics(self, result, gt, folder, dataset_name, save_img,
+                        with_metrics):
+        """Per-frame uint8 conversion, image saving and metric sums for one
+        clip (reference denoising_model.py:260-316). Adds host seconds to
+        ``self.val_seconds``."""
+        if self.center_frame_only:
+            mid = result.shape[0] // 2
+            result, gt = result[mid:mid + 1], gt[mid:mid + 1]
+        metrics = list(self.opt['val']['metrics'].values()) \
+            if with_metrics else []
+        secs = self.val_seconds
+        for idx in range(result.shape[0]):
+            t0 = time.perf_counter()
+            result_img, gt_img = tensor2img(result[idx]), tensor2img(gt[idx])
+            t1 = time.perf_counter()
+            if save_img:
+                imwrite(result_img, osp.join(
+                    self.opt['path']['visualization'], dataset_name, folder,
+                    f"{idx:08d}_{self.opt['name']}.png"))
+            t2 = time.perf_counter()
+            for m_idx, opt_ in enumerate(metrics):
+                data = ({'img_float': result[idx], 'img2_float': gt[idx]}
+                        if 'float' in opt_['type']
+                        else {'img': result_img, 'img2': gt_img})
+                self.metric_results[folder][idx, m_idx] += \
+                    calculate_metric(data, opt_)
+            secs['metrics'] += t1 - t0 + time.perf_counter() - t2
+            secs['save'] += t2 - t1
+
+    def nondist_validation(self, dataloader, current_iter, tb_logger,
+                           save_img):
+        """The serial validation: each clip read, denoised by ``test`` and
+        scored in turn. ``self.val_seconds`` holds this call's host seconds
+        by part (read, denoise, metrics, save). Without ``val.metrics`` the
+        clips are still denoised (and saved) and no metric is logged, as
+        in BasicSR; the JAX package raises there (ROADMAP.md Queue 3)."""
+        dataset = dataloader.dataset
+        dataset_name = dataset.opt['name']
+        metrics = (self.opt.get('val') or {}).get('metrics')
+        with_metrics = metrics is not None
+        if with_metrics:
+            # center_frame_only scores one frame per clip
+            self.metric_results = {
+                folder: np.zeros((1 if self.center_frame_only
+                                  else dataset.num_frames[index],
+                                  len(metrics)), np.float32)
+                for index, folder in enumerate(dataset.base_folder)}
+        self.val_seconds = dict.fromkeys(('read', 'denoise', 'metrics',
+                                          'save'), 0.0)
+        logger = get_root_logger()
+        for i in range(len(dataset)):
+            t0 = time.perf_counter()
+            val_data = dataset[i]
+            t1 = time.perf_counter()
+            # the scores read gt on the host: only lq and the map go over
+            self.feed_data({k: val_data[k] for k in ('lq', 'noise_map')
+                            if k in val_data})
+            self.test()                     # ends in a device synchronise
+            self.val_seconds['read'] += t1 - t0
+            self.val_seconds['denoise'] += time.perf_counter() - t1
+            folder = val_data['folder']
+            self._folder_metrics(self.output[0],
+                                 np.asarray(val_data['gt'])[0], folder,
+                                 dataset_name, save_img, with_metrics)
+            logger.info(f'Tested {folder} ({i + 1}/{len(dataset)})')
+        if not with_metrics:
+            return None
+        return self._log_validation_metric_values(current_iter, dataset_name,
+                                                  tb_logger)
+
+    def _log_validation_metric_values(self, current_iter, dataset_name,
+                                      tb_logger):
+        """Per-scene per-frame CSVs in path.log (``<dataset>_<folder>.csv``:
+        an index column, then ``<folder>_<m>`` for metric m, as pandas'
+        ``to_csv`` writes them in the JAX package), the log line, the
+        TensorBoard scalars; returns the averages over clips."""
+        logger = get_root_logger()
+        avg = {folder: arr.mean(axis=0)
+               for folder, arr in self.metric_results.items()}
+        log_dir = self.opt['path'].get('log')
+        if log_dir:
+            for folder, arr in self.metric_results.items():
+                with open(osp.join(log_dir, f'{dataset_name}_{folder}.csv'),
+                          'w', newline='') as f:
+                    out = csv.writer(f)
+                    out.writerow([''] + [f'{folder}_{m}'
+                                         for m in range(arr.shape[1])])
+                    for r, row in enumerate(arr):
+                        out.writerow([r] + [str(v) for v in row])
+        metrics = list(self.opt['val']['metrics'].keys())
+        total = {m: sum(float(a[i]) for a in avg.values()) / max(len(avg), 1)
+                 for i, m in enumerate(metrics)}
+        log_str = f'Validation {dataset_name}\n'
+        for m_idx, (metric, value) in enumerate(total.items()):
+            log_str += f'\t # {metric}: {value:.4f}'
+            for folder, a in avg.items():
+                log_str += f'\t # {folder}: {a[m_idx]:.4f}'
+            log_str += '\n'
+        logger.info(log_str)
+        if tb_logger:
+            for m_idx, (metric, value) in enumerate(total.items()):
+                tb_logger.add_scalar(f'metrics/{metric}', value, current_iter)
+                for folder, a in avg.items():
+                    tb_logger.add_scalar(f'metrics/{metric}/{folder}',
+                                         float(a[m_idx]), current_iter)
+        return total
 
     def save(self, epoch, current_iter):
         params = self.net.param_tree()

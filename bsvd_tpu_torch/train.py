@@ -4,8 +4,9 @@ iteration loop): feed, step, log, periodic save, auto-resume.
 It runs over an options dict (``bsvd_tpu.utils.options.parse_options`` of
 a train YAML, parsed where PyYAML exists) and any iterable of batches
 (dicts of numpy or tensor ``lq`` / ``gt`` / ``noise_map``), for example
-``data.video_train_loader.SyntheticVideoLoader``. Validation during
-training raises until the eval protocol is ported.
+``data.video_train_loader.SyntheticVideoLoader``. With ``val.val_freq``
+it validates on the ``val_*`` datasets of the options every ``val_freq``
+iterations and once at the end (bsvd_tpu/train.py:119-162).
 
     model = train_pipeline(opt, loader, device='cuda')
 """
@@ -15,6 +16,7 @@ import logging
 import os
 import time
 
+from bsvd_tpu_torch.data import build_dataloader, build_dataset
 from bsvd_tpu_torch.models.base_model import check_resume, latest_resume_state
 from bsvd_tpu_torch.models.checkpoint import load_training_state
 from bsvd_tpu_torch.models.denoising_model import build_model
@@ -40,13 +42,35 @@ def load_resume_state(opt):
     return state
 
 
-def train_pipeline(opt, train_loader, device=None):
+def build_val_loaders(opt):
+    """Loaders of the ``val_*`` datasets of ``opt['datasets']``, blind where
+    the network is (bsvd_tpu/train.py:38-48)."""
+    net = opt['network_g']
+    blind = net.get('blind', False) or (net.get('net2d_opt') or {}).get(
+        'blind', False)
+    loaders = []
+    for phase, dataset_opt in (opt.get('datasets') or {}).items():
+        if phase.split('_')[0] != 'val':
+            continue
+        dataset_opt = dict(dataset_opt, phase='val')
+        dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
+        if blind:
+            dataset_opt['blind'] = True
+        loaders.append(build_dataloader(build_dataset(dataset_opt),
+                                        dataset_opt))
+    return loaders
+
+
+def train_pipeline(opt, train_loader, device=None, val_loaders=None):
     """Train for ``opt['train']['total_iter']`` iterations over
-    ``train_loader`` (re-iterated per epoch); returns the model."""
-    if (opt.get('val') or {}).get('val_freq'):
-        raise NotImplementedError('validation during training waits for the '
-                                  'eval protocol (ROADMAP.md Queue 1 item 4)')
+    ``train_loader`` (re-iterated per epoch); returns the model. With
+    ``val.val_freq`` the model is validated on ``val_loaders`` (default:
+    ``build_val_loaders(opt)``) every ``val_freq`` iterations and after
+    the last."""
     opt = copy.deepcopy(opt)
+    val_freq = (opt.get('val') or {}).get('val_freq')
+    if val_freq and val_loaders is None:
+        val_loaders = build_val_loaders(opt)
     opt['is_train'] = True
     for key in ('models', 'training_states'):
         os.makedirs(opt['path'][key], exist_ok=True)
@@ -80,9 +104,20 @@ def train_pipeline(opt, train_loader, device=None):
                           f'{logs}')
             if current_iter % save_freq == 0:
                 model.save(epoch, current_iter)
+            if val_freq and current_iter % int(val_freq) == 0:
+                validate(model, opt, val_loaders, current_iter)
         if not fed:
             raise ValueError('the train loader yielded no batch')
         epoch += 1
     _log.info(f'End of training: {time.time() - start:.1f} s.')
     model.save(epoch=-1, current_iter=-1)
+    if val_freq:
+        validate(model, opt, val_loaders, current_iter)
     return model
+
+
+def validate(model, opt, val_loaders, current_iter):
+    """One validation of ``model`` on each loader (no TensorBoard)."""
+    for val_loader in val_loaders:
+        model.validation(val_loader, current_iter, None,
+                         opt['val'].get('save_img', False))

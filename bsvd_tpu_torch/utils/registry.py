@@ -1,5 +1,6 @@
 """Name -> implementation registry of the port (counterpart of
-bsvd_tpu/utils/registry.py; the port registers archs, losses and models).
+bsvd_tpu/utils/registry.py; the port registers archs, losses, models,
+metrics and datasets).
 Options dicts select an implementation with a ``type:`` key.
 """
 
@@ -47,3 +48,5 @@ class Registry:
 ARCH_REGISTRY = Registry('arch')
 LOSS_REGISTRY = Registry('loss')
 MODEL_REGISTRY = Registry('model')
+METRIC_REGISTRY = Registry('metric')
+DATASET_REGISTRY = Registry('dataset')

@@ -85,9 +85,39 @@ Phases, each printed as one JSON object on its own line:
    ``train_pipeline``'s save -> auto-resume round
    trip (EMA on) bit-equal to the uninterrupted run.
 
+9. chunked main path: ``denoise_seq(temp_psz=11, future_buffer_len=2)``
+   (the train yml's validation protocol) of a 25-frame 540x960 clip in
+   bf16, both nets, F.conv2d made to raise: each chunk (two with the
+   look-ahead, then the reflect-padded 3-frame tail) must launch K1 32
+   times (16 zero-boundary shift convs, 14 through the generation-1
+   entry, and 16 one-frame recomputes of frame 0), K2 / K3 / K4 4. fp32
+   kernels against the plain fp32 path on the CPU, chunked the same way
+   (13 frames of 64x112 at temp_psz 4, look-ahead 2: the sticky disable
+   and a tail), to 1e-4 x max|ref|; bf16 at full size by phase 4's rule
+   (chunked bf16 against chunked fp32 no more than 1 dB below the whole
+   clip's bf16 against fp32; the causal net's chunked output against its
+   whole-clip fp32 output, the same function); ``BlockStreamDenoiser(8,
+   2)`` push / flush equal to ``denoise_seq(temp_psz=8,
+   future_buffer_len=2)`` bit for bit. Then ms per 13-frame chunk (events,
+   median of 10) and per kept frame, the same 13 frames through the
+   zero-boundary MIMO forward (the difference is the frame-0 recomputes'
+   and carry copies' share), wall seconds of an 85-frame clip numpy in,
+   numpy out, and BlockStreamDenoiser ms per frame (push, best of 3).
+10. eval main path: ``test_pipeline`` with options/test/bsvd_c64.yml's
+   network_g and val (bf16, psnr / psnr_float / ssim at crop 2,
+   save_img), random c64 weights saved and loaded as a ``.npz``
+   checkpoint, over two 25-frame 540x960 clips at sigma 20/255 (padded to
+   544 rows), whole clip and by the train yml's chunked protocol:
+   finite metrics, K1-K4 launches per clip, the per-scene CSVs and the
+   saved frames, clip00's psnr_float against denoise_seq's output scored
+   by hand; host seconds per clip for read, denoise, metrics and save.
+   The clips are held in memory in a ValFolderDataset subclass: the
+   card's machine has no libpng / libjpeg headers, so the native decoder
+   does not build there.
+
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5 and 8 (counters set to 0 before each run, read after), the
+phases 3, 5, 8, 9 and 10 (counters set to 0 before each run, read after), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
 summed at the counts of
@@ -104,6 +134,7 @@ The last line is ``{"ok": true, "device": {...}}``.
 """
 
 import copy
+import csv
 import json
 import math
 import os
@@ -124,12 +155,20 @@ from bsvd_tpu_torch.archs import build_network  # noqa: E402
 from bsvd_tpu_torch.archs import streaming  # noqa: E402
 from bsvd_tpu_torch.archs.streaming import (StreamDenoiser,  # noqa: E402
                                             streaming_apply)
-from bsvd_tpu_torch.archs.wnet_arch import wnet_apply  # noqa: E402
+from bsvd_tpu_torch.archs.wnet_arch import (wnet_apply,  # noqa: E402
+                                            wnet_apply_chunk)
+from bsvd_tpu_torch.convert.torch_ckpt import to_jax_params  # noqa: E402
+from bsvd_tpu_torch.data import build_dataset  # noqa: E402
+from bsvd_tpu_torch.data.val_folder_dataset import (  # noqa: E402
+    ValFolderDataset)
 from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
     noisy_batch, synthetic_clips)
+from bsvd_tpu_torch.metrics import calculate_psnr_float  # noqa: E402
+from bsvd_tpu_torch.models.checkpoint import save_npz_params  # noqa: E402
 from bsvd_tpu_torch.models.denoising_model import DenoisingModel  # noqa: E402
 from bsvd_tpu_torch.models.optim import Adam  # noqa: E402
-from bsvd_tpu_torch.models.seq_inference import denoise_seq  # noqa: E402
+from bsvd_tpu_torch.models.seq_inference import (  # noqa: E402
+    BlockStreamDenoiser, denoise_seq)
 from bsvd_tpu_torch.nn.layers import conv2d, conv2d_weight_grad  # noqa: E402
 from bsvd_tpu_torch.nn.shift import temporal_shift  # noqa: E402
 from bsvd_tpu_torch.ops import _build  # noqa: E402
@@ -148,7 +187,9 @@ from bsvd_tpu_torch.ops.conv_chain import (conv_chain,  # noqa: E402
                                            conv_chain_reference)
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2, conv_s2_reference  # noqa: E402
 from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1  # noqa: E402
+from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
 from bsvd_tpu_torch.train import train_pipeline  # noqa: E402
+from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY  # noqa: E402
 
 SEED = 0
 T, H, W = 10, 540, 960
@@ -219,6 +260,14 @@ def per_steady_push(chain_max_c=None):
             'shift_conv_fused_v1': 0}
 
 
+# a chunk of the chunked protocol: the forward, and K1 at one frame at each
+# of the 16 shift sites (the frame-0 recompute)
+PER_CHUNK = dict(PER_FORWARD, conv3x3=32)
+# phase 9: 25 frames at temp_psz 11 with 2 look-ahead frames (the train
+# yml's validation), an 85-frame clip (Set8 / DAVIS) for the wall time;
+# phase 10: two 25-frame folders
+CHUNK_T, CHUNK_PSZ, CHUNK_FUTURE, LONG_T = 25, 11, 2, 85
+EVAL_T = 25
 PER_BLOCK = dict(per_steady_push(), bibuffer_conv=0,
                  bibuffer_multi=2 * STAGES * len(MEMCV_C), bibuffer_chain=0)
 # the train slice: options/train/bsvd_c64_unblind.yml (batch 8 x 11 frames
@@ -1488,6 +1537,315 @@ def phase_train():
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 9: the chunked main path
+# ---------------------------------------------------------------------------
+
+def _chunks(t_len, psz):
+    """Chunks the temp_psz protocol runs over t_len frames."""
+    return t_len // psz + (t_len % psz > 0)
+
+
+def _time_block_stream(bsd, x):
+    """Best of 3 host-clock ms per frame of BlockStreamDenoiser.push over
+    TIMED frames resident on the card, ending in a synchronize."""
+    best = float('inf')
+    for _ in range(3):
+        bsd.reset()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for k in range(TIMED):
+            bsd.push(x[k % x.shape[0]])
+        torch.cuda.synchronize()
+        best = min(best, (time.perf_counter() - t0) / TIMED)
+    return best * 1e3
+
+
+def phase_chunked(nets):
+    """Returns the launches of the checked main-path runs."""
+    clean, noisy = _clips(np.random.default_rng(SEED + 6), 1, CHUNK_T)[0]
+    n_chunks = _chunks(CHUNK_T, CHUNK_PSZ)
+    launches = dict.fromkeys(KERNELS, 0)
+    kw = dict(noise_sigma=SIGMA, temp_psz=CHUNK_PSZ,
+              future_buffer_len=CHUNK_FUTURE)
+    outs = {}
+    for mode, net in nets.items():
+        reset_counts()
+        with _NoConv2d():
+            outs[mode] = denoise_seq(net, None, noisy,
+                                     compute_dtype=torch.bfloat16, **kw)
+        run = counts()
+        for k, v in run.items():
+            launches[k] += v
+            if v != PER_CHUNK.get(k, 0) * n_chunks:
+                raise AssertionError(f'{mode}: {k} launched {v} times in '
+                                     f'{n_chunks} chunks, expected '
+                                     f'{PER_CHUNK.get(k, 0)} each')
+        _check_out(outs[mode], clean)
+
+    # fp32 kernels against the plain fp32 path on the CPU (weights copied
+    # there, so no kernel runs), chunked by the same protocol, at a reduced
+    # size: look-ahead, sticky disable, tail
+    rng = np.random.default_rng(SEED + 7)
+    small = rng.uniform(0, 1, (13, 3, 64, 112)).astype(np.float32)
+    small_kw = dict(noise_sigma=SIGMA, temp_psz=4, future_buffer_len=2)
+    for mode, net in nets.items():
+        reset_counts()
+        ref = denoise_seq(net.prepared('cpu', torch.float32), net.cfg, small,
+                          **small_kw)
+        if any(counts().values()):
+            raise AssertionError(f'{mode}: the CPU reference launched a '
+                                 f'kernel: {counts()}')
+        got = denoise_seq(net, None, small, compute_dtype=torch.float32,
+                          **small_kw)
+        err, scale = rel_err(torch.from_numpy(got), torch.from_numpy(ref))
+        emit({'phase': 'chunked_parity_fp32', 'shift_mode': mode,
+              'shape': list(small.shape), 'max_abs_err': err,
+              'tol': FP32_TOL * scale})
+        if not err <= FP32_TOL * scale:
+            raise AssertionError(f'{mode}: fp32 chunked kernels vs plain: '
+                                 f'{err}')
+
+    # bf16 at full size by phase 4's rule (no more than 1 dB below the
+    # whole clip's bf16 PSNR); the causal net's chunked output is the
+    # whole-clip function, held to its whole-clip fp32 output
+    to_t = torch.from_numpy
+    psnrs = {}
+    for mode, net in nets.items():
+        causal = 'toFutureOnly' in mode
+        ref32 = denoise_seq(net, None, noisy, compute_dtype=torch.float32,
+                            **(kw if not causal else {'noise_sigma': SIGMA}))
+        whole16 = denoise_seq(net, None, noisy, noise_sigma=SIGMA,
+                              compute_dtype=torch.bfloat16)
+        whole32 = ref32 if causal else denoise_seq(
+            net, None, noisy, noise_sigma=SIGMA, compute_dtype=torch.float32)
+        psnrs[mode] = {'chunked_bf16_vs_' + ('whole' if causal else 'chunked')
+                       + '_fp32': psnr(to_t(outs[mode]), to_t(ref32)),
+                       'whole_bf16_vs_whole_fp32': psnr(to_t(whole16),
+                                                        to_t(whole32))}
+        got, bar = psnrs[mode].values()
+        if not got > bar - 1.0:
+            raise AssertionError(f'{mode}: chunked bf16 {got} dB, whole-clip '
+                                 f'bf16 {bar} dB')
+        del ref32, whole16, whole32
+
+    # BlockStreamDenoiser push / flush against denoise_seq, bit for bit
+    net = nets['TSM']
+    x = _stream_input(noisy)
+    want = denoise_seq(net, None, noisy, noise_sigma=SIGMA, temp_psz=BLOCK_F,
+                       future_buffer_len=CHUNK_FUTURE,
+                       compute_dtype=torch.bfloat16)
+    bsd = BlockStreamDenoiser(net, None, psz=BLOCK_F,
+                              future_buffer_len=CHUNK_FUTURE,
+                              dtype=torch.bfloat16)
+    reset_counts()
+    with _NoConv2d():
+        got = []
+        for f in x:
+            got += bsd.push(f)
+        got += bsd.flush()
+    for k, v in counts().items():
+        launches[k] += v
+    got = torch.stack(got, dim=1)[0].permute(0, 3, 1, 2).float().cpu()
+    bsd_equal = bool(torch.equal(got, to_t(want)))
+    if not bsd_equal:
+        raise AssertionError('BlockStreamDenoiser differs from denoise_seq: '
+                             f'{(got - to_t(want)).abs().max().item()}')
+
+    # times: one chunk (device events), the same 13 frames through the
+    # zero-boundary MIMO forward (the difference is the 16 one-frame
+    # recomputes and the carry copies), an 85-frame clip numpy in and out
+    timing = {}
+    long_noisy = _clips(np.random.default_rng(SEED + 8), 1, LONG_T)[0][1]
+    for mode, net in nets.items():
+        p = net.prepared('cuda', torch.bfloat16)
+        xc = _stream_input(noisy[:CHUNK_PSZ + CHUNK_FUTURE])[:, 0][None]
+        with torch.no_grad():
+            _, carries = wnet_apply_chunk(p, xc, net.cfg, None,
+                                          future_buffer_len=CHUNK_FUTURE)
+            chunk_ms = median_ms(lambda: wnet_apply_chunk(
+                p, xc, net.cfg, carries, future_buffer_len=CHUNK_FUTURE))
+            mimo_ms = median_ms(lambda: wnet_apply(p, xc, net.cfg))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = denoise_seq(net, None, long_noisy, compute_dtype=torch.bfloat16,
+                          **kw)
+        wall = time.perf_counter() - t0
+        if out.shape != (LONG_T, 3, H, W) or not np.isfinite(out).all():
+            raise AssertionError(f'{mode}: 85-frame chunked output')
+        timing[mode] = {'chunk_ms_median_of_10': chunk_ms,
+                        'ms_per_kept_frame': chunk_ms / CHUNK_PSZ,
+                        'mimo_13_frames_ms': mimo_ms,
+                        'recompute_share': 1 - mimo_ms / chunk_ms,
+                        f'denoise_seq_s_per_{LONG_T}_frame_clip': wall}
+        del out
+    bsd_ms = _time_block_stream(bsd, x)
+    emit({'phase': 'chunked', 'frames': CHUNK_T, 'temp_psz': CHUNK_PSZ,
+          'future_buffer_len': CHUNK_FUTURE, 'chunks': n_chunks,
+          'launches_per_chunk': PER_CHUNK, 'psnr_db': psnrs,
+          'block_stream_equals_denoise_seq': bsd_equal,
+          f'block_stream_{BLOCK_F}_{CHUNK_FUTURE}_ms_per_frame': bsd_ms,
+          'timing': timing})
+    del bsd
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the eval main path
+# ---------------------------------------------------------------------------
+
+def _eval_opt(root, data_dir, ckpt, **val_over):
+    """options/test/bsvd_c64.yml's network_g and val (as parse_options makes
+    them; the card's machine has no PyYAML) over synthetic folders."""
+    metric = {'crop_border': 2, 'test_y_channel': False}
+    results = os.path.join(root, 'results', 'bsvd_c64')
+    return {
+        'name': 'bsvd_c64', 'model_type': 'DenoisingModel', 'num_gpu': 1,
+        'manual_seed': 10, 'is_train': False,
+        'datasets': {'val_1': {'name': 'synth_20', 'type': '_MemoryFolders',
+                               'valsetdir': data_dir, 'phase': 'val',
+                               'manual_seed': 10,
+                               'num_validation_frames': EVAL_T,
+                               'valnoisestd': 20}},
+        'network_g': {'type': 'BSVD', 'chns': [64, 128, 256], 'mid_ch': 64,
+                      'shift_input': False, 'norm': 'none', 'interm_ch': 64,
+                      'act': 'relu6', 'pretrain_ckpt': None},
+        'path': {'pretrain_network_g': ckpt, 'strict_load_g': True,
+                 'resume_state': None, 'results_root': results,
+                 'log': results,
+                 'visualization': os.path.join(results, 'visualization')},
+        'val': dict({'val_freq': 1.0, 'save_img': True, 'temp_psz': -1,
+                     'future_buffer_len': 0, 'patch_mod': 64, 'fp16': True,
+                     'metrics': {
+                         'psnr': dict(metric, type='calculate_psnr'),
+                         'psnr_float': dict(metric,
+                                            type='calculate_psnr_float'),
+                         'ssim': dict(metric, type='calculate_ssim')}},
+                    **val_over),
+        'logger': {'print_freq': 100, 'save_checkpoint_freq': 5000.0,
+                   'use_tb_logger': False}}
+
+
+class _MemoryFolders(ValFolderDataset):
+    """ValFolderDataset over clips held in memory: the card's machine has
+    no libpng / libjpeg headers, so the native decoder does not build
+    there and image folders cannot be read. Items, noise and metadata are
+    ValFolderDataset's; only the frames' source differs. ``valsetdir``
+    names an entry of ``CLIPS``: {folder name: (T, 3, H, W) float32}."""
+
+    CLIPS = {}
+
+    def __init__(self, opt):
+        self.opt = opt
+        self.clips = self.CLIPS[opt['valsetdir']]
+        self.num_input_frames = opt['num_validation_frames']
+        self.valnoisestd = opt['valnoisestd']
+        self.seed = opt.get('manual_seed', 0)
+        self.base_folder = sorted(self.clips)
+        self.num_frames = [min(len(self.clips[f]), self.num_input_frames)
+                           for f in self.base_folder]
+
+    def _read(self, index):
+        return self.clips[self.base_folder[index]][:self.num_input_frames]
+
+
+DATASET_REGISTRY.register(_MemoryFolders)
+
+
+class _ValSeconds:
+    """Keeps each validation's ``val_seconds`` (read, denoise, metrics,
+    save) while test_pipeline runs."""
+
+    def __enter__(self):
+        self.orig, self.runs = DenoisingModel.nondist_validation, []
+        spy = self
+
+        def run(model, *a, **k):
+            out = spy.orig(model, *a, **k)
+            spy.runs.append(dict(model.val_seconds))
+            return out
+        DenoisingModel.nondist_validation = run
+        return self
+
+    def __exit__(self, *exc):
+        DenoisingModel.nondist_validation = self.orig
+
+
+def phase_eval(nets):
+    """test_pipeline over two synthetic 540p folders, whole clip and by the
+    train yml's chunked protocol. Returns the main-path launches."""
+    net = nets['TSM']
+    launches = dict.fromkeys(KERNELS, 0)
+    # 8-bit frames, as a folder of PNGs would give them
+    _MemoryFolders.CLIPS['synth'] = {
+        f'clip{i:02d}': (np.round(c * 255) / 255).astype(np.float32)
+        for i, (c, _) in enumerate(_clips(np.random.default_rng(SEED + 9), 2,
+                                          EVAL_T))}
+    clips = _MemoryFolders.CLIPS['synth']
+    with tempfile.TemporaryDirectory() as root:
+        data = 'synth'
+        ckpt = os.path.join(root, 'net_g.npz')
+        save_npz_params(ckpt, {'params': to_jax_params(net.param_tree(),
+                                                       net.cfg)})
+        for label, over, n_fwd, per in (
+                ('whole_clip', {}, 1, PER_FORWARD),
+                ('chunked', {'temp_psz': CHUNK_PSZ,
+                             'future_buffer_len': CHUNK_FUTURE},
+                 _chunks(EVAL_T, CHUNK_PSZ), PER_CHUNK)):
+            opt = _eval_opt(os.path.join(root, label), data, ckpt, **over)
+            reset_counts()
+            t0 = time.perf_counter()
+            with _NoConv2d(), _ValSeconds() as secs:
+                res = test_pipeline(opt, device='cuda')['synth_20']
+            wall = time.perf_counter() - t0
+            run = counts()
+            for k, v in run.items():
+                launches[k] += v
+                if v != per.get(k, 0) * n_fwd * len(clips):
+                    raise AssertionError(f'eval {label}: {k} launched {v} '
+                                         f'times for {len(clips)} clips')
+            if not all(math.isfinite(v) for v in res.values()):
+                raise AssertionError(f'eval {label}: metrics {res}')
+            log = opt['path']['log']
+            csvs = sorted(f for f in os.listdir(log) if f.endswith('.csv'))
+            pngs = [f for _, _, fs in os.walk(opt['path']['visualization'])
+                    for f in fs if f.endswith('.png')]
+            if csvs != ['synth_20_clip00.csv', 'synth_20_clip01.csv'] or \
+                    len(pngs) != EVAL_T * len(clips):
+                raise AssertionError(f'eval {label}: {csvs}, {len(pngs)} '
+                                     f'frames saved')
+            # the pipeline's float PSNR of clip00 against denoise_seq's
+            # output scored by hand
+            with open(os.path.join(log, csvs[0])) as f:
+                rows = list(csv.reader(f))[1:]
+            piped = float(np.mean([np.float32(r[2]) for r in rows]))
+            item = build_dataset(opt['datasets']['val_1'])[0]
+            lq = torch.from_numpy(item['lq'][0])
+            pad = F.pad(lq, (0, 0, 0, (16 - H % 16) % 16), mode='reflect')
+            out = denoise_seq(net, None, pad, noise_sigma=20 / 255,
+                              compute_dtype=torch.bfloat16,
+                              temp_psz=over.get('temp_psz', -1),
+                              future_buffer_len=over.get(
+                                  'future_buffer_len', 0))[..., :H, :W]
+            by_hand = float(np.mean([np.float32(calculate_psnr_float(
+                o, g, crop_border=2)) for o, g in zip(out, item['gt'][0])]))
+            if not abs(piped - by_hand) < 1e-4:
+                raise AssertionError(f'eval {label}: psnr_float {piped} in '
+                                     f'the pipeline, {by_hand} by hand')
+            per_clip = {k: v / len(clips) for k, v in secs.runs[0].items()}
+            emit({'phase': 'eval', 'protocol': label, 'clips': len(clips),
+                  'frames': EVAL_T, 'shape': [H, W], 'padded_to':
+                  [H + (16 - H % 16) % 16, W], 'route': 'frames in memory '
+                  '(no libpng / libjpeg headers here: no native decoder)',
+                  'metrics': res,
+                  'psnr_float_clip00': {'pipeline': piped,
+                                        'by_hand': by_hand},
+                  'launches': run, 'wall_s_per_clip': wall / len(clips),
+                  's_per_clip': per_clip})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available()'
@@ -1524,8 +1882,11 @@ def main():
         launches[k] += stream_launches[k] + seq_launches[k]
     phase_train_grad()
     train_launches = phase_train()
+    chunk_launches = phase_chunked(nets)
+    eval_launches = phase_eval(nets)
     for k in KERNELS:
-        launches[k] += train_launches[k]
+        launches[k] += (train_launches[k] + chunk_launches[k]
+                        + eval_launches[k])
         if k not in off_route and not launches[k] > 0:
             raise AssertionError(f'{k} never launched on a main path')
         if k in off_route and launches[k]:

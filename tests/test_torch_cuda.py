@@ -626,3 +626,112 @@ def test_train_step_kernels_match_plain(dev, amp):
     ref_grads = dict(cpu.net.named_parameters())
     for name, p in card.net.named_parameters():
         _rel(p.grad.cpu(), ref_grads[name].grad, 1e-4)
+
+
+# ---- the chunked protocol and the eval path ---------------------------------
+
+def _c64(shift_mode, seed=0):
+    from bsvd_tpu_torch.archs import build_network
+    return build_network({'type': 'BSVD', 'chns': [64, 128, 256],
+                          'mid_ch': 64, 'interm_ch': 64, 'norm': 'none',
+                          'act': 'relu6', 'shift_mode': shift_mode,
+                          'seed': seed})
+
+
+@contextlib.contextmanager
+def _no_conv2d():
+    import torch.nn.functional as F
+    orig = F.conv2d
+
+    def refuse(*a, **k):
+        raise AssertionError('F.conv2d called on the kernel path')
+    F.conv2d = refuse
+    try:
+        yield
+    finally:
+        F.conv2d = orig
+
+
+@pytest.mark.parametrize('shift_mode', ['TSM', 'TSM_toFutureOnly'])
+def test_chunk_path_launches_per_chunk(dev, shift_mode):
+    """Each chunk: K1 32 (16 zero-boundary shift convs, 14 of them through
+    the generation-1 entry, and 16 one-frame recomputes of frame 0), K2 /
+    K3 / K4 4 each; F.conv2d never runs."""
+    from bsvd_tpu_torch.models.seq_inference import denoise_seq
+    from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1
+    net = _c64(shift_mode)
+    seq = np.random.default_rng(8).uniform(0, 1, (13, 3, 32, 48)).astype(
+        np.float32)
+    fns = (conv3x3, shift_conv_fused_v1, conv_chain, conv_s2, conv_ps)
+    for f in fns:
+        f.launches = 0
+    with _no_conv2d():
+        out = denoise_seq(net, None, seq, noise_sigma=0.1, temp_psz=4,
+                          future_buffer_len=2, compute_dtype=torch.bfloat16)
+    chunks = 4                          # 3 of 4 frames and the tail
+    assert [f.launches for f in fns] == [32 * chunks, 14 * chunks,
+                                         4 * chunks, 4 * chunks, 4 * chunks]
+    assert out.shape == seq.shape and np.isfinite(out).all()
+
+
+@pytest.mark.parametrize('shift_mode', ['TSM', 'TSM_toFutureOnly'])
+def test_chunked_fp32_kernels_match_plain_path(dev, shift_mode):
+    from bsvd_tpu_torch.models.seq_inference import denoise_seq
+    from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1
+    net = _c64(shift_mode, seed=1)
+    seq = np.random.default_rng(9).uniform(0, 1, (13, 3, 32, 48)).astype(
+        np.float32)
+    kw = dict(noise_sigma=0.1, temp_psz=4, future_buffer_len=2)
+    fns = (conv3x3, shift_conv_fused_v1, conv_chain, conv_s2, conv_ps)
+    for f in fns:
+        f.launches = 0
+    # the plain path: the weights copied to the CPU, where no kernel runs
+    ref = denoise_seq(net.prepared('cpu', torch.float32), net.cfg, seq, **kw)
+    assert [f.launches for f in fns] == [0] * len(fns)
+    got = denoise_seq(net, None, seq, compute_dtype=torch.float32, **kw)
+    _close(torch.from_numpy(got), torch.from_numpy(ref), torch.float32)
+
+
+@pytest.mark.parametrize('future', [0, 2])
+def test_block_stream_equals_denoise_seq_bf16(dev, future):
+    """push / flush and denoise_seq run the same chunks through the same
+    kernels: equal bit for bit in bf16."""
+    from bsvd_tpu_torch.models.seq_inference import (BlockStreamDenoiser,
+                                                     denoise_seq)
+    net = _c64('TSM', seed=2)
+    seq = np.random.default_rng(10).uniform(0, 1, (14, 3, 32, 48)).astype(
+        np.float32)
+    want = denoise_seq(net, None, seq, noise_sigma=0.1, temp_psz=4,
+                       future_buffer_len=future,
+                       compute_dtype=torch.bfloat16)
+    x = np.concatenate([seq, np.full_like(seq[:, :1], 0.1)], axis=1)
+    bsd = BlockStreamDenoiser(net, None, psz=4, future_buffer_len=future,
+                              dtype=torch.bfloat16)
+    outs = []
+    for f in np.transpose(x, (0, 2, 3, 1)):
+        outs += bsd.push(f[None])
+    outs += bsd.flush()
+    got = torch.stack(outs, dim=1)[0].permute(0, 3, 1, 2).float().cpu()
+    assert torch.equal(got, torch.from_numpy(want))
+
+
+def test_native_decoder_builds_or_raises_with_gxx_output(dev, tmp_path):
+    """On the card's machine the decoder either builds (g++, libpng,
+    libjpeg) and reads back what the port's PNG writer wrote, or raises
+    with g++'s command and output; it never falls back to another reader.
+    On a machine without libpng / libjpeg headers it raises."""
+    from bsvd_tpu_torch.data import native_decode
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    rng = np.random.default_rng(11)
+    frames = rng.integers(0, 256, (3, 20, 36, 3), dtype=np.uint8)
+    paths = [str(tmp_path / f'{i}.png') for i in range(3)]
+    for f, p in zip(frames, paths):
+        imwrite(f[..., ::-1], p)                      # BGR, as cv2's
+    try:
+        native_decode.build()
+    except RuntimeError as e:
+        assert 'g++ -O3' in str(e) and 'error' in str(e), str(e)
+        with pytest.raises(RuntimeError, match='g\\+\\+'):
+            native_decode.load_seq(paths)
+        return
+    np.testing.assert_array_equal(native_decode.load_seq(paths), frames)

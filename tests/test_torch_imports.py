@@ -1,6 +1,7 @@
 """Import hygiene of the port: every bsvd_tpu_torch module imports in a
 fresh interpreter without a GPU or nvcc, and pulls in neither jax, the JAX
-package, yaml nor cv2 (the machine with the card has none of them)."""
+package, yaml, cv2 nor pandas (the machine with the card has none of
+them)."""
 
 import os
 import subprocess
@@ -17,9 +18,9 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml',
-                                    'cv2'))
+                                    'cv2', 'pandas'))
 print(len(names), bad)
-assert len(names) >= 28, names
+assert len(names) >= 40, names
 assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.ops.bibuffer_conv',
         'bsvd_tpu_torch.train', 'bsvd_tpu_torch.models.denoising_model',
@@ -27,10 +28,18 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.models.lr_scheduler',
         'bsvd_tpu_torch.models.checkpoint',
         'bsvd_tpu_torch.data.video_train_loader',
-        'bsvd_tpu_torch.losses.losses'} <= set(names), names
+        'bsvd_tpu_torch.losses.losses',
+        'bsvd_tpu_torch.models.seq_inference', 'bsvd_tpu_torch.test',
+        'bsvd_tpu_torch.metrics', 'bsvd_tpu_torch.metrics.psnr_ssim',
+        'bsvd_tpu_torch.utils.img_util', 'bsvd_tpu_torch.utils.logger',
+        'bsvd_tpu_torch.utils.misc', 'bsvd_tpu_torch.data.utils_common',
+        'bsvd_tpu_torch.data.native_decode',
+        'bsvd_tpu_torch.data.val_folder_dataset'} <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
+from bsvd_tpu_torch.data import native_decode
 assert _build._lib is None       # nothing built or loaded at import
+assert native_decode._lib is None
 """
 
 

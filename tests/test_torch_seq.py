@@ -1,5 +1,6 @@
 """The port's whole-clip denoise_seq on CPU against the JAX package's
-denoise_seq (temp_psz=-1, mode='mimo') and against the reference torch
+denoise_seq (temp_psz=-1, mode='mimo'; the chunked protocol is in
+test_torch_chunked.py) and against the reference torch
 net's pinned synthetic-clip output and PSNR (fixtures/synthetic_clip_psnr.npz,
 see test_arch_parity.test_synthetic_clip_denoise_psnr_anchor).
 
@@ -99,15 +100,6 @@ def test_synthetic_clip_psnr_anchor():
     np.testing.assert_allclose(out, g['ref_den'][0], rtol=1e-4, atol=1e-4)
     psnr = 10 * np.log10(1.0 / float(np.mean((out[None] - clean) ** 2)))
     assert abs(psnr - float(g['ref_psnr'])) < 1e-3, (psnr, g['ref_psnr'])
-
-
-@pytest.mark.parametrize('kw', [dict(temp_psz=4),
-                                dict(temp_psz=4, mode='streaming')])
-def test_unported_protocols_raise(kw):
-    """Chunked clips (temp_psz < T), in either mode, are not ported yet."""
-    _, _, pcfg, params = _pair(24)
-    with pytest.raises(NotImplementedError):
-        denoise_seq(params, pcfg, _clip(25), noise_sigma=0.1, **kw)
 
 
 def test_whole_clip_temp_psz_at_least_t_is_whole_clip():

@@ -618,8 +618,12 @@ def test_train_pipeline_runs_saves_and_auto_resumes(tmp_path):
     opt['train']['total_iter'] = 5
     resumed = train_pipeline(opt, loader, device='cpu')
     assert resumed.current_iter == 5 and resumed.optimizer.count == 5
-    with pytest.raises(NotImplementedError):
-        train_pipeline(dict(opt, val={'val_freq': 2}), loader, device='cpu')
+    # val_freq with no val datasets: nothing to validate, and no raise
+    # (validation itself: test_torch_eval.py)
+    opt['train']['total_iter'] = 6
+    validated = train_pipeline(dict(opt, val={'val_freq': 2}), loader,
+                               device='cpu')
+    assert validated.current_iter == 6
 
 
 def test_unported_options_raise():
