@@ -2,7 +2,9 @@
 (counterpart of bsvd_tpu/archs/streaming.py, natural layout).
 
 Every temporal conv holds one packed frame per stream (``_bibuffer_init``)
-and one streaming step advances the whole 16-deep pipeline by one frame;
+and one streaming step advances the whole pipeline (``shift_num`` deep:
+16, or 20 with shift_input, whose two inc convs are buffered too) by one
+frame;
 the U-Net skips cross the pipeline delay through fixed-depth rings. A clip
 fed frame by frame, then drained, equals whole-clip MIMO ``wnet_apply``
 (zero temporal boundaries on both sides).
@@ -24,6 +26,11 @@ back from the device. Per site:
 - stems and ups: K2 ``conv_chain`` / ``conv_chain_add2_res``, K3
   ``conv_s2`` and K4 ``conv_ps`` at one frame.
 
+Norms as in archs/wnet_arch: BN runs folded into the convs (the routes of
+norm 'none'); norm 'in' splits every site (kernels with act 'none', then
+the norm and the act, the two-conv K2 sites as two K1, every MemCvBlock as
+two K5 steps).
+
 ``stream_step_block`` advances F frames in steady state with K5
 ``bibuffer_multi`` at every temporal conv and the stem / up kernels at F
 frames (``StreamDenoiser.push_block``).
@@ -39,12 +46,12 @@ multi-stream meshes are not ported.
 
 import torch
 
-from bsvd_tpu_torch.archs.wnet_arch import _cw, _WNetBase, prepare_params
+from bsvd_tpu_torch.archs.wnet_arch import (_cw, _down, _folded, _has_bn,
+                                            _Norms, _outc, _stem, _WNetBase,
+                                            prepare_params)
 from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain, bibuffer_conv,
                                               bibuffer_multi)
 from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
-from bsvd_tpu_torch.ops.conv_chain import conv_chain, conv_chain_add2_res
-from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 
 # widest MemCvBlock (input or intermediate channels) whose step runs as
 # one K6: none. K6 (the pipelined loop, the halo recompute only for the y1
@@ -71,26 +78,30 @@ def _bibuffer_init(n, h, w, c, dtype, device):
             'has_center': False}
 
 
-def _bibuffer_step(cw, st, x, act, fold_div, causal):
-    """One step of a buffered shift conv (+ bias + act); ``x`` is the live
-    frame or None (invalid). Returns (new state, output or None)."""
+def _bibuffer_step(p, k, st, x, cfg, nrm):
+    """One step of buffered shift conv ``k`` ('c1' / 'c2') of block ``p``
+    (+ bias, + norm, + act); ``x`` is the live frame or None (invalid).
+    Returns (new state, output or None)."""
+    cw, leaf = _cw(p[k]), p.get('n' + k[1:])
+    act, fold_div = nrm.kernel_act, cfg.fold_div
     B = st['packed']
-    if causal:
+    if _is_causal(cfg):
         if x is None:
             return st, None
         y, nb = bibuffer_conv(x, B, cw, fold_div=fold_div, act=act,
                               causal=True)
-        return {'packed': nb, 'has_center': st['has_center']}, y
+        return {'packed': nb, 'has_center': st['has_center']}, nrm(y, leaf)
     f = B.shape[-1] // fold_div
     if st['has_center']:
         if x is not None:
             y, nb = bibuffer_conv(x, B, cw, fold_div=fold_div, act=act)
-            return {'packed': nb, 'has_center': True}, y
+            return {'packed': nb, 'has_center': True}, nrm(y, leaf)
         # drain: the future slice is the clip's zero boundary
         inp = torch.cat([torch.zeros_like(B[..., :f]), B[..., :f],
                          B[..., 2 * f:]], dim=-1)
         nb = torch.cat([B[..., f:2 * f], B[..., f:]], dim=-1)
-        return {'packed': nb, 'has_center': False}, conv3x3(inp, cw, act=act)
+        return ({'packed': nb, 'has_center': False},
+                nrm(conv3x3(inp, cw, act=act), leaf))
     if x is None:
         return st, None
     # fill: the first frame becomes the center; nothing to output yet
@@ -102,24 +113,33 @@ def chain_route(width, max_c=None):
     """Whether a primed MemCvBlock ``width`` channels wide (input or
     intermediate) runs as one K6 ``bibuffer_chain`` rather than two K5
     steps: up to ``CHAIN_MAX_C`` channels (or ``max_c``), bidirectional
-    and causal alike (K6 loses to two K5 steps in both modes)."""
+    and causal alike (K6 loses to two K5 steps in both modes). A block
+    whose norm runs between conv and act (``_Norms.split``) never
+    chains: K6 applies the act to its intermediate."""
     return width <= (CHAIN_MAX_C if max_c is None else max_c)
 
 
-def _memcv_step(p, pair, x, cfg):
-    """MemCvBlock: two buffered shift convs (+ act)."""
+def _buffered_pair(p, pair, x, cfg, nrm):
+    """Two buffered shift convs in turn (a MemCvBlock, or shift_input's
+    inc), each one step."""
+    s1, y = _bibuffer_step(p, 'c1', pair[0], x, cfg, nrm)
+    s2, y = _bibuffer_step(p, 'c2', pair[1], y, cfg, nrm)
+    return [s1, s2], y
+
+
+def _memcv_step(p, pair, x, cfg, nrm):
+    """MemCvBlock: two buffered shift convs (+ norm) + act; one K6 where
+    ``chain_route`` takes it."""
     c1, c2 = _cw(p['c1']), _cw(p['c2'])
     causal = _is_causal(cfg)
     primed = causal or (pair[0]['has_center'] and pair[1]['has_center'])
-    if (x is not None and primed
+    if (x is not None and primed and not nrm.split
             and chain_route(max(c1.cin, c1.cout))):
         y, s1, s2 = bibuffer_chain(x, pair[0]['packed'], pair[1]['packed'],
                                    c1, None, c2, None, fold_div=cfg.fold_div,
                                    act=cfg.act, act2=cfg.act, causal=causal)
         return [dict(pair[0], packed=s1), dict(pair[1], packed=s2)], y
-    s1, y = _bibuffer_step(c1, pair[0], x, cfg.act, cfg.fold_div, causal)
-    s2, y = _bibuffer_step(c2, pair[1], y, cfg.act, cfg.fold_div, causal)
-    return [s1, s2], y
+    return _buffered_pair(p, pair, x, cfg, nrm)
 
 
 # ---------------------------------------------------------------------------
@@ -173,8 +193,8 @@ def _ring_thread(ring, frames):
 # streaming DenBlock stage
 # ---------------------------------------------------------------------------
 
-def _stage_stream_init(cfg, n, h, w, dtype, device):
-    """State of one stage at input resolution (h, w)."""
+def _stage_stream_init(cfg, i, n, h, w, dtype, device):
+    """State of stage ``i`` at input resolution (h, w)."""
     if h % 4 or w % 4:
         raise ValueError(f'streaming needs H and W multiples of 4, got '
                          f'{h}x{w}')
@@ -182,77 +202,83 @@ def _stage_stream_init(cfg, n, h, w, dtype, device):
     h2, w2, h4, w4 = h // 2, w // 2, h // 4, w // 4
     kw = dict(dtype=dtype, device=device)
     st = {}
+    if cfg.shift_input:
+        st['inc'] = [_bibuffer_init(n, h, w, cfg.stage_io(i)[0], **kw),
+                     _bibuffer_init(n, h, w, c0, **kw)]
     for site, (hh, ww, c) in zip(_CV_SITES, ((h2, w2, c1), (h4, w4, c2),
                                              (h4, w4, c2), (h2, w2, c1))):
         st[site] = [_bibuffer_init(n, hh, ww, c, **kw) for _ in range(2)]
-    # ring depth = frames in flight across the skip + 1 (bidirectional)
-    d1, d2, d3 = (1, 1, 1) if _is_causal(cfg) else (9, 9, 5)
+    # ring depth = frames in flight across the skip + 1 (bidirectional);
+    # skip1 also spans shift_input's two buffered inc convs
+    d_inc = 2 * cfg.shift_input
+    d1, d2, d3 = (1, 1, 1) if _is_causal(cfg) else (d_inc + 9, 9, 5)
     st['skip1'] = _ring_init(d1, n, h, w, cfg.residual_ch, **kw)
     st['skip2'] = _ring_init(d2, n, h, w, c0, **kw)
     st['skip3'] = _ring_init(d3, n, h2, w2, c1, **kw)
     return st
 
 
-def _stage_stream_step(p, st, x, cfg):
+def _stage_stream_step(p, st, x, cfg, nrm):
     """One frame (or None) through one stage (reference streaming DenBlock,
     bsvd_arch.py:374-396). Returns (new state, output or None)."""
-    act, rc = cfg.act, cfg.residual_ch
+    rc = cfg.residual_ch
     new = dict(st)
-    if x is None:
-        x0 = None
-    else:
+    if x is not None:
         new['skip1'] = _ring_push(st['skip1'], x[..., :rc])
-        x0 = conv_chain(x, _cw(p['inc']['c1']), None, _cw(p['inc']['c2']),
-                        None, act, act)
+    if cfg.shift_input:
+        new['inc'], x0 = _buffered_pair(p['inc'], st['inc'], x, cfg, nrm)
+    else:
+        x0 = None if x is None else _stem(p['inc'], x, cfg, nrm)
+    if x0 is not None:
         new['skip2'] = _ring_push(st['skip2'], x0)
 
     d = p['down0']
-    y = None if x0 is None else conv_s2(x0, _cw(d['conv']), act=act)
-    new['down0'], x1 = _memcv_step(d['cv'], st['down0'], y, cfg)
+    y = None if x0 is None else _down(d, x0, nrm)
+    new['down0'], x1 = _memcv_step(d['cv'], st['down0'], y, cfg, nrm)
     if x1 is not None:
         new['skip3'] = _ring_push(new['skip3'], x1)
 
     d = p['down1']
-    y = None if x1 is None else conv_s2(x1, _cw(d['conv']), act=act)
-    new['down1'], x2 = _memcv_step(d['cv'], st['down1'], y, cfg)
+    y = None if x1 is None else _down(d, x1, nrm)
+    new['down1'], x2 = _memcv_step(d['cv'], st['down1'], y, cfg, nrm)
 
     u = p['up2']
-    new['up2'], x2 = _memcv_step(u['cv'], st['up2'], x2, cfg)
+    new['up2'], x2 = _memcv_step(u['cv'], st['up2'], x2, cfg, nrm)
     if x2 is not None:
         x2 = conv_ps(x2, _cw(u['conv']))
         new['skip3'], sk3 = _ring_pop(new['skip3'])
         x2 = x2 + sk3
 
     u = p['up1']
-    new['up1'], x1u = _memcv_step(u['cv'], st['up1'], x2, cfg)
+    new['up1'], x1u = _memcv_step(u['cv'], st['up1'], x2, cfg, nrm)
     if x1u is None:
         return new, None
     x1u = conv_ps(x1u, _cw(u['conv']))
     new['skip2'], sk2 = _ring_pop(new['skip2'])
     new['skip1'], sk1 = _ring_pop(new['skip1'])
-    o = p['outc']
-    return new, conv_chain_add2_res(x1u, sk2, sk1, _cw(o['c1']), None,
-                                    _cw(o['c2']), None, act, 'none', rc)
+    return new, _outc(p['outc'], x1u, sk2, sk1, cfg, nrm)
 
 
-def _memcv_multi(p, pair, xs, cfg):
-    """F-frame MemCvBlock advance in steady state: K5 over F frames at
-    each of its two convs."""
+def _memcv_multi(p, pair, xs, cfg, nrm):
+    """F-frame advance of two buffered convs in steady state (a MemCvBlock
+    or shift_input's inc): K5 over F frames at each conv, then its norm
+    and act where the route splits."""
     causal = _is_causal(cfg)
     new = []
     for k, st in zip(('c1', 'c2'), pair):
         xs, packed = bibuffer_multi(xs, st['packed'], _cw(p[k]),
-                                    fold_div=cfg.fold_div, act=cfg.act,
-                                    causal=causal)
+                                    fold_div=cfg.fold_div,
+                                    act=nrm.kernel_act, causal=causal)
+        xs = nrm(xs, p.get('n' + k[1:]))
         new.append(dict(st, packed=packed))
     return new, xs
 
 
-def _stage_stream_step_block(p, st, xs, cfg):
+def _stage_stream_step_block(p, st, xs, cfg, nrm):
     """F frames (F, N, H, W, C) through one stage in steady state: F
     repetitions of _stage_stream_step with every frame valid and every
     buffer primed."""
-    act, rc = cfg.act, cfg.residual_ch
+    rc = cfg.residual_ch
     f, n = xs.shape[:2]
 
     def merge(v):
@@ -262,27 +288,27 @@ def _stage_stream_step_block(p, st, xs, cfg):
         return v.reshape((f, n) + tuple(v.shape[1:]))
 
     new = dict(st)
-    x0 = split(conv_chain(merge(xs), _cw(p['inc']['c1']), None,
-                          _cw(p['inc']['c2']), None, act, act))
+    if cfg.shift_input:
+        new['inc'], x0 = _memcv_multi(p['inc'], st['inc'], xs, cfg, nrm)
+    else:
+        x0 = split(_stem(p['inc'], merge(xs), cfg, nrm))
     d = p['down0']
-    y = split(conv_s2(merge(x0), _cw(d['conv']), act=act))
-    new['down0'], x1 = _memcv_multi(d['cv'], st['down0'], y, cfg)
+    y = split(_down(d, merge(x0), nrm))
+    new['down0'], x1 = _memcv_multi(d['cv'], st['down0'], y, cfg, nrm)
     d = p['down1']
-    y = split(conv_s2(merge(x1), _cw(d['conv']), act=act))
-    new['down1'], x2 = _memcv_multi(d['cv'], st['down1'], y, cfg)
+    y = split(_down(d, merge(x1), nrm))
+    new['down1'], x2 = _memcv_multi(d['cv'], st['down1'], y, cfg, nrm)
     u = p['up2']
-    new['up2'], x2 = _memcv_multi(u['cv'], st['up2'], x2, cfg)
+    new['up2'], x2 = _memcv_multi(u['cv'], st['up2'], x2, cfg, nrm)
     x2 = split(conv_ps(merge(x2), _cw(u['conv'])))
     new['skip3'], sk3 = _ring_thread(st['skip3'], x1)
     u = p['up1']
-    new['up1'], x1u = _memcv_multi(u['cv'], st['up1'], x2 + sk3, cfg)
+    new['up1'], x1u = _memcv_multi(u['cv'], st['up1'], x2 + sk3, cfg, nrm)
     x1u = conv_ps(merge(x1u), _cw(u['conv']))
     new['skip2'], sk2 = _ring_thread(st['skip2'], x0)
     new['skip1'], sk1 = _ring_thread(st['skip1'], xs[..., :rc])
-    o = p['outc']
-    return new, split(conv_chain_add2_res(
-        x1u, merge(sk2), merge(sk1), _cw(o['c1']), None, _cw(o['c2']), None,
-        act, 'none', rc))
+    return new, split(_outc(p['outc'], x1u, merge(sk2), merge(sk1), cfg,
+                            nrm))
 
 
 # ---------------------------------------------------------------------------
@@ -291,23 +317,32 @@ def _stage_stream_step_block(p, st, xs, cfg):
 
 def stream_init(cfg, n, h, w, dtype=torch.float32, device='cuda'):
     """Zero streaming state for the whole net at input resolution (h, w)."""
-    cfg.check_supported()
-    return [_stage_stream_init(cfg, n, h, w, dtype, torch.device(device))
-            for _ in range(cfg.stage_num)]
+    return [_stage_stream_init(cfg, i, n, h, w, dtype, torch.device(device))
+            for i in range(cfg.stage_num)]
+
+
+def _check_folded(params):
+    if _has_bn(params):
+        raise ValueError('streaming takes BN folded into the convs: pass '
+                         'prepare_params(...) or fold_bn(...) of the tree')
 
 
 def stream_step(params, state, x, cfg):
     """Advance the pipeline by one frame.
 
     Args:
+        params: a tree without BN leaves (``prepare_params``, or
+            ``fold_bn`` of a BN tree).
         x: (N, H, W, C_in) frame, or None for an invalid one (the drain).
     Returns:
         (new state, out (N, H, W, out_ch), or None while no output is
         valid).
     """
+    _check_folded(params)
+    nrm = _Norms(cfg)
     new_state = []
     for i in range(cfg.stage_num):
-        st, x = _stage_stream_step(params[f'stage{i}'], state[i], x, cfg)
+        st, x = _stage_stream_step(params[f'stage{i}'], state[i], x, cfg, nrm)
         new_state.append(st)
     return new_state, x
 
@@ -316,18 +351,21 @@ def stream_step_block(params, state, xs, cfg):
     """Advance the pipeline by F frames (F, N, H, W, C_in) in steady state
     (every buffer primed, every frame valid): F ``stream_step`` advances,
     with each temporal conv one K5 launch over the F frames. Returns
-    (new state, outs (F, N, H, W, out_ch))."""
+    (new state, outs (F, N, H, W, out_ch)); ``params`` as for
+    ``stream_step``."""
+    _check_folded(params)
+    nrm = _Norms(cfg)
     new_state = []
     for i in range(cfg.stage_num):
         st, xs = _stage_stream_step_block(params[f'stage{i}'], state[i], xs,
-                                          cfg)
+                                          cfg, nrm)
         new_state.append(st)
     return new_state, xs
 
 
 def pipeline_latency(cfg):
-    """Output delay in frames: shift_num (16 for two stages) for the
-    bidirectional net, 0 for the causal one."""
+    """Output delay in frames: shift_num (16 for two stages, 20 with
+    shift_input) for the bidirectional net, 0 for the causal one."""
     return 0 if _is_causal(cfg) else cfg.shift_num
 
 
@@ -343,6 +381,7 @@ def streaming_apply(params, x, cfg):
         (N, T, H, W, out_ch)
     """
     n, t, h, w, _ = x.shape
+    params = _folded(params)
     lat = pipeline_latency(cfg)
     state = stream_init(cfg, n, h, w, x.dtype, x.device)
     outs = []
@@ -389,7 +428,6 @@ class StreamDenoiser:
         else:
             self.device = _cw(params['stage0']['inc']['c1']).w.device
             self.params = prepare_params(params, self.device, dtype)
-        cfg.check_supported()
         self.cfg = cfg
         self.dtype = dtype
         self._shape = (batch, height, width)

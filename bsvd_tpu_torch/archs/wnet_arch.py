@@ -1,26 +1,40 @@
 """WNet, the W-shaped multi-stage temporal-shift U-Net denoiser, in
 PyTorch (counterpart of bsvd_tpu/archs/wnet_arch.py: WNetConfig, wnet_init,
 the natural-layout _stage_apply, wnet_apply, the chunked wnet_apply_chunk
-and the BSVD / TSN wrappers).
+and the BSVD / TSN wrappers), with every option a WNetConfig holds.
 
 Layout is ``(N, T, H, W, C)`` channels-last, as in the JAX package; the T
 axis merges into the batch of every conv. Each stage runs on four kernel
 entry points (``ops``): K2 ``conv_chain`` for inc and for outc (with the
 skip-add and the residual), K3 ``conv_s2`` for the two down convs, K1
-``conv3x3`` with a temporal shift for the 8 CvBlock convs, and K4
-``conv_ps`` for the two up convs. On CPU tensors each op runs its plain
-PyTorch version; on CUDA tensors its hand-written kernel.
+``conv3x3`` with a temporal shift for the 8 CvBlock convs (10 with
+``shift_input``, whose inc is a CvBlock too), and K4 ``conv_ps`` for the
+two up convs. On CPU tensors each op runs its plain PyTorch version; on
+CUDA tensors its hand-written kernel.
+
+Norms. The kernels apply bias and act, never a norm. BN at inference is
+folded into its conv's weights and bias (``fold_bn``: ``prepare_params``
+folds, and the whole-clip and chunked forwards fold a raw tree once a
+call), so it runs the kernels of norm 'none'. Where a
+norm must run between a conv and its act (norm 'in'; BN on the batch's
+statistics while training) the route splits (``_Norms``): each conv runs
+with act 'none', then the norm and the act as plain torch ops, and the
+two-conv K2 sites become K1 launches (outc's residual then a torch op).
 
 Parameters are a nested dict mirroring the JAX tree, with torch OIHW conv
-weights: ``{'stage0': {'inc': {'c1': {'w', 'b'}, ...}, ...}}``. Only
-``norm='none'`` and ``shift_input=False`` are ported so far.
+weights: ``{'stage0': {'inc': {'c1': {'w', 'b'}, 'n1': {...}, ...}, ...}}``.
+Norm slots hold BN leaves (``scale``, ``bias``, running ``mean`` and
+``var``) and are absent for norms 'none' and 'in', which have no
+parameters (the JAX tree's empty dicts; ``convert.torch_ckpt`` maps both).
 
 ``wnet_apply`` is differentiable: with grad mode on and parameters (or an
 input) that require grad, every op runs as its autograd Function (the JAX
 custom_vjps' direct backwards, K7 for the weight gradients), which is the
-training forward of ``TSN.train_forward``.
+training forward of ``TSN.train_forward``; ``remat`` recomputes each stage
+in the backward (``_RematStage``).
 """
 
+import copy
 import dataclasses
 import logging
 from typing import Tuple
@@ -28,7 +42,9 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from bsvd_tpu_torch.nn.layers import ACTS, conv_init
+from bsvd_tpu_torch.nn.layers import (ACTS, NORMS, conv_init, fold_bn_conv,
+                                      get_act, is_bn_leaf, norm_apply,
+                                      norm_init)
 from bsvd_tpu_torch.nn.shift import chunk_carry, chunk_frame0
 from bsvd_tpu_torch.ops._pack import ConvWeights
 from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
@@ -57,22 +73,17 @@ class WNetConfig:
     shift_mode: str = 'TSM'    # 'none' | 'TSM' | 'TSM_toFutureOnly'
     fold_div: int = 8
     residual_ch: int = 3
+    # recompute each stage in the backward (training memory for FLOPs);
+    # inference is unaffected
+    remat: bool = False
 
     def __post_init__(self):
-        if self.norm not in ('none', 'in', 'bn'):
+        if self.norm not in NORMS:
             raise ValueError(f'unknown norm {self.norm!r}')
         if self.act not in ACTS:
             raise ValueError(f'unknown act {self.act!r}')
         if self.shift_mode not in ('none', 'TSM', 'TSM_toFutureOnly'):
             raise ValueError(f'unknown shift_mode {self.shift_mode!r}')
-
-    def check_supported(self):
-        """Raise for the options the port does not run yet (ROADMAP.md)."""
-        if self.norm != 'none':
-            raise NotImplementedError(
-                f"norm {self.norm!r}: the port runs norm='none' only so far")
-        if self.shift_input:
-            raise NotImplementedError('shift_input: not ported yet')
 
     def stage_io(self, i):
         """(in_ch, out_ch) of stage i; blind drops stage 0's noise map."""
@@ -90,12 +101,20 @@ class WNetConfig:
 
     @property
     def shift_num(self):
-        return 8 * self.stage_num
+        """Temporal (shift) convs of the net: 8 a stage, 10 with
+        shift_input; the bidirectional pipeline's delay in frames."""
+        return (8 + 2 * self.shift_input) * self.stage_num
 
 
 # ---------------------------------------------------------------------------
 # init
 # ---------------------------------------------------------------------------
+
+def _drop_empty(tree):
+    """The tree without its parameter-less norm slots (None)."""
+    return {k: _drop_empty(v) if isinstance(v, dict) else v
+            for k, v in tree.items() if v is not None}
+
 
 def _stage_init(cfg, i, g):
     s_in, s_out = cfg.stage_io(i)
@@ -104,23 +123,31 @@ def _stage_init(cfg, i, g):
     def conv(cin, cout):
         return conv_init(cin, cout, 3, cfg.bias, generator=g)
 
-    def cv(ch):
-        return {'c1': conv(ch, ch), 'c2': conv(ch, ch)}
+    def norm(ch):
+        return norm_init(cfg.norm, ch)
 
-    return {
-        'inc': {'c1': conv(s_in, cfg.interm_ch), 'c2': conv(cfg.interm_ch, c0)},
-        'down0': {'conv': conv(c0, c1), 'cv': cv(c1)},
-        'down1': {'conv': conv(c1, c2), 'cv': cv(c2)},
-        'up2': {'cv': cv(c2), 'conv': conv(c2, 4 * c1)},
-        'up1': {'cv': cv(c1), 'conv': conv(c1, 4 * c0)},
-        'outc': {'c1': conv(c0, c0), 'c2': conv(c0, s_out)},
-    }
+    def cv(cin, ch):
+        return {'c1': conv(cin, ch), 'n1': norm(ch), 'c2': conv(ch, ch),
+                'n2': norm(ch)}
+
+    # shift_input: inc is a CvBlock s_in -> c0 -> c0 (no interm_ch)
+    inc = cv(s_in, c0) if cfg.shift_input else {
+        'c1': conv(s_in, cfg.interm_ch), 'n1': norm(cfg.interm_ch),
+        'c2': conv(cfg.interm_ch, c0), 'n2': norm(c0)}
+    return _drop_empty({
+        'inc': inc,
+        'down0': {'conv': conv(c0, c1), 'n': norm(c1), 'cv': cv(c1, c1)},
+        'down1': {'conv': conv(c1, c2), 'n': norm(c2), 'cv': cv(c2, c2)},
+        'up2': {'cv': cv(c2, c2), 'conv': conv(c2, 4 * c1)},
+        'up1': {'cv': cv(c1, c1), 'conv': conv(c1, 4 * c0)},
+        'outc': {'c1': conv(c0, c0), 'n1': norm(c0), 'c2': conv(c0, s_out)},
+    })
 
 
 def wnet_init(cfg, seed=0, generator=None):
-    """Random parameters (kaiming-normal weights, torch default bias) from a
-    torch.Generator seeded with ``seed``; fp32 on the CPU."""
-    cfg.check_supported()
+    """Random parameters (kaiming-normal weights, torch default bias; BN
+    scale 1, bias 0, running mean 0, var 1) from a torch.Generator seeded
+    with ``seed``; fp32 on the CPU."""
     g = generator if generator is not None else torch.Generator().manual_seed(
         seed)
     return {f'stage{i}': _stage_init(cfg, i, g) for i in range(cfg.stage_num)}
@@ -130,10 +157,46 @@ def _is_conv_leaf(node):
     return isinstance(node, dict) and 'w' in node
 
 
+# each conv key and the norm slot that follows it
+_CONV_NORM = (('c1', 'n1'), ('c2', 'n2'), ('conv', 'n'))
+
+
+def fold_bn(tree):
+    """The tree with each conv that a BN leaf follows replaced by the one
+    conv computing both (eval-mode BN on the running statistics,
+    ``nn.layers.fold_bn_conv``, in fp32) and the BN leaves dropped; a tree
+    without BN leaves comes back as it was."""
+    if not isinstance(tree, dict) or _is_conv_leaf(tree):
+        return tree
+    out = {k: fold_bn(v) for k, v in tree.items() if not is_bn_leaf(v)}
+    for c, n in _CONV_NORM:
+        if is_bn_leaf(tree.get(n)):
+            cw = _cw(tree[c])
+            out[c] = fold_bn_conv(cw.w, cw.b, tree[n])
+    return out
+
+
+def _has_bn(params):
+    """Whether the tree still holds its BN leaves (every BN net has one
+    after its first conv); O(1), so a prepared tree is not walked."""
+    return is_bn_leaf(params['stage0']['inc'].get('n1'))
+
+
+def _folded(params):
+    """A raw BN tree with BN folded (``fold_bn``); any other tree as it
+    is."""
+    return fold_bn(params) if _has_bn(params) else params
+
+
 def prepare_params(params, device, dtype):
     """The tree with every conv as a ConvWeights cast to ``dtype`` on
-    ``device`` (what the kernels pack once and reuse). ConvWeights leaves
-    already there are kept, with their packed weights."""
+    ``device`` (what the kernels pack once and reuse), BN folded into its
+    conv first (``fold_bn``, in fp32, then cast). ConvWeights leaves already
+    there are kept, with their packed weights."""
+    return _prepare(fold_bn(params), device, dtype)
+
+
+def _prepare(params, device, dtype):
     if isinstance(params, ConvWeights):
         if params.w.device == torch.device(device) and params.w.dtype == dtype:
             return params
@@ -142,7 +205,7 @@ def prepare_params(params, device, dtype):
         b = params.get('b')
         return ConvWeights(params['w'].detach().to(device, dtype),
                            None if b is None else b.detach().to(device, dtype))
-    return {k: prepare_params(v, device, dtype) for k, v in params.items()}
+    return {k: _prepare(v, device, dtype) for k, v in params.items()}
 
 
 # ---------------------------------------------------------------------------
@@ -154,61 +217,206 @@ def _cw(leaf):
         leaf['w'], leaf.get('b'))
 
 
-def _cvblock(p, x, cfg, t_len, x_add=None, sites=None):
-    """Two temporal-shift convs + act (reference CvBlock); ``x_add`` is
-    summed into the first conv's input (up1's x1 + x2). ``sites``: the
-    two convs' ``_ChunkShiftSite``s on the chunked path, else None."""
-    c1, c2 = _cw(p['c1']), _cw(p['c2'])
+class _Norms:
+    """How a forward's conv sites end. ``split``: a norm runs between the
+    conv and its act (norm 'in', or BN on the batch's statistics, which
+    the BN sites append to ``stats``), so the kernels take act 'none' and
+    ``__call__`` applies norm and act; otherwise (norm 'none', BN folded)
+    the kernels apply the act and ``__call__`` passes through."""
+
+    def __init__(self, cfg, stats=None):
+        self.norm, self.act, self.stats = cfg.norm, cfg.act, stats
+        self.split = cfg.norm == 'in' or (cfg.norm == 'bn'
+                                          and stats is not None)
+        self.kernel_act = 'none' if self.split else cfg.act
+
+    def __call__(self, y, leaf):
+        """The site's norm (``leaf`` its parameters, or None) and act on a
+        conv output computed with ``kernel_act``."""
+        if not self.split:
+            return y
+        return get_act(self.act)(norm_apply(self.norm, leaf, y, self.stats))
+
+    def replay(self):
+        """The same route with statistics recorded nowhere: the recompute
+        of a rematerialised stage normalises as its forward did, and its
+        BN sites must not be folded a second time."""
+        other = copy.copy(self)
+        if self.stats is not None:
+            other.stats = []
+        return other
+
+
+def _shift_conv_site(cw, leaf, x, cfg, t_len, nrm, site=None, x_add=None):
+    """One temporal-shift conv (+ norm) + act of a CvBlock: K1 with the
+    shift, or, with ``site`` (a ``_ChunkShiftSite``), the chunk's; with
+    shift_mode 'none' K1 without a shift. ``x_add`` is summed into the
+    conv's input (up1's x1 + x2)."""
+    act = nrm.kernel_act
     if cfg.shift_mode == 'none':
-        x = conv3x3(x, c1, x2=x_add, act=cfg.act)
-        return conv3x3(x, c2, act=cfg.act)
-    if sites is not None:
-        x = _chunk_shift_conv(c1, x, cfg, t_len, sites[0], x_add)
-        return _chunk_shift_conv(c2, x, cfg, t_len, sites[1])
-    causal = 'toFutureOnly' in cfg.shift_mode
-    if x_add is None:
-        x = shift_conv(x, c1, None, t_len, cfg.fold_div, cfg.act, causal)
+        y = conv3x3(x, cw, x2=x_add, act=act)
+    elif site is not None:
+        y = _chunk_shift_conv(cw, x, cfg, t_len, site, act, x_add)
     else:
-        x = shift_conv_add2(x, x_add, c1, None, t_len, cfg.fold_div, cfg.act,
-                            causal)
-    return shift_conv(x, c2, None, t_len, cfg.fold_div, cfg.act, causal)
+        causal = 'toFutureOnly' in cfg.shift_mode
+        if x_add is None:
+            y = shift_conv(x, cw, None, t_len, cfg.fold_div, act, causal)
+        else:
+            y = shift_conv_add2(x, x_add, cw, None, t_len, cfg.fold_div, act,
+                                causal)
+    return nrm(y, leaf)
 
 
-def _stage_apply(p, x, cfg, t_len, sites=None):
+def _cvblock(p, x, cfg, t_len, nrm, x_add=None, sites=None):
+    """Two temporal-shift convs (+ norm) + act (reference CvBlock).
+    ``sites``: the two convs' ``_ChunkShiftSite``s on the chunked path,
+    else None."""
+    s1, s2 = (None, None) if sites is None else sites
+    x = _shift_conv_site(_cw(p['c1']), p.get('n1'), x, cfg, t_len, nrm, s1,
+                         x_add)
+    return _shift_conv_site(_cw(p['c2']), p.get('n2'), x, cfg, t_len, nrm,
+                            s2)
+
+
+def _residual(x, y, rc):
+    """The per-stage residual on the first ``rc`` channels
+    (wnet_models.py:181): ``x[..., :rc] - y[..., :rc]``, the rest of y."""
+    return torch.cat([x[..., :rc] - y[..., :rc], y[..., rc:]], dim=-1)
+
+
+def _stem(inc, x, cfg, nrm):
+    """inc without shift_input (conv, act, conv, act): one K2, or two K1
+    (+ norm) + act where the route splits."""
+    if nrm.split:
+        x = nrm(conv3x3(x, _cw(inc['c1']), act='none'), inc.get('n1'))
+        return nrm(conv3x3(x, _cw(inc['c2']), act='none'), inc.get('n2'))
+    return conv_chain(x, _cw(inc['c1']), None, _cw(inc['c2']), None,
+                      cfg.act, cfg.act)
+
+
+def _down(d, x, nrm):
+    """A stride-2 down conv (+ norm) + act: K3."""
+    return nrm(conv_s2(x, _cw(d['conv']), act=nrm.kernel_act), d.get('n'))
+
+
+def _outc(o, x, x2, res, cfg, nrm):
+    """outc on (x + x2) (act(conv), then conv), then the residual from
+    ``res`` (the stage input): one K2, or two K1 and a torch op where the
+    route splits."""
+    if nrm.split:
+        y = nrm(conv3x3(x, _cw(o['c1']), x2=x2, act='none'), o.get('n1'))
+        return _residual(res, conv3x3(y, _cw(o['c2']), act='none'),
+                        cfg.residual_ch)
+    return conv_chain_add2_res(x, x2, res, _cw(o['c1']), None, _cw(o['c2']),
+                               None, cfg.act, 'none', cfg.residual_ch)
+
+
+def _stage_apply(p, x, cfg, t_len, nrm, sites=None):
     """One DenBlock stage on (N*T, H, W, C) frames, the natural-layout
     stage of bsvd_tpu (wnet_arch.py _stage_apply). ``sites``: the stage's
-    8 ``_ChunkShiftSite``s on the chunked path, keyed by position as in
-    JAX: down0.cv c1 / c2, down1.cv, up2.cv, up1.cv."""
+    ``_ChunkShiftSite``s on the chunked path, keyed by position as in JAX:
+    inc c1 / c2 (with shift_input), then down0.cv c1 / c2, down1.cv,
+    up2.cv, up1.cv."""
+    off = 2 if cfg.shift_input else 0
+
     def pair(k):
         return None if sites is None else sites[k:k + 2]
 
-    x0 = conv_chain(x, _cw(p['inc']['c1']), None, _cw(p['inc']['c2']), None,
-                    cfg.act, cfg.act)
-    x1 = conv_s2(x0, _cw(p['down0']['conv']), act=cfg.act)
-    x1 = _cvblock(p['down0']['cv'], x1, cfg, t_len, sites=pair(0))
-    x2 = conv_s2(x1, _cw(p['down1']['conv']), act=cfg.act)
-    x2 = _cvblock(p['down1']['cv'], x2, cfg, t_len, sites=pair(2))
-    x2 = _cvblock(p['up2']['cv'], x2, cfg, t_len, sites=pair(4))
+    if cfg.shift_input:
+        x0 = _cvblock(p['inc'], x, cfg, t_len, nrm, sites=pair(0))
+    else:
+        x0 = _stem(p['inc'], x, cfg, nrm)
+    d = p['down0']
+    x1 = _cvblock(d['cv'], _down(d, x0, nrm), cfg, t_len, nrm,
+                  sites=pair(off))
+    d = p['down1']
+    x2 = _cvblock(d['cv'], _down(d, x1, nrm), cfg, t_len, nrm,
+                  sites=pair(off + 2))
+    x2 = _cvblock(p['up2']['cv'], x2, cfg, t_len, nrm, sites=pair(off + 4))
     x2 = conv_ps(x2, _cw(p['up2']['conv']))
-    x1 = _cvblock(p['up1']['cv'], x1, cfg, t_len, x_add=x2, sites=pair(6))
+    x1 = _cvblock(p['up1']['cv'], x1, cfg, t_len, nrm, x_add=x2,
+                  sites=pair(off + 6))
     x1 = conv_ps(x1, _cw(p['up1']['conv']))
-    # outc: act(conv(x0 + x1)) -> conv, then the residual on the first
-    # residual_ch channels (wnet_models.py:181): x[..., :rc] - y[..., :rc]
-    return conv_chain_add2_res(x0, x1, x, _cw(p['outc']['c1']), None,
-                               _cw(p['outc']['c2']), None, cfg.act, 'none',
-                               cfg.residual_ch)
+    return _outc(p['outc'], x0, x1, x, cfg, nrm)
 
 
-def wnet_apply(params, x, cfg):
+def _flatten(tree, prefix=()):
+    """[(path, tensor)] of a parameter tree, in a fixed order."""
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree) for kv in _flatten(tree[k],
+                                                            prefix + (k,))]
+    return [(prefix, tree)]
+
+
+def _unflatten(paths, leaves):
+    tree = {}
+    for path, leaf in zip(paths, leaves):
+        node = tree
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = leaf
+    return tree
+
+
+class _RematStage(torch.autograd.Function):
+    """A stage whose activations are dropped after the forward and
+    recomputed in the backward (the JAX package's jax.checkpoint of a
+    stage): only the stage input is kept. The stage's parameters are inputs
+    of the Function, so their gradients come back here even where the
+    stage input needs none (stage 0). The recompute normalises as the
+    forward did and records no BN statistics (``_Norms.replay``). Written
+    out rather than taken from torch.utils.checkpoint, which imports
+    torch._dynamo at its first call."""
+
+    @staticmethod
+    def forward(ctx, stage, y, *leaves):
+        ctx.stage = stage
+        ctx.save_for_backward(y, *leaves)
+        with torch.no_grad():
+            return stage(y, leaves, False)
+
+    @staticmethod
+    def backward(ctx, g):
+        y, *leaves = ctx.saved_tensors
+        need = ctx.needs_input_grad[1:]
+        ins = [t.detach().requires_grad_(n) for t, n in zip([y] + leaves,
+                                                           need)]
+        with torch.enable_grad():
+            out = ctx.stage(ins[0], ins[1:], True)
+        wrt = [t for t in ins if t.requires_grad]
+        grads = iter(torch.autograd.grad(out, wrt, g, allow_unused=True))
+        return (None,) + tuple(next(grads) if t.requires_grad else None
+                               for t in ins)
+
+
+def _remat_stage(p, y, cfg, t_len, nrm):
+    """A stage under ``_RematStage``."""
+    paths, leaves = zip(*_flatten(p))
+
+    def stage(v, ts, replay):
+        return _stage_apply(_unflatten(paths, ts), v, cfg, t_len,
+                            nrm.replay() if replay else nrm)
+    return _RematStage.apply(stage, y, *leaves)
+
+
+def wnet_apply(params, x, cfg, bn_stats=None):
     """MIMO forward: x (N, T, H, W, C_in) -> (N, T, H, W, out_ch).
 
     With shift_mode='TSM' this is whole-clip BSVD inference when T is the
-    clip length (and the TSN training forward when T == num_segments)."""
-    cfg.check_supported()
+    clip length (and the TSN training forward when T == num_segments).
+    Norm 'bn': with ``bn_stats`` None, eval mode (BN folded into the
+    convs); with a list, train mode (batch statistics, appended to it for
+    ``nn.layers.bn_update``). ``cfg.remat`` under autograd recomputes each
+    stage in the backward (``_RematStage``)."""
+    nrm = _Norms(cfg, bn_stats)
+    if not nrm.split:
+        params = _folded(params)
     n, t, h, w, c = x.shape
     y = x.reshape(n * t, h, w, c)
+    remat = cfg.remat and torch.is_grad_enabled()
     for i in range(cfg.stage_num):
-        y = _stage_apply(params[f'stage{i}'], y, cfg, t)
+        stage = _remat_stage if remat else _stage_apply
+        y = stage(params[f'stage{i}'], y, cfg, t, nrm)
     return y.reshape(n, t, h, w, y.shape[-1])
 
 
@@ -244,7 +452,8 @@ class _ChunkShiftSite:
         return lanes
 
     def record(self, x, x_add, t_len):
-        """The outgoing carry, in the compute dtype."""
+        """The outgoing carry, in the compute dtype (no lanes where
+        fold_div exceeds the channels: the stems of shift_input)."""
         self.out[self.idx] = chunk_carry(
             self._lanes(x, x_add, t_len), x.shape[-1], t_len, self.future,
             self.cfg.fold_div, self.cfg.shift_mode)
@@ -257,7 +466,7 @@ class _ChunkShiftSite:
                             self.cfg.shift_mode)
 
 
-def _chunk_shift_conv(cw, x, cfg, t_len, site, x_add=None):
+def _chunk_shift_conv(cw, x, cfg, t_len, site, act, x_add=None):
     """A shift conv site of the chunked path. K1 runs the whole chunk with
     the zero-boundary shift, which is already right on frames 1..T-1; frame
     0, the only frame whose shifted input differs, is recomputed by K1 at
@@ -265,11 +474,11 @@ def _chunk_shift_conv(cw, x, cfg, t_len, site, x_add=None):
     (no second full tensor)."""
     causal = 'toFutureOnly' in cfg.shift_mode
     if x_add is None:
-        y = shift_conv(x, cw, None, t_len, cfg.fold_div, cfg.act, causal)
+        y = shift_conv(x, cw, None, t_len, cfg.fold_div, act, causal)
     else:
-        y = shift_conv_add2(x, x_add, cw, None, t_len, cfg.fold_div, cfg.act,
+        y = shift_conv_add2(x, x_add, cw, None, t_len, cfg.fold_div, act,
                             causal)
-    y0 = conv3x3(site.frame0(x, x_add, t_len), cw, act=cfg.act)
+    y0 = conv3x3(site.frame0(x, x_add, t_len), cw, act=act)
     site.record(x, x_add, t_len)
     _frames(y, t_len)[:, 0] = y0
     return y
@@ -279,16 +488,19 @@ def wnet_apply_chunk(params, x, cfg, carries, future_buffer_len=0):
     """Forward one chunk (N, T, H, W, C_in) of the chunked MIMO protocol,
     threading a carry through each of the ``cfg.shift_num`` shift sites.
 
-    Carries are keyed by position: site ``stage * 8 + k``, k in the order
-    of ``_stage_apply``'s ``sites``. ``carries`` is None on the first chunk
-    (the zero boundary). Returns (out (N, T, H, W, out_ch), new_carries);
-    with ``shift_mode='none'`` there is nothing to carry (all None).
-    Inference only: no autograd graph is recorded.
+    Carries are keyed by position: site ``stage * per_stage + k``
+    (per_stage 8, or 10 with shift_input), k in the order of
+    ``_stage_apply``'s ``sites``, the two inc sites first. ``carries`` is
+    None on the first chunk (the zero boundary). Returns (out (N, T, H, W,
+    out_ch), new_carries); with ``shift_mode='none'`` there is nothing to
+    carry (all None). Inference only: no autograd graph is recorded, BN
+    runs folded.
     """
-    cfg.check_supported()
     n, t, h, w, c = x.shape
     per_stage = cfg.shift_num // cfg.stage_num
     new_carries = [None] * cfg.shift_num
+    params = _folded(params)
+    nrm = _Norms(cfg)
     y = x.reshape(n * t, h, w, c)
     with torch.no_grad():
         for i in range(cfg.stage_num):
@@ -296,7 +508,7 @@ def wnet_apply_chunk(params, x, cfg, carries, future_buffer_len=0):
                 cfg, None if carries is None else carries[k],
                 future_buffer_len, new_carries, k)
                 for k in range(i * per_stage, (i + 1) * per_stage)]
-            y = _stage_apply(params[f'stage{i}'], y, cfg, t, sites)
+            y = _stage_apply(params[f'stage{i}'], y, cfg, t, nrm, sites)
     return y.reshape(n, t, h, w, y.shape[-1]), new_carries
 
 
@@ -304,7 +516,26 @@ def wnet_apply_chunk(params, x, cfg, carries, future_buffer_len=0):
 # nn.Module wrappers with reference-compatible construction / IO
 # ---------------------------------------------------------------------------
 
+class _BNLeaf(nn.Module):
+    """A BN site: ``scale`` and ``bias`` are parameters; the running
+    ``mean`` and ``var`` are buffers, which no optimizer updates
+    (``nn.layers.bn_update`` does, once a train step)."""
+
+    def __init__(self, leaf):
+        super().__init__()
+        self.scale = nn.Parameter(leaf['scale'])
+        self.bias = nn.Parameter(leaf['bias'])
+        self.register_buffer('mean', leaf['mean'])
+        self.register_buffer('var', leaf['var'])
+
+    def tree(self):
+        return {'scale': self.scale, 'bias': self.bias, 'mean': self.mean,
+                'var': self.var}
+
+
 def _to_module(tree):
+    if is_bn_leaf(tree):
+        return _BNLeaf(tree)
     if _is_conv_leaf(tree):
         return nn.ParameterDict({k: nn.Parameter(v)
                                  for k, v in tree.items()})
@@ -318,6 +549,8 @@ def _map_tree(tree, fn):
 
 
 def _to_tree(mod):
+    if isinstance(mod, _BNLeaf):
+        return mod.tree()
     if isinstance(mod, nn.ParameterDict):
         return {k: v for k, v in mod.items()}
     return {k: _to_tree(v) for k, v in mod.items()}
@@ -334,7 +567,6 @@ class _WNetBase(nn.Module):
 
     def __init__(self, cfg, params=None, seed=0):
         super().__init__()
-        cfg.check_supported()
         self.cfg = cfg
         self.params = _to_module(params if params is not None
                                  else wnet_init(cfg, seed))
@@ -344,16 +576,22 @@ class _WNetBase(nn.Module):
     def shift_num(self):
         return self.cfg.shift_num
 
+    def _leaves(self):
+        """(name, tensor) of every parameter and buffer (BN running
+        statistics)."""
+        return list(self.named_parameters()) + list(self.named_buffers())
+
     def param_tree(self):
-        """The parameters as the nested dict ``wnet_apply`` takes, detached
-        (they share storage with the module's; ``train_forward`` uses the
-        parameters themselves)."""
+        """The parameters (and BN running statistics) as the nested dict
+        ``wnet_apply`` takes, detached (they share storage with the
+        module's; ``train_forward`` uses the parameters themselves)."""
         return _map_tree(_to_tree(self.params), torch.Tensor.detach)
 
     def prepared(self, device, dtype):
-        """Parameters cast to ``dtype`` on ``device`` as ConvWeights, cached
-        until any parameter changes (kernels pack them once)."""
-        stamp = tuple((p.data_ptr(), p._version) for p in self.parameters())
+        """Parameters cast to ``dtype`` on ``device`` as ConvWeights (BN
+        folded), cached until any parameter or running statistic changes
+        (kernels pack them once)."""
+        stamp = tuple((t.data_ptr(), t._version) for _, t in self._leaves())
         key = (torch.device(device), dtype)
         hit = self._prepared.get(key)
         if hit is None or hit[0] != stamp:
@@ -362,15 +600,14 @@ class _WNetBase(nn.Module):
         return hit[1]
 
     def load_params(self, params):
-        """Replace the parameters with a port tree (e.g. from
-        convert.from_jax_params / load_tsn_state_dict)."""
-        dev = next(self.parameters()).device
+        """Replace the parameters (and BN running statistics) with a port
+        tree (e.g. from convert.from_jax_params / load_tsn_state_dict)."""
         with torch.no_grad():
-            for name, p in self.named_parameters():
+            for name, t in self._leaves():
                 node = params
                 for part in name.split('.')[1:]:
                     node = node[part]
-                p.copy_(torch.as_tensor(node).to(dev, p.dtype))
+                t.copy_(torch.as_tensor(node).to(t.device, t.dtype))
         return self
 
     def load(self, path, param_key='params'):
@@ -380,8 +617,8 @@ class _WNetBase(nn.Module):
 
     def forward(self, input, noise_map=None):
         """input (N, F, C, H, W) [+ noise_map (N, F, 1, H, W)] ->
-        (N, F, out_ch, H, W), computed in input's dtype. Inference: no
-        autograd graph is recorded."""
+        (N, F, out_ch, H, W), computed in input's dtype. Inference (BN on
+        its running statistics): no autograd graph is recorded."""
         if noise_map is not None:
             input = torch.cat([input, noise_map.to(input.dtype)], dim=2)
         x = input.permute(0, 1, 3, 4, 2)
@@ -389,18 +626,23 @@ class _WNetBase(nn.Module):
             y = wnet_apply(self.prepared(x.device, x.dtype), x, self.cfg)
         return y.permute(0, 1, 4, 2, 3)
 
-    def train_forward(self, x, amp=False):
+    def train_forward(self, x, amp=False, bn_stats=None):
         """The training forward with autograd on: x (N, T, H, W, C_in) ->
         fp32 (N, T, H, W, out_ch). With ``amp`` the parameters are cast to
         bf16 differentiably (their gradients come back to the fp32 masters
         through the cast, each rounded to bf16 first) and x is cast too
-        (bsvd_tpu/models/denoising_model.py make_train_step, amp=True)."""
+        (bsvd_tpu/models/denoising_model.py make_train_step, amp=True).
+        ``bn_stats``: a list for train-mode BN (see ``wnet_apply``), its
+        entries holding the module's own running statistics; fp32 only."""
         params = _to_tree(self.params)
         if amp:
+            if bn_stats is not None:
+                raise ValueError('train-mode BN runs in fp32 (its statistics '
+                                 'would update bf16 copies): amp must be off')
             params = _map_tree(params, lambda t: t.to(torch.bfloat16))
             x = x.to(torch.bfloat16)
         with torch.enable_grad():
-            return wnet_apply(params, x, self.cfg).float()
+            return wnet_apply(params, x, self.cfg, bn_stats).float()
 
 
 @ARCH_REGISTRY.register()
@@ -426,7 +668,8 @@ class TSN(_WNetBase):
             shift_input=opt.pop('shift_input', False),
             shift_mode='none' if shift_type == 'no_temporal_shift'
             else shift_type,
-            fold_div=shift_div, residual_ch=opt.pop('residual_ch', 3))
+            fold_div=shift_div, residual_ch=opt.pop('residual_ch', 3),
+            remat=opt.pop('remat', False))
         _warn_unknown_opts('TSN net2d_opt', opt)
         self.num_segments = num_segments
         self.enable_past_buffer = enable_past_buffer

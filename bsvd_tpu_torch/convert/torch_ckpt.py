@@ -55,9 +55,17 @@ def tsn_key_map(cfg):
         yield f'{s}.outc.convblock.3', (st, 'outc', 'c2'), 'conv'
 
 
-def _conv_keys(cfg):
-    cfg.check_supported()
-    return [(k, p) for k, p, kind in tsn_key_map(cfg) if kind == 'conv']
+# BN leaf of the port / JAX tree -> the BatchNorm2d state dict suffix
+_BN_KEYS = (('scale', 'weight'), ('bias', 'bias'), ('mean', 'running_mean'),
+            ('var', 'running_var'))
+
+
+def _keys(cfg):
+    """(torch key prefix, path, kind) of every leaf the port's tree holds:
+    the convs, and the BN sites when norm is 'bn' ('none' and 'in' have no
+    parameters)."""
+    return [(k, p, kind) for k, p, kind in tsn_key_map(cfg)
+            if kind == 'conv' or cfg.norm == 'bn']
 
 
 def _set_path(tree, path, leaf):
@@ -79,25 +87,28 @@ def _tensor(v):
 
 def from_jax_params(np_tree, cfg):
     """A bsvd_tpu ``wnet_init`` tree (numpy or array leaves, HWIO weights)
-    -> the port's tree (OIHW, fp32)."""
+    -> the port's tree (OIHW, fp32; BN leaves as they are, the empty norm
+    slots dropped)."""
     params = {}
-    for _, path in _conv_keys(cfg):
+    for _, path, kind in _keys(cfg):
         leaf = _get_path(np_tree, path)
-        out = {'w': _tensor(np.transpose(np.asarray(leaf['w']), (3, 2, 0, 1)))}
-        if 'b' in leaf:
-            out['b'] = _tensor(leaf['b'])
+        if kind == 'bn':
+            out = {k: _tensor(leaf[k]) for k, _ in _BN_KEYS}
+        else:
+            out = {'w': _tensor(np.transpose(np.asarray(leaf['w']),
+                                             (3, 2, 0, 1)))}
+            if 'b' in leaf:
+                out['b'] = _tensor(leaf['b'])
         _set_path(params, path, out)
     return params
 
 
 def to_jax_params(params, cfg):
     """The port's tree (tensor or numpy leaves, OIHW) -> a bsvd_tpu
-    ``wnet_init`` tree of fp32 numpy arrays: HWIO weights, and the empty
-    norm slots (``n1`` / ``n2`` / ``n``) that norm='none' nets carry, so
-    that ``bsvd_tpu.models.checkpoint`` saves and loads it structure-exact.
-    The inverse of ``from_jax_params``."""
-    cfg.check_supported()
-
+    ``wnet_init`` tree of fp32 numpy arrays: HWIO weights, BN leaves, and
+    the empty norm slots (``n1`` / ``n2`` / ``n``) of norms 'none' and
+    'in', so that ``bsvd_tpu.models.checkpoint`` saves and loads it
+    structure-exact. The inverse of ``from_jax_params``."""
     def arr(v):
         if isinstance(v, torch.Tensor):
             v = v.detach().cpu().float().numpy()
@@ -106,7 +117,9 @@ def to_jax_params(params, cfg):
     tree = {}
     for _, path, kind in tsn_key_map(cfg):
         if kind == 'bn':
-            _set_path(tree, path, {})
+            _set_path(tree, path, {k: arr(_get_path(params, path)[k])
+                                   for k, _ in _BN_KEYS}
+                      if cfg.norm == 'bn' else {})
             continue
         leaf = _get_path(params, path)
         out = {'w': np.ascontiguousarray(np.transpose(arr(leaf['w']),
@@ -158,14 +171,19 @@ def load_tsn_state_dict(state, cfg, param_key='params'):
     """A reference TSN state dict (tensors or numpy), or the path of a
     ``.pth`` holding one (optionally under ``param_key``), -> the port's
     tree (fp32). Accepts the ``module.`` / ``base_model.nets_list.``
-    prefixes."""
+    prefixes. Only the mapped keys are read: BN's ``num_batches_tracked``
+    is skipped, as the JAX package does."""
     if not isinstance(state, dict):
         state = torch.load(str(state), map_location='cpu', weights_only=True)
     if param_key and param_key in state:
         state = state[param_key]
     state = _strip_prefix(state)
     params = {}
-    for tkey, path in _conv_keys(cfg):
+    for tkey, path, kind in _keys(cfg):
+        if kind == 'bn':
+            _set_path(params, path, {mine: _tensor(state[f'{tkey}.{theirs}'])
+                                     for mine, theirs in _BN_KEYS})
+            continue
         if f'{tkey}.weight' not in state:
             raise KeyError(f'missing conv weight {tkey}.weight '
                            f'(have e.g. {sorted(state)[:4]})')
@@ -177,11 +195,17 @@ def load_tsn_state_dict(state, cfg, param_key='params'):
 
 
 def to_tsn_state_dict(params, cfg):
-    """The port's tree -> a reference TSN state dict (CPU tensors)."""
+    """The port's tree -> a reference TSN state dict (CPU tensors; BN
+    without ``num_batches_tracked``, as the JAX package writes it)."""
     state = {}
-    for tkey, path in _conv_keys(cfg):
+    base = 'base_model.nets_list.'
+    for tkey, path, kind in _keys(cfg):
         leaf = _get_path(params, path)
-        state[f'base_model.nets_list.{tkey}.weight'] = leaf['w'].detach().cpu()
+        if kind == 'bn':
+            for mine, theirs in _BN_KEYS:
+                state[f'{base}{tkey}.{theirs}'] = leaf[mine].detach().cpu()
+            continue
+        state[f'{base}{tkey}.weight'] = leaf['w'].detach().cpu()
         if 'b' in leaf:
-            state[f'base_model.nets_list.{tkey}.bias'] = leaf['b'].detach().cpu()
+            state[f'{base}{tkey}.bias'] = leaf['b'].detach().cpu()
     return state

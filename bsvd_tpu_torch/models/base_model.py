@@ -2,8 +2,8 @@
 bsvd_tpu/models/base_model.py). Parameters are the network module's; the
 EMA copy and the optimizer state live on the model's device.
 
-Network files are ``.npz`` in the JAX package's tree layout (HWIO, empty
-norm slots), so each package loads the other's; a reference ``.pth`` TSN
+Network files are ``.npz`` in the JAX package's tree layout (HWIO, BN
+leaves or empty norm slots), so each package loads the other's; a reference ``.pth`` TSN
 state dict loads too. Training states are the port's own format
 (``models/checkpoint.py``).
 """

@@ -15,7 +15,7 @@ import time
 import numpy as np
 import torch
 
-# Parameter-less subtrees (the norm='none' slots) are kept through a
+# Parameter-less subtrees (the norm slots of 'none' and 'in') are kept through a
 # sentinel key so that a save/load round trip is structure-exact.
 _EMPTY_SENTINEL = '__empty_dict__'
 

@@ -7,9 +7,11 @@ It takes an options dict (what ``bsvd_tpu.utils.options.parse_options``
 returns for a train YAML; the card's machine has no PyYAML) and a device.
 One step: the TSN forward with autograd through the kernels' Functions,
 the pixel loss in fp32, the backward (K7 weight gradients), the optax-exact
-Adam update, then the EMA. With ``train.fp16`` the forward and backward
-run in bf16 while the master parameters, the loss, the optimizer state and
-the EMA stay fp32 (the JAX package's AMP).
+Adam update, the BN running statistics (norm 'bn'), then the EMA (over
+the running statistics too, as the JAX package's tree-wide EMA). With
+``train.fp16`` the forward and backward run in bf16 while the master
+parameters, the loss, the optimizer state and the EMA stay fp32 (the JAX
+package's AMP); norm 'bn' ignores it, with the JAX package's warning.
 
 Evaluation: ``test`` denoises the fed clip by ``val``'s protocol
 (``temp_psz`` / ``future_buffer_len``, ``streaming_eval``, ``fp16`` as
@@ -17,8 +19,8 @@ bf16), with the EMA parameters when they exist; ``validation`` scores each
 clip of a dataset (PSNR / SSIM on uint8 images, float PSNR) and writes its
 frames and per-scene CSVs.
 
-Not ported here: norm='bn' (the network raises), the perceptual loss (the
-zoo), data / spatial meshes (validation runs clips one after another).
+Not ported here: the perceptual loss (the zoo), data / spatial meshes
+(validation runs clips one after another).
 """
 
 import csv
@@ -38,6 +40,7 @@ from bsvd_tpu_torch.models.base_model import BaseModel
 from bsvd_tpu_torch.models.lr_scheduler import build_schedule
 from bsvd_tpu_torch.models.optim import Adam
 from bsvd_tpu_torch.models.seq_inference import denoise_seq
+from bsvd_tpu_torch.nn.layers import bn_update
 from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
 from bsvd_tpu_torch.utils.logger import get_root_logger
 from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
@@ -46,13 +49,22 @@ from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
 def make_train_step(net, optimizer, cri_pix, amp=False):
     """The step ``(batch, ema_params, ema_decay) -> {'l_pix': loss}`` over
     ``net``'s parameters, updated in place by ``optimizer``; ``batch``
-    holds 'lq' and 'gt' (N, T, H, W, C) on the parameters' device."""
+    holds 'lq' and 'gt' (N, T, H, W, C) on the parameters' device. With
+    norm 'bn' the forward runs BN on the batch's statistics, and once the
+    optimizer has stepped they are folded into the module's running
+    statistics (bsvd_tpu make_train_step's bn_fold_running_stats), which
+    no optimizer touches."""
+    bn = net.cfg.norm == 'bn'
+
     def step(batch, ema_params=None, ema_decay=0.0):
         optimizer.zero_grad()
-        out = net.train_forward(batch['lq'], amp=amp)
+        stats = [] if bn else None
+        out = net.train_forward(batch['lq'], amp=amp, bn_stats=stats)
         l_pix = cri_pix(out, batch['gt'].float())
         l_pix.backward()
         optimizer.step()
+        if bn:
+            bn_update(stats)
         if ema_params is not None:
             BaseModel.ema_update(ema_params, net.param_tree(), ema_decay)
         return {'l_pix': l_pix.detach()}
@@ -107,6 +119,11 @@ class DenoisingModel(BaseModel):
         self.lr_schedule = build_schedule(train_opt)
         self.optimizer = self._build_optimizer(train_opt)
         self.amp = bool(train_opt.get('fp16', False))
+        if self.amp and self.cfg.norm == 'bn':
+            get_root_logger().warning(
+                'train.fp16 ignored for norm=bn (BN batch stats stay fp32, '
+                'matching autocast BN policy)')
+            self.amp = False
         self._train_step = make_train_step(self.net, self.optimizer,
                                            self.cri_pix, amp=self.amp)
 

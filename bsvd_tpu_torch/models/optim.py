@@ -8,7 +8,11 @@ no epsilon, each a small step away from torch.optim's and
 ``clip_grad_norm_``'s.
 
 Every operation is fp32, one tensor op per optax op in optax's order, and
-the moments live on the parameters' device. Nothing reads a value back to
+the moments live on the parameters' device. It updates the network's
+parameters only: BN running statistics are buffers, folded once a step by
+``nn.layers.bn_update``. (The JAX package runs optax over the whole tree,
+so its AdamW decays the running statistics too; the shipped configs set
+``weight_decay: 0``.) Nothing reads a value back to
 the host: the clip's branch is a ``torch.where``.
 """
 

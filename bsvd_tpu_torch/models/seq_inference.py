@@ -190,7 +190,6 @@ class BlockStreamDenoiser:
         self.dtype = dtype or torch.float32
         self.params, self.cfg, self.device = _resolve(params, cfg,
                                                       self.dtype)
-        self.cfg.check_supported()
         self.psz = int(psz)
         self.future = int(future_buffer_len)
         self.reset()

@@ -1,8 +1,10 @@
-"""Plain NHWC layers (counterpart of bsvd_tpu/nn/layers.py:26-110).
+"""Plain NHWC layers (counterpart of bsvd_tpu/nn/layers.py:26-216).
 
 Activations are channels-last ``(..., H, W, C)`` as in the JAX package;
 conv weights are torch OIHW. These are the plain PyTorch versions the
-kernels' references are built from.
+kernels' references are built from, and the norms, which run as plain
+torch ops on every path (the JAX package computes them in XLA, outside
+its Pallas kernels).
 """
 
 import math
@@ -11,6 +13,9 @@ import torch
 import torch.nn.functional as F
 
 ACTS = ('relu', 'relu6', 'none')
+NORMS = ('none', 'in', 'bn')
+BN_EPS = 1e-5
+BN_MOMENTUM = 0.1
 
 
 def conv2d(x, w, b=None, stride=1):
@@ -94,3 +99,79 @@ def conv_init(in_ch, out_ch, kernel_size=3, bias=True, generator=None):
         bound = 1.0 / math.sqrt(fan_in)
         p['b'] = (torch.rand((out_ch,), generator=generator) * 2 - 1) * bound
     return p
+
+
+# ---------------------------------------------------------------------------
+# norms (bsvd_tpu/nn/layers.py get_norm / norm_init / norm_apply /
+# bn_fold_running_stats)
+# ---------------------------------------------------------------------------
+
+def norm_init(norm, ch):
+    """Parameters of a norm site: None for 'none' and 'in' (InstanceNorm2d
+    without affine or running statistics); for 'bn' the trained ``scale``
+    and ``bias`` and the running ``mean`` and ``var``, all fp32."""
+    if norm not in NORMS:
+        raise ValueError(f'unknown norm {norm!r}')
+    if norm != 'bn':
+        return None
+    return {'scale': torch.ones(ch), 'bias': torch.zeros(ch),
+            'mean': torch.zeros(ch), 'var': torch.ones(ch)}
+
+
+def is_bn_leaf(node):
+    return isinstance(node, dict) and 'mean' in node
+
+
+def _stat_dtype(dtype):
+    """Statistics of half-precision activations are taken in fp32, as
+    autocast runs norms."""
+    return torch.float32 if dtype in (torch.bfloat16, torch.float16) \
+        else dtype
+
+
+def norm_apply(norm, p, x, stats, eps=BN_EPS):
+    """The norm of a split site (conv, then norm, then act) over NHWC
+    ``x``, computed in fp32 for half precision and returned in x's dtype.
+
+    'in': per frame and channel over H and W. 'bn' (train mode): the
+    statistics of the batch (every axis but C, variance biased), appended
+    to ``stats`` as ``(p, mean, var, count)`` for ``bn_update``. Eval-mode
+    BN never runs here: it is folded into the conv (``fold_bn_conv``)."""
+    v = x.to(_stat_dtype(x.dtype))
+    if norm == 'in':
+        mean = v.mean(dim=(-3, -2), keepdim=True)
+        var = v.var(dim=(-3, -2), keepdim=True, unbiased=False)
+        return ((v - mean) * torch.rsqrt(var + eps)).to(x.dtype)
+    if norm != 'bn':
+        raise ValueError(f'norm {norm!r} does not split its site')
+    dims = tuple(range(v.dim() - 1))
+    mean = v.mean(dim=dims)
+    var = v.var(dim=dims, unbiased=False)
+    stats.append((p, mean.detach(), var.detach(), v.numel() // v.shape[-1]))
+    y = (v - mean) * torch.rsqrt(var + eps) * p['scale'].to(v.dtype) \
+        + p['bias'].to(v.dtype)
+    return y.to(x.dtype)
+
+
+@torch.no_grad()
+def bn_update(stats, momentum=BN_MOMENTUM):
+    """Fold the batch statistics ``norm_apply`` recorded into their BN
+    leaves' running statistics, in place: ``r = (1 - momentum) r +
+    momentum s``, the variance made unbiased (n / (n - 1)) first, as
+    torch's BatchNorm and bsvd_tpu's bn_fold_running_stats."""
+    for p, mean, var, n in stats:
+        if n > 1:
+            var = var * n / (n - 1)
+        p['mean'].copy_((1 - momentum) * p['mean'] + momentum * mean)
+        p['var'].copy_((1 - momentum) * p['var'] + momentum * var)
+
+
+def fold_bn_conv(w, b, bn, eps=BN_EPS):
+    """A conv (OIHW ``w``, ``b``) followed by eval-mode BN as one conv,
+    computed in fp32 (or wider): ``w * s`` per output channel and ``(b -
+    mean) * s + bias``, with ``s = scale / sqrt(var + eps)``. Returns
+    {'w', 'b'}."""
+    dt = torch.promote_types(w.dtype, torch.float32)
+    s = bn['scale'].to(dt) * torch.rsqrt(bn['var'].to(dt) + eps)
+    return {'w': w.to(dt) * s[:, None, None, None],
+            'b': (b.to(dt) - bn['mean'].to(dt)) * s + bn['bias'].to(dt)}

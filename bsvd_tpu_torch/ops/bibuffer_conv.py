@@ -71,8 +71,11 @@ def bibuffer_chain_reference(x, s1, s2, w1, b1, w2, b2, fold_div=8,
     return y2, s1n, s2n
 
 
-def _check_fold(c, fold_div):
-    if not 0 < fold_div <= c:
+def _check_fold(c, fold_div, min_fold=1):
+    """fold = c // fold_div. K5 takes fold 0 (shift_input's stems: 3-5
+    channels at fold_div 8), where the step moves no lanes and only delays
+    the frame; K6's lane rule needs fold >= 1."""
+    if fold_div < 1 or c // fold_div < min_fold:
         raise ValueError(f'fold_div {fold_div} for {c} channels')
     return c // fold_div
 
@@ -80,7 +83,7 @@ def _check_fold(c, fold_div):
 def _launch_bibuffer(name, xs, state, cw, fold_div, act, causal):
     """K5 on frames xs (F, N, H, W, C) and state (N, H, W, C)."""
     nf, n, h, w_, c = xs.shape
-    fold = _check_fold(c, fold_div)
+    fold = _check_fold(c, fold_div, min_fold=0)
     if cw.cin != c:
         raise ValueError(f'weights take {cw.cin} channels, input has {c}')
     xs, state = check_cuda(name, xs, state)

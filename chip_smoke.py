@@ -114,10 +114,31 @@ Phases, each printed as one JSON object on its own line:
    The clips are held in memory in a ValFolderDataset subclass: the
    card's machine has no libpng / libjpeg headers, so the native decoder
    does not build there.
+11. WNet options (random weights from the seed, BN given seeded running
+   statistics): options/test/bsvd_raw.yml's network_g (in 5, out 4,
+   residual 4), options/train/bsvd_c32_blind.yml's, and c64 with
+   shift_input (bidirectional and causal), norm 'bn' and norm 'in'. Each:
+   one bf16 10-frame 540p forward with F.conv2d raising, its launches by
+   the routes (``option_launches``: BN folded runs the kernels of norm
+   'none'; 'in' splits every K2 pair into two K1 launches; shift_input
+   adds two K1 shift convs a stage in place of inc's K2), the forward's
+   ms (events, median of 5) beside c64 'none''s in the same phase; fp32
+   on the card against the plain fp32 path on the CPU with the CPU
+   weights (4 frames of 64x112; the stream and a chunk too for the pushed
+   nets), to 1e-4 x max|ref|, and bf16 by phase 4's PSNR rule. The
+   pushed nets (shift_input both modes, 'in'): 24 540p frames pushed and
+   flushed, each steady push's and a push_block's launches checked, and
+   steady ms per frame; shift_input's 13-frame chunk (launches, ms). Then
+   train steps at the train yml's batch: 'bn' with train.fp16 asked for
+   (and ignored: fp32), shift_input and c64 with and without remat in
+   bf16 AMP: launches per step, ms per step, peak memory. For 'in', the
+   device profile of one forward and of 8 steady pushes (busy time, idle
+   share, the top kernels by device time).
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9 and 10 (counters set to 0 before each run, read after), the
+phases 3, 5, 8, 9, 10 and 11 (counters set to 0 before each run, read
+after), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
 summed at the counts of
@@ -1846,6 +1867,330 @@ def phase_eval(nets):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 11: the WNet options
+# ---------------------------------------------------------------------------
+
+# options/test/bsvd_raw.yml network_g (its pretrain_ckpt dropped: random
+# weights) and options/train/bsvd_c32_blind.yml network_g, full width; the
+# c64 net of phase 3 with shift_input (both modes), BN (seeded running
+# statistics) and instance norm
+OPTION_NETS = {
+    'raw': {'type': 'BSVD', 'chns': [64, 128, 256], 'mid_ch': 64,
+            'in_ch': 5, 'out_ch': 4, 'residual_ch': 4, 'shift_input': False,
+            'norm': 'none', 'interm_ch': 64, 'act': 'relu6', 'seed': SEED},
+    'c32_blind': {'type': 'TSN', 'num_segments': 11,
+                  'base_model': 'WNet_multistage', 'shift_type': 'TSM',
+                  'shift_div': 8, 'inplace': False, 'seed': SEED,
+                  'net2d_opt': {'chns': [32, 64, 128], 'mid_ch': 32,
+                                'shift_input': False, 'norm': 'none',
+                                'interm_ch': 32, 'act': 'relu6',
+                                'blind': True}},
+    'shift_input': dict(C64, shift_input=True),
+    'shift_input_causal': dict(C64, shift_input=True,
+                               shift_mode='TSM_toFutureOnly'),
+    'bn': dict(C64, norm='bn'),
+    'in': dict(C64, norm='in'),
+}
+PUSHED_OPTIONS = ('shift_input', 'shift_input_causal', 'in')
+# 13 frames: a chunk of the train yml's protocol (temp_psz 11 + 2)
+CHUNK_FRAMES = CHUNK_PSZ + CHUNK_FUTURE
+OPTION_STEPS = 5
+
+
+def option_launches(cfg, unit):
+    """Launches per unit of work by the routes of archs/wnet_arch and
+    archs/streaming: 'forward' (a whole clip), 'chunk' (a forward and a
+    one-frame K1 at each shift site), 'push' / 'block' (a steady push /
+    push_block of BLOCK_F), 'train' (a train step: the forward with BN on
+    batch statistics, K1 for each K2's intermediate in the backward, K7 for
+    every stride-1 conv; with remat the forward twice)."""
+    s, si = cfg.stage_num, int(cfg.shift_input)
+    split = cfg.norm == 'in' or (unit == 'train' and cfg.norm == 'bn')
+    stem = 2 if split and not si else 0
+    outc = 2 if split else 0
+    k2 = s * ((0 if split or si else 1) + (0 if split else 1))
+    c = dict.fromkeys(KERNELS, 0)
+    c.update(conv_chain=k2, conv_s2=2 * s, conv_ps=2 * s)
+    if unit in ('push', 'block'):
+        c['conv3x3'] = s * (stem + outc)
+        c['bibuffer_conv' if unit == 'push' else 'bibuffer_multi'] = \
+            s * (8 + 2 * si)
+        return c
+    c['conv3x3'] = s * (8 + 2 * si + stem + outc)
+    c['shift_conv_fused_v1'] = s * (7 + 2 * si)
+    if unit == 'chunk':
+        c['conv3x3'] += cfg.shift_num
+    if unit == 'train':
+        fwd = 2 if cfg.remat else 1
+        for k in ('conv3x3', 'conv_chain', 'conv_s2', 'conv_ps',
+                  'shift_conv_fused_v1'):
+            c[k] *= fwd
+        c['conv3x3'] += k2
+        c['conv3x3_dw'] = 14 * s
+    return c
+
+
+def _seed_bn(net, seed):
+    """Seeded running statistics and affine parameters in every BN leaf of
+    the module (in place), as a trained net would carry."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for name, t in list(net.named_parameters()) + list(
+                net.named_buffers()):
+            leaf = name.rsplit('.', 1)[-1]
+            lo, hi = {'scale': (0.5, 1.5), 'bias': (-0.2, 0.2),
+                      'mean': (-0.3, 0.3), 'var': (0.5, 2.0)}.get(
+                leaf, (None, None))
+            if lo is not None:
+                t.copy_(torch.rand(t.shape, generator=g) * (hi - lo) + lo)
+
+
+def _option_input(cfg, noisy):
+    """(T, 3, H, W) numpy -> (1, T, H, W, C_in) bf16 on the card: RGB, a
+    fourth raw channel (the green twice) where the net takes 4 colour
+    channels, and the noise map unless blind."""
+    x = torch.from_numpy(noisy).cuda().to(torch.bfloat16)
+    colour = cfg.in_ch - 1 if not cfg.blind else 3
+    if colour == 4:
+        x = torch.cat([x, x[:, 1:2]], dim=1)
+    if not cfg.blind:
+        x = torch.cat([x, torch.full_like(x[:, :1], SIGMA)], dim=1)
+    return x.permute(0, 2, 3, 1)[None].contiguous()
+
+
+def _check_launches(name, got, want):
+    if got != want:
+        raise AssertionError(f'{name}: launched {got}, expected {want}')
+
+
+def _option_parity(name, net, rng):
+    """fp32 card output (whole clip, and for the pushed options the stream
+    and a chunk) against the plain fp32 path on the CPU with the CPU
+    weights (no kernel launched there), at 4 frames of 64x112 (the stream:
+    the latency + 2); bf16 card whole clip by phase 4's PSNR rule."""
+    cfg = net.cfg
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 4, 64, 112, cfg.effective_in_ch))
+                         .astype(np.float32))
+    cpu32, cpu16 = net.prepared('cpu', torch.float32), net.prepared(
+        'cpu', torch.bfloat16)
+    lat = streaming.pipeline_latency(cfg)
+    xs = torch.from_numpy(rng.uniform(
+        0, 1, (1, lat + 2, 64, 112, cfg.effective_in_ch)).astype(np.float32))
+    streamed = name in PUSHED_OPTIONS
+
+    def run(p, dev, dtype=torch.float32):
+        with torch.no_grad():
+            r = {'clip': wnet_apply(p, x.to(dev, dtype), cfg).cpu()}
+            if streamed and dtype == torch.float32:
+                r['stream'] = streaming_apply(p, xs.to(dev), cfg).cpu()
+                r['chunk'] = wnet_apply_chunk(p, xs[:, :2].to(dev), cfg,
+                                              None, 1)[0].cpu()
+        return r
+    reset_counts()
+    ref, plain16 = run(cpu32, 'cpu'), run(cpu16, 'cpu', torch.bfloat16)
+    if any(counts().values()):
+        raise AssertionError(f'{name}: the CPU reference launched a kernel: '
+                             f'{counts()}')
+    got32 = run(net.prepared('cuda', torch.float32), 'cuda')
+    got16 = run(net.prepared('cuda', torch.bfloat16), 'cuda',
+                torch.bfloat16)['clip']
+    out = {k: rel_err(got32[k], ref[k]) for k in ref}
+    ref, plain16 = ref['clip'], plain16['clip']
+    for part, (err, scale) in out.items():
+        if not err <= FP32_TOL * scale:
+            raise AssertionError(f'{name}: fp32 {part} on the card vs the '
+                                 f'plain path: {err} > {FP32_TOL * scale}')
+    p16, plain_p16 = psnr(got16, ref), psnr(plain16, ref)
+    if not p16 > plain_p16 - 1.0:
+        raise AssertionError(f'{name}: bf16 kernel path {p16} dB vs fp32, '
+                             f'plain bf16 {plain_p16} dB')
+    return {'fp32_max_abs_err': {k: v[0] for k, v in out.items()},
+            'fp32_tol': {k: FP32_TOL * v[1] for k, v in out.items()},
+            'bf16_psnr_db_vs_fp32': p16, 'plain_bf16_psnr_db_vs_fp32':
+            plain_p16}
+
+
+def _option_push(name, net, noisy):
+    """Push the clip, flush, check each steady push's and a steady
+    push_block's launches; steady ms per frame (push, best of 3)."""
+    cfg = net.cfg
+    x = _option_input(cfg, noisy)[0][:, None]     # (T, 1, H, W, C)
+    sd = StreamDenoiser(net, None, batch=1, height=H, width=W,
+                        dtype=torch.bfloat16)
+    lat = sd.latency
+    launches = dict.fromkeys(KERNELS, 0)
+    outs = []
+    with _NoConv2d():
+        reset_counts()
+        for i in range(STREAM_T):
+            before = counts()
+            out = sd.push(x[i])
+            if i >= lat:
+                _check_launches(f'{name} steady push {i}',
+                                delta_since(before),
+                                option_launches(cfg, 'push'))
+            if out is not None:
+                outs.append(out)
+        outs += sd.flush()
+        for k, v in counts().items():
+            launches[k] += v
+        if len(outs) != STREAM_T or not all(torch.isfinite(o).all()
+                                            for o in outs):
+            raise AssertionError(f'{name}: {len(outs)} stream outputs for '
+                                 f'{STREAM_T} frames, or not finite')
+        sd.reset()
+        for i in range(lat):
+            sd.push(x[i])
+        reset_counts()
+        sd.push_block(x[lat:lat + BLOCK_F])
+        block = counts()
+        _check_launches(f'{name} push_block', block,
+                        option_launches(cfg, 'block'))
+        for k, v in block.items():
+            launches[k] += v
+    sd.reset()
+    for i in range(lat + 4):
+        sd.push(x[i % STREAM_T])
+    rec = {'latency': lat, 'push_ms_per_frame': _time_per_frame(sd, x, False)}
+    if cfg.norm == 'in':
+        # where a split push's time goes: the norm passes are torch ops
+        rec['push_profile'] = _profile_pushes(sd, x, n=8)
+    return launches, rec
+
+
+def _option_train(name, opt, amp, batch):
+    """A few train steps of the c64 TSN with ``opt``'s net2d options:
+    launches per step, ms per step (host clock, synchronised) and peak
+    memory."""
+    model = DenoisingModel(opt, device='cuda')
+    cfg = model.cfg
+    if cfg.norm == 'bn':
+        _seed_bn(model.net, SEED + 11)
+    model.feed_data(batch)
+    launches = dict.fromkeys(KERNELS, 0)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    stats = [t.clone() for n, t in model.net.named_buffers()]
+    with _NoConv2d():
+        for i in range(2):
+            reset_counts()
+            model.optimize_parameters(i + 1)
+            _check_launches(f'{name} train step', counts(),
+                            option_launches(cfg, 'train'))
+            for k, v in counts().items():
+                launches[k] += v
+        reset_counts()
+        ms, losses = _time_steps(model, OPTION_STEPS, 3)
+        for k, v in counts().items():
+            launches[k] += v
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f'{name}: non-finite train loss {losses}')
+    moved = [not torch.equal(a, b) for a, b in
+             zip(stats, [t for _, t in model.net.named_buffers()])]
+    if cfg.norm == 'bn' and not all(moved):
+        raise AssertionError(f'{name}: BN running statistics did not move')
+    return launches, {'amp_requested': amp, 'amp': model.amp,
+                      'launches_per_step': {k: v for k, v in option_launches(
+                          cfg, 'train').items() if v},
+                      'ms_per_step': ms,
+                      'peak_allocated_gb':
+                      torch.cuda.max_memory_allocated() / 1e9,
+                      'loss_first_last': [losses[0], losses[-1]]}
+
+
+def phase_options(nets, clip):
+    """The WNet options on every path. Returns the launches of the checked
+    main-path runs."""
+    clean, noisy = clip
+    launches = dict.fromkeys(KERNELS, 0)
+    rng = np.random.default_rng(SEED + 12)
+
+    def add(run):
+        for k, v in run.items():
+            launches[k] += v
+
+    # the c64 norm 'none' forward of phase 3, timed beside the options
+    x64 = _option_input(nets['TSM'].cfg, noisy[:T])
+    p64 = nets['TSM'].prepared(x64.device, torch.bfloat16)
+    with torch.no_grad():
+        base_ms = median_ms(lambda: wnet_apply(p64, x64, nets['TSM'].cfg),
+                            reps=5)
+    emit({'phase': 'options_baseline', 'config': 'c64 norm none (phase 3)',
+          'forward_ms_median_of_5': base_ms, 'frames': T})
+    for name, opt in OPTION_NETS.items():
+        net = build_network(opt)
+        cfg = net.cfg
+        if cfg.norm == 'bn':
+            _seed_bn(net, SEED + 10)
+        x = _option_input(cfg, noisy[:T])
+        p = net.prepared(x.device, torch.bfloat16)
+        with _NoConv2d(), torch.no_grad():
+            reset_counts()
+            y = wnet_apply(p, x, cfg)
+            fwd = counts()
+            _check_launches(f'{name} forward', fwd,
+                            option_launches(cfg, 'forward'))
+            add(fwd)
+        if y.shape != x.shape[:-1] + (cfg.out_ch,) or not torch.isfinite(
+                y).all():
+            raise AssertionError(f'{name}: forward output {tuple(y.shape)} '
+                                 f'or not finite')
+        with torch.no_grad():
+            ms = median_ms(lambda: wnet_apply(p, x, cfg), reps=5)
+            prof = None if cfg.norm != 'in' else _device_profile(
+                lambda: (wnet_apply(p, x, cfg), torch.cuda.synchronize()),
+                1, 'in_forward')
+        rec = {'phase': 'options', 'config': name, 'shift_num':
+               cfg.shift_num, 'launches_per_forward':
+               {k: v for k, v in fwd.items() if v},
+               'forward_ms_median_of_5': ms, 'frames': T,
+               'forward_vs_c64_none': ms / base_ms}
+        if prof is not None:
+            rec['forward_profile'] = {
+                k: prof[k] for k in ('device_busy_ms_per_unit', 'idle_share',
+                                     'top_device_ms_per_unit')}
+        rec.update(_option_parity(name, net, rng))
+        if name in PUSHED_OPTIONS:
+            run, push = _option_push(name, net, noisy)
+            add(run)
+            rec.update(push)
+        if name == 'shift_input':
+            xc = _option_input(cfg, noisy[:CHUNK_FRAMES])
+            with _NoConv2d(), torch.no_grad():
+                reset_counts()
+                _, carries = wnet_apply_chunk(p, xc, cfg, None,
+                                              CHUNK_FUTURE)
+                chunk = counts()
+                _check_launches(f'{name} chunk', chunk,
+                                option_launches(cfg, 'chunk'))
+                add(chunk)
+                chunk_ms = median_ms(lambda: wnet_apply_chunk(
+                    p, xc, cfg, carries, CHUNK_FUTURE), reps=5)
+            rec.update(chunk_ms_median_of_5=chunk_ms,
+                       chunk_frames=CHUNK_FRAMES,
+                       carries=len(carries))
+        emit(rec)
+        del net, p, x, y
+
+    # train steps at the train yml's batch (8 x 11 x 96x96): BN in fp32
+    # (train.fp16 asked for and ignored), shift_input and c64 with and
+    # without remat in bf16 AMP
+    batch = _train_batch(np.random.default_rng(SEED + 13), TRAIN_N, TRAIN_T,
+                         TRAIN_HW)
+    for name, over, amp in (('bn', {'norm': 'bn'}, True),
+                            ('shift_input', {'shift_input': True}, True),
+                            ('c64', {}, True),
+                            ('c64_remat', {'remat': True}, True)):
+        opt = _train_opt(TRAIN_T, amp=amp)
+        opt['network_g']['net2d_opt'].update(over)
+        run, rec = _option_train(name, opt, amp, batch)
+        add(run)
+        emit(dict({'phase': 'options_train', 'config': name,
+                   'batch': [TRAIN_N, TRAIN_T, TRAIN_HW, TRAIN_HW]}, **rec))
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available()'
@@ -1884,9 +2229,10 @@ def main():
     train_launches = phase_train()
     chunk_launches = phase_chunked(nets)
     eval_launches = phase_eval(nets)
+    option_launches_run = phase_options(nets, clip24)
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
-                        + eval_launches[k])
+                        + eval_launches[k] + option_launches_run[k])
         if k not in off_route and not launches[k] > 0:
             raise AssertionError(f'{k} never launched on a main path')
         if k in off_route and launches[k]:

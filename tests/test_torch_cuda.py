@@ -735,3 +735,180 @@ def test_native_decoder_builds_or_raises_with_gxx_output(dev, tmp_path):
             native_decode.load_seq(paths)
         return
     np.testing.assert_array_equal(native_decode.load_seq(paths), frames)
+
+
+# ---- the WNet options: fold 0, and every path per option --------------------
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('shift', ['tsm', 'causal'])
+@pytest.mark.parametrize('c', [3, 4, 5])
+def test_fold0_conv3x3_and_dw_kernels(dev, c, shift, dtype):
+    """shift_input's stage-0 stems: 3-5 channels at fold_div 8, fold 0 (the
+    shift moves no lane). K1 forward and K7's weight gradient against their
+    plain versions."""
+    rng = np.random.default_rng(20 + c)
+    t_len = 3
+    x = _t(rng, (2 * t_len, 13, 21, c), 1.0, dev).to(dtype)
+    wt = _t(rng, (64, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
+    b = _t(rng, (64,), 0.1, dev)
+    before = conv3x3.launches
+    got = conv3x3(x, wt, b, t_len=t_len, shift=shift, fold_div=8,
+                  act='none')
+    assert conv3x3.launches == before + 1
+    torch.cuda.synchronize()
+    ref = conv3x3_reference(x.float(), wt, b, t_len=t_len, shift=shift,
+                            fold_div=8, act='none')
+    _close(got, ref, dtype)
+    from bsvd_tpu_torch.ops.conv3x3 import conv3x3_dw, conv3x3_dw_reference
+    dz = _t(rng, (2 * t_len, 13, 21, 64), 1.0, dev).to(dtype)
+    dw = conv3x3_dw(x, dz, t_len=t_len, shift=shift, fold_div=8)
+    torch.cuda.synchronize()
+    _rel(dw, conv3x3_dw_reference(x.float(), dz.float(), t_len=t_len,
+                                  shift=shift, fold_div=8),
+         1e-4 if dtype == torch.float32 else 2 ** -6)
+
+
+@pytest.mark.parametrize('dtype', DTYPES)
+@pytest.mark.parametrize('causal', [False, True])
+@pytest.mark.parametrize('c', [3, 4, 5])
+def test_fold0_bibuffer_kernels(dev, c, causal, dtype):
+    """K5 at fold 0 (shift_input's first buffered inc conv): one frame and
+    8 frames, against the plain version; the next state is the last frame,
+    exactly."""
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_conv,
+                                                  bibuffer_conv_reference,
+                                                  bibuffer_multi,
+                                                  bibuffer_multi_reference)
+    rng = np.random.default_rng(30 + c)
+    x = _t(rng, (8, 1, 19, 37, c), 1.0, dev).to(dtype)
+    st = _t(rng, (1, 19, 37, c), 1.0, dev).to(dtype)
+    wt = _t(rng, (64, c, 3, 3), (2 / (9 * c)) ** 0.5, dev)
+    b = _t(rng, (64,), 0.1, dev)
+    y, ns = bibuffer_conv(x[0], st, wt, b, fold_div=8, act='relu6',
+                          causal=causal)
+    ym, nsm = bibuffer_multi(x, st, wt, b, fold_div=8, act='relu6',
+                             causal=causal)
+    torch.cuda.synchronize()
+    ry, rs = bibuffer_conv_reference(x[0].float(), st.float(), wt, b, 8,
+                                     'relu6', causal)
+    rym, rsm = bibuffer_multi_reference(x.float(), st.float(), wt, b, 8,
+                                        'relu6', causal)
+    _close(y, ry, dtype)
+    _close(ym, rym, dtype)
+    assert torch.equal(ns.float(), rs) and torch.equal(nsm.float(), rsm)
+    assert torch.equal(nsm, x[-1])
+
+
+_OPTION_NETS = {
+    'shift_input': dict(shift_input=True),
+    'shift_input_causal': dict(shift_input=True,
+                               shift_mode='TSM_toFutureOnly'),
+    'bn': dict(norm='bn'),
+    'in': dict(norm='in'),
+    'in_causal': dict(norm='in', shift_mode='TSM_toFutureOnly'),
+    'raw': dict(in_ch=5, out_ch=4, residual_ch=4),
+    'c32_blind': dict(chns=(32, 64, 128), mid_ch=32, interm_ch=32,
+                      blind=True),
+}
+
+
+def _option_net(variant, seed=3):
+    """A small net of the option (c32 at its widths); BN leaves given
+    seeded running statistics."""
+    from bsvd_tpu_torch.archs.wnet_arch import WNetConfig, wnet_init
+    kw = dict(chns=(16, 32, 64), mid_ch=16, interm_ch=16, norm='none',
+              act='relu6')
+    kw.update(_OPTION_NETS[variant])
+    cfg = WNetConfig(**kw)
+    params = wnet_init(cfg, seed=seed)
+    g = torch.Generator().manual_seed(seed)
+
+    def stats(tree):
+        for v in tree.values():
+            if isinstance(v, dict) and 'mean' in v:
+                ch = v['mean'].shape[0]
+                v['mean'] = torch.rand(ch, generator=g) * 0.6 - 0.3
+                v['var'] = torch.rand(ch, generator=g) * 1.5 + 0.5
+                v['scale'] = torch.rand(ch, generator=g) + 0.5
+            elif isinstance(v, dict):
+                stats(v)
+    stats(params)
+    return cfg, params
+
+
+def _launch_counts():
+    from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain,
+                                                  bibuffer_conv,
+                                                  bibuffer_multi)
+    fns = {'conv3x3': conv3x3, 'conv_chain': conv_chain, 'conv_s2': conv_s2,
+           'conv_ps': conv_ps, 'bibuffer_conv': bibuffer_conv,
+           'bibuffer_multi': bibuffer_multi, 'bibuffer_chain': bibuffer_chain}
+    return {k: f.launches for k, f in fns.items()}
+
+
+def _delta(before):
+    now = _launch_counts()
+    return {k: now[k] - before[k] for k in now}
+
+
+@pytest.mark.parametrize('variant', sorted(_OPTION_NETS))
+def test_option_paths_match_plain_path(dev, variant):
+    """Each option in fp32 on the card, whole clip, stream (push, steady
+    push_block, flush) and chunk (denoise_seq temp_psz 4, look-ahead 2),
+    against the plain path on the CPU with the CPU weights (which launches
+    no kernel); the launches per forward, chunk, push and push_block follow
+    the routes; F.conv2d never runs on the card."""
+    from bsvd_tpu_torch.archs.streaming import StreamDenoiser, pipeline_latency
+    from bsvd_tpu_torch.archs.wnet_arch import (prepare_params, wnet_apply,
+                                                wnet_apply_chunk)
+    from bsvd_tpu_torch.models.seq_inference import denoise_seq
+    from chip_smoke import option_launches
+    cfg, params = _option_net(variant)
+    lat = pipeline_latency(cfg)
+    rng = np.random.default_rng(11)
+    t, h, w = lat + 6, 16, 32
+    cin = cfg.effective_in_ch
+    x = torch.from_numpy(rng.uniform(0, 1, (1, t, h, w, cin))
+                         .astype(np.float32))
+    seq = rng.uniform(0, 1, (13, cfg.out_ch, h, w)).astype(np.float32)
+    chunk_kw = dict(noise_sigma=None if cfg.blind else 0.1, temp_psz=4,
+                    future_buffer_len=2)
+
+    def run(p, xin):
+        out = {'clip': wnet_apply(p, xin, cfg)}
+        sd = StreamDenoiser(p, cfg, batch=1, height=h, width=w)
+        got = [sd.push(xin[:, i]) for i in range(lat + 2)]
+        before = _launch_counts()
+        got.append(sd.push(xin[:, lat + 2]))
+        out['push'] = _delta(before)
+        before = _launch_counts()
+        got += sd.push_block(list(xin[:, lat + 3:].unbind(1)))
+        out['block'] = _delta(before)
+        got += sd.flush()
+        out['stream'] = torch.stack([o for o in got if o is not None], 1)
+        out['chunked'] = denoise_seq(p, cfg, seq, **chunk_kw)
+        return out
+
+    before = _launch_counts()
+    ref = run(prepare_params(params, 'cpu', torch.float32), x)
+    assert _delta(before) == dict.fromkeys(before, 0)
+    p = prepare_params(params, dev, torch.float32)
+    with _no_conv2d():
+        before = _launch_counts()
+        wnet_apply(p, x.to(dev), cfg)
+        fwd = _delta(before)
+        got = run(p, x.to(dev))
+        torch.cuda.synchronize()
+        before = _launch_counts()
+        with torch.no_grad():
+            wnet_apply_chunk(p, x[:, :6].to(dev), cfg, None, 2)
+        chunk = _delta(before)
+    for name in ('clip', 'stream'):
+        _close(got[name].cpu(), ref[name], torch.float32)
+    _close(torch.from_numpy(got['chunked']), torch.from_numpy(ref['chunked']),
+           torch.float32)
+    for unit, seen in (('forward', fwd), ('chunk', chunk),
+                       ('push', got['push']), ('block', got['block'])):
+        want = {k: n for k, n in option_launches(cfg, unit).items()
+                if k in seen}
+        assert seen == want, (unit, seen, want)

@@ -69,7 +69,8 @@ def test_wnet_apply_matches_jax_c64_widths(shift_mode):
     _jax_vs_port(jcfg, pcfg, 1, 3, 16, 24, seed=4)
 
 
-@pytest.mark.parametrize('variant', ['bidir', 'causal', 'blind', 'stage1'])
+@pytest.mark.parametrize('variant', ['bidir', 'causal', 'blind', 'stage1',
+                                     'shift_input'])
 def test_tsn_forward_fixture(variant):
     """The reference torch TSN's pinned output for the state dict of
     wnet_init(PRNGKey(10)) (test_arch_parity.test_tsn_forward_parity)."""
@@ -77,7 +78,8 @@ def test_tsn_forward_fixture(variant):
     from bsvd_tpu.convert.torch_ckpt import params_to_tsn_state_dict
     opt = dict(SMALL_NET2D_OPT)
     over = {'causal': dict(shift_mode='TSM_toFutureOnly'),
-            'blind': dict(blind=True), 'stage1': dict(stage_num=1)}
+            'blind': dict(blind=True), 'stage1': dict(stage_num=1),
+            'shift_input': dict(shift_input=True)}
     jcfg, pcfg = _configs(opt, **over.get(variant, {}))
     state = params_to_tsn_state_dict(wnet_init(jax.random.PRNGKey(10), jcfg),
                                      jcfg)
@@ -139,15 +141,3 @@ def test_seeded_init_is_deterministic():
     for (ka, va), (kb, vb) in zip(a.state_dict().items(),
                                   b.state_dict().items()):
         assert ka == kb and torch.equal(va, vb)
-
-
-@pytest.mark.parametrize('over', [dict(shift_input=True), dict(norm='bn'),
-                                  dict(norm='in')])
-def test_unported_options_raise(over):
-    cfg = WNetConfig(**dict(dict(chns=(16, 32, 64), mid_ch=16, interm_ch=16,
-                                 norm='none', act='relu6'), **over))
-    with pytest.raises(NotImplementedError):
-        BSVD(chns=cfg.chns, mid_ch=16, interm_ch=16, norm=cfg.norm,
-             act='relu6', shift_input=cfg.shift_input)
-    with pytest.raises(NotImplementedError):
-        wnet_apply({}, torch.zeros(1, 2, 8, 8, 4), cfg)
