@@ -1,10 +1,16 @@
-"""Host-side data of the port (numpy): the train batch's augmentation and
-noise synthesis, a seeded synthetic clip source, and the validation
-datasets (counterpart of bsvd_tpu/data/__init__.py build_dataset /
-build_dataloader for the val phases)."""
+"""The datasets and loaders of the port (counterpart of bsvd_tpu/data/
+__init__.py): every ``*_dataset`` / ``*_loader`` module registers itself,
+``build_dataset`` makes one from its options, ``build_dataloader`` wraps
+it for its phase."""
 
-from bsvd_tpu_torch.data import val_folder_dataset  # noqa: F401  registers
+import importlib
+import pkgutil
+
 from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
+
+for _m in pkgutil.iter_modules(__path__):
+    if _m.name.endswith('_dataset') or _m.name.endswith('_loader'):
+        importlib.import_module(f'bsvd_tpu_torch.data.{_m.name}')
 
 
 def build_dataset(dataset_opt):
@@ -29,11 +35,16 @@ class SimpleLoader:
 
 
 def build_dataloader(dataset, dataset_opt):
-    """The loader of a val / test phase: a SimpleLoader. The train phase
-    takes the caller's own loader (``train.train_pipeline``'s
-    ``train_loader``)."""
+    """The loader of a phase: a self-iterating train loader (the video
+    loader) passes through; val / test datasets get a SimpleLoader. A
+    map-style train dataset raises: only the zoo's datasets are map-style,
+    and their sampler and batch loader come with the zoo (ROADMAP Queue 1
+    item 7)."""
+    if hasattr(dataset, '__next__'):
+        return dataset
     if dataset_opt.get('phase', 'val') == 'train':
-        raise NotImplementedError('build_dataloader: the train phase takes '
-                                  "the caller's loader (train_pipeline's "
-                                  'train_loader)')
+        raise NotImplementedError(
+            f'build_dataloader: map-style train dataset '
+            f'{type(dataset).__name__}: its sampler and batch loader come '
+            f'with the zoo (ROADMAP Queue 1 item 7)')
     return SimpleLoader(dataset)

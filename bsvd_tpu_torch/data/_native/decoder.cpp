@@ -1,12 +1,11 @@
-// Native frame decoder of bsvd_tpu_torch (a copy of the JAX package's
-// bsvd_tpu/data/_native/decoder.cpp): a C++ thread pool decodes PNG / JPEG
-// frames with libpng / libjpeg and crops them straight into the caller's
-// buffer, RGB8. Exposed through a minimal C API bound with ctypes
+// Native JPEG frame decoder of bsvd_tpu_torch (the JPEG half of the JAX
+// package's bsvd_tpu/data/_native/decoder.cpp; PNG frames take the port's
+// zlib reader, data/png_decode.py): a C++ thread pool decodes JPEG frames
+// with libjpeg and crops them straight into the caller's buffer, RGB8.
+// Exposed through a minimal C API bound with ctypes
 // (bsvd_tpu_torch/data/native_decode.py), which builds it at first use:
 //
-//   g++ -O3 -shared -fPIC decoder.cpp -o libbsvd_decode.so -lpng -ljpeg -pthread
-
-#include <png.h>
+//   g++ -O3 -shared -fPIC decoder.cpp -o libbsvd_decode.so -ljpeg -pthread
 
 #include <csetjmp>
 #include <cstdio>
@@ -70,85 +69,21 @@ bool decode_jpeg(const unsigned char* data, size_t len, std::vector<unsigned cha
   return true;
 }
 
-// ---------------------------------------------------------------------------
-// PNG decode (RGB8; strips alpha, expands palette/gray)
-// ---------------------------------------------------------------------------
-
-struct PngReadState {
-  const unsigned char* data;
-  size_t len;
-  size_t pos;
-};
-
-void png_read_fn(png_structp png, png_bytep out, png_size_t n) {
-  auto* st = static_cast<PngReadState*>(png_get_io_ptr(png));
-  if (st->pos + n > st->len) {
-    png_error(png, "read past end");
-  }
-  memcpy(out, st->data + st->pos, n);
-  st->pos += n;
-}
-
-bool decode_png(const unsigned char* data, size_t len, std::vector<unsigned char>* out,
-                int* h, int* w) {
-  if (len < 8 || png_sig_cmp(data, 0, 8)) return false;
-  png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  if (!png) return false;
-  png_infop info = png_create_info_struct(png);
-  if (!info) {
-    png_destroy_read_struct(&png, nullptr, nullptr);
-    return false;
-  }
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  PngReadState st{data, len, 0};
-  png_set_read_fn(png, &st, png_read_fn);
-  png_read_info(png, info);
-
-  png_set_strip_16(png);
-  png_set_palette_to_rgb(png);
-  png_set_expand_gray_1_2_4_to_8(png);
-  if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-  png_set_strip_alpha(png);
-  const int color = png_get_color_type(png, info);
-  if (color == PNG_COLOR_TYPE_GRAY || color == PNG_COLOR_TYPE_GRAY_ALPHA) {
-    png_set_gray_to_rgb(png);
-  }
-  png_read_update_info(png, info);
-
-  *w = png_get_image_width(png, info);
-  *h = png_get_image_height(png, info);
-  const size_t stride = png_get_rowbytes(png, info);
-  out->resize(static_cast<size_t>(*h) * stride);
-  std::vector<png_bytep> rows(*h);
-  for (int y = 0; y < *h; ++y) rows[y] = out->data() + y * stride;
-  png_read_image(png, rows.data());
-  png_read_end(png, nullptr);
-  png_destroy_read_struct(&png, &info, nullptr);
-  return true;
-}
-
 bool decode_any(const unsigned char* data, size_t len, std::vector<unsigned char>* out,
                 int* h, int* w) {
   if (len >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF) {
     return decode_jpeg(data, len, out, h, w);
-  }
-  if (len >= 8 && !png_sig_cmp(data, 0, 8)) {
-    return decode_png(data, len, out, h, w);
   }
   return false;
 }
 
 // ---------------------------------------------------------------------------
 // ROI decode: decode ONLY the crop window (training crops are 96x96 from
-// 480p+ frames — full-frame decode wastes >95% of the IDCT / defilter work).
+// 480p+ frames — full-frame decode wastes >95% of the IDCT work).
 // JPEG uses libjpeg-turbo's partial-image API (jpeg_crop_scanline restricts
 // the column range to iMCU-aligned bounds; jpeg_skip_scanlines skips the
-// IDCT + color conversion of rows above/below). PNG streams rows and stops
-// after the last needed one (rows above the window still defilter —
-// inherent to PNG). Writes (ch, cw, 3) RGB8 rows at dst (stride cw*3).
+// IDCT + color conversion of rows above/below). Writes (ch, cw, 3) RGB8
+// rows at dst (stride cw*3).
 // ---------------------------------------------------------------------------
 
 bool decode_jpeg_roi(const unsigned char* data, size_t len, int y0, int x0,
@@ -220,65 +155,10 @@ bool decode_jpeg_roi(const unsigned char* data, size_t len, int y0, int x0,
   return true;
 }
 
-bool decode_png_roi(const unsigned char* data, size_t len, int y0, int x0,
-                    int ch, int cw, unsigned char* dst) {
-  if (len < 8 || png_sig_cmp(data, 0, 8)) return false;
-  png_structp png = png_create_read_struct(PNG_LIBPNG_VER_STRING, nullptr, nullptr, nullptr);
-  if (!png) return false;
-  png_infop info = png_create_info_struct(png);
-  if (!info) {
-    png_destroy_read_struct(&png, nullptr, nullptr);
-    return false;
-  }
-  if (setjmp(png_jmpbuf(png))) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  PngReadState st{data, len, 0};
-  png_set_read_fn(png, &st, png_read_fn);
-  png_read_info(png, info);
-  if (png_get_interlace_type(png, info) != PNG_INTERLACE_NONE) {
-    // interlaced rows arrive out of order — caller falls back to full decode
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  png_set_strip_16(png);
-  png_set_palette_to_rgb(png);
-  png_set_expand_gray_1_2_4_to_8(png);
-  if (png_get_valid(png, info, PNG_INFO_tRNS)) png_set_tRNS_to_alpha(png);
-  png_set_strip_alpha(png);
-  const int color = png_get_color_type(png, info);
-  if (color == PNG_COLOR_TYPE_GRAY || color == PNG_COLOR_TYPE_GRAY_ALPHA) {
-    png_set_gray_to_rgb(png);
-  }
-  png_read_update_info(png, info);
-  const int h = png_get_image_height(png, info);
-  const int w = png_get_image_width(png, info);
-  if (y0 < 0 || x0 < 0 || y0 + ch > h || x0 + cw > w) {
-    png_destroy_read_struct(&png, &info, nullptr);
-    return false;
-  }
-  std::vector<unsigned char> rowbuf(png_get_rowbytes(png, info));
-  for (int y = 0; y < y0 + ch; ++y) {
-    png_read_row(png, rowbuf.data(), nullptr);
-    if (y >= y0) {
-      memcpy(dst + static_cast<size_t>(y - y0) * cw * 3,
-             rowbuf.data() + static_cast<size_t>(x0) * 3,
-             static_cast<size_t>(cw) * 3);
-    }
-  }
-  // skip png_read_end: rows below the window are never defiltered
-  png_destroy_read_struct(&png, &info, nullptr);
-  return true;
-}
-
 bool decode_any_roi(const unsigned char* data, size_t len, int y0, int x0,
                     int ch, int cw, unsigned char* dst) {
   if (len >= 3 && data[0] == 0xFF && data[1] == 0xD8 && data[2] == 0xFF) {
     return decode_jpeg_roi(data, len, y0, x0, ch, cw, dst);
-  }
-  if (len >= 8 && !png_sig_cmp(data, 0, 8)) {
-    return decode_png_roi(data, len, y0, x0, ch, cw, dst);
   }
   return false;
 }
@@ -418,7 +298,7 @@ int bsvd_load_crop_seq(const char** paths, int t, int y0, int x0, int ch,
       }
       unsigned char* dst = out + static_cast<size_t>(i) * ch * cw * 3;
       // window decode: only the crop region's rows/columns pass through
-      // IDCT (JPEG) / defiltering (PNG) — full-frame decode for a 96x96
+      // the IDCT — full-frame decode for a 96x96
       // training crop wastes >95% of the decode work
       if (decode_any_roi(buf.data(), buf.size(), y0 < 0 ? 0 : y0,
                          x0 < 0 ? 0 : x0, ch, cw, dst)) {
@@ -458,34 +338,29 @@ int bsvd_load_crop_seq(const char** paths, int t, int y0, int x0, int ch,
   return 0;
 }
 
-// Probe image dimensions without full decode path (decodes header only for
-// JPEG; PNG reads info chunk).
+// Probe JPEG dimensions from the header alone.
 int bsvd_image_dims(const char* path, int* h, int* w) {
   std::vector<unsigned char> buf;
   if (!read_file(path, &buf)) return 1;
-  // cheap: full decode for PNG, header-only for JPEG
-  if (buf.size() >= 3 && buf[0] == 0xFF && buf[1] == 0xD8) {
-    jpeg_decompress_struct cinfo;
-    JpegErrorMgr jerr;
-    cinfo.err = jpeg_std_error(&jerr.pub);
-    jerr.pub.error_exit = jpeg_error_exit;
-    if (setjmp(jerr.setjmp_buffer)) {
-      jpeg_destroy_decompress(&cinfo);
-      return 2;
-    }
-    jpeg_create_decompress(&cinfo);
-    jpeg_mem_src(&cinfo, buf.data(), buf.size());
-    if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
-      jpeg_destroy_decompress(&cinfo);
-      return 2;
-    }
-    *w = cinfo.image_width;
-    *h = cinfo.image_height;
+  if (buf.size() < 3 || buf[0] != 0xFF || buf[1] != 0xD8) return 2;
+  jpeg_decompress_struct cinfo;
+  JpegErrorMgr jerr;
+  cinfo.err = jpeg_std_error(&jerr.pub);
+  jerr.pub.error_exit = jpeg_error_exit;
+  if (setjmp(jerr.setjmp_buffer)) {
     jpeg_destroy_decompress(&cinfo);
-    return 0;
+    return 2;
   }
-  std::vector<unsigned char> img;
-  return decode_png(buf.data(), buf.size(), &img, h, w) ? 0 : 2;
+  jpeg_create_decompress(&cinfo);
+  jpeg_mem_src(&cinfo, buf.data(), buf.size());
+  if (jpeg_read_header(&cinfo, TRUE) != JPEG_HEADER_OK) {
+    jpeg_destroy_decompress(&cinfo);
+    return 2;
+  }
+  *w = cinfo.image_width;
+  *h = cinfo.image_height;
+  jpeg_destroy_decompress(&cinfo);
+  return 0;
 }
 
 }  // extern "C"

@@ -1,27 +1,30 @@
-"""ctypes binding of the port's native frame decoder (``_native/
-decoder.cpp``, a copy of the JAX package's; counterpart of bsvd_tpu/data/
-native_decode.py).
+"""ctypes binding of the port's native JPEG decoder (``_native/
+decoder.cpp``, the JPEG half of the JAX package's; counterpart of
+bsvd_tpu/data/native_decode.py). ``.jpg`` / ``.jpeg`` / ``.bmp`` /
+``.tif`` frames take this route (``data/utils_common.route``); PNG frames
+take ``data/png_decode``, on every machine.
 
-The library is built by g++ (libpng, libjpeg) at first use, never at
-import, into ``bsvd_tpu_torch/_build/decode-<hash>/`` (listed in
-``.gitignore``), keyed on the source's hash. Where g++, libpng or libjpeg
-is missing the build raises with the compiler's output: there is no
-other route to the frames (the port has no cv2).
+The library is built by g++ with libjpeg at first use, never at import,
+into ``bsvd_tpu_torch/_build/bsvd_decode-<hash>/`` (listed in
+``.gitignore``). Where g++ or libjpeg's headers are missing the build
+raises with the compiler's output: there is no other route to JPEG frames
+(the port has no cv2). The decoder reads JPEG only: a ``.bmp`` or ``.tif``
+frame raises IOError.
 """
 
 import ctypes
-import hashlib
 import os
-import subprocess
 import threading
 from pathlib import Path
 
 import numpy as np
 
-_PKG = Path(__file__).resolve().parent.parent
+from bsvd_tpu_torch.data import _gxx
+
+_PKG = _gxx.PKG
 SOURCE = Path(__file__).resolve().parent / '_native' / 'decoder.cpp'
 GXX_FLAGS = ['-O3', '-shared', '-fPIC']
-LIBS = ['-lpng', '-ljpeg', '-pthread']
+LIBS = ['-ljpeg', '-pthread']
 
 _lock = threading.Lock()
 _lib = None
@@ -31,25 +34,7 @@ _loader = None
 def build():
     """Compile the decoder if this source hash has no library yet; returns
     the library path. Raises RuntimeError with g++'s output on failure."""
-    h = hashlib.sha256(' '.join(GXX_FLAGS + LIBS).encode())
-    h.update(SOURCE.read_bytes())
-    out = _PKG / '_build' / f'decode-{h.hexdigest()[:16]}' / \
-        'libbsvd_decode.so'
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f'{out.name}.{os.getpid()}.tmp')
-    cmd = ['g++', *GXX_FLAGS, str(SOURCE), '-o', str(tmp), *LIBS]
-    try:
-        res = subprocess.run(cmd, capture_output=True, text=True)
-    except FileNotFoundError as e:
-        raise RuntimeError(f'native decoder: g++ not found ({e}); frames '
-                           f'cannot be read without it') from e
-    if res.returncode != 0:
-        raise RuntimeError(f'native decoder build failed ({" ".join(cmd)}):'
-                           f'\n{res.stdout}{res.stderr}')
-    os.replace(tmp, out)           # atomic: concurrent processes agree
-    return out
+    return _gxx.build(SOURCE, 'bsvd_decode', GXX_FLAGS, LIBS, pkg=_PKG)
 
 
 def lib():
@@ -84,7 +69,7 @@ def _get_loader():
 
 
 def image_dims(path):
-    """(H, W) of an image file; raises IOError where it cannot be read."""
+    """(H, W) of a JPEG file; raises IOError where it cannot be read."""
     h, w = ctypes.c_int(), ctypes.c_int()
     if lib().bsvd_image_dims(str(path).encode(), ctypes.byref(h),
                              ctypes.byref(w)) != 0:
@@ -92,17 +77,25 @@ def image_dims(path):
     return h.value, w.value
 
 
+def load_crop_seq(paths, y0, x0, ch, cw):
+    """The (ch, cw) window at (y0, x0) of each frame, decoded in parallel
+    -> (T, ch, cw, 3) uint8 RGB; y0 = x0 = -1 takes whole frames of
+    exactly (ch, cw). Raises IOError where a frame cannot be decoded or
+    is smaller than the window."""
+    paths = [str(p) for p in paths]
+    out = np.empty((len(paths), ch, cw, 3), np.uint8)
+    c_paths = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
+    rc = lib().bsvd_load_crop_seq(
+        c_paths, len(paths), y0, x0, ch, cw,
+        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), _get_loader())
+    if rc != 0:
+        raise IOError(f'native decoder failed on {paths[rc - 1]} (frame '
+                      f'{rc} of {len(paths)})')
+    return out
+
+
 def load_seq(paths):
     """Decode frames of one size in parallel -> (T, H, W, 3) uint8 RGB;
     raises IOError where a frame cannot be decoded or differs in size."""
-    paths = [str(p) for p in paths]
     h, w = image_dims(paths[0])
-    out = np.empty((len(paths), h, w, 3), np.uint8)
-    c_paths = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
-    rc = lib().bsvd_load_crop_seq(
-        c_paths, len(paths), -1, -1, h, w,
-        out.ctypes.data_as(ctypes.POINTER(ctypes.c_ubyte)), _get_loader())
-    if rc != 0:
-        raise IOError(f'native decoder failed ({rc}) on {len(paths)} frames '
-                      f'from {os.path.dirname(paths[0])}')
-    return out
+    return load_crop_seq(paths, -1, -1, h, w)

@@ -1,16 +1,104 @@
-"""The train batch: normalize + random augment + Gaussian noise synthesis
-(counterpart of bsvd_tpu/data/video_train_loader.py ``normalize_augment``
-and ``train_video_loader.__next__``), pure numpy. Both draw from the
-numpy Generator in the same order as the JAX package's loader, so the same
-Generator state and uint8 clips give bit-equal batches.
+"""The train data (counterpart of bsvd_tpu/data/video_train_loader.py):
+``train_video_loader`` over folders of frames, its batch (normalize +
+random augment + Gaussian noise synthesis), and a seeded synthetic clip
+source for tests.
 
-Decoding clips from video files or frame folders is not ported (it needs
-cv2, which the card's machine lacks); ``SyntheticVideoLoader`` makes
-seeded uint8 clips instead, and the train loop takes any iterable of
-batches.
+The loader draws from numpy Generators in the JAX package's order: one
+seed per worker thread from the loader's Generator; in each worker the
+clip, the window's start, then its row and column; in the main thread
+the augmentation and the noise. With ``num_workers: 1`` and the same
+``manual_seed`` its batches equal the JAX package's bit for bit; with
+more workers the order of the windows follows the threads' timing, in
+both packages.
+
+Frames are read by their file type (``data/utils_common.route``): PNG
+through the port's zlib reader, JPEG through the native decoder. Video
+files (mp4 and the other ``_VIDEO_EXTS``) raise NotImplementedError: the
+card's machine has no cv2, and NVDEC needs headers the CUDA toolkit does
+not ship (ROADMAP Queue 1).
 """
 
+import os
+import queue
+import threading
+
 import numpy as np
+
+from bsvd_tpu_torch.data import utils_common
+from bsvd_tpu_torch.data.utils_common import get_imagenames
+from bsvd_tpu_torch.utils.logger import get_root_logger
+from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
+
+_VIDEO_EXTS = ('.mp4', '.avi', '.mov', '.mkv', '.m4v', '.webm')
+# undecodable windows a worker draws in a row before it gives up
+MAX_REDRAWS = 1000
+
+
+class _ClipIndex:
+    """The frame folders under ``root`` and their frame counts."""
+
+    def __init__(self, root):
+        self.entries = []   # (path, num_frames)
+        videos = []
+        for name in sorted(os.listdir(root)):
+            path = os.path.join(root, name)
+            if os.path.isdir(path):
+                frames = get_imagenames(path)
+                if frames:
+                    self.entries.append((path, len(frames)))
+            elif name.lower().endswith(_VIDEO_EXTS):
+                videos.append(name)
+        if videos:
+            raise NotImplementedError(
+                f'{root} holds video files ({", ".join(videos[:3])}'
+                f'{", ..." if len(videos) > 3 else ""}): the port reads '
+                f'folders of frames only (mp4 clips: ROADMAP Queue 1)')
+        if not self.entries:
+            raise IOError(f'no frame folders under {root}')
+        self._dims = {}                  # path -> (H, W)
+        self._lock = threading.Lock()
+
+    def _frame_dims(self, path, files):
+        """Cached (H, W) of a frame folder (one header probe per clip)."""
+        with self._lock:
+            dims = self._dims.get(path)
+        if dims is None:
+            dims = utils_common.image_dims(files[0])
+            with self._lock:
+                self._dims[path] = dims
+        return dims
+
+    def holds(self, i, seq_len, crop_hw):
+        """Whether clip ``i`` has ``seq_len`` frames of at least
+        ``crop_hw`` (False where its first frame cannot be read)."""
+        path, n = self.entries[i]
+        if n < seq_len:
+            return False
+        try:
+            h, w = self._frame_dims(path, get_imagenames(path))
+        except NotImplementedError:      # a frame not read yet: tell
+            raise
+        except IOError:
+            return False
+        return h >= crop_hw[0] and w >= crop_hw[1]
+
+    def sample(self, rng, seq_len, crop_hw):
+        """A random window -> (T, ch, cw, 3) uint8 RGB; IOError where it
+        cannot be read (a short clip, a corrupt frame)."""
+        path, n = self.entries[rng.integers(len(self.entries))]
+        if n < seq_len:
+            raise IOError(f'clip {path} shorter ({n}) than temp_patch_size '
+                          f'{seq_len}')
+        start = int(rng.integers(0, n - seq_len + 1))
+        ch, cw = crop_hw
+        files = get_imagenames(path)[start:start + seq_len]
+        h, w = self._frame_dims(path, files)
+        if h < ch or w < cw:
+            raise IOError(f'clip {path} smaller than crop {crop_hw}')
+        # one window position for every frame of the clip
+        y0 = int(rng.integers(0, h - ch + 1))
+        x0 = int(rng.integers(0, w - cw + 1))
+        return utils_common.load_crop_seq(files, y0, x0, ch, cw)
 
 
 def normalize_augment(batch, rng):
@@ -78,7 +166,8 @@ def synthetic_clips(rng, n, t, h, w):
 
 
 class SyntheticVideoLoader:
-    """Train batches from seeded synthetic clips through ``noisy_batch``:
+    """Train batches from seeded synthetic clips through ``noisy_batch``
+    (for tests and the card's smoke run):
     an iterable of ``epoch_size`` batches per epoch, with the reference
     loader's option names (batch_size_per_gpu, temp_patch_size,
     patch_size, noise_ival, noise_shape, blind, manual_seed)."""
@@ -106,3 +195,143 @@ class SyntheticVideoLoader:
         return noisy_batch(clips, self.rng, self.opt['noise_ival'],
                            self.opt.get('noise_shape', 'NF'),
                            self.opt.get('blind', False))
+
+
+@DATASET_REGISTRY.register()
+class train_video_loader:
+    """Self-iterating train loader over folders of frames (the loader is the
+    dataset, as the reference's DALI object is).
+
+    opt keys (the reference's): trainset_dir, batch_size_per_gpu,
+    temp_patch_size, patch_size, max_number_patches, noise_ival,
+    noise_shape ('N' | 'NF'), blind, prefetch_size; the JAX package's:
+    num_workers, manual_seed, num_devices (1 only: one card).
+
+    Worker threads decode random windows into a bounded queue; ``__next__``
+    stacks ``batch_size_per_gpu`` of them and makes the batch with
+    ``noisy_batch``. An epoch is ``max_number_patches`` windows, in
+    batches (ceil). ``close()`` stops the workers.
+
+    A window that cannot be read (a corrupt frame, a clip shorter than
+    ``temp_patch_size`` or smaller than ``patch_size``) is redrawn, as the
+    JAX package's worker does; ``skipped`` counts them and each reason is
+    logged once. ``MAX_REDRAWS`` of them in a row, or a frame of a kind
+    not read yet (an Adam7 PNG), raise in ``__next__``.
+    """
+
+    def __init__(self, opt):
+        self.opt = dict(opt)
+        self.opt.setdefault('noise_shape', 'NF')
+        if int(opt.get('num_devices', 1)) != 1:
+            raise NotImplementedError(
+                f"train_video_loader: num_devices {opt['num_devices']}: the "
+                f'port feeds one card (parallel/: ROADMAP Queue 1 item 5)')
+        self.batch_size = int(opt['batch_size_per_gpu'])
+        self.seq_len = int(opt['temp_patch_size'])
+        ps = opt['patch_size']
+        self.crop_hw = (ps[0], ps[1]) if isinstance(ps, (list, tuple)) \
+            else (ps, ps)
+        self.index = _ClipIndex(opt['trainset_dir'])
+        if not any(self.index.holds(i, self.seq_len, self.crop_hw)
+                   for i in range(len(self.index.entries))):
+            raise IOError(f"no clip under {opt['trainset_dir']} has "
+                          f'temp_patch_size {self.seq_len} frames of at '
+                          f'least patch_size {self.crop_hw}')
+        patches = int(opt.get('max_number_patches', -1))
+        if patches <= 0:
+            total = sum(n for _, n in self.index.entries)
+            patches = max(total // self.seq_len, 1)
+        self.epoch_size = max(-(-patches // self.batch_size), 1)
+
+        self.rng = np.random.default_rng(opt.get('manual_seed', 12))
+        self._num_workers = int(opt.get('num_workers',
+                                        min(8, os.cpu_count() or 4)))
+        self._queue = queue.Queue(maxsize=int(opt.get('prefetch_size', 16)))
+        self._stop = threading.Event()
+        self._emitted = 0
+        self.skipped = 0                 # undecodable windows redrawn
+        self._skip_lock, self._skip_reasons = threading.Lock(), set()
+        self._workers = []
+        for _ in range(self._num_workers):
+            seed = int(self.rng.integers(2**63))
+            t = threading.Thread(target=self._worker, args=(seed,),
+                                 daemon=True)
+            t.start()
+            self._workers.append(t)
+
+    def _put(self, item):
+        while not self._stop.is_set():
+            try:
+                self._queue.put(item, timeout=0.5)
+                return
+            except queue.Full:
+                continue
+
+    def _worker(self, seed):
+        rng = np.random.default_rng(seed)
+        in_a_row = 0
+        while not self._stop.is_set():
+            try:
+                window = self.index.sample(rng, self.seq_len, self.crop_hw)
+            except NotImplementedError as e:   # a frame not read yet
+                self._put(e)
+                return
+            except IOError as e:
+                # an undecodable window (corrupt frame, short clip): draw
+                # another, up to MAX_REDRAWS in a row
+                in_a_row += 1
+                self._skip(e)
+                if in_a_row >= MAX_REDRAWS:
+                    self._put(IOError(f'{in_a_row} windows in a row could '
+                                      f'not be read; the last: {e}'))
+                    return
+                continue
+            except Exception as e:         # hand the fault to __next__
+                self._put(e)
+                return
+            in_a_row = 0
+            # (T, H, W, 3) -> (T, 3, H, W)
+            self._put(np.transpose(window, (0, 3, 1, 2)))
+
+    def _skip(self, err):
+        """Count a redrawn window; log each reason once."""
+        with self._skip_lock:
+            self.skipped += 1
+            new = str(err) not in self._skip_reasons
+            self._skip_reasons.add(str(err))
+        if new:
+            get_root_logger().warning(f'train_video_loader: windows skipped '
+                                      f'and redrawn: {err}')
+
+    def close(self):
+        """Stop the worker threads (each ends within its current window)."""
+        self._stop.set()
+        for t in self._workers:
+            t.join(timeout=10)
+
+    def __len__(self):
+        return self.epoch_size
+
+    def __iter__(self):
+        self._emitted = 0
+        return self
+
+    def __next__(self):
+        if self._emitted >= self.epoch_size:
+            raise StopIteration
+        self._emitted += 1
+        samples = []
+        for _ in range(self.batch_size):
+            item = self._queue.get()
+            if isinstance(item, Exception):
+                raise RuntimeError('train_video_loader: a worker failed') \
+                    from item
+            samples.append(item)
+        return noisy_batch(np.stack(samples), self.rng,
+                           self.opt['noise_ival'], self.opt['noise_shape'],
+                           self.opt.get('blind', False))
+
+
+@DATASET_REGISTRY.register()
+class train_dali_loader(train_video_loader):
+    """The reference's name for the train loader (its DALI loader)."""

@@ -115,15 +115,3 @@ def latest_resume_state(state_dir):
         state_dir) if f.endswith('.state'))
     return osp.join(state_dir, f'{iters[-1]}.state') if iters else None
 
-
-def check_resume(opt, resume_iter):
-    """On resume, point every pretrain_network_* at the checkpoint of the
-    resumed iteration (bsvd_tpu/utils/misc.py check_resume)."""
-    if not opt['path'].get('resume_state'):
-        return
-    ignore = opt['path'].get('ignore_resume_networks') or ()
-    for network in (k for k in opt if k.startswith('network_')):
-        if network not in ignore:
-            opt['path'][f'pretrain_{network}'] = osp.join(
-                opt['path']['models'],
-                f"net_{network.replace('network_', '')}_{resume_iter}.npz")

@@ -1,47 +1,39 @@
-"""The test pipeline (counterpart of bsvd_tpu/test.py test_pipeline):
-options -> val datasets -> DenoisingModel -> each dataset's validation
-(metrics, per-scene CSVs, denoised frames), on the card unless the options
-or the caller name the CPU.
+"""The test entry point (counterpart of bsvd_tpu/test.py): options -> val
+datasets -> DenoisingModel -> each dataset's validation (metrics,
+per-scene CSVs, denoised frames), on the card unless the options or the
+caller name the CPU.
 
-It takes the options dict that ``bsvd_tpu.utils.options.parse_options``
-returns for a test YAML (``is_train=False``: path.results_root, log and
-visualization set), or a JSON file of that dict: the card's machine has no
-PyYAML, so parse there where it is and dump JSON.
+    python -m bsvd_tpu_torch.test -opt options/test/bsvd_c64.yml \\
+        [--force_yml key:sub=value ...] [--device cpu]
 
-    python -m bsvd_tpu_torch.test --opt opt.json [--device cpu]
+prints {dataset name: metric averages} as JSON. ``test_pipeline(root_path,
+cmd, opt_path)`` is what the command runs; ``evaluate(opt)`` runs an
+options dict whose paths are set.
 """
 
-import argparse
 import copy
 import json
 from os import path as osp
 
-import torch
-
 from bsvd_tpu_torch.data import build_dataloader, build_dataset
 from bsvd_tpu_torch.models.denoising_model import build_model
-from bsvd_tpu_torch.utils.logger import get_root_logger
+from bsvd_tpu_torch.utils.logger import get_env_info, get_root_logger
 from bsvd_tpu_torch.utils.misc import get_time_str, make_exp_dirs
+from bsvd_tpu_torch.utils.options import dict2str, parse_options
+
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
 
 
-def load_options(opt):
-    """A deep copy of an options dict, or the dict a JSON file holds."""
-    if isinstance(opt, dict):
-        return copy.deepcopy(opt)
-    with open(opt) as f:
-        return json.load(f)
-
-
-def test_pipeline(opt, device=None):
+def evaluate(opt, device=None):
     """Validate the model of ``opt`` on each of its datasets (sorted by
     phase key); returns {dataset name: metric averages}."""
-    opt = load_options(opt)
+    opt = copy.deepcopy(opt)
     opt['is_train'] = False
     make_exp_dirs(opt)
     logger = get_root_logger(log_file=osp.join(
         opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log"))
-    logger.info(f'torch {torch.__version__}, CUDA {torch.version.cuda}')
-    logger.info(json.dumps(opt, indent=1))
+    logger.info(get_env_info())
+    logger.info(dict2str(opt))
 
     test_loaders = []
     for _, dataset_opt in sorted(opt['datasets'].items()):
@@ -64,14 +56,17 @@ def test_pipeline(opt, device=None):
     return results
 
 
+def test_pipeline(root_path, cmd=None, opt_path=None, device=None):
+    """The command line's run (bsvd_tpu/test.py:13-43): parse the options
+    (``cmd``, else sys.argv; or the file ``opt_path``) and evaluate.
+    ``device`` overrides the options'."""
+    opt, _ = parse_options(root_path, is_train=False, cmd=cmd,
+                           opt_path=opt_path)
+    return evaluate(opt, device=device)
+
+
 def main():
-    parser = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
-    parser.add_argument('--opt', required=True,
-                        help='JSON file of the parsed test options')
-    parser.add_argument('--device', default=None,
-                        help="'cuda' (default) or 'cpu'")
-    args = parser.parse_args()
-    print(json.dumps(test_pipeline(args.opt, device=args.device)))
+    print(json.dumps(test_pipeline(ROOT)))
 
 
 if __name__ == '__main__':

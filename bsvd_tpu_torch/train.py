@@ -1,33 +1,92 @@
-"""The training loop (counterpart of bsvd_tpu/train.py train_pipeline's
-iteration loop): feed, step, log, periodic save, auto-resume.
+"""The training entry point (counterpart of bsvd_tpu/train.py): options ->
+loaders -> DenoisingModel -> the iteration loop, with periodic log, save
+and validation, on the card unless the options or the caller name the CPU.
 
-It runs over an options dict (``bsvd_tpu.utils.options.parse_options`` of
-a train YAML, parsed where PyYAML exists) and any iterable of batches
-(dicts of numpy or tensor ``lq`` / ``gt`` / ``noise_map``), for example
-``data.video_train_loader.SyntheticVideoLoader``. With ``val.val_freq``
-it validates on the ``val_*`` datasets of the options every ``val_freq``
-iterations and once at the end (bsvd_tpu/train.py:119-162).
+    python -m bsvd_tpu_torch.train -opt options/train/bsvd_c64_unblind.yml \\
+        [--auto_resume] [--debug] [--device cpu] \\
+        [--force_yml datasets:train:trainset_dir=<frame folders> ...]
 
-    model = train_pipeline(opt, loader, device='cuda')
+``train_pipeline(root_path, cmd, opt_path)`` is what the command runs;
+``train_loop(opt, train_loader)`` is its loop over a loader of batches
+with ``__len__`` (dicts of numpy or tensor ``lq`` / ``gt`` / ``noise_map``,
+e.g. ``data.video_train_loader.SyntheticVideoLoader``) for an options
+dict whose paths are set.
 """
 
 import copy
-import logging
+import math
 import os
 import time
+from os import path as osp
 
 from bsvd_tpu_torch.data import build_dataloader, build_dataset
-from bsvd_tpu_torch.models.base_model import check_resume, latest_resume_state
+from bsvd_tpu_torch.models.base_model import latest_resume_state
 from bsvd_tpu_torch.models.checkpoint import load_training_state
 from bsvd_tpu_torch.models.denoising_model import build_model
+from bsvd_tpu_torch.utils.logger import (AvgTimer, MessageLogger,
+                                         get_env_info, get_root_logger,
+                                         init_tb_logger, init_wandb_logger)
+from bsvd_tpu_torch.utils.misc import (check_resume, get_time_str,
+                                       make_exp_dirs)
+from bsvd_tpu_torch.utils.options import (copy_opt_file, dict2str,
+                                          parse_options)
 
-_log = logging.getLogger('bsvd_tpu_torch')
+ROOT = osp.dirname(osp.dirname(osp.abspath(__file__)))
+
+
+def create_train_val_dataloader(opt, logger):
+    """The train loader, the val loaders, and the epochs and iterations to
+    run (bsvd_tpu/train.py:19-51)."""
+    train_loader, val_loaders, total_epochs, total_iters = None, [], 0, 0
+    for phase, dataset_opt in opt['datasets'].items():
+        if phase == 'train':
+            dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
+            dataset_opt.setdefault('num_devices', opt.get('num_gpu', 1))
+            train_loader = build_dataloader(build_dataset(dataset_opt),
+                                            dataset_opt)
+            num_iter_per_epoch = len(train_loader)
+            total_iters = int(opt['train']['total_iter'])
+            total_epochs = math.ceil(total_iters / max(num_iter_per_epoch, 1))
+            logger.info('Training statistics:'
+                        f'\n\tNumber of train batches per epoch: '
+                        f'{num_iter_per_epoch}'
+                        f'\n\tTotal epochs: {total_epochs}; iters: '
+                        f'{total_iters}.')
+        elif phase.split('_')[0] == 'val':
+            val_loaders.append(_val_loader(opt, dataset_opt))
+            logger.info(f"Number of val videos in {dataset_opt['name']}: "
+                        f'{len(val_loaders[-1])}')
+        else:
+            raise ValueError(f'Dataset phase {phase} is not recognized.')
+    return train_loader, val_loaders, total_epochs, total_iters
+
+
+def _val_loader(opt, dataset_opt):
+    """The loader of one val dataset, blind where the network is."""
+    net = opt['network_g']
+    dataset_opt.setdefault('phase', 'val')
+    dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
+    if net.get('blind', False) or (net.get('net2d_opt') or {}).get(
+            'blind', False):
+        dataset_opt['blind'] = True
+    return build_dataloader(build_dataset(dataset_opt), dataset_opt)
+
+
+def build_val_loaders(opt):
+    """Loaders of the ``val_*`` datasets of ``opt['datasets']``."""
+    return [_val_loader(opt, dict(dataset_opt))
+            for phase, dataset_opt in (opt.get('datasets') or {}).items()
+            if phase.split('_')[0] == 'val']
 
 
 def load_resume_state(opt):
     """The training state to resume from (``auto_resume``: the latest in
     path.training_states; else path.resume_state), with the networks'
-    pretrain paths pointed at its checkpoint; None to start afresh."""
+    pretrain paths pointed at its checkpoint; None to start afresh.
+
+    The JAX package looks for auto-resume states under
+    ``experiments/<name>`` of the working directory (bsvd_tpu/train.py:57);
+    the port looks where the run writes them, under ``root_path``."""
     path = None
     if opt.get('auto_resume'):
         path = latest_resume_state(opt['path']['training_states'])
@@ -42,77 +101,81 @@ def load_resume_state(opt):
     return state
 
 
-def build_val_loaders(opt):
-    """Loaders of the ``val_*`` datasets of ``opt['datasets']``, blind where
-    the network is (bsvd_tpu/train.py:38-48)."""
-    net = opt['network_g']
-    blind = net.get('blind', False) or (net.get('net2d_opt') or {}).get(
-        'blind', False)
-    loaders = []
-    for phase, dataset_opt in (opt.get('datasets') or {}).items():
-        if phase.split('_')[0] != 'val':
-            continue
-        dataset_opt = dict(dataset_opt, phase='val')
-        dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
-        if blind:
-            dataset_opt['blind'] = True
-        loaders.append(build_dataloader(build_dataset(dataset_opt),
-                                        dataset_opt))
-    return loaders
-
-
-def train_pipeline(opt, train_loader, device=None, val_loaders=None):
+def train_loop(opt, train_loader, device=None, val_loaders=None,
+               resume_state=None):
     """Train for ``opt['train']['total_iter']`` iterations over
-    ``train_loader`` (re-iterated per epoch); returns the model. With
-    ``val.val_freq`` the model is validated on ``val_loaders`` (default:
-    ``build_val_loaders(opt)``) every ``val_freq`` iterations and after
-    the last."""
+    ``train_loader`` (an iterable with ``__len__``, the batches of one
+    epoch; re-iterated per epoch, as bsvd_tpu/train.py:118-162 does);
+    returns the model. The iteration and data times go to the log every
+    ``logger.print_freq`` iterations. Resumes from ``resume_state``, else from
+    what ``load_resume_state(opt)`` finds. With ``val.val_freq`` the model
+    is validated on ``val_loaders`` (default: ``build_val_loaders(opt)``)
+    every ``val_freq`` iterations and after the last."""
     opt = copy.deepcopy(opt)
+    logger = get_root_logger()
     val_freq = (opt.get('val') or {}).get('val_freq')
     if val_freq and val_loaders is None:
         val_loaders = build_val_loaders(opt)
     opt['is_train'] = True
     for key in ('models', 'training_states'):
         os.makedirs(opt['path'][key], exist_ok=True)
-    resume_state = load_resume_state(opt)
+    if resume_state is None:
+        resume_state = load_resume_state(opt)
     model = build_model(opt, device=device)
-    epoch, current_iter = 0, 0
+    start_epoch, current_iter = 0, 0
     if resume_state is not None:
         model.resume_training(resume_state)
-        epoch, current_iter = resume_state['epoch'], resume_state['iter']
-        _log.info(f'Resuming training from epoch {epoch}, iter '
-                  f'{current_iter}.')
+        start_epoch, current_iter = resume_state['epoch'], resume_state['iter']
+        logger.info(f'Resuming training from epoch: {start_epoch}, iter: '
+                    f'{current_iter}.')
 
     total_iters = int(opt['train']['total_iter'])
+    total_epochs = math.ceil(total_iters / max(len(train_loader), 1))
     print_freq = int(opt['logger']['print_freq'])
     save_freq = int(opt['logger']['save_checkpoint_freq'])
-    start = time.time()
-    while current_iter < total_iters:
+    msg_logger = MessageLogger(opt, current_iter)
+    logger.info(f'Start training from epoch: {start_epoch}, iter: '
+                f'{current_iter}')
+    data_timer, iter_timer = AvgTimer(), AvgTimer()
+    start_time = time.time()
+    epoch, stop = start_epoch, False
+    while not stop and epoch < total_epochs + 1:
         fed = False
-        for data in train_loader:
-            if current_iter >= total_iters:
-                break
+        for train_data in train_loader:
+            data_timer.record()
             current_iter += 1
+            if current_iter > total_iters:
+                stop = True
+                break
             fed = True
-            model.feed_data(data)
+            model.feed_data(train_data)
             model.optimize_parameters(current_iter)
+            iter_timer.record()
+            if current_iter == 1:
+                msg_logger.reset_start_time()
             if current_iter % print_freq == 0:
-                logs = ', '.join(f'{k}: {v:.4e}' for k, v in
-                                 model.get_current_log().items())
-                _log.info(f'[epoch {epoch}, iter {current_iter}, lr '
-                          f'{model.get_current_learning_rate()[0]:.3e}] '
-                          f'{logs}')
+                log_vars = {'epoch': epoch, 'iter': current_iter,
+                            'lrs': model.get_current_learning_rate(),
+                            'time': iter_timer.get_avg_time(),
+                            'data_time': data_timer.get_avg_time()}
+                log_vars.update(model.get_current_log())
+                msg_logger(log_vars)
             if current_iter % save_freq == 0:
+                logger.info('Saving models and training states.')
                 model.save(epoch, current_iter)
             if val_freq and current_iter % int(val_freq) == 0:
                 validate(model, opt, val_loaders, current_iter)
-        if not fed:
+            data_timer.start()
+            iter_timer.start()
+        if not fed and not stop:
             raise ValueError('the train loader yielded no batch')
         epoch += 1
-    _log.info(f'End of training: {time.time() - start:.1f} s.')
+    logger.info(f'End of training. Time consumed: '
+                f'{(time.time() - start_time) / 3600:.2f} h')
+    logger.info('Save the latest model.')
     model.save(epoch=-1, current_iter=-1)
     if val_freq:
-        validate(model, opt, val_loaders, current_iter)
+        validate(model, opt, val_loaders, min(current_iter, total_iters))
     return model
 
 
@@ -121,3 +184,47 @@ def validate(model, opt, val_loaders, current_iter):
     for val_loader in val_loaders:
         model.validation(val_loader, current_iter, None,
                          opt['val'].get('save_img', False))
+
+
+def train_pipeline(root_path, cmd=None, opt_path=None, device=None):
+    """The command line's run (bsvd_tpu/train.py:71-165): parse the options
+    (``cmd``, else sys.argv; or the file ``opt_path``), make the
+    experiment folder unless resuming, copy the option file there, log,
+    build the loaders and train. ``device`` overrides the options'.
+    Returns the model."""
+    opt, args = parse_options(root_path, is_train=True, cmd=cmd,
+                              opt_path=opt_path)
+    if device is not None:
+        opt['device'] = device
+    resume_state = load_resume_state(opt)
+    if resume_state is None:
+        make_exp_dirs(opt)
+    if getattr(args, 'opt', None) and osp.isfile(args.opt):
+        copy_opt_file(args.opt, opt['path']['experiments_root'])
+
+    logger = get_root_logger(log_file=osp.join(
+        opt['path']['log'], f"train_{opt['name']}_{get_time_str()}.log"))
+    logger.info(get_env_info())
+    logger.info(dict2str(opt))
+    wandb = opt['logger'].get('wandb')
+    if wandb is not None and wandb.get('project') is not None:
+        init_wandb_logger(opt)
+    if opt['logger'].get('use_tb_logger'):
+        init_tb_logger(osp.join(opt['path']['experiments_root'], 'tb_logger'))
+
+    train_loader, val_loaders, _, _ = create_train_val_dataloader(opt,
+                                                                  logger)
+    try:
+        return train_loop(opt, train_loader, val_loaders=val_loaders,
+                          resume_state=resume_state)
+    finally:
+        if hasattr(train_loader, 'close'):
+            train_loader.close()
+
+
+def main():
+    train_pipeline(ROOT)
+
+
+if __name__ == '__main__':
+    main()

@@ -27,24 +27,47 @@ def _png_chunk(tag, data):
             + struct.pack('>I', zlib.crc32(tag + data) & 0xffffffff))
 
 
-def encode_png(img):
+def filter_rows(rows, bpp, filters):
+    """PNG-filter (h, rowbytes) uint8 rows: row r with type filters[r]
+    (0 None, 1 Sub, 2 Up, 3 Average, 4 Paeth; the PNG specification,
+    section 9) -> (h, 1 + rowbytes) uint8, each row led by its type."""
+    x = rows.astype(np.int16)
+    a = np.zeros_like(x)
+    a[:, bpp:] = x[:, :-bpp]
+    b = np.zeros_like(x)
+    b[1:] = x[:-1]
+    c = np.zeros_like(x)
+    c[:, bpp:] = b[:, :-bpp]
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    paeth = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    pred = np.stack([np.zeros_like(x), a, b, (a + b) >> 1, paeth])
+    filters = np.asarray(filters, np.int64)
+    out = (x - pred[filters, np.arange(len(x))]) % 256
+    return np.concatenate([filters[:, None], out], axis=1).astype(np.uint8)
+
+
+def encode_png(img, filters=None):
     """uint8 (H, W) gray or (H, W, 3) BGR (cv2's order) -> PNG bytes: 8-bit,
-    filter 0 on every row, zlib level 6."""
+    zlib level 6; row r filtered with type ``filters[r]`` (0-4), filter 0
+    on every row by default."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
         raise ValueError(f'PNG writer takes uint8, got {img.dtype}')
     if img.ndim == 3 and img.shape[2] == 1:
         img = img[..., 0]
     if img.ndim == 2:
-        color = 0
+        color, bpp = 0, 1
     elif img.ndim == 3 and img.shape[2] == 3:
-        img, color = img[..., ::-1], 2
+        img, color, bpp = img[..., ::-1], 2, 3
     else:
         raise ValueError(f'PNG writer takes (H, W) or (H, W, 3), got '
                          f'{img.shape}')
     h, w = img.shape[:2]
     rows = np.ascontiguousarray(img).reshape(h, -1)
-    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    if filters is None:
+        raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+    else:
+        raw = filter_rows(rows, bpp, filters)
     return (b'\x89PNG\r\n\x1a\n'
             + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, color,
                                               0, 0, 0))

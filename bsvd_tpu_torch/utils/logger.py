@@ -1,7 +1,16 @@
-"""The root logger of the port (counterpart of bsvd_tpu/utils/logger.py
-get_root_logger, for one process): console, and a log file when asked."""
+"""Logging of the port (counterpart of bsvd_tpu/utils/logger.py, for one
+process): the root logger, the train loop's timers and message logger,
+and the environment line.
 
+TensorBoard and wandb are not ported: ``use_tb_logger`` logs one line
+saying the scalars go to the text log only, and a ``logger.wandb.project``
+raises (ROADMAP Queue 1)."""
+
+import datetime
 import logging
+import time
+
+import torch
 
 LOGGER = 'bsvd_tpu_torch'
 
@@ -27,3 +36,102 @@ def get_root_logger(log_file=None):
         handler.setFormatter(fmt)
         logger.addHandler(handler)
     return logger
+
+
+class AvgTimer:
+    """Running-average interval timer (the train loop's iteration and data
+    times), reset every ``window`` records."""
+
+    def __init__(self, window=200):
+        self.window = window
+        self.current_time = 0
+        self.total_time = 0
+        self.count = 0
+        self.avg_time = 0
+        self.start()
+
+    def start(self):
+        self.start_time = self.tic = time.time()
+
+    def record(self):
+        self.count += 1
+        self.toc = time.time()
+        self.current_time = self.toc - self.tic
+        self.total_time += self.current_time
+        self.avg_time = self.total_time / self.count
+        if self.count > self.window:
+            self.count = 0
+            self.total_time = 0
+        self.tic = time.time()
+
+    def get_current_time(self):
+        return self.current_time
+
+    def get_avg_time(self):
+        return self.avg_time
+
+
+class MessageLogger:
+    """The train loop's periodic line: epoch, iteration, learning rates,
+    ETA, iteration and data time, and the losses."""
+
+    def __init__(self, opt, start_iter=1):
+        self.exp_name = opt['name']
+        self.interval = opt['logger']['print_freq']
+        self.start_iter = start_iter
+        self.max_iters = int(opt['train']['total_iter'])
+        self.start_time = time.time()
+        self.logger = get_root_logger()
+
+    def reset_start_time(self):
+        self.start_time = time.time()
+
+    def __call__(self, log_vars):
+        epoch = log_vars.pop('epoch')
+        current_iter = log_vars.pop('iter')
+        lrs = log_vars.pop('lrs')
+
+        message = (f'[{self.exp_name[:31]}..][epoch:{epoch:3d}, '
+                   f'iter:{current_iter:8,d}, lr:(')
+        for v in lrs:
+            message += f'{v:.3e},'
+        message += ')] '
+
+        if 'time' in log_vars:
+            iter_time = log_vars.pop('time')
+            data_time = log_vars.pop('data_time')
+            total_time = time.time() - self.start_time
+            time_sec_avg = total_time / (current_iter - self.start_iter + 1)
+            eta_sec = time_sec_avg * (self.max_iters - current_iter - 1)
+            eta_str = str(datetime.timedelta(seconds=int(eta_sec)))
+            message += f'[eta: {eta_str}, '
+            message += f'time (data): {iter_time:.3f} ({data_time:.3f})] '
+
+        for k, v in log_vars.items():
+            message += f'{k}: {v:.4e} '
+        self.logger.info(message)
+
+
+def init_tb_logger(log_dir):
+    """TensorBoard is not ported: one line in the log, and None (no
+    writer)."""
+    get_root_logger().info(f'use_tb_logger: TensorBoard is not ported; the '
+                           f'scalars go to the text log only (not to '
+                           f'{log_dir})')
+
+
+def init_wandb_logger(opt):
+    """wandb is not ported: a configured project raises."""
+    raise NotImplementedError(
+        f"logger.wandb.project {opt['logger']['wandb']['project']!r}: wandb "
+        f"is not ported (ROADMAP Queue 1); set it to ~")
+
+
+def get_env_info():
+    """Framework, torch and CUDA versions, and the card (if any)."""
+    card = (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+            else 'none')
+    return ('\nFramework: bsvd_tpu_torch'
+            f'\n\tPyTorch: {torch.__version__}'
+            f'\n\tCUDA: {torch.version.cuda}'
+            f'\n\tCard: {card}')

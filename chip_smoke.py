@@ -70,9 +70,11 @@ Phases, each printed as one JSON object on its own line:
    take the other side of the clip on the other device: the count of such
    flips is reported), and the parameters after the Adam step against the
    CPU optimizer fed the card's gradients.
-8. train main path: the options of options/train/bsvd_c64_unblind.yml
-   (batch 8 x 11 frames of 96x96, sigma ~ U[5, 55]/255 per clip, MSE,
-   Adam 1e-3, betas (0.9, 0.99)), fp32 and bf16 AMP, on one repeated batch
+8. train main path: options/train/bsvd_c64_unblind.yml through
+   ``parse_options`` (batch 8 x 11 frames of 96x96, sigma ~ U[5, 55]/255
+   per clip, MSE, Adam 1e-3, betas (0.9, 0.99); every phase's options come
+   from the shipped files, changed only by --force_yml), fp32 and bf16
+   AMP, on one repeated batch
    made by the ported augment and noise code from seeded synthetic uint8
    clips: 5 warm-up and 30 timed steps with F.conv2d raising; every step
    must launch K1 20, K2 4, K3 4, K4 4 and K7 28 times (the
@@ -82,7 +84,7 @@ Phases, each printed as one JSON object on its own line:
    group (K7 and cuDNN's wgrad / dgrad apart) of 8 steps under
    ``torch.profiler`` (the idle share also of the unprofiled step time,
    which the profiler's host cost does not stretch), and
-   ``train_pipeline``'s save -> auto-resume round
+   ``train.train_loop``'s save -> auto-resume round
    trip (EMA on) bit-equal to the uninterrupted run.
 
 9. chunked main path: ``denoise_seq(temp_psz=11, future_buffer_len=2)``
@@ -103,17 +105,17 @@ Phases, each printed as one JSON object on its own line:
    zero-boundary MIMO forward (the difference is the frame-0 recomputes'
    and carry copies' share), wall seconds of an 85-frame clip numpy in,
    numpy out, and BlockStreamDenoiser ms per frame (push, best of 3).
-10. eval main path: ``test_pipeline`` with options/test/bsvd_c64.yml's
-   network_g and val (bf16, psnr / psnr_float / ssim at crop 2,
-   save_img), random c64 weights saved and loaded as a ``.npz``
-   checkpoint, over two 25-frame 540x960 clips at sigma 20/255 (padded to
-   544 rows), whole clip and by the train yml's chunked protocol:
-   finite metrics, K1-K4 launches per clip, the per-scene CSVs and the
+10. eval main path, the test command line: ``test_pipeline(root,
+   cmd=['-opt', yml])`` on a test option file written here
+   (options/test/bsvd_c64.yml's network_g, val and logger blocks verbatim,
+   its pretrain_ckpt line dropped; random c64 weights saved as a ``.npz``
+   checkpoint for path.pretrain_network_g; one ValFolderDataset on phase
+   12's two 25-frame 540x960 PNG folders at sigma 20/255, padded to 544
+   rows), whole clip and, with --force_yml, by the train yml's chunked
+   protocol: finite metrics, K1-K4 launches per clip, every frame read by
+   the zlib PNG reader (the route printed), the per-scene CSVs and the
    saved frames, clip00's psnr_float against denoise_seq's output scored
    by hand; host seconds per clip for read, denoise, metrics and save.
-   The clips are held in memory in a ValFolderDataset subclass: the
-   card's machine has no libpng / libjpeg headers, so the native decoder
-   does not build there.
 11. WNet options (random weights from the seed, BN given seeded running
    statistics): options/test/bsvd_raw.yml's network_g (in 5, out 4,
    residual 4), options/train/bsvd_c32_blind.yml's, and c64 with
@@ -135,9 +137,26 @@ Phases, each printed as one JSON object on its own line:
    device profile of one forward and of 8 steady pushes (busy time, idle
    share, the top kernels by device time).
 
+12. the entry points on PNG frame folders (in a scratch root): first, before
+   phase 10, synthetic PNG folders written with the port's encoder (train:
+   4 clips x 24 frames at 480x854, DAVIS's frame size; val: 2 x 25 at
+   540x960; odd frames with PNG filters 0-4 on their rows, even ones with
+   filter 0), read back exactly, and the zlib reader's ms per whole frame
+   and per 11-frame 96x96 window. Then ``train_video_loader`` alone with
+   the train yml's loader options (batches a second, default workers and
+   one), and the train command line, ``train_pipeline(root, cmd=['-opt',
+   options/train/bsvd_c64_unblind.yml, '--force_yml', ...])``, c64 at the
+   yml's widths and batch, --force_yml setting only the folders, 25
+   validation frames, 30 iterations, print / save / validation every 10 /
+   30 / 30: fp32, bf16 AMP, then an --auto_resume to 32. Each run: K1-K4
+   launched, K7 28 times a step, the checkpoint, state and option-file
+   copy written, the timers' ms per iteration and data time, the frames'
+   route, and (fp32, bf16) the same model's step on one repeated
+   in-memory batch.
+
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10 and 11 (counters set to 0 before each run, read
+phases 3, 5, 8, 9, 10, 11 and 12 (counters set to 0 before each run, read
 after), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
@@ -158,12 +177,16 @@ import copy
 import csv
 import json
 import math
+import logging
 import os
+import re
+import shutil
 import statistics
 import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, ROOT)
@@ -180,8 +203,7 @@ from bsvd_tpu_torch.archs.wnet_arch import (wnet_apply,  # noqa: E402
                                             wnet_apply_chunk)
 from bsvd_tpu_torch.convert.torch_ckpt import to_jax_params  # noqa: E402
 from bsvd_tpu_torch.data import build_dataset  # noqa: E402
-from bsvd_tpu_torch.data.val_folder_dataset import (  # noqa: E402
-    ValFolderDataset)
+from bsvd_tpu_torch.data import png_decode, utils_common  # noqa: E402
 from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
     noisy_batch, synthetic_clips)
 from bsvd_tpu_torch.metrics import calculate_psnr_float  # noqa: E402
@@ -209,14 +231,32 @@ from bsvd_tpu_torch.ops.conv_chain import (conv_chain,  # noqa: E402
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2, conv_s2_reference  # noqa: E402
 from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1  # noqa: E402
 from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
-from bsvd_tpu_torch.train import train_pipeline  # noqa: E402
-from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY  # noqa: E402
+from bsvd_tpu_torch.train import train_loop, train_pipeline  # noqa: E402
+from bsvd_tpu_torch.utils.img_util import encode_png  # noqa: E402
+from bsvd_tpu_torch.utils.logger import get_root_logger  # noqa: E402
+from bsvd_tpu_torch.utils.options import (parse_options,  # noqa: E402
+                                          yaml_load)
 
 SEED = 0
 T, H, W = 10, 540, 960
 SIGMA = 20 / 255
-C64 = {'type': 'BSVD', 'chns': [64, 128, 256], 'mid_ch': 64, 'interm_ch': 64,
-       'norm': 'none', 'act': 'relu6', 'seed': SEED}
+TRAIN_YML = os.path.join(ROOT, 'options', 'train', 'bsvd_c64_unblind.yml')
+TEST_YML = os.path.join(ROOT, 'options', 'test', 'bsvd_c64.yml')
+# the scratch root of the option files' experiments / results folders and
+# of the PNG frame folders (made in main, removed at its end)
+WORK = None
+
+
+def shipped_net(path):
+    """A shipped option file's network_g, its pretrain_ckpt dropped
+    (random weights from SEED)."""
+    net = yaml_load(path)['network_g']
+    net.pop('pretrain_ckpt', None)
+    return dict(net, seed=SEED)
+
+
+# options/test/bsvd_c64.yml's network_g
+C64 = shipped_net(TEST_YML)
 # bf16 output rounding (2^-8 relative) plus bf16 rounding of summed inputs
 # and of the chain's intermediate, relative to max(1, max|ref|)
 BF16_TOL = 2 ** -6
@@ -1243,31 +1283,13 @@ def phase_stream_parity(nets, clips, outs, out32):
 # ---------------------------------------------------------------------------
 
 def _train_opt(t_len, amp=False, ema_decay=0):
-    """options/train/bsvd_c64_unblind.yml as ``parse_options`` makes it (the
-    card's machine has no PyYAML); ``num_segments`` is the clip length."""
-    return {
-        'name': 'bsvd_c64_unblind', 'model_type': 'DenoisingModel',
-        'num_gpu': 1, 'manual_seed': 10, 'is_train': True,
-        'network_g': {
-            'type': 'TSN', 'num_segments': t_len,
-            'base_model': 'WNet_multistage', 'shift_type': 'TSM',
-            'shift_div': 8, 'inplace': False,
-            'net2d_opt': {'chns': [64, 128, 256], 'mid_ch': 64,
-                          'shift_input': False, 'norm': 'none',
-                          'interm_ch': 64, 'act': 'relu6'}},
-        'path': {'strict_load_g': True},
-        'train': {
-            'optim_g': {'type': 'Adam', 'lr': 1e-3, 'weight_decay': 0,
-                        'betas': [0.9, 0.99]},
-            'scheduler': {'type': 'MultiStepLR',
-                          'milestones': [50000 * k for k in range(1, 14)],
-                          'gamma': 0.7},
-            'total_iter': 700000, 'warmup_iter': -1,
-            'gradient_clipping': 5,
-            'pixel_opt': {'type': 'MSELoss', 'loss_weight': 1.0,
-                          'reduction': 'mean'},
-            'fp16': amp, 'ema_decay': ema_decay},
-        'logger': {'print_freq': 100, 'save_checkpoint_freq': 5000}}
+    """options/train/bsvd_c64_unblind.yml through ``parse_options``, with
+    ``num_segments`` the clip length and train.fp16 / train.ema_decay
+    forced."""
+    opt, _ = parse_options(WORK, is_train=True, cmd=[
+        '-opt', TRAIN_YML, '--force_yml', f'network_g:num_segments={t_len}',
+        f'train:fp16={str(amp).lower()}', f'train:ema_decay={ema_decay}'])
+    return opt
 
 
 def _train_batch(rng, n, t_len, hw):
@@ -1387,13 +1409,16 @@ def _kernel_group(name):
     return 'other'
 
 
-def _time_steps(model, steps, first_iter):
+def _time_steps(model, steps, first_iter, batch=None):
     """Host-clock ms per step over ``steps`` steps (synchronised at both
-    ends), and the steps' losses read back after the timing."""
+    ends), each after ``feed_data(batch)`` where a batch is given, and the
+    steps' losses read back after the timing."""
     losses = []
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     for i in range(steps):
+        if batch is not None:
+            model.feed_data(batch)
         model.optimize_parameters(first_iter + i)
         losses.append(model.log_dict['l_pix'])
     torch.cuda.synchronize()
@@ -1441,23 +1466,24 @@ def _profile_steps(model, n, first_iter):
 
 
 def _resume_round_trip(batch, root):
-    """train_pipeline for 6 steps straight, against 4 steps with a save at
+    """train_loop for 6 steps straight, against 4 steps with a save at
     step 4 followed by an auto-resumed run to step 6 (bf16 AMP, EMA on,
     one repeated batch, deterministic cuDNN). Returns the max |diff| of
     the parameters and of the EMA (both must be 0)."""
     def opt_for(tag, total):
         opt = _train_opt(TRAIN_T, amp=True, ema_decay=0.999)
         opt['train']['total_iter'] = total
-        opt['logger'] = {'print_freq': 2, 'save_checkpoint_freq': 4}
+        opt['logger'].update(print_freq=2, save_checkpoint_freq=4)
+        opt['val']['val_freq'] = None       # the train state only
         opt['path'].update(models=os.path.join(root, tag, 'models'),
                            training_states=os.path.join(root, tag, 'states'))
         return opt
     loader = [batch] * 8
-    straight = train_pipeline(opt_for('a', 6), loader, device='cuda')
-    train_pipeline(opt_for('b', 4), loader, device='cuda')
+    straight = train_loop(opt_for('a', 6), loader, device='cuda')
+    train_loop(opt_for('b', 4), loader, device='cuda')
     resumed_opt = opt_for('b', 6)
     resumed_opt['auto_resume'] = True
-    resumed = train_pipeline(resumed_opt, loader, device='cuda')
+    resumed = train_loop(resumed_opt, loader, device='cuda')
     if resumed.optimizer.count != 6:
         raise AssertionError(f'resumed optimizer count '
                              f'{resumed.optimizer.count}')
@@ -1716,67 +1742,47 @@ def phase_chunked(nets):
 # phase 10: the eval main path
 # ---------------------------------------------------------------------------
 
-def _eval_opt(root, data_dir, ckpt, **val_over):
-    """options/test/bsvd_c64.yml's network_g and val (as parse_options makes
-    them; the card's machine has no PyYAML) over synthetic folders."""
-    metric = {'crop_border': 2, 'test_y_channel': False}
-    results = os.path.join(root, 'results', 'bsvd_c64')
-    return {
-        'name': 'bsvd_c64', 'model_type': 'DenoisingModel', 'num_gpu': 1,
-        'manual_seed': 10, 'is_train': False,
-        'datasets': {'val_1': {'name': 'synth_20', 'type': '_MemoryFolders',
-                               'valsetdir': data_dir, 'phase': 'val',
-                               'manual_seed': 10,
-                               'num_validation_frames': EVAL_T,
-                               'valnoisestd': 20}},
-        'network_g': {'type': 'BSVD', 'chns': [64, 128, 256], 'mid_ch': 64,
-                      'shift_input': False, 'norm': 'none', 'interm_ch': 64,
-                      'act': 'relu6', 'pretrain_ckpt': None},
-        'path': {'pretrain_network_g': ckpt, 'strict_load_g': True,
-                 'resume_state': None, 'results_root': results,
-                 'log': results,
-                 'visualization': os.path.join(results, 'visualization')},
-        'val': dict({'val_freq': 1.0, 'save_img': True, 'temp_psz': -1,
-                     'future_buffer_len': 0, 'patch_mod': 64, 'fp16': True,
-                     'metrics': {
-                         'psnr': dict(metric, type='calculate_psnr'),
-                         'psnr_float': dict(metric,
-                                            type='calculate_psnr_float'),
-                         'ssim': dict(metric, type='calculate_ssim')}},
-                    **val_over),
-        'logger': {'print_freq': 100, 'save_checkpoint_freq': 5000.0,
-                   'use_tb_logger': False}}
+def _top_blocks(path):
+    """The lines of each top-level key's block of a YAML file, verbatim."""
+    blocks, key = {}, None
+    with open(path) as f:
+        for line in f.read().split('\n'):
+            m = re.match(r'([A-Za-z_]\w*):', line)
+            if m:
+                key = m.group(1)
+                blocks[key] = []
+            if key is not None:
+                blocks[key].append(line)
+    return blocks
 
 
-class _MemoryFolders(ValFolderDataset):
-    """ValFolderDataset over clips held in memory: the card's machine has
-    no libpng / libjpeg headers, so the native decoder does not build
-    there and image folders cannot be read. Items, noise and metadata are
-    ValFolderDataset's; only the frames' source differs. ``valsetdir``
-    names an entry of ``CLIPS``: {folder name: (T, 3, H, W) float32}."""
-
-    CLIPS = {}
-
-    def __init__(self, opt):
-        self.opt = opt
-        self.clips = self.CLIPS[opt['valsetdir']]
-        self.num_input_frames = opt['num_validation_frames']
-        self.valnoisestd = opt['valnoisestd']
-        self.seed = opt.get('manual_seed', 0)
-        self.base_folder = sorted(self.clips)
-        self.num_frames = [min(len(self.clips[f]), self.num_input_frames)
-                           for f in self.base_folder]
-
-    def _read(self, index):
-        return self.clips[self.base_folder[index]][:self.num_input_frames]
-
-
-DATASET_REGISTRY.register(_MemoryFolders)
+def _test_yml(root, val_dir, ckpt):
+    """A test option file: options/test/bsvd_c64.yml's network_g (its
+    pretrain_ckpt line dropped), val and logger blocks verbatim, the
+    seeded checkpoint as path.pretrain_network_g, and one ValFolderDataset
+    on the val PNG folders."""
+    blocks = _top_blocks(TEST_YML)
+    lines = ['name: bsvd_c64', 'model_type: DenoisingModel', 'num_gpu: 1',
+             'manual_seed: 10', '', 'datasets:', '  val_1:',
+             '    name: synth_20', '    type: ValFolderDataset',
+             f'    valsetdir: {val_dir}',
+             f'    num_validation_frames: {EVAL_T}', '    valnoisestd: 20',
+             '']
+    lines += [ln for ln in blocks['network_g']
+              if not ln.strip().startswith('pretrain_ckpt:')]
+    lines += ['path:', f'  pretrain_network_g: {ckpt}',
+              '  strict_load_g: true', '  resume_state: ~', '']
+    lines += blocks['val'] + blocks['logger']
+    os.makedirs(root, exist_ok=True)
+    path = os.path.join(root, 'bsvd_c64_synth.yml')
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines))
+    return path
 
 
 class _ValSeconds:
     """Keeps each validation's ``val_seconds`` (read, denoise, metrics,
-    save) while test_pipeline runs."""
+    save) while a pipeline runs."""
 
     def __enter__(self):
         self.orig, self.runs = DenoisingModel.nondist_validation, []
@@ -1793,77 +1799,87 @@ class _ValSeconds:
         DenoisingModel.nondist_validation = self.orig
 
 
-def phase_eval(nets):
-    """test_pipeline over two synthetic 540p folders, whole clip and by the
+def _routes_since(before):
+    return {k: v - before.get(k, 0) for k, v in utils_common.ROUTES.items()
+            if v - before.get(k, 0)}
+
+
+def phase_eval(nets, data):
+    """The test CLI (``test_pipeline(root, cmd=['-opt', yml])``) over the
+    two 540p val PNG folders, whole clip and, with --force_yml, by the
     train yml's chunked protocol. Returns the main-path launches."""
     net = nets['TSM']
     launches = dict.fromkeys(KERNELS, 0)
-    # 8-bit frames, as a folder of PNGs would give them
-    _MemoryFolders.CLIPS['synth'] = {
-        f'clip{i:02d}': (np.round(c * 255) / 255).astype(np.float32)
-        for i, (c, _) in enumerate(_clips(np.random.default_rng(SEED + 9), 2,
-                                          EVAL_T))}
-    clips = _MemoryFolders.CLIPS['synth']
-    with tempfile.TemporaryDirectory() as root:
-        data = 'synth'
-        ckpt = os.path.join(root, 'net_g.npz')
-        save_npz_params(ckpt, {'params': to_jax_params(net.param_tree(),
-                                                       net.cfg)})
-        for label, over, n_fwd, per in (
-                ('whole_clip', {}, 1, PER_FORWARD),
-                ('chunked', {'temp_psz': CHUNK_PSZ,
-                             'future_buffer_len': CHUNK_FUTURE},
-                 _chunks(EVAL_T, CHUNK_PSZ), PER_CHUNK)):
-            opt = _eval_opt(os.path.join(root, label), data, ckpt, **over)
-            reset_counts()
-            t0 = time.perf_counter()
-            with _NoConv2d(), _ValSeconds() as secs:
-                res = test_pipeline(opt, device='cuda')['synth_20']
-            wall = time.perf_counter() - t0
-            run = counts()
-            for k, v in run.items():
-                launches[k] += v
-                if v != per.get(k, 0) * n_fwd * len(clips):
-                    raise AssertionError(f'eval {label}: {k} launched {v} '
-                                         f'times for {len(clips)} clips')
-            if not all(math.isfinite(v) for v in res.values()):
-                raise AssertionError(f'eval {label}: metrics {res}')
-            log = opt['path']['log']
-            csvs = sorted(f for f in os.listdir(log) if f.endswith('.csv'))
-            pngs = [f for _, _, fs in os.walk(opt['path']['visualization'])
-                    for f in fs if f.endswith('.png')]
-            if csvs != ['synth_20_clip00.csv', 'synth_20_clip01.csv'] or \
-                    len(pngs) != EVAL_T * len(clips):
-                raise AssertionError(f'eval {label}: {csvs}, {len(pngs)} '
-                                     f'frames saved')
-            # the pipeline's float PSNR of clip00 against denoise_seq's
-            # output scored by hand
-            with open(os.path.join(log, csvs[0])) as f:
-                rows = list(csv.reader(f))[1:]
-            piped = float(np.mean([np.float32(r[2]) for r in rows]))
-            item = build_dataset(opt['datasets']['val_1'])[0]
-            lq = torch.from_numpy(item['lq'][0])
-            pad = F.pad(lq, (0, 0, 0, (16 - H % 16) % 16), mode='reflect')
-            out = denoise_seq(net, None, pad, noise_sigma=20 / 255,
-                              compute_dtype=torch.bfloat16,
-                              temp_psz=over.get('temp_psz', -1),
-                              future_buffer_len=over.get(
-                                  'future_buffer_len', 0))[..., :H, :W]
-            by_hand = float(np.mean([np.float32(calculate_psnr_float(
-                o, g, crop_border=2)) for o, g in zip(out, item['gt'][0])]))
-            if not abs(piped - by_hand) < 1e-4:
-                raise AssertionError(f'eval {label}: psnr_float {piped} in '
-                                     f'the pipeline, {by_hand} by hand')
-            per_clip = {k: v / len(clips) for k, v in secs.runs[0].items()}
-            emit({'phase': 'eval', 'protocol': label, 'clips': len(clips),
-                  'frames': EVAL_T, 'shape': [H, W], 'padded_to':
-                  [H + (16 - H % 16) % 16, W], 'route': 'frames in memory '
-                  '(no libpng / libjpeg headers here: no native decoder)',
-                  'metrics': res,
-                  'psnr_float_clip00': {'pipeline': piped,
-                                        'by_hand': by_hand},
-                  'launches': run, 'wall_s_per_clip': wall / len(clips),
-                  's_per_clip': per_clip})
+    root = os.path.join(WORK, 'eval')
+    os.makedirs(root)
+    ckpt = os.path.join(root, 'net_g.npz')
+    save_npz_params(ckpt, {'params': to_jax_params(net.param_tree(),
+                                                   net.cfg)})
+    yml = _test_yml(root, data['val'], ckpt)
+    n_clips = len(data['val_clips'])
+    for label, force, n_fwd, per in (
+            ('whole_clip', [], 1, PER_FORWARD),
+            ('chunked', [f'val:temp_psz={CHUNK_PSZ}',
+                         f'val:future_buffer_len={CHUNK_FUTURE}'],
+             _chunks(EVAL_T, CHUNK_PSZ), PER_CHUNK)):
+        run_root = os.path.join(root, label)
+        cmd = ['-opt', yml] + (['--force_yml', *force] if force else [])
+        opt, _ = parse_options(run_root, is_train=False, cmd=cmd)
+        routes = dict(utils_common.ROUTES)
+        reset_counts()
+        t0 = time.perf_counter()
+        with _NoConv2d(), _ValSeconds() as secs:
+            res = test_pipeline(run_root, cmd=cmd)['synth_20']
+        wall = time.perf_counter() - t0
+        run = counts()
+        routes = _routes_since(routes)
+        for k, v in run.items():
+            launches[k] += v
+            if v != per.get(k, 0) * n_fwd * n_clips:
+                raise AssertionError(f'eval {label}: {k} launched {v} '
+                                     f'times for {n_clips} clips')
+        if not all(math.isfinite(v) for v in res.values()):
+            raise AssertionError(f'eval {label}: metrics {res}')
+        if routes != {'png_decode': EVAL_T * n_clips}:
+            raise AssertionError(f'eval {label}: frames read by {routes}')
+        log = opt['path']['log']
+        csvs = sorted(f for f in os.listdir(log) if f.endswith('.csv'))
+        pngs = [f for _, _, fs in os.walk(opt['path']['visualization'])
+                for f in fs if f.endswith('.png')]
+        if csvs != ['synth_20_clip00.csv', 'synth_20_clip01.csv'] or \
+                len(pngs) != EVAL_T * n_clips:
+            raise AssertionError(f'eval {label}: {csvs}, {len(pngs)} '
+                                 f'frames saved')
+        # the pipeline's float PSNR of clip00 against denoise_seq's output
+        # scored by hand
+        with open(os.path.join(log, csvs[0])) as f:
+            rows = list(csv.reader(f))[1:]
+        piped = float(np.mean([np.float32(r[2]) for r in rows]))
+        item = build_dataset(dict(opt['datasets']['val_1'],
+                                  manual_seed=opt['manual_seed']))[0]
+        if not np.array_equal(np.round(item['gt'][0] * 255),
+                              data['val_clips'][0].transpose(0, 3, 1, 2)):
+            raise AssertionError('eval: the val frames read back differ')
+        lq = torch.from_numpy(item['lq'][0])
+        pad = F.pad(lq, (0, 0, 0, (16 - H % 16) % 16), mode='reflect')
+        out = denoise_seq(net, None, pad, noise_sigma=20 / 255,
+                          compute_dtype=torch.bfloat16,
+                          temp_psz=opt['val']['temp_psz'],
+                          future_buffer_len=opt['val'][
+                              'future_buffer_len'])[..., :H, :W]
+        by_hand = float(np.mean([np.float32(calculate_psnr_float(
+            o, g, crop_border=2)) for o, g in zip(out, item['gt'][0])]))
+        if not abs(piped - by_hand) < 1e-4:
+            raise AssertionError(f'eval {label}: psnr_float {piped} in '
+                                 f'the pipeline, {by_hand} by hand')
+        per_clip = {k: v / n_clips for k, v in secs.runs[0].items()}
+        emit({'phase': 'eval', 'protocol': label, 'cmd': cmd[2:],
+              'clips': n_clips, 'frames': EVAL_T, 'shape': [H, W],
+              'padded_to': [H + (16 - H % 16) % 16, W], 'routes': routes,
+              'metrics': res,
+              'psnr_float_clip00': {'pipeline': piped, 'by_hand': by_hand},
+              'launches': run, 'wall_s_per_clip': wall / n_clips,
+              's_per_clip': per_clip})
     return launches
 
 
@@ -1876,16 +1892,9 @@ def phase_eval(nets):
 # c64 net of phase 3 with shift_input (both modes), BN (seeded running
 # statistics) and instance norm
 OPTION_NETS = {
-    'raw': {'type': 'BSVD', 'chns': [64, 128, 256], 'mid_ch': 64,
-            'in_ch': 5, 'out_ch': 4, 'residual_ch': 4, 'shift_input': False,
-            'norm': 'none', 'interm_ch': 64, 'act': 'relu6', 'seed': SEED},
-    'c32_blind': {'type': 'TSN', 'num_segments': 11,
-                  'base_model': 'WNet_multistage', 'shift_type': 'TSM',
-                  'shift_div': 8, 'inplace': False, 'seed': SEED,
-                  'net2d_opt': {'chns': [32, 64, 128], 'mid_ch': 32,
-                                'shift_input': False, 'norm': 'none',
-                                'interm_ch': 32, 'act': 'relu6',
-                                'blind': True}},
+    'raw': shipped_net(os.path.join(ROOT, 'options', 'test', 'bsvd_raw.yml')),
+    'c32_blind': shipped_net(os.path.join(ROOT, 'options', 'train',
+                                          'bsvd_c32_blind.yml')),
     'shift_input': dict(C64, shift_input=True),
     'shift_input_causal': dict(C64, shift_input=True,
                                shift_mode='TSM_toFutureOnly'),
@@ -2191,10 +2200,329 @@ def phase_options(nets, clip):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the entry points on PNG frame folders
+# ---------------------------------------------------------------------------
+
+# train: DAVIS 480p frame size; val: Set8's 540x960 (phase 10's clips)
+TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_FRAME_HW = 4, 24, (480, 854)
+VAL_CLIPS = 2
+CLI_ITERS, CLI_RESUME_ITERS = 30, 32
+
+
+def _write_clip(folder, frames, pool):
+    """uint8 (T, H, W, 3) RGB frames as PNG files (zlib level 6): the odd
+    frames with PNG filter r % 5 on row r (every filter type, as libpng's
+    adaptive choice mixes them), the even ones with filter 0 (the port's
+    imwrite)."""
+    os.makedirs(folder)
+
+    def write(k):
+        f = frames[k]
+        filters = np.arange(f.shape[0]) % 5 if k % 2 else None
+        with open(os.path.join(folder, f'{k:05d}.png'), 'wb') as fh:
+            fh.write(encode_png(f[..., ::-1], filters=filters))
+    list(pool.map(write, range(len(frames))))
+
+
+def _median_ms(fn, reps):
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_frames():
+    """Synthetic PNG frame folders written with the port's encoder, read
+    back exactly by the zlib reader, and its ms per frame."""
+    root = os.path.join(WORK, 'datasets')
+    rng = np.random.default_rng(SEED + 14)
+    train = synthetic_clips(rng, TRAIN_CLIPS, TRAIN_FRAMES,
+                            *TRAIN_FRAME_HW).transpose(0, 1, 3, 4, 2)
+    val = np.stack([np.round(c * 255).astype(np.uint8).transpose(0, 2, 3, 1)
+                    for c, _ in _clips(np.random.default_rng(SEED + 9),
+                                       VAL_CLIPS, EVAL_T)])
+    data = {'train': os.path.join(root, 'train'),
+            'val': os.path.join(root, 'val'), 'val_clips': val}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for split, clips in (('train', train), ('val', val)):
+            for i, c in enumerate(clips):
+                _write_clip(os.path.join(data[split], f'clip{i:02d}'), c,
+                            pool)
+    write_s = time.perf_counter() - t0
+    rec = {'phase': 'frames', 'write_s': write_s, 'cpu_count': os.cpu_count()}
+    for split, clips in (('train', train), ('val', val)):
+        folder = os.path.join(data[split], 'clip00')
+        files = utils_common.get_imagenames(folder)
+        routes = dict(utils_common.ROUTES)
+        for i, c in enumerate(clips):
+            got = utils_common.load_seq(utils_common.get_imagenames(
+                os.path.join(data[split], f'clip{i:02d}')))
+            if not np.array_equal(got, c):
+                raise AssertionError(f'{split} clip{i:02d}: PNG frames read '
+                                     f'back differ')
+        raw = clips[0, 0].nbytes
+        rec[split] = {
+            'clips': len(clips), 'frames': clips.shape[1],
+            'hw': list(clips.shape[2:4]),
+            'routes': _routes_since(routes),
+            'compression_ratio': float(np.mean(
+                [os.path.getsize(f) for f in files]) / raw),
+            'ms_per_frame_filter0': _median_ms(
+                lambda: png_decode.load(files[0]), 10),
+            'ms_per_frame_filters0to4': _median_ms(
+                lambda: png_decode.load(files[1]), 10)}
+    # 11-frame 96x96 windows at random positions, as the loader crops them
+    files = utils_common.get_imagenames(os.path.join(data['train'],
+                                                     'clip00'))
+    h, w = TRAIN_FRAME_HW
+    times = []
+    for _ in range(10):
+        s0 = int(rng.integers(0, TRAIN_FRAMES - TRAIN_T + 1))
+        y0 = int(rng.integers(0, h - TRAIN_HW + 1))
+        x0 = int(rng.integers(0, w - TRAIN_HW + 1))
+        t0 = time.perf_counter()
+        win = utils_common.load_crop_seq(files[s0:s0 + TRAIN_T], y0, x0,
+                                         TRAIN_HW, TRAIN_HW)
+        times.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(win, train[0, s0:s0 + TRAIN_T, y0:y0 + TRAIN_HW,
+                                         x0:x0 + TRAIN_HW]):
+            raise AssertionError('a 96x96 window differs from the frames')
+    rec['window'] = {'frames': TRAIN_T, 'hw': [TRAIN_HW, TRAIN_HW],
+                     'ms_median_of_10': statistics.median(times),
+                     'ms_min_max': [min(times), max(times)]}
+    emit(rec)
+    return data
+
+
+def _train_cli_cmd(data, *extra, iters=CLI_ITERS):
+    """The train command on the shipped yml: --force_yml points the
+    datasets at the PNG folders and cuts the run to ``iters``."""
+    return ['-opt', TRAIN_YML, *extra, '--force_yml',
+            f"datasets:train:trainset_dir={data['train']}",
+            f"datasets:val:valsetdir={data['val']}",
+            f'datasets:val:num_validation_frames={EVAL_T}',
+            f'train:total_iter={iters}', 'logger:print_freq=10',
+            f'logger:save_checkpoint_freq={CLI_ITERS}',
+            f'val:val_freq={CLI_ITERS}']
+
+
+class _StepClock:
+    """While a train pipeline runs: host-clock marks of each train
+    iteration (its batch handed to ``feed_data``, ``optimize_parameters``
+    returned; validation's feeds make no mark) and the timer averages of
+    the MessageLogger lines, by iteration."""
+
+    LINE = re.compile(r'iter: *([0-9,]+), .*time \(data\): ([0-9.]+) '
+                      r'\(([0-9.]+)\)')
+
+    def __enter__(self):
+        self.marks, self.logged, self.fed = [], {}, None
+        self.orig = (DenoisingModel.feed_data,
+                     DenoisingModel.optimize_parameters)
+        clock = self
+
+        def feed(model, data):
+            clock.fed = time.perf_counter()
+            return clock.orig[0](model, data)
+
+        def step(model, *a, **k):
+            out = clock.orig[1](model, *a, **k)
+            clock.marks.append((clock.fed, time.perf_counter()))
+            return out
+
+        class Lines(logging.Handler):
+            def emit(self, record):
+                m = clock.LINE.search(record.getMessage())
+                if m:
+                    clock.logged[int(m.group(1).replace(',', ''))] = (
+                        float(m.group(2)) * 1e3, float(m.group(3)) * 1e3)
+        DenoisingModel.feed_data, DenoisingModel.optimize_parameters = \
+            feed, step
+        self.handler = Lines()
+        get_root_logger().addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        DenoisingModel.feed_data, DenoisingModel.optimize_parameters = \
+            self.orig
+        get_root_logger().removeHandler(self.handler)
+
+    def steady(self, first, last):
+        """Iterations first..last (1-based): ms an iteration (from the end
+        of step first-1 to the end of step last), the mean wait for each
+        batch (end of the step before it to ``feed_data``: the loader, and
+        the loop's MessageLogger line every print_freq) and the mean host
+        time of feed_data + optimize_parameters."""
+        m = self.marks
+        n = last - first + 1
+        return {'iters': [first, last],
+                'ms_per_iter': (m[last - 1][1] - m[first - 2][1]) / n * 1e3,
+                'data_wait_ms': statistics.fmean(
+                    m[i][0] - m[i - 1][1] for i in range(first - 1, last))
+                * 1e3,
+                'feed_and_step_ms': statistics.fmean(
+                    m[i][1] - m[i][0] for i in range(first - 1, last)) * 1e3}
+
+    def timers(self, a, b):
+        """The logged timer averages over iterations 1..b, and over a+1..b
+        from the lines at a and b (ms; the lines round to 1 ms)."""
+        (ta, da), (tb, db) = self.logged[a], self.logged[b]
+        return {f'iter_ms_1_{b}': tb, f'data_ms_1_{b}': db,
+                f'iter_ms_{a + 1}_{b}': (b * tb - a * ta) / (b - a),
+                f'data_ms_{a + 1}_{b}': (b * db - a * da) / (b - a)}
+
+
+def _profile_loader_fed(model, data, first_iter, n=10):
+    """The device profile of n iterations fed by train_video_loader (the
+    train yml's loader options), as the train loop runs them, after 3
+    unprofiled ones; the profiler's host overhead is in the window."""
+    opt, _ = parse_options(WORK, is_train=True, cmd=_train_cli_cmd(data))
+    loader = build_dataset(dict(opt['datasets']['train'],
+                                manual_seed=opt['manual_seed']))
+    it = iter(loader)
+
+    def iterations(start, count):
+        for i in range(count):
+            model.feed_data(next(it))
+            model.optimize_parameters(start + i)
+    try:
+        iterations(first_iter, 3)
+
+        def run():
+            iterations(first_iter + 3, n)
+            torch.cuda.synchronize()
+        prof = _device_profile(run, n, 'loader_fed_iterations')
+    finally:
+        loader.close()
+    return {'iterations': n,
+            'window_ms_per_iter': prof['window_ms_per_unit'],
+            'device_busy_ms_per_iter': prof['device_busy_ms_per_unit'],
+            'idle_share': prof['idle_share'],
+            'top_device_ms_per_iter': prof['top_device_ms_per_unit'][:5]}
+
+
+def _loader_rate(data, workers, batches):
+    """Batches a second of train_video_loader with the train yml's loader
+    options (after its first batch unless ``batches`` is 0: then the first
+    batch, start-up included)."""
+    opt, _ = parse_options(WORK, is_train=True, cmd=_train_cli_cmd(data))
+    dopt = dict(opt['datasets']['train'], manual_seed=opt['manual_seed'])
+    if workers is not None:
+        dopt['num_workers'] = workers
+    loader = build_dataset(dopt)
+    try:
+        it = iter(loader)
+        t0 = time.perf_counter()
+        batch = next(it)
+        first = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for _ in range(batches):
+            batch = next(it)
+        steady = time.perf_counter() - t0
+    finally:
+        loader.close()
+    n = int(dopt['batch_size_per_gpu'])
+    shape = [n, TRAIN_T, 3, TRAIN_HW, TRAIN_HW]
+    if list(batch['gt'].shape) != shape or \
+            list(batch['noise_map'].shape) != shape[:2] + [1] + shape[3:] or \
+            not np.isfinite(batch['lq']).all():
+        raise AssertionError(f'loader batch {batch["gt"].shape}')
+    secs = steady / batches if batches else first
+    return {'workers': loader._num_workers, 'batch': shape,
+            'batches_per_s': 1 / secs, 'windows_per_s': n / secs,
+            'first_batch_s': first}
+
+
+def phase_entry(data):
+    """The train loader alone, then the train CLI on the shipped yml (fp32,
+    bf16 AMP, an auto-resume). Returns the main-path launches."""
+    rates = [_loader_rate(data, None, 3), _loader_rate(data, 1, 0)]
+    emit({'phase': 'loader', 'cpu_count': os.cpu_count(), 'rates': rates})
+    launches = dict.fromkeys(KERNELS, 0)
+    root = os.path.join(WORK, 'entry')
+    exp = os.path.join(root, 'experiments', 'bsvd_c64_unblind')
+    batch = _train_batch(np.random.default_rng(SEED + 15), TRAIN_N, TRAIN_T,
+                         TRAIN_HW)
+    for label, extra, force, iters in (
+            ('fp32', [], [], CLI_ITERS),
+            ('bf16', [], ['train:fp16=true'], CLI_ITERS),
+            ('bf16_auto_resume', ['--auto_resume'], ['train:fp16=true'],
+             CLI_RESUME_ITERS)):
+        cmd = _train_cli_cmd(data, *extra, iters=iters) + force
+        routes = dict(utils_common.ROUTES)
+        reset_counts()
+        t0 = time.perf_counter()
+        with _NoConv2d(), _ValSeconds() as secs, _StepClock() as clock:
+            model = train_pipeline(root, cmd=cmd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        run = counts()
+        steps = iters - (CLI_ITERS if extra else 0)
+        for k in ('conv3x3', 'conv_chain', 'conv_s2', 'conv_ps'):
+            if not run[k] > 0:
+                raise AssertionError(f'train CLI {label}: {k} never launched')
+        if run['conv3x3_dw'] != PER_TRAIN_STEP['conv3x3_dw'] * steps or \
+                model.optimizer.count != iters:
+            raise AssertionError(f'train CLI {label}: K7 {run["conv3x3_dw"]} '
+                                 f'launches, optimizer count '
+                                 f'{model.optimizer.count}: not {steps} '
+                                 f'steps to {iters}')
+        for k, v in run.items():
+            launches[k] += v
+        saved = [os.path.join(exp, p) for p in (
+            f'models/net_g_{CLI_ITERS}.npz', 'models/net_g_latest.npz',
+            f'training_states/{CLI_ITERS}.state', 'bsvd_c64_unblind.yml')]
+        missing = [p for p in saved if not os.path.isfile(p)]
+        if missing:
+            raise AssertionError(f'train CLI {label}: missing {missing}')
+        if len(clock.marks) != steps:
+            raise AssertionError(f'train CLI {label}: {len(clock.marks)} '
+                                 f'iterations clocked, not {steps}')
+        val_s = sum(sum(r.values()) for r in secs.runs)
+        rec = {'phase': 'train_cli', 'run': label, 'cmd_extra': extra + force,
+               'amp': model.amp, 'iters': steps, 'wall_s': wall,
+               'validations': len(secs.runs), 'validation_s': val_s,
+               'routes': _routes_since(routes), 'launches': run,
+               'loss_last': model.get_current_log()['l_pix']}
+        if not math.isfinite(rec['loss_last']):
+            raise AssertionError(f'train CLI {label}: non-finite loss')
+        if not extra:
+            # steady state: iterations 11-30, past the start-up of the
+            # loader and of the first steps
+            rec['steady'] = clock.steady(11, CLI_ITERS)
+            rec['timers_logged'] = clock.timers(10, CLI_ITERS)
+            # the same model's step on one in-memory batch, fed to the
+            # card before each step as the loop feeds it (phase 8 times
+            # the step on a batch fed once)
+            with _NoConv2d():
+                _time_steps(model, 2, iters + 1, batch)
+                rec['in_memory_fed_ms_per_step'], _ = _time_steps(
+                    model, 10, iters + 3, batch)
+                if model.amp:
+                    rec['loader_fed_profile'] = _profile_loader_fed(
+                        model, data, iters + 13)
+        emit(rec)
+        del model
+    return launches
+
+
 def main():
+    global WORK
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available()'
                          ' is False); this script runs only on a GPU')
+    WORK = tempfile.mkdtemp(prefix='chip_smoke_')
+    try:
+        run()
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+
+
+def run():
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader', '-i', '0'],
@@ -2208,8 +2536,13 @@ def main():
     t0 = time.perf_counter()
     lib_path = _build.build()
     _build.lib()
-    emit({'phase': 'build', 'seconds': time.perf_counter() - t0,
-          'library': os.path.relpath(lib_path, ROOT)})
+    t1 = time.perf_counter()
+    png_path = png_decode.build()
+    png_decode.lib()
+    emit({'phase': 'build', 'seconds': t1 - t0,
+          'library': os.path.relpath(lib_path, ROOT),
+          'png_unfilter_seconds': time.perf_counter() - t1,
+          'png_unfilter_library': os.path.relpath(png_path, ROOT)})
 
     summary = phase_kernels()
     clips = _clips(np.random.default_rng(SEED), 3)
@@ -2228,11 +2561,14 @@ def main():
     phase_train_grad()
     train_launches = phase_train()
     chunk_launches = phase_chunked(nets)
-    eval_launches = phase_eval(nets)
+    data = phase_frames()
+    eval_launches = phase_eval(nets, data)
     option_launches_run = phase_options(nets, clip24)
+    entry_launches = phase_entry(data)
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
-                        + eval_launches[k] + option_launches_run[k])
+                        + eval_launches[k] + option_launches_run[k]
+                        + entry_launches[k])
         if k not in off_route and not launches[k] > 0:
             raise AssertionError(f'{k} never launched on a main path')
         if k in off_route and launches[k]:

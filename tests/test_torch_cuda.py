@@ -716,25 +716,104 @@ def test_block_stream_equals_denoise_seq_bf16(dev, future):
 
 
 def test_native_decoder_builds_or_raises_with_gxx_output(dev, tmp_path):
-    """On the card's machine the decoder either builds (g++, libpng,
-    libjpeg) and reads back what the port's PNG writer wrote, or raises
-    with g++'s command and output; it never falls back to another reader.
-    On a machine without libpng / libjpeg headers it raises."""
-    from bsvd_tpu_torch.data import native_decode
+    """On the card's machine PNG frames take the zlib reader and read back
+    what the port's PNG writer wrote; the native JPEG decoder either builds
+    (g++, libjpeg) or raises with g++'s command and output, and never falls
+    back to another reader."""
+    from bsvd_tpu_torch.data import native_decode, utils_common
     from bsvd_tpu_torch.utils.img_util import imwrite
     rng = np.random.default_rng(11)
     frames = rng.integers(0, 256, (3, 20, 36, 3), dtype=np.uint8)
     paths = [str(tmp_path / f'{i}.png') for i in range(3)]
     for f, p in zip(frames, paths):
         imwrite(f[..., ::-1], p)                      # BGR, as cv2's
+    np.testing.assert_array_equal(utils_common.load_seq(paths), frames)
+    jpgs = [str(tmp_path / f'{i}.jpg') for i in range(3)]
     try:
         native_decode.build()
     except RuntimeError as e:
         assert 'g++ -O3' in str(e) and 'error' in str(e), str(e)
         with pytest.raises(RuntimeError, match='g\\+\\+'):
-            native_decode.load_seq(paths)
+            utils_common.load_seq(jpgs)
         return
-    np.testing.assert_array_equal(native_decode.load_seq(paths), frames)
+    with pytest.raises(IOError):                      # no such JPEG files
+        utils_common.load_seq(jpgs)
+
+
+def test_train_and_test_cli_on_png_folders(dev, tmp_path):
+    """The two command-line runs on the card from the shipped option files,
+    narrowed by --force_yml: train_pipeline 2 iterations on PNG frame
+    folders with validation and a checkpoint, an --auto_resume to 3, then
+    test_pipeline on a written test yml over one PNG clip."""
+    import os
+    from bsvd_tpu_torch.data.video_train_loader import synthetic_clips
+    from bsvd_tpu_torch.test import test_pipeline
+    from bsvd_tpu_torch.train import train_pipeline
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    root = str(tmp_path)
+    clips = synthetic_clips(np.random.default_rng(12), 2, 8, 40, 56)
+    for split in ('train', 'val'):
+        for i, c in enumerate(clips[:2 if split == 'train' else 1]):
+            for k, f in enumerate(c):
+                imwrite(f.transpose(1, 2, 0)[..., ::-1],
+                        f'{root}/{split}/clip{i}/{k:03d}.png')
+    yml = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(
+        __file__))), 'options', 'train', 'bsvd_c64_unblind.yml')
+    force = [f'datasets:train:trainset_dir={root}/train',
+             f'datasets:val:valsetdir={root}/val',
+             'datasets:val:num_validation_frames=8',
+             'datasets:train:batch_size_per_gpu=2',
+             'datasets:train:temp_patch_size=5',
+             'datasets:train:patch_size=[32,32]',
+             'datasets:train:num_workers=2', 'network_g:num_segments=5',
+             'network_g:net2d_opt:chns=[16,32,64]',
+             'network_g:net2d_opt:mid_ch=16',
+             'network_g:net2d_opt:interm_ch=16', 'val:temp_psz=4',
+             'logger:print_freq=1', 'logger:save_checkpoint_freq=2',
+             'val:val_freq=2', 'train:fp16=true']
+    model = train_pipeline(root, cmd=['-opt', yml, '--force_yml', *force,
+                                      'train:total_iter=2'])
+    assert model.device.type == 'cuda' and model.optimizer.count == 2
+    exp = f'{root}/experiments/bsvd_c64_unblind'
+    for f in ('models/net_g_2.npz', 'training_states/2.state',
+              'bsvd_c64_unblind.yml'):
+        assert os.path.isfile(f'{exp}/{f}'), f
+    model = train_pipeline(root, cmd=['-opt', yml, '--auto_resume',
+                                      '--force_yml', *force,
+                                      'train:total_iter=3'])
+    assert model.optimizer.count == 3
+    test_yml = f'{root}/test.yml'
+    with open(test_yml, 'w') as f:
+        f.write(f"""name: card_cli
+model_type: DenoisingModel
+num_gpu: 1
+manual_seed: 10
+datasets:
+  val_1:
+    name: synth
+    type: ValFolderDataset
+    valsetdir: {root}/val
+    num_validation_frames: 8
+    valnoisestd: 20
+network_g:
+  type: BSVD
+  chns: [16, 32, 64]
+  mid_ch: 16
+  interm_ch: 16
+  norm: 'none'
+  act: 'relu6'
+path:
+  pretrain_network_g: {exp}/models/net_g_2.npz
+  strict_load_g: true
+val:
+  save_img: false
+  temp_psz: -1
+  fp16: true
+  metrics:
+    psnr: {{type: calculate_psnr, crop_border: 2, test_y_channel: false}}
+""")
+    res = test_pipeline(root, cmd=['-opt', test_yml])['synth']
+    assert np.isfinite(res['psnr'])
 
 
 # ---- the WNet options: fold 0, and every path per option --------------------

@@ -1,8 +1,8 @@
 """The port's evaluation path on CPU against the JAX package: metrics
 (PSNR / SSIM / float PSNR), tensor2img, the PNG writer, frame reading
-(the native decoder, open_sequence, ValFolderDataset), DenoisingModel's
-padding / test / validation, test_pipeline and validation during
-training.
+(the zlib PNG reader, the native JPEG decoder, open_sequence,
+ValFolderDataset), DenoisingModel's padding / test / validation,
+test_pipeline from an option file and validation during training.
 
 Tolerances: host arithmetic that is the same numpy on both sides is equal
 bit for bit (tensor2img, frames, noise, padding); PSNR within 1e-10 dB and
@@ -25,7 +25,7 @@ import torch
 from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
                                                load_tsn_state_dict)
 from bsvd_tpu_torch.data import build_dataset
-from bsvd_tpu_torch.data import native_decode
+from bsvd_tpu_torch.data import native_decode, png_decode
 from bsvd_tpu_torch.data.utils_common import open_sequence
 from bsvd_tpu_torch.metrics import calculate_metric
 from bsvd_tpu_torch.metrics.psnr_ssim import (calculate_psnr,
@@ -140,15 +140,15 @@ def test_png_writer_refuses_other_formats(tmp_path):
 
 @pytest.mark.parametrize('fmt', ['png', 'jpg'])
 def test_native_decoder_matches_cv2_and_jax(tmp_path, fmt):
-    """The port's decoder reads what cv2 reads (PNG; JPEG through the same
-    libjpeg as the JAX package's decoder), and open_sequence equals the
-    JAX package's bit for bit."""
+    """Each frame's reader (PNG: the zlib reader; JPEG: the native decoder,
+    the same libjpeg as the JAX package's) reads what cv2 reads (PNG), and
+    open_sequence equals the JAX package's bit for bit."""
     from make_synth_dataset import main as make_ds
     from bsvd_tpu.data.utils_common import open_sequence as jax_open
     make_ds(str(tmp_path), num_clips=1, t=5, h=40, w=56, seed=3, fmt=fmt)
     folder = str(tmp_path / 'clip00')
     paths = sorted(glob.glob(os.path.join(folder, f'*.{fmt}')))
-    seq = native_decode.load_seq(paths)
+    seq = (png_decode if fmt == 'png' else native_decode).load_seq(paths)
     assert seq.shape == (5, 40, 56, 3) and seq.dtype == np.uint8
     if fmt == 'png':
         for i, p in enumerate(paths):
@@ -370,10 +370,11 @@ def test_test_pipeline_matches_jax(synth_data, tmp_path, psz, future):
     ckpt = _shared_ckpt(tmp_path)
     jpath, _ = _pipeline_opts(synth_data, str(tmp_path / 'jax'), ckpt,
                               temp_psz=psz, future_buffer_len=future)
-    _, opt = _pipeline_opts(synth_data, str(tmp_path / 'port'), ckpt,
-                            temp_psz=psz, future_buffer_len=future)
+    ppath, _ = _pipeline_opts(synth_data, str(tmp_path / 'port'), ckpt,
+                              temp_psz=psz, future_buffer_len=future)
     ref = jax_test_pipeline(str(tmp_path / 'jax'), opt_path=jpath)
-    got = test_pipeline(opt, device='cpu')
+    got = test_pipeline(str(tmp_path / 'port'), cmd=['-opt', ppath,
+                                                     '--device', 'cpu'])
     assert set(got) == {'synth_20'} and set(got['synth_20']) == set(METRICS)
     for m, tol in TOL_UINT8.items():
         assert abs(got['synth_20'][m] - ref['synth_20'][m]) < tol, m
@@ -397,17 +398,17 @@ def test_test_pipeline_matches_jax(synth_data, tmp_path, psz, future):
     assert len(pngs) == 16 and len(list(root.glob('test_*.log'))) == 1
 
 
-def test_test_pipeline_reads_json_options(synth_data, tmp_path):
-    """The options as a JSON file (the card's machine has no PyYAML), and
-    center_frame_only scoring one frame a clip."""
-    import json
+def test_test_pipeline_reads_yaml_options(synth_data, tmp_path):
+    """The option file read by the port's own YAML reader (``opt_path``,
+    the device by argument), and center_frame_only scoring one frame a
+    clip."""
     from bsvd_tpu_torch.test import test_pipeline
-    _, opt = _pipeline_opts(synth_data, str(tmp_path), _shared_ckpt(tmp_path),
-                            save_img=False)
-    opt['center_frame_only'] = True
-    path = tmp_path / 'opt.json'
-    path.write_text(json.dumps(opt))
-    res = test_pipeline(str(path), device='cpu')['synth_20']
+    path, _ = _pipeline_opts(synth_data, str(tmp_path),
+                             _shared_ckpt(tmp_path), save_img=False)
+    with open(path, 'a') as f:
+        f.write('center_frame_only: true\n')
+    res = test_pipeline(str(tmp_path), opt_path=path,
+                        device='cpu')['synth_20']
     assert all(np.isfinite(v) for v in res.values()) and res['psnr'] > 3
     root = tmp_path / 'results' / 'smoke_eval'
     assert _read_csv(root / 'synth_20_clip00.csv')[1].shape == (1, 3)
@@ -444,7 +445,7 @@ def test_train_pipeline_validates_at_val_freq_and_at_the_end(synth_data,
                                                               tmp_path,
                                                               monkeypatch):
     from bsvd_tpu_torch.data.video_train_loader import SyntheticVideoLoader
-    from bsvd_tpu_torch.train import train_pipeline
+    from bsvd_tpu_torch.train import train_loop
     calls = []
     orig = DenoisingModel.validation
 
@@ -485,7 +486,7 @@ def test_train_pipeline_validates_at_val_freq_and_at_the_end(synth_data,
         {'batch_size_per_gpu': 1, 'temp_patch_size': 3, 'patch_size': 16,
          'noise_ival': [5, 55], 'noise_shape': 'N', 'manual_seed': 3},
         epoch_size=3)
-    model = train_pipeline(opt, loader, device='cpu')
+    model = train_loop(opt, loader, device='cpu')
     assert calls == [2, 4, 4]
     assert model.current_iter == 4
     assert sorted(p.name for p in tmp_path.glob('*.csv')) == [

@@ -1,0 +1,416 @@
+"""The port's frame reading and train loader on CPU against the JAX package
+and libpng: the zlib-only PNG reader (``data/png_decode``) bit for bit
+against cv2.imread and the JAX package's native decoder on every PNG kind
+the reader takes, its crop entry and its errors; the route by file type;
+``train_video_loader`` with one worker bit for bit against the JAX
+package's loader, its epoch length, the skipped short clip, the refused
+video files and the reference's alias.
+
+Tolerances: none. Frames and batches are integer decodes and the same
+numpy arithmetic on both sides: equal bit for bit.
+"""
+
+import os
+import struct
+import zlib
+
+import numpy as np
+import pytest
+
+from bsvd_tpu_torch.data import build_dataset, png_decode, utils_common
+from bsvd_tpu_torch.data.video_train_loader import (_ClipIndex,
+                                                    train_dali_loader,
+                                                    train_video_loader)
+from bsvd_tpu_torch.utils.img_util import imwrite
+from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
+
+from png_util import chunk, make_png, pack_rows
+
+cv2 = pytest.importorskip('cv2')
+
+RNG = np.random.default_rng(20)
+IMG = RNG.integers(0, 256, (19, 23, 4))
+IMG16 = RNG.integers(0, 65536, (19, 23, 4))
+PAL = RNG.integers(0, 256, (256, 3), dtype=np.uint8)
+
+
+def _own(samples, depth, color, **kw):
+    return lambda path: open(path, 'wb').write(
+        make_png(samples, depth, color, **kw))
+
+
+def _cv2(img):
+    return lambda path: cv2.imwrite(path, img)
+
+
+# each kind of PNG the reader takes: cv2's writer (libpng, adaptive filter
+# choice) and the tests' own (every colour type, depth, tRNS, filter 0-4)
+KINDS = {
+    'cv2_bgr8': _cv2(IMG[..., :3].astype(np.uint8)),
+    'cv2_gray8': _cv2(IMG[..., 0].astype(np.uint8)),
+    'cv2_bgra8': _cv2(IMG.astype(np.uint8)),
+    'cv2_bgr16': _cv2(IMG16[..., :3].astype(np.uint16)),
+    'cv2_gray16': _cv2(IMG16[..., 0].astype(np.uint16)),
+    'cv2_bgra16': _cv2(IMG16.astype(np.uint16)),
+    'gray_alpha8': _own(IMG[..., :2], 8, 4, filters=[0, 1, 2, 3, 4]),
+    'gray_alpha16': _own(IMG16[..., :2], 16, 4, filters=[4, 3, 2, 1, 0]),
+    'rgb16_trns': _own(IMG16[..., :3], 16, 2, filters=[1, 4],
+                       trns=struct.pack('>HHH', *IMG16[0, 0, :3])),
+    'rgba16': _own(IMG16, 16, 6, filters=[2, 3, 4]),
+    'rgb8_trns': _own(IMG[..., :3], 8, 2, filters=[3],
+                      trns=struct.pack('>HHH', *IMG[0, 0, :3])),
+    'gray8_trns': _own(IMG[..., 0], 8, 0, filters=[4],
+                       trns=struct.pack('>H', IMG[1, 1, 0])),
+    'palette8': _own(IMG[..., 0], 8, 3, palette=PAL, filters=[0, 4]),
+    'palette8_trns': _own(IMG[..., 0], 8, 3, palette=PAL, filters=[1, 3],
+                          trns=bytes(range(0, 256, 2))),
+    'palette4_trns': _own(IMG[..., 0] % 16, 4, 3, palette=PAL[:16],
+                          filters=[2, 4], trns=bytes([0, 128, 255])),
+    'palette2': _own(IMG[..., 0] % 4, 2, 3, palette=PAL[:4], filters=[3]),
+    'palette1': _own(IMG[..., 0] % 2, 1, 3, palette=PAL[:2], filters=[4]),
+    'gray1': _own(IMG[..., 0] % 2, 1, 0, filters=[0, 1, 2, 3, 4]),
+    'gray2': _own(IMG[..., 0] % 4, 2, 0, filters=[4, 2]),
+    'gray4': _own(IMG[..., 0] % 16, 4, 0, filters=[3, 1]),
+    '1x1': _own(IMG[:1, :1, :3], 8, 2, filters=[4]),
+    '7x13': _own(IMG[:7, :13, :3], 8, 2, filters=[0, 1, 2, 3, 4]),
+    'four_idat_chunks': _own(IMG[..., :3], 8, 2, filters=[2],
+                             idat_chunks=4),
+}
+KINDS.update({f'rgb8_filter{f}': _own(IMG[..., :3], 8, 2, filters=[f])
+              for f in range(5)})
+
+
+def _native_jax(path):
+    from bsvd_tpu.data import native_decode
+    if not native_decode.available():
+        pytest.skip('the JAX package\'s native decoder does not build here')
+    return native_decode.decode_image(path)
+
+
+@pytest.mark.parametrize('kind', sorted(KINDS))
+def test_png_reader_matches_libpng(tmp_path, kind):
+    """Equal to libpng bit for bit, twice over: cv2.imread (BGR -> RGB) and
+    the JAX package's native decoder (libpng with the same transforms)."""
+    path = str(tmp_path / f'{kind}.png')
+    KINDS[kind](path)
+    got = png_decode.load(path)
+    ref = cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB)
+    assert got.dtype == np.uint8 and got.shape == ref.shape
+    np.testing.assert_array_equal(got, ref)
+    np.testing.assert_array_equal(got, _native_jax(path))
+    assert png_decode.image_dims(path) == got.shape[:2]
+
+
+@pytest.mark.parametrize('kind', ['cv2_bgr8', 'gray_alpha16', 'palette2',
+                                  'gray1', '7x13', 'four_idat_chunks'])
+def test_png_crop_equals_the_crop_of_the_frame(tmp_path, kind):
+    path = str(tmp_path / 'f.png')
+    KINDS[kind](path)
+    whole = png_decode.load(path)
+    h, w = whole.shape[:2]
+    for y0, x0, ch, cw in ((0, 0, h, w), (0, 0, 1, 1), (h - 1, w - 1, 1, 1),
+                           (h // 3, w // 4, h - h // 3, w // 2)):
+        np.testing.assert_array_equal(
+            png_decode.load_crop(path, y0, x0, ch, cw),
+            whole[y0:y0 + ch, x0:x0 + cw])
+    seq = png_decode.load_crop_seq([path, path], 1, 2, h - 2, w - 3)
+    np.testing.assert_array_equal(seq, np.stack([whole[1:-1, 2:-1]] * 2))
+    with pytest.raises(IOError, match='outside'):
+        png_decode.load_crop(path, 1, 0, h, w)
+
+
+def _corrupt(data, kind):
+    if kind == 'truncated':
+        return data[:len(data) // 2]
+    if kind == 'no_iend':
+        return data[:-12]
+    if kind == 'bad_crc':
+        i = data.index(b'IDAT') + 10
+        return data[:i] + bytes([data[i] ^ 0xff]) + data[i + 1:]
+    if kind == 'bad_signature':
+        return b'\x89PNX' + data[4:]
+    if kind == 'bad_filter':          # row 0 with filter type 5
+        rows = pack_rows(IMG[..., :3], 8)
+        raw = np.concatenate([np.full((len(rows), 1), 5, np.uint8), rows], 1)
+        return data[:33] + chunk(b'IDAT', zlib.compress(raw.tobytes())) + \
+            chunk(b'IEND', b'')
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize('kind', ['truncated', 'no_iend', 'bad_crc',
+                                  'bad_signature', 'bad_filter', 'adam7'])
+def test_png_reader_refuses_broken_and_interlaced_files(tmp_path, kind):
+    """Each raises IOError naming the file; cv2 reads the Adam7 file (it
+    is a valid PNG), the port does not read interlacing yet."""
+    path = str(tmp_path / 'f.png')
+    if kind == 'adam7':
+        data = make_png(IMG[..., :3], 8, 2, interlace=True)
+    else:
+        data = _corrupt(make_png(IMG[..., :3], 8, 2), kind)
+    open(path, 'wb').write(data)
+    if kind == 'adam7':
+        np.testing.assert_array_equal(
+            cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB),
+            IMG[..., :3].astype(np.uint8))
+    with pytest.raises(IOError, match='Adam7' if kind == 'adam7' else 'f.png'):
+        png_decode.load(path)
+    with pytest.raises(IOError):
+        png_decode.load_crop(path, 0, 0, 2, 2)
+
+
+def test_frames_take_a_route_by_file_type(tmp_path):
+    """.png always the zlib reader; .jpg / .jpeg / .bmp / .tif the native
+    JPEG decoder; open_sequence counts each frame's route."""
+    assert [utils_common.route(f'a{e}') for e in (
+        '.png', '.PNG', '.jpg', '.jpeg', '.bmp', '.tif')] == \
+        ['png_decode'] * 2 + ['native_decode'] * 4
+    frames = RNG.integers(0, 256, (3, 9, 11, 3), dtype=np.uint8)
+    for i, f in enumerate(frames):
+        imwrite(f[..., ::-1], str(tmp_path / f'{i}.png'))
+    before = utils_common.ROUTES['png_decode']
+    got = utils_common.open_sequence(str(tmp_path))
+    assert utils_common.ROUTES['png_decode'] == before + 3
+    np.testing.assert_array_equal(
+        got, np.transpose(frames, (0, 3, 1, 2)) / np.float32(255))
+    # a folder is read by one route: frames of several types raise
+    (tmp_path / '3.jpg').write_bytes(b'\xff\xd8')
+    with pytest.raises(IOError, match='several file types'):
+        utils_common.open_sequence(str(tmp_path))
+
+
+# ---------------------------------------------------------------------------
+# the train loader
+# ---------------------------------------------------------------------------
+
+@pytest.fixture(scope='module')
+def clip_root(tmp_path_factory):
+    """Three 12-frame clips at 40x52 (odd frames written by cv2, even ones
+    by the port's writer with filters 0-4) and a 3-frame clip, shorter
+    than the loaders' temp_patch_size."""
+    root = tmp_path_factory.mktemp('train_clips')
+    rng = np.random.default_rng(21)
+    for c, n in enumerate((12, 12, 3, 12)):
+        folder = root / f'clip{c}'
+        folder.mkdir()
+        for k in range(n):
+            f = rng.integers(0, 256, (40, 52, 3), dtype=np.uint8)
+            path = str(folder / f'{k:03d}.png')
+            if k % 2:
+                cv2.imwrite(path, f)
+            else:
+                open(path, 'wb').write(make_png(f[..., ::-1], 8, 2,
+                                                filters=[0, 1, 2, 3, 4]))
+    return str(root)
+
+
+def _opt(root, **over):
+    return dict({'trainset_dir': root, 'batch_size_per_gpu': 2,
+                 'temp_patch_size': 5, 'patch_size': [24, 24],
+                 'max_number_patches': 6, 'noise_ival': [5, 55],
+                 'noise_shape': 'N', 'num_workers': 1, 'manual_seed': 4},
+                **over)
+
+
+@pytest.mark.parametrize('over', [
+    {}, {'noise_shape': 'NF'}, {'blind': True},
+    {'noise_shape': 'NF', 'patch_size': [16, 32], 'manual_seed': 9}],
+    ids=['N', 'NF', 'blind', 'rectangular'])
+def test_train_loader_matches_jax_with_one_worker(clip_root, over):
+    """Three batches (one epoch) bit for bit: the worker's seed, clip,
+    start and window from the same Generators, the short clip skipped
+    alike, the augmentation and the noise."""
+    from bsvd_tpu.data.video_train_loader import train_video_loader as jax
+    opt = _opt(clip_root, **over)
+    ours, ref = train_video_loader(opt), jax(dict(opt))
+    try:
+        assert len(ours) == len(ref) == 3
+        got, want = list(ours), list(ref)
+    finally:
+        ours.close()
+        ref.close()
+    assert len(got) == len(want) == 3
+    for a, b in zip(got, want):
+        assert sorted(a) == sorted(b)
+        assert ('noise_map' in a) == (not over.get('blind', False))
+        for k in b:
+            assert a[k].dtype == b[k].dtype and a[k].shape == b[k].shape
+            np.testing.assert_array_equal(a[k], b[k])
+    ps = opt['patch_size']
+    assert sorted(got[0]['gt'].shape[-2:]) == sorted(ps)
+
+
+def test_train_loader_epoch_and_short_clips(clip_root, tmp_path):
+    """len() counts batches of max_number_patches windows (ceil), and
+    without it the frames over temp_patch_size; the 3-frame clip raises
+    in the index and is skipped by the workers; a folder of clips all
+    shorter than temp_patch_size raises at construction."""
+    from bsvd_tpu.data.video_train_loader import train_video_loader as jax
+    for over in ({'max_number_patches': 7}, {'max_number_patches': -1},
+                 {'batch_size_per_gpu': 4, 'max_number_patches': 1}):
+        ours, ref = train_video_loader(_opt(clip_root, **over)), \
+            jax(_opt(clip_root, **over))
+        ours.close()
+        ref.close()
+        assert len(ours) == len(ref)
+    assert len(ours) == 1
+    index = _ClipIndex(clip_root)
+    assert [n for _, n in index.entries] == [12, 12, 3, 12]
+    seeds = [s for s in range(50)
+             if np.random.default_rng(s).integers(4) == 2]
+    with pytest.raises(IOError, match='shorter'):
+        index.sample(np.random.default_rng(seeds[0]), 5, (24, 24))
+    short = tmp_path / 'short' / 'clip0'
+    short.mkdir(parents=True)
+    for k in range(3):
+        imwrite(np.zeros((8, 8, 3), np.uint8), str(short / f'{k}.png'))
+    with pytest.raises(IOError, match='temp_patch_size'):
+        train_video_loader(_opt(str(tmp_path / 'short')))
+    # frames smaller than patch_size: no window fits
+    small = tmp_path / 'small' / 'clip0'
+    small.mkdir(parents=True)
+    for k in range(6):
+        imwrite(np.zeros((8, 30, 3), np.uint8), str(small / f'{k}.png'))
+    with pytest.raises(IOError, match='patch_size'):
+        train_video_loader(_opt(str(tmp_path / 'small')))
+
+
+def test_train_loader_raises_on_unread_kinds_and_endless_redraws(
+        clip_root, tmp_path, monkeypatch):
+    """An Adam7 frame is not skipped: at construction where no other clip
+    holds a window, else in __next__. A clip whose windows never decode
+    raises in __next__ after MAX_REDRAWS draws in a row, each reason
+    logged once."""
+    from bsvd_tpu_torch.data import video_train_loader as vtl
+    img = np.random.default_rng(3).integers(0, 256, (32, 32, 3), np.uint8)
+    good, adam7 = tmp_path / 'mixed' / 'clip0', tmp_path / 'mixed' / 'clip1'
+    only = tmp_path / 'only' / 'clip0'
+    for folder in (good, adam7, only):
+        folder.mkdir(parents=True)
+    for k in range(6):
+        imwrite(img[..., ::-1], str(good / f'{k}.png'))
+        for folder in (adam7, only):
+            (folder / f'{k}.png').write_bytes(make_png(img, 8, 2,
+                                                       interlace=True))
+    with pytest.raises(NotImplementedError, match='Adam7'):
+        train_video_loader(_opt(str(only.parent)))
+    loader = train_video_loader(_opt(str(tmp_path / 'mixed'),
+                                     max_number_patches=200))
+    try:
+        with pytest.raises(RuntimeError, match='worker failed') as err:
+            for _ in loader:
+                pass
+    finally:
+        loader.close()
+    assert isinstance(err.value.__cause__, png_decode.UnsupportedPNG)
+
+    broken = tmp_path / 'broken' / 'clip0'
+    broken.mkdir(parents=True)
+    imwrite(img[..., ::-1], str(broken / '0.png'))
+    for k in range(1, 6):
+        (broken / f'{k}.png').write_bytes(b'\x89PNG\r\n\x1a\n')
+    monkeypatch.setattr(vtl, 'MAX_REDRAWS', 20)
+    warned = []
+    monkeypatch.setattr(vtl, 'get_root_logger', lambda: type(
+        'L', (), {'warning': staticmethod(warned.append)})())
+    loader = train_video_loader(_opt(str(broken.parent)))
+    try:
+        with pytest.raises(RuntimeError, match='worker failed') as err:
+            next(iter(loader))
+    finally:
+        loader.close()
+    assert 'in a row' in str(err.value.__cause__)
+    assert loader.skipped == 20 and 0 < len(warned) < 20
+
+
+def test_train_loader_refuses_video_files_and_more_devices(clip_root,
+                                                           tmp_path):
+    (tmp_path / 'clip0').mkdir()
+    imwrite(np.zeros((8, 8, 3), np.uint8), str(tmp_path / 'clip0' / '0.png'))
+    (tmp_path / 'davis.mp4').write_bytes(b'\x00' * 16)
+    with pytest.raises(NotImplementedError, match='davis.mp4'):
+        train_video_loader(_opt(str(tmp_path)))
+    with pytest.raises(NotImplementedError, match='num_devices'):
+        train_video_loader(_opt(clip_root, num_devices=2))
+
+
+def test_train_loader_is_registered_under_both_names(clip_root):
+    assert DATASET_REGISTRY.get('train_video_loader') is train_video_loader
+    assert DATASET_REGISTRY.get('train_dali_loader') is train_dali_loader
+    loader = build_dataset(dict(_opt(clip_root), type='train_dali_loader'))
+    try:
+        batch = next(iter(loader))
+    finally:
+        loader.close()
+    assert isinstance(loader, train_video_loader)
+    assert batch['lq'].shape == (2, 5, 3, 24, 24)
+    assert not any(t.is_alive() for t in loader._workers)
+
+
+def test_train_loader_hands_a_worker_fault_to_the_caller(clip_root,
+                                                         monkeypatch):
+    """A fault other than an unreadable window ends the worker and raises
+    in __next__, instead of leaving the caller waiting."""
+    def broken(self, rng, seq_len, crop_hw):
+        raise MemoryError('decoder out of memory')
+    monkeypatch.setattr(_ClipIndex, 'sample', broken)
+    loader = train_video_loader(_opt(clip_root))
+    try:
+        with pytest.raises(RuntimeError, match='worker failed'):
+            next(iter(loader))
+    finally:
+        loader.close()
+
+
+def test_clip_windows_read_the_frames_that_cv2_reads(clip_root):
+    """The index's window equals the crop of the frames cv2 reads, at the
+    positions drawn from the Generator in the JAX package's order."""
+    from bsvd_tpu.data.video_train_loader import _ClipIndex as JaxIndex
+    ours, ref = _ClipIndex(clip_root), JaxIndex(clip_root)
+    for seed in range(6):
+        try:
+            want = ref.sample(np.random.default_rng(seed), 4, (16, 20))
+        except IOError:
+            with pytest.raises(IOError):
+                ours.sample(np.random.default_rng(seed), 4, (16, 20))
+            continue
+        np.testing.assert_array_equal(
+            ours.sample(np.random.default_rng(seed), 4, (16, 20)), want)
+    assert os.path.isdir(clip_root)
+
+
+def test_reads_from_many_threads_keep_every_count(clip_root):
+    """More threads than cores, a short switch interval: the route counter
+    loses no update, every window equals the one read alone, and a loader
+    with 16 workers stops within its join timeout."""
+    import sys
+    import threading
+    files = utils_common.get_imagenames(os.path.join(clip_root, 'clip0'))[:4]
+    want = utils_common.load_crop_seq(files, 3, 5, 16, 20)
+    before = utils_common.ROUTES['png_decode']
+    errors, n_threads, n_reads = [], 16, 5
+    interval = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        def read():
+            for _ in range(n_reads):
+                if not np.array_equal(utils_common.load_crop_seq(
+                        files, 3, 5, 16, 20), want):
+                    errors.append('window differs')
+        threads = [threading.Thread(target=read) for _ in range(n_threads)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=60)
+        assert not any(t.is_alive() for t in threads)
+        assert utils_common.ROUTES['png_decode'] - before == \
+            n_threads * n_reads * len(files)
+        loader = train_video_loader(_opt(clip_root, num_workers=16))
+        try:
+            batches = [next(iter(loader)) for _ in range(2)]
+        finally:
+            loader.close()
+        assert not any(t.is_alive() for t in loader._workers)
+    finally:
+        sys.setswitchinterval(interval)
+    assert not errors
+    assert all(b['gt'].shape == (2, 5, 3, 24, 24) for b in batches)

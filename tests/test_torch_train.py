@@ -559,7 +559,7 @@ def test_resume_reproduces_the_uninterrupted_trajectory(tmp_path):
     """6 straight steps against 4 steps, save, a fresh model resumed
     from the state (check_resume's pretrain repoint for params and EMA,
     the optimizer's moments and count), and 2 more steps."""
-    from bsvd_tpu_torch.models.base_model import check_resume
+    from bsvd_tpu_torch.utils.misc import check_resume
     from bsvd_tpu_torch.models.checkpoint import load_training_state
     from bsvd_tpu_torch.models.denoising_model import DenoisingModel
     opt = _opt(scheduler={'type': 'MultiStepLR', 'milestones': [5],
@@ -599,7 +599,7 @@ def test_resume_reproduces_the_uninterrupted_trajectory(tmp_path):
 def test_train_pipeline_runs_saves_and_auto_resumes(tmp_path):
     from bsvd_tpu_torch.data.video_train_loader import SyntheticVideoLoader
     from bsvd_tpu_torch.models.base_model import latest_resume_state
-    from bsvd_tpu_torch.train import train_pipeline
+    from bsvd_tpu_torch.train import train_loop
     opt = _opt(total_iter=4)
     opt['path'].update(models=str(tmp_path / 'm'),
                        training_states=str(tmp_path / 's'))
@@ -608,7 +608,7 @@ def test_train_pipeline_runs_saves_and_auto_resumes(tmp_path):
         {'batch_size_per_gpu': 1, 'temp_patch_size': T, 'patch_size': 16,
          'noise_ival': [5, 55], 'noise_shape': 'N', 'manual_seed': 3},
         epoch_size=3)
-    model = train_pipeline(opt, loader, device='cpu')
+    model = train_loop(opt, loader, device='cpu')
     assert model.current_iter == 4
     assert latest_resume_state(opt['path']['training_states']).endswith(
         '4.state')
@@ -616,12 +616,12 @@ def test_train_pipeline_runs_saves_and_auto_resumes(tmp_path):
                                        'net_g_latest.npz'))
     opt['auto_resume'] = True
     opt['train']['total_iter'] = 5
-    resumed = train_pipeline(opt, loader, device='cpu')
+    resumed = train_loop(opt, loader, device='cpu')
     assert resumed.current_iter == 5 and resumed.optimizer.count == 5
     # val_freq with no val datasets: nothing to validate, and no raise
     # (validation itself: test_torch_eval.py)
     opt['train']['total_iter'] = 6
-    validated = train_pipeline(dict(opt, val={'val_freq': 2}), loader,
+    validated = train_loop(dict(opt, val={'val_freq': 2}), loader,
                                device='cpu')
     assert validated.current_iter == 6
 
