@@ -369,7 +369,15 @@ def pipeline_latency(cfg):
     return 0 if _is_causal(cfg) else cfg.shift_num
 
 
-def streaming_apply(params, x, cfg):
+def _cast_state(tree, dtype):
+    if isinstance(tree, dict):
+        return {k: _cast_state(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast_state(v, dtype) for v in tree]
+    return tree.to(dtype) if isinstance(tree, torch.Tensor) else tree
+
+
+def streaming_apply(params, x, cfg, state_dtype=None):
     """Whole-clip streaming forward (reference BSVD.streaming_forward,
     bsvd_arch.py:501-552): feed T frames, drain with ``latency`` invalid
     steps, keep the valid outputs.
@@ -377,17 +385,24 @@ def streaming_apply(params, x, cfg):
     Args:
         params: a wnet_init tree (or prepared ConvWeights) on x's device.
         x: (N, T, H, W, C_in).
+        state_dtype: the dtype the buffers are carried in between frames
+            (default x's); each step computes in x's dtype.
     Returns:
         (N, T, H, W, out_ch)
     """
     n, t, h, w, _ = x.shape
     params = _folded(params)
     lat = pipeline_latency(cfg)
-    state = stream_init(cfg, n, h, w, x.dtype, x.device)
+    carry = state_dtype or x.dtype
+    state = stream_init(cfg, n, h, w, carry, x.device)
     outs = []
     for i in range(t + lat):
+        if carry != x.dtype:
+            state = _cast_state(state, x.dtype)
         state, out = stream_step(params, state, x[:, i] if i < t else None,
                                  cfg)
+        if carry != x.dtype:
+            state = _cast_state(state, carry)
         if out is not None:
             outs.append(out)
     if len(outs) != t:

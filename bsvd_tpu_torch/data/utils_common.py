@@ -1,13 +1,14 @@
 """Reading clips from folders of frames (counterpart of bsvd_tpu/data/
-utils_common.py get_imagenames / open_sequence): digit-sorted file names,
-RGB (C, H, W) float32 in [0, 1].
+utils_common.py get_imagenames / open_image / open_sequence): digit-sorted
+file names, RGB (C, H, W) float32 in [0, 1], odd sizes optionally expanded
+by their last row and column.
 
 Each frame takes a route by its file type, never by what failed to build:
-``.png`` the port's zlib reader (``png_decode``), ``.jpg`` / ``.jpeg`` /
-``.bmp`` / ``.tif`` the native JPEG decoder (``native_decode``, which
-needs libjpeg's headers where it is built). A folder of frames of several
-types raises. ``ROUTES`` counts the frames each route read in this
-process."""
+``.png`` the zlib reader (``png_decode``), ``.jpg`` / ``.jpeg`` the
+standard-C++ JPEG decoder (``jpeg_decode``), ``.bmp`` the BMP reader
+(``bmp_decode``); ``.tif`` raises NotImplementedError (not read yet). A
+folder of frames of several types raises. ``ROUTES`` counts the frames
+each route read in this process."""
 
 import collections
 import glob
@@ -16,11 +17,14 @@ import threading
 
 import numpy as np
 
-from bsvd_tpu_torch.data import native_decode, png_decode
+from bsvd_tpu_torch.data import bmp_decode, jpeg_decode, png_decode
 from bsvd_tpu_torch.utils.misc import digit_sort_key
 
 IMAGETYPES = ('*.bmp', '*.png', '*.jpg', '*.jpeg', '*.tif')
-_MODULES = {'png_decode': png_decode, 'native_decode': native_decode}
+_MODULES = {'png_decode': png_decode, 'jpeg_decode': jpeg_decode,
+            'bmp_decode': bmp_decode}
+_BY_EXT = {'.png': 'png_decode', '.jpg': 'jpeg_decode',
+           '.jpeg': 'jpeg_decode', '.bmp': 'bmp_decode'}
 ROUTES = collections.Counter()
 _routes_lock = threading.Lock()
 
@@ -37,10 +41,14 @@ def get_imagenames(seq_dir, pattern=None):
 
 
 def route(path):
-    """The reader of a frame file by its type: 'png_decode' or
-    'native_decode'."""
-    return 'png_decode' if str(path).lower().endswith('.png') \
-        else 'native_decode'
+    """The reader of a frame file by its type: 'png_decode', 'jpeg_decode'
+    or 'bmp_decode'. Other types (``.tif``) raise NotImplementedError."""
+    ext = os.path.splitext(str(path))[1].lower()
+    if ext not in _BY_EXT:
+        raise NotImplementedError(
+            f'{path}: {ext or "extensionless"} frames are not read yet '
+            f'(PNG, JPEG and BMP only; TIFF: ROADMAP Queue 1)')
+    return _BY_EXT[ext]
 
 
 def _reader(paths):
@@ -71,14 +79,49 @@ def load_crop_seq(paths, y0, x0, ch, cw):
     return _reader(paths).load_crop_seq(paths, y0, x0, ch, cw)
 
 
-def open_sequence(seq_dir, gray_mode=False, max_num_fr=100):
-    """The first ``max_num_fr`` frames of a folder -> (T, 3, H, W) float32
-    in [0, 1]; gray frames are not ported."""
+def _refuse_gray(gray_mode, fn):
     if gray_mode:
-        raise NotImplementedError('open_sequence(gray_mode=True): the '
-                                  'readers give RGB only')
+        raise NotImplementedError(f'{fn}(gray_mode=True): the readers give '
+                                  f'RGB only (ROADMAP Queue 1 item 6)')
+
+
+def _expand(img, expand_if_needed):
+    """(..., H, W): repeat the last row / column of an odd size; returns
+    (img, expanded_h, expanded_w) as the JAX package's open_image."""
+    expanded_h = expanded_w = False
+    if expand_if_needed:
+        if img.shape[-2] % 2 == 1:
+            expanded_h = True
+            img = np.concatenate([img, img[..., -1:, :]], axis=-2)
+        if img.shape[-1] % 2 == 1:
+            expanded_w = True
+            img = np.concatenate([img, img[..., -1:]], axis=-1)
+    return img, expanded_h, expanded_w
+
+
+def open_image(fpath, gray_mode=False, expand_if_needed=False,
+               normalize_data=True):
+    """One frame -> ((3, H, W) RGB, expanded_h, expanded_w): float32 in
+    [0, 1], or uint8 with ``normalize_data=False``; an odd H or W gains a
+    copy of its last row or column with ``expand_if_needed``. Gray frames
+    are not ported."""
+    _refuse_gray(gray_mode, 'open_image')
+    img = np.transpose(load_seq([fpath])[0], (2, 0, 1))
+    img, expanded_h, expanded_w = _expand(img, expand_if_needed)
+    if normalize_data:
+        img = np.float32(img / 255.)
+    return img, expanded_h, expanded_w
+
+
+def open_sequence(seq_dir, gray_mode=False, expand_if_needed=False,
+                  max_num_fr=100):
+    """The first ``max_num_fr`` frames of a folder -> ((T, 3, H, W) float32
+    in [0, 1], expanded_h, expanded_w), the frames expanded as
+    ``open_image`` expands them. Gray frames are not ported."""
+    _refuse_gray(gray_mode, 'open_sequence')
     files = get_imagenames(seq_dir)[:max_num_fr]
     if not files:
         raise IOError(f'no images found in {seq_dir}')
-    seq = load_seq(files)                               # (T, H, W, 3) uint8
-    return np.transpose(seq, (0, 3, 1, 2)).astype(np.float32) / 255.
+    seq = np.transpose(load_seq(files), (0, 3, 1, 2))  # (T, 3, H, W) uint8
+    seq, expanded_h, expanded_w = _expand(seq, expand_if_needed)
+    return seq.astype(np.float32) / 255., expanded_h, expanded_w

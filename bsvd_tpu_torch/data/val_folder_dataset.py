@@ -41,13 +41,11 @@ class ValFolderDataset:
         self.num_frames = [min(len(get_imagenames(d)), self.num_input_frames)
                            for d in self.seqs_dirs]
 
-    def _read(self, index):
-        """Clip ``index`` as (T, C, H, W) float32 in [0, 1]."""
-        return open_sequence(self.seqs_dirs[index], self.gray_mode,
-                             max_num_fr=self.num_input_frames)
-
     def __getitem__(self, index):
-        gt = self._read(index)[None, ...]                    # (1, T, C, H, W)
+        seq, _, _ = open_sequence(self.seqs_dirs[index], self.gray_mode,
+                                  expand_if_needed=False,
+                                  max_num_fr=self.num_input_frames)
+        gt = seq[None, ...]                                  # (1, T, C, H, W)
         n, t, _, h, w = gt.shape
         rng = np.random.default_rng((self.seed, index))
         sigma = self.valnoisestd / 255.0

@@ -20,6 +20,7 @@ from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
 from bsvd_tpu_torch.models.checkpoint import (load_npz_params,
                                               save_npz_params,
                                               save_training_state)
+from bsvd_tpu_torch.utils.logger import get_root_logger
 
 
 def _zip_leaves(a, b, fn):
@@ -41,6 +42,28 @@ class BaseModel:
     def get_current_log(self):
         """The last step's losses as floats (read back here, not per step)."""
         return OrderedDict((k, float(v)) for k, v in self.log_dict.items())
+
+    def update_learning_rate(self, current_iter, warmup_iter=-1):
+        """A no-op, as in the JAX package: the learning rate is a function
+        of the optimizer's step (``models/lr_scheduler.py``), its warm-up
+        the options' ``train.warmup_iter``. Another ``warmup_iter`` than -1
+        or that one raises: this call cannot change the schedule."""
+        train_opt = self.opt.get('train') or {}
+        if warmup_iter not in (-1, None, train_opt.get('warmup_iter', -1)):
+            raise NotImplementedError(
+                f'update_learning_rate(warmup_iter={warmup_iter}): the '
+                f'schedule is a function of the step; its warm-up is '
+                f'train.warmup_iter ({train_opt.get("warmup_iter", -1)})')
+
+    def print_network(self, net):
+        """Log the network's class, its parameter count and its config."""
+        n = sum(p.numel() for p in net.parameters())
+        logger = get_root_logger()
+        logger.info(f'Network: {net.__class__.__name__}, with {n:,d} '
+                    f'parameters.')
+        cfg = getattr(net, 'cfg', None)
+        if cfg is not None:
+            logger.info(str(cfg))
 
     def get_current_learning_rate(self):
         """The schedule at the current iteration (as the JAX package logs
@@ -89,15 +112,18 @@ class BaseModel:
                 raise
             return load_tsn_state_dict(load_path, self.cfg, None)
 
-    def save_training_state(self, epoch, current_iter, opt_state=None):
-        """training_states/<iter>.state: epoch, iteration and the optimizer
-        state; nothing for iteration -1."""
+    def save_training_state(self, epoch, current_iter, opt_state=None,
+                            extra=None):
+        """training_states/<iter>.state: epoch, iteration, the optimizer
+        state and ``extra`` (a dict of more training state, {} by
+        default); nothing for iteration -1."""
         if current_iter == -1:
             return None
         path = osp.join(self.opt['path']['training_states'],
                         f'{current_iter}.state')
         save_training_state(path, {'epoch': epoch, 'iter': current_iter,
-                                   'opt_state': opt_state})
+                                   'opt_state': opt_state,
+                                   'extra': extra or {}})
         return path
 
     def resume_training(self, resume_state):

@@ -25,6 +25,7 @@ Not ported here: the perceptual loss (the zoo), data / spatial meshes
 
 import csv
 import time
+from collections import OrderedDict
 from os import path as osp
 
 import numpy as np
@@ -83,6 +84,7 @@ class DenoisingModel(BaseModel):
         self.device = torch.device(device or opt.get('device', 'cuda'))
         net = build_network(opt['network_g'], self.device)
         self.cfg = net.cfg
+        self.print_network(net)
         path = opt.get('path') or {}
         load_path = path.get('pretrain_network_g')
         if load_path is not None:
@@ -329,6 +331,21 @@ class DenoisingModel(BaseModel):
                     tb_logger.add_scalar(f'metrics/{metric}/{folder}',
                                          float(a[m_idx]), current_iter)
         return total
+
+    def get_current_visuals(self):
+        """The fed clip and its result as numpy: 'lq', 'result' and, where
+        a target was fed, 'gt' (bsvd_tpu denoising_model.py:614); outside
+        training, a fed (1, T, C, H, W) clip loses its batch axis, as the
+        JAX package's feed_data drops it."""
+        def host(t):
+            a = t.cpu().numpy()
+            return a[0] if a.ndim == 5 and not self.is_train else a
+        out = OrderedDict()
+        out['lq'] = host(self.lq)
+        out['result'] = np.asarray(self.output)
+        if self.gt is not None:
+            out['gt'] = host(self.gt)
+        return out
 
     def save(self, epoch, current_iter):
         params = self.net.param_tree()

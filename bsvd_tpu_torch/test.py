@@ -13,6 +13,7 @@ options dict whose paths are set.
 
 import copy
 import json
+import logging
 from os import path as osp
 
 from bsvd_tpu_torch.data import build_dataloader, build_dataset
@@ -30,7 +31,7 @@ def evaluate(opt, device=None):
     opt = copy.deepcopy(opt)
     opt['is_train'] = False
     make_exp_dirs(opt)
-    logger = get_root_logger(log_file=osp.join(
+    logger = get_root_logger(log_level=logging.INFO, log_file=osp.join(
         opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))
@@ -41,7 +42,8 @@ def evaluate(opt, device=None):
         if opt['network_g'].get('blind', False):
             dataset_opt['blind'] = True
         test_set = build_dataset(dataset_opt)
-        test_loaders.append(build_dataloader(test_set, dataset_opt))
+        test_loaders.append(build_dataloader(test_set, dataset_opt,
+                                             num_gpu=opt['num_gpu']))
         logger.info(f"Number of test videos in {dataset_opt['name']}: "
                     f'{len(test_set)}')
 

@@ -14,6 +14,7 @@ dict whose paths are set.
 """
 
 import copy
+import logging
 import math
 import os
 import time
@@ -43,7 +44,8 @@ def create_train_val_dataloader(opt, logger):
             dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
             dataset_opt.setdefault('num_devices', opt.get('num_gpu', 1))
             train_loader = build_dataloader(build_dataset(dataset_opt),
-                                            dataset_opt)
+                                            dataset_opt,
+                                            num_gpu=opt['num_gpu'])
             num_iter_per_epoch = len(train_loader)
             total_iters = int(opt['train']['total_iter'])
             total_epochs = math.ceil(total_iters / max(num_iter_per_epoch, 1))
@@ -69,7 +71,8 @@ def _val_loader(opt, dataset_opt):
     if net.get('blind', False) or (net.get('net2d_opt') or {}).get(
             'blind', False):
         dataset_opt['blind'] = True
-    return build_dataloader(build_dataset(dataset_opt), dataset_opt)
+    return build_dataloader(build_dataset(dataset_opt), dataset_opt,
+                            num_gpu=opt.get('num_gpu', 1))
 
 
 def build_val_loaders(opt):
@@ -202,7 +205,7 @@ def train_pipeline(root_path, cmd=None, opt_path=None, device=None):
     if getattr(args, 'opt', None) and osp.isfile(args.opt):
         copy_opt_file(args.opt, opt['path']['experiments_root'])
 
-    logger = get_root_logger(log_file=osp.join(
+    logger = get_root_logger(log_level=logging.INFO, log_file=osp.join(
         opt['path']['log'], f"train_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
     logger.info(dict2str(opt))

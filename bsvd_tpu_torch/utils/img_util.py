@@ -1,6 +1,10 @@
-"""Host-side image conversion and a PNG writer, numpy and zlib only
-(counterpart of bsvd_tpu/utils/img_util.py tensor2img / imwrite, without
-cv2): metric parity depends on tensor2img's clip, scale and round order."""
+"""Host-side image conversion and the PNG / JPEG writers, with no image
+library (counterpart of bsvd_tpu/utils/img_util.py tensor2img / imwrite,
+without cv2): metric parity depends on tensor2img's clip, scale and round
+order.
+
+``imwrite`` takes cv2's ``params``, a flat list of (flag, value) integers;
+the port defines the flags it reads with cv2's numbers."""
 
 import os
 import struct
@@ -8,18 +12,44 @@ import zlib
 
 import numpy as np
 
+from bsvd_tpu_torch.utils.jpeg_encode import encode_jpeg
 
-def tensor2img(img):
-    """Float (C, H, W) RGB (or (H, W) gray) in [0, 1] -> uint8 (H, W, C) BGR:
-    clip, scale to [0, 255], round half to even."""
-    t = np.clip(np.asarray(img, np.float32), 0, 1)
-    if t.ndim == 3:
-        t = np.transpose(t, (1, 2, 0))
-        if t.shape[2] == 3:
-            t = t[..., ::-1]
-    elif t.ndim != 2:
-        raise ValueError(f'unsupported ndim {t.ndim}')
-    return (t * 255.0).round().astype(np.uint8)
+# cv2's imwrite flags and sampling values, by their numbers in OpenCV
+IMWRITE_JPEG_QUALITY = 1
+IMWRITE_JPEG_SAMPLING_FACTOR = 7
+IMWRITE_PNG_COMPRESSION = 16
+IMWRITE_JPEG_SAMPLING_FACTOR_420 = 0x221111
+IMWRITE_JPEG_SAMPLING_FACTOR_422 = 0x211111
+IMWRITE_JPEG_SAMPLING_FACTOR_440 = 0x121111
+IMWRITE_JPEG_SAMPLING_FACTOR_444 = 0x111111
+_SAMPLING = {IMWRITE_JPEG_SAMPLING_FACTOR_420: '4:2:0',
+             IMWRITE_JPEG_SAMPLING_FACTOR_422: '4:2:2',
+             IMWRITE_JPEG_SAMPLING_FACTOR_440: '4:4:0',
+             IMWRITE_JPEG_SAMPLING_FACTOR_444: '4:4:4'}
+_FLAGS = {'.png': (IMWRITE_PNG_COMPRESSION,),
+          '.jpg': (IMWRITE_JPEG_QUALITY, IMWRITE_JPEG_SAMPLING_FACTOR)}
+_FLAGS['.jpeg'] = _FLAGS['.jpg']
+
+
+def tensor2img(img, rgb2bgr=True, min_max=(0, 1)):
+    """Float (C, H, W) RGB (or (H, W) gray) -> uint8 (H, W, C): clip to
+    ``min_max``, scale to [0, 255], round half to even, RGB to BGR with
+    ``rgb2bgr``. A list (or tuple) gives a list, or its one image."""
+    def one(t):
+        t = np.clip(np.asarray(t, np.float32), min_max[0], min_max[1])
+        t = (t - min_max[0]) / (min_max[1] - min_max[0])
+        if t.ndim == 3:
+            t = np.transpose(t, (1, 2, 0))
+            if rgb2bgr and t.shape[2] == 3:
+                t = t[..., ::-1]
+        elif t.ndim != 2:
+            raise ValueError(f'unsupported ndim {t.ndim}')
+        return (t * 255.0).round().astype(np.uint8)
+
+    if isinstance(img, (list, tuple)):
+        out = [one(t) for t in img]
+        return out if len(out) > 1 else out[0]
+    return one(img)
 
 
 def _png_chunk(tag, data):
@@ -46,9 +76,9 @@ def filter_rows(rows, bpp, filters):
     return np.concatenate([filters[:, None], out], axis=1).astype(np.uint8)
 
 
-def encode_png(img, filters=None):
+def encode_png(img, filters=None, level=6):
     """uint8 (H, W) gray or (H, W, 3) BGR (cv2's order) -> PNG bytes: 8-bit,
-    zlib level 6; row r filtered with type ``filters[r]`` (0-4), filter 0
+    zlib ``level``; row r filtered with type ``filters[r]`` (0-4), filter 0
     on every row by default."""
     img = np.asarray(img)
     if img.dtype != np.uint8:
@@ -71,15 +101,60 @@ def encode_png(img, filters=None):
     return (b'\x89PNG\r\n\x1a\n'
             + _png_chunk(b'IHDR', struct.pack('>IIBBBBB', w, h, 8, color,
                                               0, 0, 0))
-            + _png_chunk(b'IDAT', zlib.compress(raw.tobytes(), 6))
+            + _png_chunk(b'IDAT', zlib.compress(raw.tobytes(), level))
             + _png_chunk(b'IEND', b''))
 
 
-def imwrite(img, file_path):
-    """Write a uint8 BGR (or gray) image as PNG, creating the parent folder
-    (what cv2.imwrite does for the JAX package)."""
-    if not file_path.lower().endswith('.png'):
-        raise ValueError(f'imwrite writes PNG only, got {file_path}')
-    os.makedirs(os.path.dirname(os.path.abspath(file_path)), exist_ok=True)
+def _params(params, ext):
+    """cv2's flat (flag, value) list -> {flag: value}, each flag one the
+    writer of ``ext`` reads."""
+    params = list(params or [])
+    if len(params) % 2:
+        raise ValueError(f'imwrite params {params}: (flag, value) pairs')
+    out = {}
+    for flag, value in zip(params[::2], params[1::2]):
+        if flag not in _FLAGS[ext]:
+            raise ValueError(f'imwrite flag {flag} is not read for {ext} '
+                             f'files (flags {list(_FLAGS[ext])})')
+        out[flag] = int(value)
+    return out
+
+
+def imwrite(img, file_path, params=None, auto_mkdir=True):
+    """Write a uint8 BGR (or gray) image as PNG or JPEG by the file's
+    extension (what cv2.imwrite does for the JAX package), creating the
+    parent folder with ``auto_mkdir``. ``params``: cv2's (flag, value)
+    list; PNG reads IMWRITE_PNG_COMPRESSION (zlib level 0-9, default 6),
+    JPEG reads IMWRITE_JPEG_QUALITY (default 95) and
+    IMWRITE_JPEG_SAMPLING_FACTOR (the 4:2:0 / 4:2:2 / 4:4:0 / 4:4:4
+    values; default 4:2:0). Any other flag or extension raises
+    ValueError."""
+    ext = os.path.splitext(file_path)[1].lower()
+    if ext not in _FLAGS:
+        raise ValueError(f'imwrite writes PNG and JPEG only, got '
+                         f'{file_path}')
+    flags = _params(params, ext)
+    if ext == '.png':
+        level = flags.get(IMWRITE_PNG_COMPRESSION, 6)
+        if not 0 <= level <= 9:
+            raise ValueError(f'IMWRITE_PNG_COMPRESSION {level}: 0-9')
+        data = encode_png(img, level=level)
+    else:
+        sampling = flags.get(IMWRITE_JPEG_SAMPLING_FACTOR,
+                             IMWRITE_JPEG_SAMPLING_FACTOR_420)
+        if sampling not in _SAMPLING:
+            raise ValueError(f'IMWRITE_JPEG_SAMPLING_FACTOR {sampling:#x}: '
+                             f'{", ".join(f"{k:#x}" for k in _SAMPLING)} '
+                             f'only (4:1:1 is not written)')
+        img = np.asarray(img)
+        if img.dtype != np.uint8:
+            raise ValueError(f'JPEG writer takes uint8, got {img.dtype}')
+        rgb = img[..., ::-1] if img.ndim == 3 and img.shape[2] == 3 else img
+        data = encode_jpeg(rgb, flags.get(IMWRITE_JPEG_QUALITY, 95),
+                           _SAMPLING[sampling])
+    if auto_mkdir:
+        os.makedirs(os.path.dirname(os.path.abspath(file_path)),
+                    exist_ok=True)
     with open(file_path, 'wb') as f:
-        f.write(encode_png(img))
+        f.write(data)
+    return True

@@ -15,18 +15,20 @@ import torch
 LOGGER = 'bsvd_tpu_torch'
 
 
-def get_root_logger(log_file=None):
-    """The port's logger ('bsvd_tpu_torch', INFO) with a console handler
-    (added once) and, when ``log_file`` is given, a file handler writing
-    there (in place of an earlier run's)."""
-    logger = logging.getLogger(LOGGER)
+def get_root_logger(logger_name=LOGGER, log_level=logging.INFO,
+                    log_file=None):
+    """The logger ``logger_name`` with a console handler (added once) at
+    ``log_level`` and, when ``log_file`` is given, a file handler writing
+    there at ``log_level`` (in place of an earlier run's). The JAX
+    package's multi-host rank gating is not ported (one process)."""
+    logger = logging.getLogger(logger_name)
     fmt = logging.Formatter('%(asctime)s %(levelname)s: %(message)s')
     if not logger.handlers:
         handler = logging.StreamHandler()
         handler.setFormatter(fmt)
         logger.addHandler(handler)
         logger.propagate = False
-        logger.setLevel(logging.INFO)
+        logger.setLevel(log_level)
     if log_file is not None:
         for old in [h for h in logger.handlers
                     if isinstance(h, logging.FileHandler)]:
@@ -34,7 +36,9 @@ def get_root_logger(log_file=None):
             old.close()
         handler = logging.FileHandler(log_file, 'w')
         handler.setFormatter(fmt)
+        handler.setLevel(log_level)
         logger.addHandler(handler)
+        logger.setLevel(log_level)
     return logger
 
 

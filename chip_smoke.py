@@ -153,11 +153,23 @@ Phases, each printed as one JSON object on its own line:
    copy written, the timers' ms per iteration and data time, the frames'
    route, and (fp32, bf16) the same model's step on one repeated
    in-memory batch.
+12a. JPEG frames: ``data/jpeg_decode`` held bit for bit to the committed
+   fixtures (``tests/fixtures/jpeg``: cv2-written files of each kind and
+   ``decoded.npz``, libjpeg-turbo's decode); phase 12's clips written as
+   JPEG (quality 95, 4:2:0) by the port's writer (``utils/jpeg_encode``)
+   and read back (PSNR against the source above 25 dB; 11-frame 96x96
+   windows equal to the crop of the whole decode); ms per whole 480p and 540p frame and
+   per window, and the loader's batches a second, each beside PNG's timed
+   in the same phase. Then phase 10's test CLI once (whole clip) on the
+   JPEG val folders and phase 12's train CLI once on the JPEG folders
+   (bf16 AMP, 10 iterations, one validation of 10 frames a clip): the
+   frames' routes (JPEG only), K1-K4 launched (K7 28 a step), the ms per
+   iteration and the data wait.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11 and 12 (counters set to 0 before each run, read
-after), the
+phases 3, 5, 8, 9, 10, 11, 12 and 12a (counters set to 0 before each run,
+read after), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
 summed at the counts of
@@ -203,7 +215,8 @@ from bsvd_tpu_torch.archs.wnet_arch import (wnet_apply,  # noqa: E402
                                             wnet_apply_chunk)
 from bsvd_tpu_torch.convert.torch_ckpt import to_jax_params  # noqa: E402
 from bsvd_tpu_torch.data import build_dataset  # noqa: E402
-from bsvd_tpu_torch.data import png_decode, utils_common  # noqa: E402
+from bsvd_tpu_torch.data import (jpeg_decode, png_decode,  # noqa: E402
+                                 utils_common)
 from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
     noisy_batch, synthetic_clips)
 from bsvd_tpu_torch.metrics import calculate_psnr_float  # noqa: E402
@@ -232,6 +245,7 @@ from bsvd_tpu_torch.ops.conv_s2 import conv_s2, conv_s2_reference  # noqa: E402
 from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1  # noqa: E402
 from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
 from bsvd_tpu_torch.train import train_loop, train_pipeline  # noqa: E402
+from bsvd_tpu_torch.utils import jpeg_encode  # noqa: E402
 from bsvd_tpu_torch.utils.img_util import encode_png  # noqa: E402
 from bsvd_tpu_torch.utils.logger import get_root_logger  # noqa: E402
 from bsvd_tpu_torch.utils.options import (parse_options,  # noqa: E402
@@ -1804,24 +1818,26 @@ def _routes_since(before):
             if v - before.get(k, 0)}
 
 
-def phase_eval(nets, data):
+def phase_eval(nets, data, chunked=True):
     """The test CLI (``test_pipeline(root, cmd=['-opt', yml])``) over the
-    two 540p val PNG folders, whole clip and, with --force_yml, by the
-    train yml's chunked protocol. Returns the main-path launches."""
+    two 540p val folders (PNG, or JPEG in phase 12a), whole clip and, with
+    ``chunked`` and --force_yml, by the train yml's chunked protocol.
+    Returns the main-path launches."""
     net = nets['TSM']
     launches = dict.fromkeys(KERNELS, 0)
-    root = os.path.join(WORK, 'eval')
+    root = os.path.join(WORK, f"eval_{data['route']}")
     os.makedirs(root)
     ckpt = os.path.join(root, 'net_g.npz')
     save_npz_params(ckpt, {'params': to_jax_params(net.param_tree(),
                                                    net.cfg)})
     yml = _test_yml(root, data['val'], ckpt)
     n_clips = len(data['val_clips'])
-    for label, force, n_fwd, per in (
-            ('whole_clip', [], 1, PER_FORWARD),
-            ('chunked', [f'val:temp_psz={CHUNK_PSZ}',
-                         f'val:future_buffer_len={CHUNK_FUTURE}'],
-             _chunks(EVAL_T, CHUNK_PSZ), PER_CHUNK)):
+    protocols = [('whole_clip', [], 1, PER_FORWARD)]
+    if chunked:
+        protocols.append(('chunked', [f'val:temp_psz={CHUNK_PSZ}',
+                                      f'val:future_buffer_len={CHUNK_FUTURE}'],
+                          _chunks(EVAL_T, CHUNK_PSZ), PER_CHUNK))
+    for label, force, n_fwd, per in protocols:
         run_root = os.path.join(root, label)
         cmd = ['-opt', yml] + (['--force_yml', *force] if force else [])
         opt, _ = parse_options(run_root, is_train=False, cmd=cmd)
@@ -1840,7 +1856,7 @@ def phase_eval(nets, data):
                                      f'times for {n_clips} clips')
         if not all(math.isfinite(v) for v in res.values()):
             raise AssertionError(f'eval {label}: metrics {res}')
-        if routes != {'png_decode': EVAL_T * n_clips}:
+        if routes != {data['route']: EVAL_T * n_clips}:
             raise AssertionError(f'eval {label}: frames read by {routes}')
         log = opt['path']['log']
         csvs = sorted(f for f in os.listdir(log) if f.endswith('.csv'))
@@ -1873,7 +1889,8 @@ def phase_eval(nets, data):
             raise AssertionError(f'eval {label}: psnr_float {piped} in '
                                  f'the pipeline, {by_hand} by hand')
         per_clip = {k: v / n_clips for k, v in secs.runs[0].items()}
-        emit({'phase': 'eval', 'protocol': label, 'cmd': cmd[2:],
+        emit({'phase': 'eval', 'reader': data['route'], 'protocol': label,
+              'cmd': cmd[2:],
               'clips': n_clips, 'frames': EVAL_T, 'shape': [H, W],
               'padded_to': [H + (16 - H % 16) % 16, W], 'routes': routes,
               'metrics': res,
@@ -2245,7 +2262,8 @@ def phase_frames():
                     for c, _ in _clips(np.random.default_rng(SEED + 9),
                                        VAL_CLIPS, EVAL_T)])
     data = {'train': os.path.join(root, 'train'),
-            'val': os.path.join(root, 'val'), 'val_clips': val}
+            'val': os.path.join(root, 'val'), 'val_clips': val,
+            'train_clips': train, 'route': 'png_decode'}
     t0 = time.perf_counter()
     with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
         for split, clips in (('train', train), ('val', val)):
@@ -2494,6 +2512,8 @@ def phase_entry(data):
             # steady state: iterations 11-30, past the start-up of the
             # loader and of the first steps
             rec['steady'] = clock.steady(11, CLI_ITERS)
+            # the window of phase 12a's JPEG run, for a like comparison
+            rec['steady_3_10'] = clock.steady(3, JPEG_CLI_ITERS)
             rec['timers_logged'] = clock.timers(10, CLI_ITERS)
             # the same model's step on one in-memory batch, fed to the
             # card before each step as the loop feeds it (phase 8 times
@@ -2508,6 +2528,173 @@ def phase_entry(data):
         emit(rec)
         del model
     return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 12a: JPEG frames, and the entry points on JPEG folders
+# ---------------------------------------------------------------------------
+
+JPEG_FIXTURES = os.path.join(ROOT, 'tests', 'fixtures', 'jpeg')
+JPEG_QUALITY, JPEG_SAMPLING = 95, '4:2:0'
+# the JPEG train CLI: iterations, and frames a clip of its one validation
+JPEG_CLI_ITERS, JPEG_VAL_T = 10, 10
+
+
+def _write_jpeg_clip(folder, frames, pool):
+    """uint8 (T, H, W, 3) RGB frames as JPEG files (quality 95, 4:2:0:
+    cv2's defaults), written by the port's writer."""
+    os.makedirs(folder)
+
+    def write(k):
+        with open(os.path.join(folder, f'{k:05d}.jpg'), 'wb') as fh:
+            fh.write(jpeg_encode.encode_jpeg(frames[k], JPEG_QUALITY,
+                                             JPEG_SAMPLING))
+    list(pool.map(write, range(len(frames))))
+
+
+def phase_jpeg_frames(data):
+    """The JPEG decoder against the committed fixtures, then phase 12's
+    clips as JPEG folders: written, read back, timed beside PNG. Returns
+    the JPEG folders (their val clips as decoded)."""
+    ref = np.load(os.path.join(JPEG_FIXTURES, 'decoded.npz'))
+    fixtures = {}
+    for name in ref.files:
+        got = jpeg_decode.load(os.path.join(JPEG_FIXTURES, f'{name}.jpg'))
+        if got.shape != ref[name].shape or not np.array_equal(got,
+                                                               ref[name]):
+            raise AssertionError(f'JPEG fixture {name}: the decode differs '
+                                 f'from libjpeg-turbo\'s')
+        fixtures[name] = list(got.shape[:2])
+    if len(fixtures) != 8:
+        raise AssertionError(f'JPEG fixtures: {sorted(fixtures)}')
+    root = os.path.join(WORK, 'datasets_jpg')
+    jdata = {'train': os.path.join(root, 'train'),
+             'val': os.path.join(root, 'val'), 'route': 'jpeg_decode'}
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for split in ('train', 'val'):
+            for i, c in enumerate(data[f'{split}_clips']):
+                _write_jpeg_clip(os.path.join(jdata[split], f'clip{i:02d}'),
+                                 c, pool)
+    rec = {'phase': 'frames_jpeg', 'fixtures_bit_exact': fixtures,
+           'quality': JPEG_QUALITY, 'sampling': JPEG_SAMPLING,
+           'write_s': time.perf_counter() - t0}
+    for split in ('train', 'val'):
+        clips = data[f'{split}_clips']
+        routes = dict(utils_common.ROUTES)
+        decoded = []
+        for i, c in enumerate(clips):
+            got = utils_common.load_seq(utils_common.get_imagenames(
+                os.path.join(jdata[split], f'clip{i:02d}')))
+            err = got.astype(np.float64) - c
+            decoded.append(got)
+            # 4:2:0 halves the chroma of the clips' +-20 texture: ~28 dB
+            p = 10 * math.log10(255.0 ** 2 / max(np.mean(err ** 2), 1e-12))
+            if not p > 25:
+                raise AssertionError(f'{split} clip{i:02d}: JPEG frames read '
+                                     f'back at {p:.2f} dB')
+        if split == 'val':
+            jdata['val_clips'] = np.stack(decoded)
+        jfiles = utils_common.get_imagenames(os.path.join(jdata[split],
+                                                          'clip00'))
+        pfiles = utils_common.get_imagenames(os.path.join(data[split],
+                                                          'clip00'))
+        raw = clips[0, 0].nbytes
+        rec[split] = {
+            'clips': len(clips), 'frames': clips.shape[1],
+            'hw': list(clips.shape[2:4]), 'routes': _routes_since(routes),
+            'psnr_db_clip00': 10 * math.log10(255.0 ** 2 / float(np.mean(
+                (decoded[0].astype(np.float64) - clips[0]) ** 2))),
+            'bytes_per_frame': float(np.mean([os.path.getsize(f)
+                                              for f in jfiles])),
+            'compression_ratio': float(np.mean(
+                [os.path.getsize(f) for f in jfiles]) / raw),
+            'ms_per_frame': _median_ms(lambda: jpeg_decode.load(jfiles[0]),
+                                       10),
+            'png_ms_per_frame': _median_ms(
+                lambda: png_decode.load(pfiles[0]), 10),
+            'encode_ms_per_frame': _median_ms(
+                lambda: jpeg_encode.encode_jpeg(clips[0, 0], JPEG_QUALITY,
+                                                JPEG_SAMPLING), 5)}
+    # 11-frame 96x96 windows at random positions, as the loader crops them:
+    # each equal to the crop of the whole decode
+    rng = np.random.default_rng(SEED + 16)
+    h, w = TRAIN_FRAME_HW
+    jfiles = utils_common.get_imagenames(os.path.join(jdata['train'],
+                                                      'clip00'))
+    pfiles = utils_common.get_imagenames(os.path.join(data['train'],
+                                                      'clip00'))
+    whole = utils_common.load_seq(jfiles)
+    times, png_times = [], []
+    for _ in range(10):
+        s0 = int(rng.integers(0, TRAIN_FRAMES - TRAIN_T + 1))
+        y0 = int(rng.integers(0, h - TRAIN_HW + 1))
+        x0 = int(rng.integers(0, w - TRAIN_HW + 1))
+        t0 = time.perf_counter()
+        win = utils_common.load_crop_seq(jfiles[s0:s0 + TRAIN_T], y0, x0,
+                                         TRAIN_HW, TRAIN_HW)
+        t1 = time.perf_counter()
+        utils_common.load_crop_seq(pfiles[s0:s0 + TRAIN_T], y0, x0,
+                                   TRAIN_HW, TRAIN_HW)
+        png_times.append((time.perf_counter() - t1) * 1e3)
+        times.append((t1 - t0) * 1e3)
+        if not np.array_equal(win, whole[s0:s0 + TRAIN_T, y0:y0 + TRAIN_HW,
+                                         x0:x0 + TRAIN_HW]):
+            raise AssertionError('a JPEG 96x96 window differs from the '
+                                 'crop of the whole decode')
+    rec['window'] = {'frames': TRAIN_T, 'hw': [TRAIN_HW, TRAIN_HW],
+                     'ms_median_of_10': statistics.median(times),
+                     'ms_min_max': [min(times), max(times)],
+                     'png_ms_median_of_10': statistics.median(png_times)}
+    rec['loader'] = {'jpeg': [_loader_rate(jdata, None, 3),
+                              _loader_rate(jdata, 1, 0)],
+                     'png': [_loader_rate(data, None, 3)]}
+    emit(rec)
+    return jdata
+
+
+def phase_train_cli_jpeg(jdata):
+    """The train CLI on the JPEG folders: bf16 AMP, JPEG_CLI_ITERS
+    iterations, validation once at the end. Returns the launches."""
+    root = os.path.join(WORK, 'entry_jpg')
+    cmd = _train_cli_cmd(jdata, iters=JPEG_CLI_ITERS) + [
+        'train:fp16=true',
+        f'datasets:val:num_validation_frames={JPEG_VAL_T}']
+    routes = dict(utils_common.ROUTES)
+    reset_counts()
+    t0 = time.perf_counter()
+    with _NoConv2d(), _ValSeconds() as secs, _StepClock() as clock:
+        model = train_pipeline(root, cmd=cmd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run = counts()
+    routes = _routes_since(routes)
+    for k in ('conv3x3', 'conv_chain', 'conv_s2', 'conv_ps'):
+        if not run[k] > 0:
+            raise AssertionError(f'train CLI on JPEG: {k} never launched')
+    if run['conv3x3_dw'] != PER_TRAIN_STEP['conv3x3_dw'] * JPEG_CLI_ITERS \
+            or model.optimizer.count != JPEG_CLI_ITERS:
+        raise AssertionError(f'train CLI on JPEG: K7 {run["conv3x3_dw"]} '
+                             f'launches, optimizer count '
+                             f'{model.optimizer.count}')
+    if not routes.get('jpeg_decode', 0) > 0 or set(routes) != {
+            'jpeg_decode'}:
+        raise AssertionError(f'train CLI on JPEG: frames read by {routes}')
+    if len(secs.runs) != 1 or len(clock.marks) != JPEG_CLI_ITERS:
+        raise AssertionError(f'train CLI on JPEG: {len(secs.runs)} '
+                             f'validations, {len(clock.marks)} iterations')
+    rec = {'phase': 'train_cli', 'run': 'bf16_jpeg', 'amp': model.amp,
+           'iters': JPEG_CLI_ITERS, 'wall_s': wall, 'routes': routes,
+           'launches': run, 'validations': len(secs.runs),
+           'validation_s': sum(secs.runs[0].values()),
+           'validation_frames_per_clip': JPEG_VAL_T,
+           'loss_last': model.get_current_log()['l_pix'],
+           'steady': clock.steady(3, JPEG_CLI_ITERS),
+           'timers_logged_1_10': clock.logged.get(JPEG_CLI_ITERS)}
+    if not math.isfinite(rec['loss_last']):
+        raise AssertionError('train CLI on JPEG: non-finite loss')
+    emit(rec)
+    return run
 
 
 def main():
@@ -2533,16 +2720,23 @@ def run():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
+    # the data path's g++ libraries build beside the kernels' nvcc runs
     t0 = time.perf_counter()
-    lib_path = _build.build()
-    _build.lib()
-    t1 = time.perf_counter()
-    png_path = png_decode.build()
-    png_decode.lib()
+    with ThreadPoolExecutor(3) as pool:
+        helpers = {name: pool.submit(mod.build) for name, mod in (
+            ('png_unfilter', png_decode), ('jpeg_decode', jpeg_decode),
+            ('jpeg_encode', jpeg_encode))}
+        lib_path = _build.build()
+        _build.lib()
+        t1 = time.perf_counter()
+        helpers = {k: f.result() for k, f in helpers.items()}
+    for mod in (png_decode, jpeg_decode, jpeg_encode):
+        mod.lib()
     emit({'phase': 'build', 'seconds': t1 - t0,
           'library': os.path.relpath(lib_path, ROOT),
-          'png_unfilter_seconds': time.perf_counter() - t1,
-          'png_unfilter_library': os.path.relpath(png_path, ROOT)})
+          'with_data_helpers_seconds': time.perf_counter() - t0,
+          'data_helper_libraries': {k: os.path.relpath(v, ROOT)
+                                    for k, v in helpers.items()}})
 
     summary = phase_kernels()
     clips = _clips(np.random.default_rng(SEED), 3)
@@ -2562,13 +2756,17 @@ def run():
     train_launches = phase_train()
     chunk_launches = phase_chunked(nets)
     data = phase_frames()
+    jdata = phase_jpeg_frames(data)
     eval_launches = phase_eval(nets, data)
+    jpeg_eval_launches = phase_eval(nets, jdata, chunked=False)
     option_launches_run = phase_options(nets, clip24)
     entry_launches = phase_entry(data)
+    jpeg_train_launches = phase_train_cli_jpeg(jdata)
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
-                        + eval_launches[k] + option_launches_run[k]
-                        + entry_launches[k])
+                        + eval_launches[k] + jpeg_eval_launches[k]
+                        + option_launches_run[k] + entry_launches[k]
+                        + jpeg_train_launches[k])
         if k not in off_route and not launches[k] > 0:
             raise AssertionError(f'{k} never launched on a main path')
         if k in off_route and launches[k]:

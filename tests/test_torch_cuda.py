@@ -716,11 +716,12 @@ def test_block_stream_equals_denoise_seq_bf16(dev, future):
 
 
 def test_native_decoder_builds_or_raises_with_gxx_output(dev, tmp_path):
-    """On the card's machine PNG frames take the zlib reader and read back
-    what the port's PNG writer wrote; the native JPEG decoder either builds
-    (g++, libjpeg) or raises with g++'s command and output, and never falls
-    back to another reader."""
-    from bsvd_tpu_torch.data import native_decode, utils_common
+    """On the card's machine (no cv2, no libjpeg) every frame type the port
+    reads builds and reads there: PNG through the zlib reader, JPEG
+    through the standard-C++ decoder (frames written by the port's JPEG
+    writer), each by its file type, the JPEG windows equal to the crop of
+    the whole decode."""
+    from bsvd_tpu_torch.data import jpeg_decode, utils_common
     from bsvd_tpu_torch.utils.img_util import imwrite
     rng = np.random.default_rng(11)
     frames = rng.integers(0, 256, (3, 20, 36, 3), dtype=np.uint8)
@@ -729,15 +730,33 @@ def test_native_decoder_builds_or_raises_with_gxx_output(dev, tmp_path):
         imwrite(f[..., ::-1], p)                      # BGR, as cv2's
     np.testing.assert_array_equal(utils_common.load_seq(paths), frames)
     jpgs = [str(tmp_path / f'{i}.jpg') for i in range(3)]
-    try:
-        native_decode.build()
-    except RuntimeError as e:
-        assert 'g++ -O3' in str(e) and 'error' in str(e), str(e)
-        with pytest.raises(RuntimeError, match='g\\+\\+'):
-            utils_common.load_seq(jpgs)
-        return
-    with pytest.raises(IOError):                      # no such JPEG files
-        utils_common.load_seq(jpgs)
+    for f, p in zip(frames, jpgs):
+        imwrite(f[..., ::-1], p, [1, 95])
+    before = utils_common.ROUTES['jpeg_decode']
+    seq = utils_common.load_seq(jpgs)
+    assert utils_common.ROUTES['jpeg_decode'] == before + 3
+    assert seq.shape == frames.shape
+    for s, p in zip(seq, jpgs):
+        np.testing.assert_array_equal(s, jpeg_decode.load(p))
+    np.testing.assert_array_equal(
+        utils_common.load_crop_seq(jpgs, 3, 5, 11, 17), seq[:, 3:14, 5:22])
+    with pytest.raises(IOError):                      # no such JPEG file
+        utils_common.load_seq([str(tmp_path / 'missing.jpg')])
+
+
+def test_jpeg_decoder_matches_the_fixtures_on_the_card(dev):
+    """The card's machine has no cv2: there the JPEG decoder is held to
+    libjpeg-turbo's decode of the committed fixtures
+    (tests/fixtures/jpeg/decoded.npz), bit for bit."""
+    import os
+    from bsvd_tpu_torch.data import jpeg_decode
+    folder = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          'fixtures', 'jpeg')
+    ref = np.load(os.path.join(folder, 'decoded.npz'))
+    assert len(ref.files) == 8
+    for name in ref.files:
+        np.testing.assert_array_equal(
+            jpeg_decode.load(os.path.join(folder, f'{name}.jpg')), ref[name])
 
 
 def test_train_and_test_cli_on_png_folders(dev, tmp_path):

@@ -1,7 +1,7 @@
 """The port's evaluation path on CPU against the JAX package: metrics
-(PSNR / SSIM / float PSNR), tensor2img, the PNG writer, frame reading
-(the zlib PNG reader, the native JPEG decoder, open_sequence,
-ValFolderDataset), DenoisingModel's padding / test / validation,
+(PSNR / SSIM / float PSNR), tensor2img, the PNG and JPEG writers, frame
+reading (the zlib PNG reader, the standard-C++ JPEG decoder,
+open_sequence, ValFolderDataset), DenoisingModel's padding / test / validation,
 test_pipeline from an option file and validation during training.
 
 Tolerances: host arithmetic that is the same numpy on both sides is equal
@@ -25,7 +25,7 @@ import torch
 from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
                                                load_tsn_state_dict)
 from bsvd_tpu_torch.data import build_dataset
-from bsvd_tpu_torch.data import native_decode, png_decode
+from bsvd_tpu_torch.data import jpeg_decode, png_decode
 from bsvd_tpu_torch.data.utils_common import open_sequence
 from bsvd_tpu_torch.metrics import calculate_metric
 from bsvd_tpu_torch.metrics.psnr_ssim import (calculate_psnr,
@@ -128,10 +128,25 @@ def test_png_writer_round_trips_through_cv2(tmp_path, shape):
 
 
 def test_png_writer_refuses_other_formats(tmp_path):
-    with pytest.raises(ValueError):
-        imwrite(np.zeros((4, 4, 3), np.uint8), str(tmp_path / 'f.jpg'))
-    with pytest.raises(ValueError):
-        imwrite(np.zeros((4, 4, 3), np.float32), str(tmp_path / 'f.png'))
+    """imwrite writes PNG and JPEG by the extension (the JPEG read back by
+    cv2 as cv2's own file at quality 95, 4:2:0); other formats, float
+    images and flags the format does not read raise ValueError."""
+    img = np.random.default_rng(2).integers(0, 256, (12, 20, 3),
+                                            dtype=np.uint8)
+    imwrite(img, str(tmp_path / 'f.jpg'))
+    _, ref = cv2.imencode('.jpg', img)
+    np.testing.assert_array_equal(cv2.imread(str(tmp_path / 'f.jpg')),
+                                  cv2.imdecode(ref, cv2.IMREAD_COLOR))
+    for name in ('f.bmp', 'f.tif', 'f'):
+        with pytest.raises(ValueError, match='PNG and JPEG only'):
+            imwrite(img, str(tmp_path / name))
+    for name in ('f.png', 'f.jpg'):
+        with pytest.raises(ValueError, match='uint8'):
+            imwrite(img.astype(np.float32), str(tmp_path / name))
+    with pytest.raises(ValueError, match='flag 1 '):
+        imwrite(img, str(tmp_path / 'f.png'), [1, 90])
+    with pytest.raises(ValueError, match='flag 2 '):
+        imwrite(img, str(tmp_path / 'f.jpg'), [2, 1])
 
 
 # ---------------------------------------------------------------------------
@@ -140,23 +155,23 @@ def test_png_writer_refuses_other_formats(tmp_path):
 
 @pytest.mark.parametrize('fmt', ['png', 'jpg'])
 def test_native_decoder_matches_cv2_and_jax(tmp_path, fmt):
-    """Each frame's reader (PNG: the zlib reader; JPEG: the native decoder,
-    the same libjpeg as the JAX package's) reads what cv2 reads (PNG), and
-    open_sequence equals the JAX package's bit for bit."""
+    """Each frame's reader (PNG: the zlib reader; JPEG: the standard-C++
+    decoder) reads what cv2 reads, and open_sequence equals the JAX
+    package's bit for bit."""
     from make_synth_dataset import main as make_ds
     from bsvd_tpu.data.utils_common import open_sequence as jax_open
     make_ds(str(tmp_path), num_clips=1, t=5, h=40, w=56, seed=3, fmt=fmt)
     folder = str(tmp_path / 'clip00')
     paths = sorted(glob.glob(os.path.join(folder, f'*.{fmt}')))
-    seq = (png_decode if fmt == 'png' else native_decode).load_seq(paths)
+    seq = (png_decode if fmt == 'png' else jpeg_decode).load_seq(paths)
     assert seq.shape == (5, 40, 56, 3) and seq.dtype == np.uint8
-    if fmt == 'png':
-        for i, p in enumerate(paths):
-            np.testing.assert_array_equal(
-                seq[i], cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB))
-    got = open_sequence(folder, max_num_fr=4)
+    for i, p in enumerate(paths):
+        np.testing.assert_array_equal(
+            seq[i], cv2.cvtColor(cv2.imread(p), cv2.COLOR_BGR2RGB))
+    got, eh, ew = open_sequence(folder, max_num_fr=4)
     ref, _, _ = jax_open(folder, max_num_fr=4)
     assert got.dtype == np.float32 and got.shape == (4, 3, 40, 56)
+    assert (eh, ew) == (False, False)
     np.testing.assert_array_equal(got, ref)
 
 
@@ -168,7 +183,7 @@ def test_open_sequence_orders_by_digits_and_refuses_gray(tmp_path):
     frames = rng.integers(0, 256, (11, 21, 33, 3), dtype=np.uint8)
     for i, f in enumerate(frames):
         imwrite(f, str(tmp_path / 'clip' / f'f{i}.png'))
-    got = open_sequence(str(tmp_path / 'clip'))
+    got, _, _ = open_sequence(str(tmp_path / 'clip'))
     np.testing.assert_array_equal(got, jax_open(str(tmp_path / 'clip'))[0])
     np.testing.assert_array_equal(
         got, np.transpose(frames[..., ::-1], (0, 3, 1, 2)) / np.float32(255))
@@ -180,14 +195,14 @@ def test_open_sequence_orders_by_digits_and_refuses_gray(tmp_path):
 
 def test_native_decoder_build_failure_raises_with_compiler_output(
         tmp_path, monkeypatch):
-    bad = tmp_path / 'decoder.cpp'
+    bad = tmp_path / 'jpeg_decode.cpp'
     bad.write_text('this is not C++\n')
-    monkeypatch.setattr(native_decode, 'SOURCE', bad)
-    monkeypatch.setattr(native_decode, '_PKG', tmp_path)
+    monkeypatch.setattr(jpeg_decode, 'SOURCE', bad)
+    monkeypatch.setattr(jpeg_decode, '_PKG', tmp_path)
     with pytest.raises(RuntimeError, match='error'):
-        native_decode.build()
+        jpeg_decode.build()
     with pytest.raises(IOError):
-        native_decode.image_dims(str(tmp_path / 'missing.png'))
+        jpeg_decode.image_dims(str(tmp_path / 'missing.jpg'))
 
 
 @pytest.mark.parametrize('blind', [False, True])

@@ -33,16 +33,19 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.metrics', 'bsvd_tpu_torch.metrics.psnr_ssim',
         'bsvd_tpu_torch.utils.img_util', 'bsvd_tpu_torch.utils.logger',
         'bsvd_tpu_torch.utils.misc', 'bsvd_tpu_torch.data.utils_common',
-        'bsvd_tpu_torch.data.native_decode',
+        'bsvd_tpu_torch.data.jpeg_decode', 'bsvd_tpu_torch.data.bmp_decode',
+        'bsvd_tpu_torch.utils.jpeg_encode',
         'bsvd_tpu_torch.data.val_folder_dataset',
         'bsvd_tpu_torch.data.png_decode', 'bsvd_tpu_torch.data._gxx',
         'bsvd_tpu_torch.utils.options', 'bsvd_tpu_torch.utils.yaml_lite'} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
-from bsvd_tpu_torch.data import native_decode, png_decode
+from bsvd_tpu_torch.data import jpeg_decode, png_decode
+from bsvd_tpu_torch.utils import jpeg_encode
 assert _build._lib is None       # nothing built or loaded at import
-assert native_decode._lib is None and png_decode._lib is None
+assert jpeg_decode._lib is None and png_decode._lib is None
+assert jpeg_encode._lib is None
 """
 
 

@@ -159,16 +159,19 @@ def test_png_reader_refuses_broken_and_interlaced_files(tmp_path, kind):
 
 
 def test_frames_take_a_route_by_file_type(tmp_path):
-    """.png always the zlib reader; .jpg / .jpeg / .bmp / .tif the native
-    JPEG decoder; open_sequence counts each frame's route."""
+    """.png always the zlib reader, .jpg / .jpeg the standard-C++ JPEG
+    decoder, .bmp the BMP reader; .tif raises NotImplementedError naming
+    the type; open_sequence counts each frame's route."""
     assert [utils_common.route(f'a{e}') for e in (
-        '.png', '.PNG', '.jpg', '.jpeg', '.bmp', '.tif')] == \
-        ['png_decode'] * 2 + ['native_decode'] * 4
+        '.png', '.PNG', '.jpg', '.jpeg', '.JPG', '.bmp')] == \
+        ['png_decode'] * 2 + ['jpeg_decode'] * 3 + ['bmp_decode']
+    with pytest.raises(NotImplementedError, match='.tif'):
+        utils_common.route('a.tif')
     frames = RNG.integers(0, 256, (3, 9, 11, 3), dtype=np.uint8)
     for i, f in enumerate(frames):
         imwrite(f[..., ::-1], str(tmp_path / f'{i}.png'))
     before = utils_common.ROUTES['png_decode']
-    got = utils_common.open_sequence(str(tmp_path))
+    got, _, _ = utils_common.open_sequence(str(tmp_path))
     assert utils_common.ROUTES['png_decode'] == before + 3
     np.testing.assert_array_equal(
         got, np.transpose(frames, (0, 3, 1, 2)) / np.float32(255))
@@ -203,6 +206,26 @@ def clip_root(tmp_path_factory):
     return str(root)
 
 
+@pytest.fixture(scope='module')
+def jpg_root(tmp_path_factory):
+    """The clips of ``clip_root`` as JPEG frames: the odd ones written by
+    cv2 at 4:4:4, the even ones by the port's writer (quality 95, 4:2:0)."""
+    root = tmp_path_factory.mktemp('train_jpg_clips')
+    rng = np.random.default_rng(21)
+    for c, n in enumerate((12, 12, 3, 12)):
+        folder = root / f'clip{c}'
+        folder.mkdir()
+        for k in range(n):
+            f = rng.integers(0, 256, (40, 52, 3), dtype=np.uint8)
+            path = str(folder / f'{k:03d}.jpg')
+            if k % 2:
+                cv2.imwrite(path, f, [cv2.IMWRITE_JPEG_SAMPLING_FACTOR,
+                                      cv2.IMWRITE_JPEG_SAMPLING_FACTOR_444])
+            else:
+                imwrite(f, path)
+    return str(root)
+
+
 def _opt(root, **over):
     return dict({'trainset_dir': root, 'batch_size_per_gpu': 2,
                  'temp_patch_size': 5, 'patch_size': [24, 24],
@@ -213,14 +236,20 @@ def _opt(root, **over):
 
 @pytest.mark.parametrize('over', [
     {}, {'noise_shape': 'NF'}, {'blind': True},
-    {'noise_shape': 'NF', 'patch_size': [16, 32], 'manual_seed': 9}],
-    ids=['N', 'NF', 'blind', 'rectangular'])
-def test_train_loader_matches_jax_with_one_worker(clip_root, over):
+    {'noise_shape': 'NF', 'patch_size': [16, 32], 'manual_seed': 9},
+    {'frames': 'jpg', 'noise_shape': 'NF'}],
+    ids=['N', 'NF', 'blind', 'rectangular', 'jpg'])
+def test_train_loader_matches_jax_with_one_worker(clip_root, request, over):
     """Three batches (one epoch) bit for bit: the worker's seed, clip,
     start and window from the same Generators, the short clip skipped
-    alike, the augmentation and the noise."""
+    alike, the augmentation and the noise; PNG frames, and JPEG frames
+    (windows decoded by the JPEG decoder here, by libjpeg-turbo's ROI
+    decode in the JAX package)."""
     from bsvd_tpu.data.video_train_loader import train_video_loader as jax
-    opt = _opt(clip_root, **over)
+    over = dict(over)
+    root = request.getfixturevalue('jpg_root') \
+        if over.pop('frames', 'png') == 'jpg' else clip_root
+    opt = _opt(root, **over)
     ours, ref = train_video_loader(opt), jax(dict(opt))
     try:
         assert len(ours) == len(ref) == 3
