@@ -40,9 +40,15 @@ State: a list (one per stage) of dicts. A buffered conv is ``{'packed':
 N, h, w, c) tensor, 'w': int, 'r': int}``, as the JAX state (see
 convert.torch_ckpt.from_jax_stream_state). A step returns new packed
 tensors (the kernels never write the state they read) and advances the
-rings' buffers in place. The width-folded TPU layout, spatial and
-multi-stream meshes are not ported.
+rings' buffers in place. The width-folded TPU layout is not ported.
+
+On a mesh (``StreamDenoiser(mesh=...)``) the streams ride the 'data' axis
+and the rows the 'spatial' one (parallel/spatial.py). With the rows split,
+every conv output passes the row mask (``_Norms.mask``), which also keeps
+K6 and K2 off the path.
 """
+
+import logging
 
 import torch
 
@@ -52,6 +58,10 @@ from bsvd_tpu_torch.archs.wnet_arch import (_cw, _down, _folded, _has_bn,
 from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain, bibuffer_conv,
                                               bibuffer_multi)
 from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
+from bsvd_tpu_torch.parallel.mesh import Mesh, all_gather
+from bsvd_tpu_torch.parallel.spatial import (stage_halo, stream_local_step,
+                                             stream_local_step_block,
+                                             stream_spatial_ok)
 
 # widest MemCvBlock (input or intermediate channels) whose step runs as
 # one K6: none. K6 (the pipelined loop, the halo recompute only for the y1
@@ -78,10 +88,10 @@ def _bibuffer_init(n, h, w, c, dtype, device):
             'has_center': False}
 
 
-def _bibuffer_step(p, k, st, x, cfg, nrm):
+def _bibuffer_step(p, k, st, x, cfg, nrm, level=1):
     """One step of buffered shift conv ``k`` ('c1' / 'c2') of block ``p``
-    (+ bias, + norm, + act); ``x`` is the live frame or None (invalid).
-    Returns (new state, output or None)."""
+    (+ bias, + norm, + act, then the mask at ``level``); ``x`` is the live
+    frame or None (invalid). Returns (new state, output or None)."""
     cw, leaf = _cw(p[k]), p.get('n' + k[1:])
     act, fold_div = nrm.kernel_act, cfg.fold_div
     B = st['packed']
@@ -90,18 +100,19 @@ def _bibuffer_step(p, k, st, x, cfg, nrm):
             return st, None
         y, nb = bibuffer_conv(x, B, cw, fold_div=fold_div, act=act,
                               causal=True)
-        return {'packed': nb, 'has_center': st['has_center']}, nrm(y, leaf)
+        return ({'packed': nb, 'has_center': st['has_center']},
+                nrm(y, leaf, level))
     f = B.shape[-1] // fold_div
     if st['has_center']:
         if x is not None:
             y, nb = bibuffer_conv(x, B, cw, fold_div=fold_div, act=act)
-            return {'packed': nb, 'has_center': True}, nrm(y, leaf)
+            return {'packed': nb, 'has_center': True}, nrm(y, leaf, level)
         # drain: the future slice is the clip's zero boundary
         inp = torch.cat([torch.zeros_like(B[..., :f]), B[..., :f],
                          B[..., 2 * f:]], dim=-1)
         nb = torch.cat([B[..., f:2 * f], B[..., f:]], dim=-1)
         return ({'packed': nb, 'has_center': False},
-                nrm(conv3x3(inp, cw, act=act), leaf))
+                nrm(conv3x3(inp, cw, act=act), leaf, level))
     if x is None:
         return st, None
     # fill: the first frame becomes the center; nothing to output yet
@@ -114,22 +125,23 @@ def chain_route(width, max_c=None):
     intermediate) runs as one K6 ``bibuffer_chain`` rather than two K5
     steps: up to ``CHAIN_MAX_C`` channels (or ``max_c``), bidirectional
     and causal alike (K6 loses to two K5 steps in both modes). A block
-    whose norm runs between conv and act (``_Norms.split``) never
-    chains: K6 applies the act to its intermediate."""
+    whose sites split (``_Norms.split``: a norm between conv and act, or
+    the row mask of a spatial shard) never chains: K6 applies the act to
+    its intermediate and cannot mask it."""
     return width <= (CHAIN_MAX_C if max_c is None else max_c)
 
 
-def _buffered_pair(p, pair, x, cfg, nrm):
+def _buffered_pair(p, pair, x, cfg, nrm, level=1):
     """Two buffered shift convs in turn (a MemCvBlock, or shift_input's
     inc), each one step."""
-    s1, y = _bibuffer_step(p, 'c1', pair[0], x, cfg, nrm)
-    s2, y = _bibuffer_step(p, 'c2', pair[1], y, cfg, nrm)
+    s1, y = _bibuffer_step(p, 'c1', pair[0], x, cfg, nrm, level)
+    s2, y = _bibuffer_step(p, 'c2', pair[1], y, cfg, nrm, level)
     return [s1, s2], y
 
 
-def _memcv_step(p, pair, x, cfg, nrm):
-    """MemCvBlock: two buffered shift convs (+ norm) + act; one K6 where
-    ``chain_route`` takes it."""
+def _memcv_step(p, pair, x, cfg, nrm, level):
+    """MemCvBlock at resolution ``level``: two buffered shift convs (+
+    norm) + act; one K6 where ``chain_route`` takes it."""
     c1, c2 = _cw(p['c1']), _cw(p['c2'])
     causal = _is_causal(cfg)
     primed = causal or (pair[0]['has_center'] and pair[1]['has_center'])
@@ -139,7 +151,7 @@ def _memcv_step(p, pair, x, cfg, nrm):
                                    c1, None, c2, None, fold_div=cfg.fold_div,
                                    act=cfg.act, act2=cfg.act, causal=causal)
         return [dict(pair[0], packed=s1), dict(pair[1], packed=s2)], y
-    return _buffered_pair(p, pair, x, cfg, nrm)
+    return _buffered_pair(p, pair, x, cfg, nrm, level)
 
 
 # ---------------------------------------------------------------------------
@@ -233,43 +245,43 @@ def _stage_stream_step(p, st, x, cfg, nrm):
         new['skip2'] = _ring_push(st['skip2'], x0)
 
     d = p['down0']
-    y = None if x0 is None else _down(d, x0, nrm)
-    new['down0'], x1 = _memcv_step(d['cv'], st['down0'], y, cfg, nrm)
+    y = None if x0 is None else _down(d, x0, nrm, 2)
+    new['down0'], x1 = _memcv_step(d['cv'], st['down0'], y, cfg, nrm, 2)
     if x1 is not None:
         new['skip3'] = _ring_push(new['skip3'], x1)
 
     d = p['down1']
-    y = None if x1 is None else _down(d, x1, nrm)
-    new['down1'], x2 = _memcv_step(d['cv'], st['down1'], y, cfg, nrm)
+    y = None if x1 is None else _down(d, x1, nrm, 4)
+    new['down1'], x2 = _memcv_step(d['cv'], st['down1'], y, cfg, nrm, 4)
 
     u = p['up2']
-    new['up2'], x2 = _memcv_step(u['cv'], st['up2'], x2, cfg, nrm)
+    new['up2'], x2 = _memcv_step(u['cv'], st['up2'], x2, cfg, nrm, 4)
     if x2 is not None:
-        x2 = conv_ps(x2, _cw(u['conv']))
+        x2 = nrm.rows(conv_ps(x2, _cw(u['conv'])), 2)
         new['skip3'], sk3 = _ring_pop(new['skip3'])
         x2 = x2 + sk3
 
     u = p['up1']
-    new['up1'], x1u = _memcv_step(u['cv'], st['up1'], x2, cfg, nrm)
+    new['up1'], x1u = _memcv_step(u['cv'], st['up1'], x2, cfg, nrm, 2)
     if x1u is None:
         return new, None
-    x1u = conv_ps(x1u, _cw(u['conv']))
+    x1u = nrm.rows(conv_ps(x1u, _cw(u['conv'])), 1)
     new['skip2'], sk2 = _ring_pop(new['skip2'])
     new['skip1'], sk1 = _ring_pop(new['skip1'])
     return new, _outc(p['outc'], x1u, sk2, sk1, cfg, nrm)
 
 
-def _memcv_multi(p, pair, xs, cfg, nrm):
+def _memcv_multi(p, pair, xs, cfg, nrm, level=1):
     """F-frame advance of two buffered convs in steady state (a MemCvBlock
     or shift_input's inc): K5 over F frames at each conv, then its norm
-    and act where the route splits."""
+    and act where the route splits, and the mask at ``level``."""
     causal = _is_causal(cfg)
     new = []
     for k, st in zip(('c1', 'c2'), pair):
         xs, packed = bibuffer_multi(xs, st['packed'], _cw(p[k]),
                                     fold_div=cfg.fold_div,
                                     act=nrm.kernel_act, causal=causal)
-        xs = nrm(xs, p.get('n' + k[1:]))
+        xs = nrm(xs, p.get('n' + k[1:]), level)
         new.append(dict(st, packed=packed))
     return new, xs
 
@@ -293,18 +305,19 @@ def _stage_stream_step_block(p, st, xs, cfg, nrm):
     else:
         x0 = split(_stem(p['inc'], merge(xs), cfg, nrm))
     d = p['down0']
-    y = split(_down(d, merge(x0), nrm))
-    new['down0'], x1 = _memcv_multi(d['cv'], st['down0'], y, cfg, nrm)
+    y = split(_down(d, merge(x0), nrm, 2))
+    new['down0'], x1 = _memcv_multi(d['cv'], st['down0'], y, cfg, nrm, 2)
     d = p['down1']
-    y = split(_down(d, merge(x1), nrm))
-    new['down1'], x2 = _memcv_multi(d['cv'], st['down1'], y, cfg, nrm)
+    y = split(_down(d, merge(x1), nrm, 4))
+    new['down1'], x2 = _memcv_multi(d['cv'], st['down1'], y, cfg, nrm, 4)
     u = p['up2']
-    new['up2'], x2 = _memcv_multi(u['cv'], st['up2'], x2, cfg, nrm)
-    x2 = split(conv_ps(merge(x2), _cw(u['conv'])))
+    new['up2'], x2 = _memcv_multi(u['cv'], st['up2'], x2, cfg, nrm, 4)
+    x2 = split(nrm.rows(conv_ps(merge(x2), _cw(u['conv'])), 2))
     new['skip3'], sk3 = _ring_thread(st['skip3'], x1)
     u = p['up1']
-    new['up1'], x1u = _memcv_multi(u['cv'], st['up1'], x2 + sk3, cfg, nrm)
-    x1u = conv_ps(merge(x1u), _cw(u['conv']))
+    new['up1'], x1u = _memcv_multi(u['cv'], st['up1'], x2 + sk3, cfg, nrm,
+                                   2)
+    x1u = nrm.rows(conv_ps(merge(x1u), _cw(u['conv'])), 1)
     new['skip2'], sk2 = _ring_thread(st['skip2'], x0)
     new['skip1'], sk1 = _ring_thread(st['skip1'], xs[..., :rc])
     return new, split(_outc(p['outc'], x1u, merge(sk2), merge(sk1), cfg,
@@ -418,6 +431,17 @@ class StreamDenoiser:
     the rest. No call synchronises with the device: outputs are device
     tensors, and validity follows from the push count.
 
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank of it makes the same
+    calls with the same whole frames and gets the same whole outputs):
+    N-stream serving puts the N streams on the 'data' axis when it divides
+    ``batch``, each rank advancing its streams; a 'spatial' axis splits the
+    frame rows, each rank holding the halo-extended row block (h_local + 2 *
+    halo rows) of every buffer and ring (``parallel.spatial.
+    stream_local_step``). Where ``stream_spatial_ok`` refuses a spatial
+    mesh (a norm, or H not a multiple of 4 * n_spatial), every rank runs
+    the whole frame on its own card, as the JAX client runs unsharded
+    there, and one line says so.
+
     Example::
 
         net = build_network(dict(type='BSVD', ...))   # on the card
@@ -433,9 +457,6 @@ class StreamDenoiser:
 
     def __init__(self, params, cfg, batch, height, width,
                  dtype=torch.float32, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError('StreamDenoiser(mesh=...): spatial and '
-                                      'multi-stream sharding are not ported')
         if isinstance(params, _WNetBase):
             cfg = cfg or params.cfg
             self.device = next(params.parameters()).device
@@ -447,16 +468,79 @@ class StreamDenoiser:
         self.dtype = dtype
         self._shape = (batch, height, width)
         self.latency = pipeline_latency(cfg)
+        self.mesh, self._data, self._spatial = None, None, None
+        if mesh is not None:
+            self._place(mesh, batch, height)
         self.reset()
+
+    def _place(self, mesh, batch, height):
+        """The axes this client shards over (see the class docstring)."""
+        if not isinstance(mesh, Mesh):
+            raise TypeError(f'mesh must be a parallel.mesh.Mesh, got '
+                            f'{type(mesh).__name__}')
+        data = mesh.axis('data')
+        rides = data.size > 1 and batch % data.size == 0
+        if mesh.shape['spatial'] > 1:
+            if not stream_spatial_ok(self.cfg, height, mesh):
+                logging.getLogger('bsvd_tpu_torch').warning(
+                    f'StreamDenoiser: norm {self.cfg.norm!r}, H {height} '
+                    f'over spatial {mesh.shape["spatial"]}: the rows are '
+                    f'not split; every rank streams the whole frame')
+                return
+            sp = mesh.axis('spatial')
+            self._spatial = {'axis': sp, 'halo': stage_halo(self.cfg),
+                             'h_local': height // sp.size}
+        elif not rides:
+            return
+        self.mesh = mesh
+        self._data = data if rides else None
 
     def reset(self):
         n, h, w = self._shape
+        if self._data is not None:
+            n //= self._data.size
+        if self._spatial is not None:
+            h = self._spatial['h_local'] + 2 * self._spatial['halo']
+        # the old state goes before the new one is built: both at once
+        # would double the state's memory (16 GB at 8 streams of 540p)
+        self.state = None
         self.state = stream_init(self.cfg, n, h, w, self.dtype, self.device)
         self._pushed = 0
         self._emitted = 0
 
     def _frame(self, frame):
         return torch.as_tensor(frame).to(self.device, self.dtype)
+
+    def _local(self, frames, dim):
+        """This rank's streams of whole frames (N at ``dim``)."""
+        d = self._data
+        if d is None:
+            return frames
+        step = frames.shape[dim] // d.size
+        return frames.narrow(dim, d.index * step, step)
+
+    def _step(self, x):
+        """One step on this rank's streams: x (N, H, W, C_in) or None ->
+        the whole output (gathered over the mesh) or None."""
+        with torch.no_grad():
+            if x is not None:
+                x = self._local(x, 0)
+            sp = self._spatial
+            if sp is None:
+                self.state, out = stream_step(self.params, self.state, x,
+                                              self.cfg)
+            else:
+                a, h = sp['axis'], sp['h_local']
+                x_loc = None if x is None else x[:, a.index * h:
+                                                 (a.index + 1) * h]
+                self.state, out = stream_local_step(
+                    self.params, self.state, x_loc, self.cfg,
+                    self._shape[1], a, x_full=x)
+                if out is not None:
+                    out = all_gather(out, a, 1)
+        if out is not None and self._data is not None:
+            out = all_gather(out, self._data, 0)
+        return out
 
     def _emit(self, out):
         self._pushed += 1
@@ -468,10 +552,7 @@ class StreamDenoiser:
     def push(self, frame):
         """frame (N, H, W, C_in) -> the output ``latency`` frames back, or
         None while the pipeline fills."""
-        with torch.no_grad():
-            self.state, out = stream_step(self.params, self.state,
-                                          self._frame(frame), self.cfg)
-        return self._emit(out)
+        return self._emit(self._step(self._frame(frame)))
 
     def push_block(self, frames):
         """Advance by F frames, (F, N, H, W, C_in) or a list of (N, H, W,
@@ -484,9 +565,21 @@ class StreamDenoiser:
             frames = self._frame(frames)
         if self._pushed < self.latency:
             return [self.push(f) for f in frames]
+        xs = self._local(frames, 1)
+        sp = self._spatial
         with torch.no_grad():
-            self.state, outs = stream_step_block(self.params, self.state,
-                                                 frames, self.cfg)
+            if sp is None:
+                self.state, outs = stream_step_block(self.params, self.state,
+                                                     xs, self.cfg)
+            else:
+                a, h = sp['axis'], sp['h_local']
+                self.state, outs = stream_local_step_block(
+                    self.params, self.state,
+                    xs[:, :, a.index * h:(a.index + 1) * h], self.cfg,
+                    self._shape[1], a, xs_full=xs)
+                outs = all_gather(outs, a, 2)
+        if self._data is not None:
+            outs = all_gather(outs, self._data, 1)
         return [self._emit(o) for o in outs]
 
     def flush(self):
@@ -497,11 +590,9 @@ class StreamDenoiser:
             return []
         outs = []
         first_valid = self.latency + self._emitted - self._pushed
-        with torch.no_grad():
-            for d in range(self.latency):
-                self.state, out = stream_step(self.params, self.state,
-                                              None, self.cfg)
-                if d >= first_valid:
-                    outs.append(out)
-                    self._emitted += 1
+        for d in range(self.latency):
+            out = self._step(None)
+            if d >= first_valid:
+                outs.append(out)
+                self._emitted += 1
         return outs

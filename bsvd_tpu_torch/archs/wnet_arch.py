@@ -218,24 +218,38 @@ def _cw(leaf):
 
 
 class _Norms:
-    """How a forward's conv sites end. ``split``: a norm runs between the
+    """How a forward's conv sites end. ``normed``: a norm runs between the
     conv and its act (norm 'in', or BN on the batch's statistics, which
     the BN sites append to ``stats``), so the kernels take act 'none' and
     ``__call__`` applies norm and act; otherwise (norm 'none', BN folded)
-    the kernels apply the act and ``__call__`` passes through."""
+    the kernels apply the act. ``mask``: the row-validity hook ``mask(v,
+    level)`` of the spatially sharded forward (parallel/spatial.py), which
+    ``__call__`` applies after every conv site, after the act (relu /
+    relu6 of 0 is 0, so this is JAX's order). ``split``: the two-conv K2
+    sites run as two K1 launches, for a norm or for a mask (a chain cannot
+    mask its intermediate). On an interior shard the mask is the identity
+    and the sites still split: the port keeps one route per forward."""
 
-    def __init__(self, cfg, stats=None):
+    def __init__(self, cfg, stats=None, mask=None):
         self.norm, self.act, self.stats = cfg.norm, cfg.act, stats
-        self.split = cfg.norm == 'in' or (cfg.norm == 'bn'
-                                          and stats is not None)
-        self.kernel_act = 'none' if self.split else cfg.act
+        self.mask = mask
+        self.normed = cfg.norm == 'in' or (cfg.norm == 'bn'
+                                           and stats is not None)
+        self.split = self.normed or mask is not None
+        self.kernel_act = 'none' if self.normed else cfg.act
 
-    def __call__(self, y, leaf):
+    def __call__(self, y, leaf, level=1):
         """The site's norm (``leaf`` its parameters, or None) and act on a
-        conv output computed with ``kernel_act``."""
-        if not self.split:
-            return y
-        return get_act(self.act)(norm_apply(self.norm, leaf, y, self.stats))
+        conv output computed with ``kernel_act``, then the mask at
+        resolution ``level``."""
+        if self.normed:
+            y = get_act(self.act)(norm_apply(self.norm, leaf, y, self.stats))
+        return self.rows(y, level)
+
+    def rows(self, y, level):
+        """The mask alone (a conv site with no norm and no act: the up
+        convs); the identity without one."""
+        return y if self.mask is None else self.mask(y, level)
 
     def replay(self):
         """The same route with statistics recorded nowhere: the recompute
@@ -247,7 +261,8 @@ class _Norms:
         return other
 
 
-def _shift_conv_site(cw, leaf, x, cfg, t_len, nrm, site=None, x_add=None):
+def _shift_conv_site(cw, leaf, x, cfg, t_len, nrm, site=None, x_add=None,
+                     level=1):
     """One temporal-shift conv (+ norm) + act of a CvBlock: K1 with the
     shift, or, with ``site`` (a ``_ChunkShiftSite``), the chunk's; with
     shift_mode 'none' K1 without a shift. ``x_add`` is summed into the
@@ -264,18 +279,18 @@ def _shift_conv_site(cw, leaf, x, cfg, t_len, nrm, site=None, x_add=None):
         else:
             y = shift_conv_add2(x, x_add, cw, None, t_len, cfg.fold_div, act,
                                 causal)
-    return nrm(y, leaf)
+    return nrm(y, leaf, level)
 
 
-def _cvblock(p, x, cfg, t_len, nrm, x_add=None, sites=None):
-    """Two temporal-shift convs (+ norm) + act (reference CvBlock).
-    ``sites``: the two convs' ``_ChunkShiftSite``s on the chunked path,
-    else None."""
+def _cvblock(p, x, cfg, t_len, nrm, x_add=None, sites=None, level=1):
+    """Two temporal-shift convs (+ norm) + act (reference CvBlock) at
+    resolution ``level``. ``sites``: the two convs' ``_ChunkShiftSite``s
+    on the chunked path, else None."""
     s1, s2 = (None, None) if sites is None else sites
     x = _shift_conv_site(_cw(p['c1']), p.get('n1'), x, cfg, t_len, nrm, s1,
-                         x_add)
+                         x_add, level)
     return _shift_conv_site(_cw(p['c2']), p.get('n2'), x, cfg, t_len, nrm,
-                            s2)
+                            s2, level=level)
 
 
 def _residual(x, y, rc):
@@ -288,15 +303,17 @@ def _stem(inc, x, cfg, nrm):
     """inc without shift_input (conv, act, conv, act): one K2, or two K1
     (+ norm) + act where the route splits."""
     if nrm.split:
-        x = nrm(conv3x3(x, _cw(inc['c1']), act='none'), inc.get('n1'))
-        return nrm(conv3x3(x, _cw(inc['c2']), act='none'), inc.get('n2'))
+        act = nrm.kernel_act
+        x = nrm(conv3x3(x, _cw(inc['c1']), act=act), inc.get('n1'))
+        return nrm(conv3x3(x, _cw(inc['c2']), act=act), inc.get('n2'))
     return conv_chain(x, _cw(inc['c1']), None, _cw(inc['c2']), None,
                       cfg.act, cfg.act)
 
 
-def _down(d, x, nrm):
-    """A stride-2 down conv (+ norm) + act: K3."""
-    return nrm(conv_s2(x, _cw(d['conv']), act=nrm.kernel_act), d.get('n'))
+def _down(d, x, nrm, level):
+    """A stride-2 down conv (+ norm) + act to resolution ``level``: K3."""
+    return nrm(conv_s2(x, _cw(d['conv']), act=nrm.kernel_act), d.get('n'),
+               level)
 
 
 def _outc(o, x, x2, res, cfg, nrm):
@@ -304,7 +321,8 @@ def _outc(o, x, x2, res, cfg, nrm):
     ``res`` (the stage input): one K2, or two K1 and a torch op where the
     route splits."""
     if nrm.split:
-        y = nrm(conv3x3(x, _cw(o['c1']), x2=x2, act='none'), o.get('n1'))
+        y = nrm(conv3x3(x, _cw(o['c1']), x2=x2, act=nrm.kernel_act),
+                o.get('n1'))
         return _residual(res, conv3x3(y, _cw(o['c2']), act='none'),
                         cfg.residual_ch)
     return conv_chain_add2_res(x, x2, res, _cw(o['c1']), None, _cw(o['c2']),
@@ -327,16 +345,17 @@ def _stage_apply(p, x, cfg, t_len, nrm, sites=None):
     else:
         x0 = _stem(p['inc'], x, cfg, nrm)
     d = p['down0']
-    x1 = _cvblock(d['cv'], _down(d, x0, nrm), cfg, t_len, nrm,
-                  sites=pair(off))
+    x1 = _cvblock(d['cv'], _down(d, x0, nrm, 2), cfg, t_len, nrm,
+                  sites=pair(off), level=2)
     d = p['down1']
-    x2 = _cvblock(d['cv'], _down(d, x1, nrm), cfg, t_len, nrm,
-                  sites=pair(off + 2))
-    x2 = _cvblock(p['up2']['cv'], x2, cfg, t_len, nrm, sites=pair(off + 4))
-    x2 = conv_ps(x2, _cw(p['up2']['conv']))
+    x2 = _cvblock(d['cv'], _down(d, x1, nrm, 4), cfg, t_len, nrm,
+                  sites=pair(off + 2), level=4)
+    x2 = _cvblock(p['up2']['cv'], x2, cfg, t_len, nrm, sites=pair(off + 4),
+                  level=4)
+    x2 = nrm.rows(conv_ps(x2, _cw(p['up2']['conv'])), 2)
     x1 = _cvblock(p['up1']['cv'], x1, cfg, t_len, nrm, x_add=x2,
-                  sites=pair(off + 6))
-    x1 = conv_ps(x1, _cw(p['up1']['conv']))
+                  sites=pair(off + 6), level=2)
+    x1 = nrm.rows(conv_ps(x1, _cw(p['up1']['conv'])), 1)
     return _outc(p['outc'], x0, x1, x, cfg, nrm)
 
 
@@ -409,7 +428,7 @@ def wnet_apply(params, x, cfg, bn_stats=None):
     ``nn.layers.bn_update``). ``cfg.remat`` under autograd recomputes each
     stage in the backward (``_RematStage``)."""
     nrm = _Norms(cfg, bn_stats)
-    if not nrm.split:
+    if not nrm.normed:
         params = _folded(params)
     n, t, h, w, c = x.shape
     y = x.reshape(n * t, h, w, c)
@@ -626,14 +645,16 @@ class _WNetBase(nn.Module):
             y = wnet_apply(self.prepared(x.device, x.dtype), x, self.cfg)
         return y.permute(0, 1, 4, 2, 3)
 
-    def train_forward(self, x, amp=False, bn_stats=None):
+    def train_forward(self, x, amp=False, bn_stats=None, apply=wnet_apply):
         """The training forward with autograd on: x (N, T, H, W, C_in) ->
         fp32 (N, T, H, W, out_ch). With ``amp`` the parameters are cast to
         bf16 differentiably (their gradients come back to the fp32 masters
         through the cast, each rounded to bf16 first) and x is cast too
         (bsvd_tpu/models/denoising_model.py make_train_step, amp=True).
         ``bn_stats``: a list for train-mode BN (see ``wnet_apply``), its
-        entries holding the module's own running statistics; fp32 only."""
+        entries holding the module's own running statistics; fp32 only.
+        ``apply(params, x, cfg, bn_stats)``: the forward (the spatially
+        sharded train step passes its per-rank one)."""
         params = _to_tree(self.params)
         if amp:
             if bn_stats is not None:
@@ -642,7 +663,7 @@ class _WNetBase(nn.Module):
             params = _map_tree(params, lambda t: t.to(torch.bfloat16))
             x = x.to(torch.bfloat16)
         with torch.enable_grad():
-            return wnet_apply(params, x, self.cfg, bn_stats).float()
+            return apply(params, x, self.cfg, bn_stats).float()
 
 
 @ARCH_REGISTRY.register()

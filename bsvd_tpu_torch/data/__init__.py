@@ -43,15 +43,11 @@ def build_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
     loader come with the zoo (ROADMAP Queue 1 item 9). ``seed`` seeds that
     batch loader in the JAX package; the loaders here draw nothing (the
     video loader is seeded by its options' ``manual_seed``). ``num_gpu``
-    above 1, ``dist`` and a ``sampler`` raise: one card, one process, and
-    no loader here takes a sampler."""
-    if num_gpu is not None and num_gpu != 'auto' and int(num_gpu) > 1:
-        raise NotImplementedError(
-            f'build_dataloader: num_gpu {num_gpu}: the port runs on one '
-            f'card (parallel/: ROADMAP Queue 1 item 5)')
-    if dist:
-        raise NotImplementedError('build_dataloader: dist=True: the port '
-                                  'runs one process (ROADMAP Queue 1 item 5)')
+    is the mesh's ranks; with ``dist`` a train loader must have been made
+    for this rank of them (``num_devices`` and ``rank`` in its options:
+    its batches are this rank's rows of the global batch), and a val
+    dataset is read whole by every rank. A ``sampler`` raises: no loader
+    here takes one."""
     if sampler is not None:
         raise NotImplementedError(
             f'build_dataloader: sampler {type(sampler).__name__}: '
@@ -59,6 +55,17 @@ def build_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
             + ('iterates itself' if hasattr(dataset, '__next__')
                else 'is read in order by a SimpleLoader'))
     if hasattr(dataset, '__next__'):
+        if dist:
+            from bsvd_tpu_torch.parallel.mesh import world
+            rank, size = world()
+            got = (getattr(dataset, 'rank', 0),
+                   getattr(dataset, 'num_devices', 1))
+            if got != (rank, size) or num_gpu not in (None, 'auto', size):
+                raise ValueError(
+                    f'build_dataloader(dist=True): {type(dataset).__name__} '
+                    f'made for rank {got[0]} of {got[1]}, num_gpu {num_gpu}; '
+                    f'this is rank {rank} of {size}: set its options\' '
+                    f'num_devices and rank')
         return dataset
     if dataset_opt.get('phase', 'val') == 'train':
         raise NotImplementedError(

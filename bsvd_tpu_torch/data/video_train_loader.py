@@ -11,6 +11,19 @@ the augmentation and the noise. With ``num_workers: 1`` and the same
 more workers the order of the windows follows the threads' timing, in
 both packages.
 
+Across ranks (``num_devices`` > 1, this loader's ``rank``) the global
+batch is ``batch_size_per_gpu * num_devices`` clips and a rank returns its
+rows ``[rank * b, (rank + 1) * b)``. Every rank makes every window draw of
+the global stream and decodes only its own: a worker's j-th window is
+slot ``j * num_workers + worker`` of that stream, so the ranks split the
+slots between them. With one worker a rank also makes the augmentation
+and noise draws of the whole global batch and keeps its rows, so its
+batch is those rows of the JAX package's batch, bit for bit; that costs
+every rank the noise of ``num_devices`` batches. With more workers, where
+the windows' order follows the threads' timing anyway, a rank draws the
+augmentation and noise of its own rows only, from a stream of its own
+(seeded from ``manual_seed`` and the rank).
+
 Frames are read by their file type (``data/utils_common.route``): PNG
 through the port's zlib reader, JPEG through the native decoder. Video
 files (mp4 and the other ``_VIDEO_EXTS``) raise NotImplementedError: the
@@ -82,9 +95,10 @@ class _ClipIndex:
             return False
         return h >= crop_hw[0] and w >= crop_hw[1]
 
-    def sample(self, rng, seq_len, crop_hw):
-        """A random window -> (T, ch, cw, 3) uint8 RGB; IOError where it
-        cannot be read (a short clip, a corrupt frame)."""
+    def sample(self, rng, seq_len, crop_hw, decode=True):
+        """A random window -> (T, ch, cw, 3) uint8 RGB (None without
+        ``decode``: the draws only); IOError where it cannot be read (a
+        short clip, a corrupt frame)."""
         path, n = self.entries[rng.integers(len(self.entries))]
         if n < seq_len:
             raise IOError(f'clip {path} shorter ({n}) than temp_patch_size '
@@ -98,21 +112,26 @@ class _ClipIndex:
         # one window position for every frame of the clip
         y0 = int(rng.integers(0, h - ch + 1))
         x0 = int(rng.integers(0, w - cw + 1))
+        if not decode:
+            return None
         return utils_common.load_crop_seq(files, y0, x0, ch, cw)
 
 
-def normalize_augment(batch, rng):
+def normalize_augment(batch, rng, total=None):
     """uint8 [0, 255] (N, F, C, H, W) -> [0, 1] fp32, then one random
     transform for the whole batch (weights 32 : 12 x 8 over do-nothing,
     flips / rotations and a per-sample constant offset). Returns the
-    augmented clip twice (input and target), as the JAX package does."""
+    augmented clip twice (input and target), as the JAX package does.
+    ``total`` (start, size): as for ``noisy_batch``."""
     x = batch.astype(np.float32) / 255.0
     n, f, c, h, w = x.shape
+    start, size = total or (0, n)
     x = x.reshape(n, f * c, h, w)
     choice = rng.choice(9, p=np.array([32, 12, 12, 12, 12, 12, 12, 12, 12],
                                       np.float64) / 128.0)
     if choice == 8:
-        x = x + rng.normal(0.0, 5 / 255., (n, 1, 1, 1)).astype(np.float32)
+        x = x + rng.normal(0.0, 5 / 255., (size, 1, 1, 1)).astype(
+            np.float32)[start:start + n]
     elif choice:
         # 1 flipud, 2 rot90, 3 rot90+flip, 4 rot180, 5 rot180+flip,
         # 6 rot270, 7 rot270+flip
@@ -127,17 +146,23 @@ def normalize_augment(batch, rng):
     return x, x
 
 
-def noisy_batch(batch, rng, noise_ival, noise_shape='NF', blind=False):
+def noisy_batch(batch, rng, noise_ival, noise_shape='NF', blind=False,
+                total=None):
     """One train batch from uint8 clips (N, F, 3, H, W): ``gt`` the
     augmented clip, ``lq`` plus Gaussian noise of sigma ~ U[noise_ival]/255
     per clip ('N') or per frame ('NF'), ``noise_map`` that sigma (dropped
-    for blind nets)."""
-    img_train, gt_train = normalize_augment(batch, rng)
+    for blind nets). ``total`` (start, size): ``batch`` is rows start..
+    start + N - 1 of a batch of ``size`` clips, every draw made for all
+    of them (a rank's share of the global batch)."""
+    img_train, gt_train = normalize_augment(batch, rng, total)
     n, f, c, h, w = img_train.shape
+    start, size = total or (0, n)
     lo, hi = noise_ival
-    shape = (n, f, 1, 1, 1) if noise_shape == 'NF' else (n, 1, 1, 1, 1)
-    stdn = rng.uniform(lo / 255., hi / 255., shape).astype(np.float32)
-    noise = rng.normal(0.0, 1.0, img_train.shape).astype(np.float32) * stdn
+    shape = (size, f, 1, 1, 1) if noise_shape == 'NF' else (size, 1, 1, 1, 1)
+    stdn = rng.uniform(lo / 255., hi / 255., shape).astype(
+        np.float32)[start:start + n]
+    noise = rng.normal(0.0, 1.0, (size,) + img_train.shape[1:]).astype(
+        np.float32)[start:start + n] * stdn
     out = {'gt': gt_train, 'lq': img_train + noise,
            'noise_map': np.broadcast_to(stdn, (n, f, 1, h, w)).astype(
                np.float32)}
@@ -205,11 +230,13 @@ class train_video_loader:
     opt keys (the reference's): trainset_dir, batch_size_per_gpu,
     temp_patch_size, patch_size, max_number_patches, noise_ival,
     noise_shape ('N' | 'NF'), blind, prefetch_size; the JAX package's:
-    num_workers, manual_seed, num_devices (1 only: one card).
+    num_workers, manual_seed, num_devices (the ranks: the global batch is
+    ``batch_size_per_gpu * num_devices`` clips); the port's: rank (whose
+    rows of the global batch this loader returns, default 0).
 
     Worker threads decode random windows into a bounded queue; ``__next__``
     stacks ``batch_size_per_gpu`` of them and makes the batch with
-    ``noisy_batch``. An epoch is ``max_number_patches`` windows, in
+    ``noisy_batch``. An epoch is ``max_number_patches`` windows, in global
     batches (ceil). ``close()`` stops the workers.
 
     A window that cannot be read (a corrupt frame, a clip shorter than
@@ -222,11 +249,13 @@ class train_video_loader:
     def __init__(self, opt):
         self.opt = dict(opt)
         self.opt.setdefault('noise_shape', 'NF')
-        if int(opt.get('num_devices', 1)) != 1:
-            raise NotImplementedError(
-                f"train_video_loader: num_devices {opt['num_devices']}: the "
-                f'port feeds one card (parallel/: ROADMAP Queue 1 item 5)')
+        self.num_devices = int(opt.get('num_devices', 1))
+        self.rank = int(opt.get('rank', 0))
+        if not 0 <= self.rank < self.num_devices:
+            raise ValueError(f'train_video_loader: rank {self.rank} of '
+                             f'num_devices {self.num_devices}')
         self.batch_size = int(opt['batch_size_per_gpu'])
+        self.global_batch = self.batch_size * self.num_devices
         self.seq_len = int(opt['temp_patch_size'])
         ps = opt['patch_size']
         self.crop_hw = (ps[0], ps[1]) if isinstance(ps, (list, tuple)) \
@@ -241,7 +270,7 @@ class train_video_loader:
         if patches <= 0:
             total = sum(n for _, n in self.index.entries)
             patches = max(total // self.seq_len, 1)
-        self.epoch_size = max(-(-patches // self.batch_size), 1)
+        self.epoch_size = max(-(-patches // self.global_batch), 1)
 
         self.rng = np.random.default_rng(opt.get('manual_seed', 12))
         self._num_workers = int(opt.get('num_workers',
@@ -252,12 +281,20 @@ class train_video_loader:
         self.skipped = 0                 # undecodable windows redrawn
         self._skip_lock, self._skip_reasons = threading.Lock(), set()
         self._workers = []
-        for _ in range(self._num_workers):
+        for wid in range(self._num_workers):
             seed = int(self.rng.integers(2**63))
-            t = threading.Thread(target=self._worker, args=(seed,),
+            t = threading.Thread(target=self._worker, args=(seed, wid),
                                  daemon=True)
             t.start()
             self._workers.append(t)
+        # the augmentation and noise draws (module docstring)
+        if self.num_devices > 1 and self._num_workers > 1:
+            self._batch_rng = np.random.default_rng(
+                [int(self.rng.integers(2**63)), self.rank])
+            self._rows = None
+        else:
+            self._batch_rng = self.rng
+            self._rows = (self.rank * self.batch_size, self.global_batch)
 
     def _put(self, item):
         while not self._stop.is_set():
@@ -267,12 +304,19 @@ class train_video_loader:
             except queue.Full:
                 continue
 
-    def _worker(self, seed):
+    def _worker(self, seed, wid):
         rng = np.random.default_rng(seed)
         in_a_row = 0
+        slot = wid               # of the global stream of windows
         while not self._stop.is_set():
+            mine = (slot % self.global_batch) // self.batch_size == self.rank
             try:
-                window = self.index.sample(rng, self.seq_len, self.crop_hw)
+                if mine:
+                    window = self.index.sample(rng, self.seq_len,
+                                               self.crop_hw)
+                else:       # another rank's window: the draws only
+                    self.index.sample(rng, self.seq_len, self.crop_hw,
+                                      decode=False)
             except NotImplementedError as e:   # a frame not read yet
                 self._put(e)
                 return
@@ -290,8 +334,10 @@ class train_video_loader:
                 self._put(e)
                 return
             in_a_row = 0
-            # (T, H, W, 3) -> (T, 3, H, W)
-            self._put(np.transpose(window, (0, 3, 1, 2)))
+            slot += self._num_workers
+            if mine:
+                # (T, H, W, 3) -> (T, 3, H, W)
+                self._put(np.transpose(window, (0, 3, 1, 2)))
 
     def _skip(self, err):
         """Count a redrawn window; log each reason once."""
@@ -327,9 +373,9 @@ class train_video_loader:
                 raise RuntimeError('train_video_loader: a worker failed') \
                     from item
             samples.append(item)
-        return noisy_batch(np.stack(samples), self.rng,
+        return noisy_batch(np.stack(samples), self._batch_rng,
                            self.opt['noise_ival'], self.opt['noise_shape'],
-                           self.opt.get('blind', False))
+                           self.opt.get('blind', False), self._rows)
 
 
 @DATASET_REGISTRY.register()

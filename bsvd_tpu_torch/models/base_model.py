@@ -20,6 +20,7 @@ from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
 from bsvd_tpu_torch.models.checkpoint import (load_npz_params,
                                               save_npz_params,
                                               save_training_state)
+from bsvd_tpu_torch.parallel.mesh import is_main_process
 from bsvd_tpu_torch.utils.logger import get_root_logger
 
 
@@ -84,7 +85,11 @@ class BaseModel:
     def save_network(self, param_trees, net_label, current_iter,
                      param_key='params'):
         """Port trees (one or a list) into models/net_<label>_<iter>.npz,
-        in the JAX package's layout; ``current_iter`` -1 writes 'latest'."""
+        in the JAX package's layout; ``current_iter`` -1 writes 'latest'.
+        Rank 0 writes (every rank holds the same parameters); the others
+        return None."""
+        if not is_main_process():
+            return None
         if current_iter == -1:
             current_iter = 'latest'
         path = osp.join(self.opt['path']['models'],
@@ -116,8 +121,9 @@ class BaseModel:
                             extra=None):
         """training_states/<iter>.state: epoch, iteration, the optimizer
         state and ``extra`` (a dict of more training state, {} by
-        default); nothing for iteration -1."""
-        if current_iter == -1:
+        default); nothing for iteration -1, and nothing on ranks other
+        than 0."""
+        if current_iter == -1 or not is_main_process():
             return None
         path = osp.join(self.opt['path']['training_states'],
                         f'{current_iter}.state')

@@ -19,8 +19,16 @@ bf16), with the EMA parameters when they exist; ``validation`` scores each
 clip of a dataset (PSNR / SSIM on uint8 images, float PSNR) and writes its
 frames and per-scene CSVs.
 
-Not ported here: the perceptual loss (the zoo), data / spatial meshes
-(validation runs clips one after another).
+On a mesh (``num_gpu`` ranks launched by torchrun, ``parallel.spatial``
+of them splitting the rows; ``parallel.mesh.make_mesh``): each rank steps
+on its shard and the gradients and the loss are averaged over every rank
+in one ``all_reduce``, so every rank applies the same update; validation
+shares the folders out over a data mesh and writes its CSVs and log on
+rank 0 (``validation``).
+
+Not ported here: the perceptual loss (the zoo); norm 'bn' on a mesh of
+more than one rank, and norm 'in' with the rows split (the statistics
+would need an all-reduce: ROADMAP.md Queue 1).
 """
 
 import csv
@@ -42,27 +50,89 @@ from bsvd_tpu_torch.models.lr_scheduler import build_schedule
 from bsvd_tpu_torch.models.optim import Adam
 from bsvd_tpu_torch.models.seq_inference import denoise_seq
 from bsvd_tpu_torch.nn.layers import bn_update
+from bsvd_tpu_torch.parallel.mesh import (all_gather, all_reduce_mean,
+                                          gather_objects, is_main_process,
+                                          make_mesh)
+from bsvd_tpu_torch.parallel.spatial import _local_forward, spatial_ok
 from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
 from bsvd_tpu_torch.utils.logger import get_root_logger
 from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
-def make_train_step(net, optimizer, cri_pix, amp=False):
+def _mean_grads(params, loss):
+    """Every parameter's gradient and the loss, averaged over every rank in
+    one all_reduce of one flat fp32 buffer; returns the mean loss."""
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [loss.detach().reshape(1).float()])
+    all_reduce_mean(flat)
+    at = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[at:at + g.numel()].view_as(g).to(g.dtype)
+        at += g.numel()
+    return flat[-1]
+
+
+def _check_equal_shards(batch):
+    """A mean of the ranks' mean losses is the global mean only when the
+    ranks' shards are of one size: raise where they are not."""
+    shapes = gather_objects(tuple(batch['lq'].shape))
+    if len(set(shapes)) != 1:
+        raise ValueError(f'train step on a mesh: the ranks\' batches differ '
+                         f'in shape {shapes}; the averaged loss would not be '
+                         f'the global mean')
+
+
+def make_train_step(net, optimizer, cri_pix, amp=False, mesh=None):
     """The step ``(batch, ema_params, ema_decay) -> {'l_pix': loss}`` over
     ``net``'s parameters, updated in place by ``optimizer``; ``batch``
     holds 'lq' and 'gt' (N, T, H, W, C) on the parameters' device. With
     norm 'bn' the forward runs BN on the batch's statistics, and once the
     optimizer has stepped they are folded into the module's running
     statistics (bsvd_tpu make_train_step's bn_fold_running_stats), which
-    no optimizer touches."""
-    bn = net.cfg.norm == 'bn'
+    no optimizer touches.
+
+    ``mesh`` (a ``parallel.mesh.Mesh`` of more than one rank): ``batch``
+    is this rank's shard (``parallel.mesh.shard_batch``: batch over
+    'data', rows over 'spatial'). Each rank runs forward and backward on
+    it (the halo-exchange forward ``parallel.spatial._local_forward`` with
+    the rows split, its pixel loss over its own rows), then the gradients
+    and the loss are averaged over both axes in one all_reduce and every
+    rank applies the same optax-exact Adam and EMA, so the parameters stay
+    the same bits on every rank."""
+    cfg = net.cfg
+    bn = cfg.norm == 'bn'
+    sharded = mesh is not None and mesh.size > 1
+    n_sp = mesh.shape['spatial'] if mesh is not None else 1
+    if sharded and (bn or (cfg.norm == 'in' and n_sp > 1)):
+        raise NotImplementedError(
+            f'norm {cfg.norm!r} on a mesh of {mesh.shape}: the statistics '
+            f'of a sharded batch need an all-reduce (ROADMAP.md Queue 1)')
+    checked = []
+
+    def forward(x, stats):
+        if n_sp == 1:
+            return net.train_forward(x, amp=amp, bn_stats=stats)
+        hg = x.shape[2] * n_sp
+        if not spatial_ok(cfg, hg, mesh):
+            raise ValueError(f'spatial train step: H {hg} is not a multiple '
+                             f'of 4 x {n_sp} (parallel.spatial.spatial_ok)')
+        axis = mesh.axis('spatial')
+        return net.train_forward(x, amp=amp, apply=lambda p, v, c, _:
+                                 _local_forward(p, v, c, hg, axis))
 
     def step(batch, ema_params=None, ema_decay=0.0):
+        if sharded and not checked:
+            _check_equal_shards(batch)
+            checked.append(True)
         optimizer.zero_grad()
         stats = [] if bn else None
-        out = net.train_forward(batch['lq'], amp=amp, bn_stats=stats)
+        out = forward(batch['lq'], stats)
         l_pix = cri_pix(out, batch['gt'].float())
         l_pix.backward()
+        if sharded:
+            l_pix = _mean_grads(optimizer.params, l_pix)
         optimizer.step()
         if bn:
             bn_update(stats)
@@ -77,7 +147,8 @@ def make_train_step(net, optimizer, cri_pix, amp=False):
 class DenoisingModel(BaseModel):
     """Video denoising train engine: MIMO training of the TSN with the
     temporal shift, on ``device`` (default: the options' ``device``, else
-    'cuda')."""
+    'cuda'), over the mesh of ``num_gpu`` ranks with ``parallel.spatial``
+    of them on the rows (JAX denoising_model.py:249-252)."""
 
     def __init__(self, opt, device=None):
         super().__init__(opt)
@@ -93,6 +164,9 @@ class DenoisingModel(BaseModel):
                 load_path, None if key == 'None' else key,
                 path.get('strict_load_g', True)))
         self.net = net
+        par = dict(opt.get('parallel') or {})
+        self.mesh = make_mesh(opt.get('num_gpu', 'auto'),
+                              spatial=int(par.get('spatial', 1)))
         self.ema_params = None
         self.center_frame_only = opt.get('center_frame_only', False)
         if self.is_train:
@@ -127,7 +201,8 @@ class DenoisingModel(BaseModel):
                 'matching autocast BN policy)')
             self.amp = False
         self._train_step = make_train_step(self.net, self.optimizer,
-                                           self.cri_pix, amp=self.amp)
+                                           self.cri_pix, amp=self.amp,
+                                           mesh=self.mesh)
 
     def _build_optimizer(self, train_opt):
         optim_opt = dict(train_opt['optim_g'])
@@ -151,11 +226,21 @@ class DenoisingModel(BaseModel):
         self.gt = dev(data['gt']) if 'gt' in data else None
 
     def optimize_parameters(self, current_iter):
+        """One step on the fed batch. On a spatial mesh the fed batch is
+        this rank's rows of the global batch (the loader's ``rank``): the
+        ranks of one data row gather theirs (the JAX data shard) and each
+        keeps its rows of H."""
         self.current_iter = current_iter
         lq = self.lq if self.noise_map is None else torch.cat(
             [self.lq, self.noise_map.to(self.lq.dtype)], dim=2)
         batch = {'lq': lq.permute(0, 1, 3, 4, 2).contiguous(),
                  'gt': self.gt.permute(0, 1, 3, 4, 2).contiguous()}
+        if self.mesh.shape['spatial'] > 1:
+            sp = self.mesh.axis('spatial')
+            batch = {k: all_gather(v, sp, 0) for k, v in batch.items()}
+            h = batch['lq'].shape[2] // sp.size
+            batch = {k: v[:, :, sp.index * h:(sp.index + 1) * h].contiguous()
+                     for k, v in batch.items()}
         self.log_dict = self._train_step(batch, self.ema_params,
                                          self.ema_decay)
 
@@ -215,15 +300,42 @@ class DenoisingModel(BaseModel):
             temp_psz=val_opt.get('temp_psz', -1),
             future_buffer_len=val_opt.get('future_buffer_len', 0),
             mode='streaming' if val_opt.get('streaming_eval', False)
-            else 'mimo', compute_dtype=dtype)
+            else 'mimo', compute_dtype=dtype, mesh=self.mesh)
         self.output = out[None]
         self.crop_output(padding_list)
 
     def validation(self, dataloader, current_iter, tb_logger, save_img=False):
         """Score every clip of ``dataloader.dataset``; returns the metrics'
-        averages over clips (None where ``val`` names no metrics)."""
+        averages over clips (None where ``val`` names no metrics, and on
+        ranks other than 0 of a mesh). Every rank of a mesh calls it."""
         return self.nondist_validation(dataloader, current_iter, tb_logger,
                                        save_img)
+
+    def _val_share(self, num_folders):
+        """How this rank takes part in a validation on the mesh: (ranks
+        the folders are shared out over, this rank's index among them,
+        whether it scores and writes what it denoises), or None where it
+        sits out.
+
+        - a data mesh (more than one rank, no split rows) with the whole
+          clip protocol and more than one folder: folder i goes to data
+          rank i % data (the JAX package's round-robin over its data
+          devices, one rank per card here); each rank scores and writes
+          its folders;
+        - split rows: every rank denoises every folder (the forward is
+          collective); rank 0 scores and writes;
+        - any other mesh of more than one rank: rank 0 alone, as the
+          JAX package validates on its main process.
+        """
+        mesh, main = self.mesh, is_main_process()
+        if mesh.size == 1:
+            return 1, 0, True
+        val_opt = self.opt.get('val') or {}
+        if mesh.shape['spatial'] > 1:
+            return 1, 0, main
+        if val_opt.get('temp_psz', -1) == -1 and num_folders > 1:
+            return mesh.shape['data'], mesh.coords['data'], True
+        return (1, 0, True) if main else None
 
     def _folder_metrics(self, result, gt, folder, dataset_name, save_img,
                         with_metrics):
@@ -256,13 +368,20 @@ class DenoisingModel(BaseModel):
 
     def nondist_validation(self, dataloader, current_iter, tb_logger,
                            save_img):
-        """The serial validation: each clip read, denoised by ``test`` and
-        scored in turn. ``self.val_seconds`` holds this call's host seconds
-        by part (read, denoise, metrics, save). Without ``val.metrics`` the
-        clips are still denoised (and saved) and no metric is logged, as
-        in BasicSR; the JAX package raises there (ROADMAP.md Queue 3)."""
+        """The validation: each clip read, denoised by ``test`` and scored
+        in turn (on a mesh, the clips ``_val_share`` gives this rank, the
+        per-folder metric arrays then gathered to rank 0, which writes the
+        CSVs and the log line as a serial run does). ``self.val_seconds``
+        holds this call's host seconds by part (read, denoise, metrics,
+        save). Without ``val.metrics`` the clips are still denoised (and
+        saved) and no metric is logged, as in BasicSR; the JAX package
+        raises there (ROADMAP.md Queue 3)."""
         dataset = dataloader.dataset
         dataset_name = dataset.opt['name']
+        share = self._val_share(len(dataset))
+        if share is None:
+            return None
+        ranks, mine_at, scores = share
         metrics = (self.opt.get('val') or {}).get('metrics')
         with_metrics = metrics is not None
         if with_metrics:
@@ -275,7 +394,8 @@ class DenoisingModel(BaseModel):
         self.val_seconds = dict.fromkeys(('read', 'denoise', 'metrics',
                                           'save'), 0.0)
         logger = get_root_logger()
-        for i in range(len(dataset)):
+        mine = []
+        for i in range(mine_at, len(dataset), ranks):
             t0 = time.perf_counter()
             val_data = dataset[i]
             t1 = time.perf_counter()
@@ -286,11 +406,18 @@ class DenoisingModel(BaseModel):
             self.val_seconds['read'] += t1 - t0
             self.val_seconds['denoise'] += time.perf_counter() - t1
             folder = val_data['folder']
-            self._folder_metrics(self.output[0],
-                                 np.asarray(val_data['gt'])[0], folder,
-                                 dataset_name, save_img, with_metrics)
+            mine.append(folder)
+            if scores:
+                self._folder_metrics(self.output[0],
+                                     np.asarray(val_data['gt'])[0], folder,
+                                     dataset_name, save_img, with_metrics)
             logger.info(f'Tested {folder} ({i + 1}/{len(dataset)})')
-        if not with_metrics:
+        if with_metrics and ranks > 1:
+            # each folder's scores from the rank that denoised it
+            for theirs in gather_objects(
+                    {f: self.metric_results[f] for f in mine}):
+                self.metric_results.update(theirs)
+        if not with_metrics or not is_main_process():
             return None
         return self._log_validation_metric_values(current_iter, dataset_name,
                                                   tb_logger)

@@ -4,12 +4,23 @@ batched forward, ``mode='streaming'`` the frame-by-frame pipeline of
 archs/streaming.streaming_apply; both give the same function) or by the
 chunked MIMO protocol (``temp_psz`` < T, with ``future_buffer_len``
 look-ahead frames and per-site carries, archs/wnet_arch.wnet_apply_chunk),
-and ``BlockStreamDenoiser``, the chunked protocol delivered incrementally.
+and ``BlockStreamDenoiser``, the chunked protocol delivered incrementally;
+``denoise_seq_async`` is the whole clip left on the device, unsynchronised.
+
+On a mesh (``parallel.mesh.Mesh``, every rank making the same call with the
+same clip): a whole clip on a spatial mesh that ``spatial_ok`` takes runs
+``parallel.spatial.wnet_apply_spatial``, the rows split over the ranks;
+the chunked and streaming protocols on a spatial mesh, and any protocol on
+a data-only mesh (N = 1), compute the unsharded function on every rank's
+card (the JAX package partitions those with GSPMD). Every rank returns the
+whole array. ``BlockStreamDenoiser`` puts its streams on the 'data' axis.
 
 The JAX package's auto-chunking of a whole clip over the memory budget is
 not ported: it is not the whole-clip function for bidirectional nets
 (ROADMAP.md Queue 3), so such a clip raises NotImplementedError.
 """
+
+import logging
 
 import numpy as np
 import torch
@@ -17,6 +28,10 @@ import torch
 from bsvd_tpu_torch.archs.streaming import streaming_apply
 from bsvd_tpu_torch.archs.wnet_arch import (_cw, _WNetBase, prepare_params,
                                             wnet_apply, wnet_apply_chunk)
+from bsvd_tpu_torch.parallel.mesh import Mesh, all_gather
+from bsvd_tpu_torch.parallel.spatial import spatial_ok, wnet_apply_spatial
+
+_log = logging.getLogger('bsvd_tpu_torch')
 
 
 def _memory_budget(device, frac=0.8):
@@ -76,6 +91,65 @@ def _chunked_mimo(p, x, cfg, psz, future, den):
         keep(out, num_seg * psz, rem)
 
 
+_warned = set()
+
+
+def _warn_once(msg):
+    if msg not in _warned:
+        _warned.add(msg)
+        _log.warning(msg)
+
+
+def _check_mesh(mesh):
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f'mesh must be a parallel.mesh.Mesh, got '
+                        f'{type(mesh).__name__}')
+
+
+def _clip_input(seq, noise_sigma, cfg, device, dtype):
+    """(T, C, H, W) -> (T, H, W, C') on ``device`` in ``dtype``, with the
+    constant noise-map channel unless the net is blind."""
+    if not torch.is_tensor(seq):
+        seq = torch.as_tensor(np.asarray(seq))
+    t, _, h, w = seq.shape
+    x = seq.to(device, dtype).permute(0, 2, 3, 1)
+    if not cfg.blind and noise_sigma is not None:
+        nm = torch.full((t, h, w, 1), float(noise_sigma), dtype=dtype,
+                        device=device)
+        x = torch.cat([x, nm], dim=-1)
+    return x
+
+
+def denoise_seq_async(params, cfg, seq, noise_sigma=None, mode='mimo',
+                      compute_dtype=None, device=None):
+    """Whole-clip denoise left on the device, without a synchronise: the
+    (T, H, W, out_ch) tensor clipped to [0, 1] (the JAX package's
+    validation queues the next folder with it while the host scores the
+    last; the port's validation calls ``denoise_seq``, whose unsharded
+    whole clip runs the same ``_whole_clip``). ``params`` as for
+    ``denoise_seq``; ``device`` (default: the weights') is where it runs
+    (weights elsewhere are copied there)."""
+    if mode not in ('mimo', 'streaming'):
+        raise ValueError(f"mode must be 'mimo' or 'streaming', got {mode!r}")
+    if not torch.is_tensor(seq):
+        seq = torch.as_tensor(np.asarray(seq))
+    dtype = compute_dtype or seq.dtype
+    p, cfg, wdev = _resolve(params, cfg, dtype)
+    device = wdev if device is None else torch.device(device)
+    if device != wdev:
+        p = prepare_params(p, device, dtype)
+    return _whole_clip(p, _clip_input(seq, noise_sigma, cfg, device, dtype),
+                       cfg, mode)
+
+
+def _whole_clip(p, x, cfg, mode):
+    """(T, H, W, C) on the weights' device -> the clipped (T, H, W,
+    out_ch), unsharded, in one forward or streamed."""
+    apply = streaming_apply if mode == 'streaming' else wnet_apply
+    with torch.no_grad():
+        return torch.clamp(apply(p, x[None], cfg), 0., 1.)[0]
+
+
 def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
                 future_buffer_len=0, mode='mimo', compute_dtype=None,
                 mesh=None, host_chunks=False, device_program=False):
@@ -99,7 +173,7 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
             the whole clip.
         compute_dtype: torch dtype the input and weights are cast to
             (e.g. torch.bfloat16); None keeps the sequence's dtype.
-        mesh: must be None (spatial sharding is not ported).
+        mesh: a ``parallel.mesh.Mesh`` (see the module docstring), or None.
         host_chunks, device_program: how the JAX package schedules the
             chunked protocol (a synchronising loop, one device program);
             its three schedules give the same array, and so does the port's
@@ -111,18 +185,21 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
     del host_chunks, device_program
     if mode not in ('mimo', 'streaming'):
         raise ValueError(f"mode must be 'mimo' or 'streaming', got {mode!r}")
-    if mesh is not None:
-        raise NotImplementedError('denoise_seq(mesh=...): spatial sharding '
-                                  'waits for the parallel port (ROADMAP.md '
-                                  'Queue 1 item 5)')
+    _check_mesh(mesh)
     if not torch.is_tensor(seq):
         seq = torch.as_tensor(np.asarray(seq))
     t, c, h, w = seq.shape
     dtype = compute_dtype or seq.dtype
     p, cfg, device = _resolve(params, cfg, dtype)
     whole_clip = temp_psz == -1 or temp_psz >= t
+    sharded = whole_clip and mode == 'mimo' and spatial_ok(cfg, h, mesh)
+    if mesh is not None and mesh.shape['spatial'] > 1 and not sharded:
+        _warn_once(f'denoise_seq: {"chunked" if not whole_clip else mode} '
+                   f'protocol, H {h}, norm {cfg.norm!r} on a spatial mesh: '
+                   f'every rank denoises the whole clip on its card')
 
-    if device.type == 'cuda' and whole_clip and mode == 'mimo':
+    if (device.type == 'cuda' and whole_clip and mode == 'mimo'
+            and not sharded):
         # a whole-clip forward holds O(T) full-resolution activations
         per_frame = h * w * 256 * torch.empty((), dtype=dtype).element_size()
         budget = _memory_budget(device)
@@ -134,19 +211,18 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
                 f'auto-chunking is not ported (ROADMAP.md Queue 3): pass '
                 f"temp_psz, or mode='streaming'")
 
-    x = seq.to(device, dtype).permute(0, 2, 3, 1)           # (T, H, W, C)
-    if not cfg.blind and noise_sigma is not None:
-        nm = torch.full((t, h, w, 1), float(noise_sigma), dtype=dtype,
-                        device=device)
-        x = torch.cat([x, nm], dim=-1)
+    x = _clip_input(seq, noise_sigma, cfg, device, dtype)     # (T, H, W, C)
     # pinned host memory: a pageable copy of the permuted tensor ran at
     # ~2.4 GB/s on the H100 host (26 ms per 540p clip)
     den = torch.empty((t, cfg.out_ch, h, w), dtype=torch.float32,
                       pin_memory=device.type == 'cuda')
     with torch.no_grad():
-        if whole_clip:
-            apply = streaming_apply if mode == 'streaming' else wnet_apply
-            out = torch.clamp(apply(p, x[None], cfg), 0., 1.)[0]
+        if sharded:
+            out = torch.clamp(wnet_apply_spatial(p, x[None], cfg, mesh),
+                              0., 1.)[0]
+            den.copy_(out.permute(0, 3, 1, 2).float().contiguous())
+        elif whole_clip:
+            out = _whole_clip(p, x, cfg, mode)
             den.copy_(out.permute(0, 3, 1, 2).float().contiguous())
         else:
             _chunked_mimo(p, x, cfg, int(temp_psz), int(future_buffer_len),
@@ -169,6 +245,11 @@ class BlockStreamDenoiser:
     ``dtype`` (default fp32) on the weights' device; outputs are (N, H, W,
     out_ch) device tensors clipped to [0, 1]. No call synchronises.
 
+    ``mesh`` (a ``parallel.mesh.Mesh``; every rank pushes the same whole
+    frames and gets the same whole outputs): with more than one rank on
+    its 'data' axis, N-stream serving, each rank running the chunks of its
+    N / data streams; where N does not divide, every rank runs them all.
+
     Example::
 
         bsd = BlockStreamDenoiser(net, None, psz=8, future_buffer_len=2,
@@ -182,9 +263,7 @@ class BlockStreamDenoiser:
 
     def __init__(self, params, cfg, psz=8, future_buffer_len=2, dtype=None,
                  mesh=None):
-        if mesh is not None:
-            raise NotImplementedError('BlockStreamDenoiser(mesh=...): '
-                                      'multi-stream sharding is not ported')
+        _check_mesh(mesh)
         if psz < 1:
             raise ValueError(f'psz must be >= 1, got {psz}')
         self.dtype = dtype or torch.float32
@@ -192,6 +271,9 @@ class BlockStreamDenoiser:
                                                       self.dtype)
         self.psz = int(psz)
         self.future = int(future_buffer_len)
+        self.mesh = None
+        if mesh is not None and mesh.shape['data'] > 1:
+            self.mesh = mesh
         self.reset()
 
     def reset(self):
@@ -206,8 +288,16 @@ class BlockStreamDenoiser:
 
     def _forward(self, frames, future):
         x = torch.stack(frames, dim=1)
+        data = None if self.mesh is None else self.mesh.axis('data')
+        if data is not None and x.shape[0] % data.size:
+            data = None
+        if data is not None:
+            step = x.shape[0] // data.size
+            x = x[data.index * step:(data.index + 1) * step]
         out, self._carries = _chunk_forward(self.params, x, self.cfg,
                                             self._carries, future)
+        if data is not None:
+            out = all_gather(out, data, 0)
         return list(out.unbind(1))
 
     def push(self, frame):

@@ -8,7 +8,9 @@ caller name the CPU.
 
 prints {dataset name: metric averages} as JSON. ``test_pipeline(root_path,
 cmd, opt_path)`` is what the command runs; ``evaluate(opt)`` runs an
-options dict whose paths are set.
+options dict whose paths are set. Under torchrun with ``--launcher
+pytorch`` every rank evaluates (``DenoisingModel.validation`` shares the
+folders out) and rank 0 writes and prints.
 """
 
 import copy
@@ -18,6 +20,7 @@ from os import path as osp
 
 from bsvd_tpu_torch.data import build_dataloader, build_dataset
 from bsvd_tpu_torch.models.denoising_model import build_model
+from bsvd_tpu_torch.parallel.mesh import barrier, is_main_process
 from bsvd_tpu_torch.utils.logger import get_env_info, get_root_logger
 from bsvd_tpu_torch.utils.misc import get_time_str, make_exp_dirs
 from bsvd_tpu_torch.utils.options import dict2str, parse_options
@@ -30,7 +33,9 @@ def evaluate(opt, device=None):
     phase key); returns {dataset name: metric averages}."""
     opt = copy.deepcopy(opt)
     opt['is_train'] = False
-    make_exp_dirs(opt)
+    if is_main_process():
+        make_exp_dirs(opt)
+    barrier()
     logger = get_root_logger(log_level=logging.INFO, log_file=osp.join(
         opt['path']['log'], f"test_{opt['name']}_{get_time_str()}.log"))
     logger.info(get_env_info())
@@ -60,15 +65,18 @@ def evaluate(opt, device=None):
 
 def test_pipeline(root_path, cmd=None, opt_path=None, device=None):
     """The command line's run (bsvd_tpu/test.py:13-43): parse the options
-    (``cmd``, else sys.argv; or the file ``opt_path``) and evaluate.
-    ``device`` overrides the options'."""
+    (``cmd``, else sys.argv; or the file ``opt_path``; under ``--launcher``
+    this joins the process group first) and evaluate. ``device``
+    overrides the options'."""
     opt, _ = parse_options(root_path, is_train=False, cmd=cmd,
                            opt_path=opt_path)
     return evaluate(opt, device=device)
 
 
 def main():
-    print(json.dumps(test_pipeline(ROOT)))
+    results = test_pipeline(ROOT)
+    if is_main_process():
+        print(json.dumps(results))
 
 
 if __name__ == '__main__':

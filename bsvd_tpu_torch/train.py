@@ -6,6 +6,15 @@ and validation, on the card unless the options or the caller name the CPU.
         [--auto_resume] [--debug] [--device cpu] \\
         [--force_yml datasets:train:trainset_dir=<frame folders> ...]
 
+On several cards, one process each::
+
+    python -m torch.distributed.run --nproc_per_node 2 \\
+        -m bsvd_tpu_torch.train -opt <yml> --launcher pytorch
+
+(``num_gpu: auto``, ``parallel: {spatial: S}`` to split rows over S of
+them). Every rank steps; rank 0 logs, saves, writes the validation's
+CSVs and finds the state to resume from.
+
 ``train_pipeline(root_path, cmd, opt_path)`` is what the command runs;
 ``train_loop(opt, train_loader)`` is its loop over a loader of batches
 with ``__len__`` (dicts of numpy or tensor ``lq`` / ``gt`` / ``noise_map``,
@@ -24,6 +33,8 @@ from bsvd_tpu_torch.data import build_dataloader, build_dataset
 from bsvd_tpu_torch.models.base_model import latest_resume_state
 from bsvd_tpu_torch.models.checkpoint import load_training_state
 from bsvd_tpu_torch.models.denoising_model import build_model
+from bsvd_tpu_torch.parallel.mesh import (barrier, broadcast_object,
+                                          is_main_process)
 from bsvd_tpu_torch.utils.logger import (AvgTimer, MessageLogger,
                                          get_env_info, get_root_logger,
                                          init_tb_logger, init_wandb_logger)
@@ -43,9 +54,11 @@ def create_train_val_dataloader(opt, logger):
         if phase == 'train':
             dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
             dataset_opt.setdefault('num_devices', opt.get('num_gpu', 1))
+            dataset_opt.setdefault('rank', opt.get('rank', 0))
             train_loader = build_dataloader(build_dataset(dataset_opt),
                                             dataset_opt,
-                                            num_gpu=opt['num_gpu'])
+                                            num_gpu=opt['num_gpu'],
+                                            dist=opt.get('dist', False))
             num_iter_per_epoch = len(train_loader)
             total_iters = int(opt['train']['total_iter'])
             total_epochs = math.ceil(total_iters / max(num_iter_per_epoch, 1))
@@ -89,10 +102,13 @@ def load_resume_state(opt):
 
     The JAX package looks for auto-resume states under
     ``experiments/<name>`` of the working directory (bsvd_tpu/train.py:57);
-    the port looks where the run writes them, under ``root_path``."""
+    the port looks where the run writes them, under ``root_path``. Rank 0
+    searches and tells the others."""
     path = None
     if opt.get('auto_resume'):
-        path = latest_resume_state(opt['path']['training_states'])
+        path = broadcast_object(
+            latest_resume_state(opt['path']['training_states'])
+            if is_main_process() else None)
         if path:
             opt['path']['resume_state'] = path
     elif opt['path'].get('resume_state'):
@@ -191,17 +207,19 @@ def validate(model, opt, val_loaders, current_iter):
 
 def train_pipeline(root_path, cmd=None, opt_path=None, device=None):
     """The command line's run (bsvd_tpu/train.py:71-165): parse the options
-    (``cmd``, else sys.argv; or the file ``opt_path``), make the
-    experiment folder unless resuming, copy the option file there, log,
-    build the loaders and train. ``device`` overrides the options'.
-    Returns the model."""
+    (``cmd``, else sys.argv; or the file ``opt_path``), which first joins
+    the process group under ``--launcher`` (``parallel.mesh.
+    init_distributed``), make the experiment folder unless resuming, copy
+    the option file there, log, build the loaders and train. ``device``
+    overrides the options'. Returns the model."""
     opt, args = parse_options(root_path, is_train=True, cmd=cmd,
                               opt_path=opt_path)
     if device is not None:
         opt['device'] = device
     resume_state = load_resume_state(opt)
-    if resume_state is None:
+    if resume_state is None and is_main_process():
         make_exp_dirs(opt)
+    barrier()
     if getattr(args, 'opt', None) and osp.isfile(args.opt):
         copy_opt_file(args.opt, opt['path']['experiments_root'])
 

@@ -1,6 +1,6 @@
-"""Logging of the port (counterpart of bsvd_tpu/utils/logger.py, for one
-process): the root logger, the train loop's timers and message logger,
-and the environment line.
+"""Logging of the port (counterpart of bsvd_tpu/utils/logger.py): the root
+logger (rank-gated: ranks other than 0 log errors only, to no file), the
+train loop's timers and message logger, and the environment line.
 
 TensorBoard and wandb are not ported: ``use_tb_logger`` logs one line
 saying the scalars go to the text log only, and a ``logger.wandb.project``
@@ -12,6 +12,8 @@ import time
 
 import torch
 
+from bsvd_tpu_torch.parallel.mesh import is_main_process
+
 LOGGER = 'bsvd_tpu_torch'
 
 
@@ -19,8 +21,12 @@ def get_root_logger(logger_name=LOGGER, log_level=logging.INFO,
                     log_file=None):
     """The logger ``logger_name`` with a console handler (added once) at
     ``log_level`` and, when ``log_file`` is given, a file handler writing
-    there at ``log_level`` (in place of an earlier run's). The JAX
-    package's multi-host rank gating is not ported (one process)."""
+    there at ``log_level`` (in place of an earlier run's). On ranks other
+    than 0 of a process group it logs at ERROR level with no file handler
+    (JAX bsvd_tpu/utils/logger.py:14-28)."""
+    main = is_main_process()
+    if not main:
+        log_file = None
     logger = logging.getLogger(logger_name)
     fmt = logging.Formatter('%(asctime)s %(levelname)s: %(message)s')
     if not logger.handlers:
@@ -39,6 +45,8 @@ def get_root_logger(logger_name=LOGGER, log_level=logging.INFO,
         handler.setLevel(log_level)
         logger.addHandler(handler)
         logger.setLevel(log_level)
+    if not main:
+        logger.setLevel(logging.ERROR)
     return logger
 
 

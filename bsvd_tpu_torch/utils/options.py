@@ -2,15 +2,20 @@
 paths derived from them (counterpart of bsvd_tpu/utils/options.py).
 
 The same files and the same command line as the JAX package: ``-opt``,
-``--auto_resume``, ``--debug``, ``--force_yml key:sub=value``, and
-``--launcher`` / ``--local_rank`` accepted and ignored. The port adds
-``--device`` (the card by default, or ``cpu``). YAML is read by the port's
-own reader (``utils/yaml_lite``), with PyYAML's scalar rules.
+``--launcher``, ``--auto_resume``, ``--debug``, ``--force_yml
+key:sub=value``, and ``--local_rank`` accepted and ignored (torchrun
+passes LOCAL_RANK in the environment). The port adds ``--device`` (the
+card by default, or ``cpu``). YAML is read by the port's own reader
+(``utils/yaml_lite``), with PyYAML's scalar rules.
 
-The port runs on one card: ``num_gpu: auto`` is 1, and a larger
-``num_gpu`` raises NotImplementedError (data parallelism is ROADMAP Queue 1
-item 5, ``parallel/``), where the JAX package would multiply the batch by
-its device count.
+``--launcher pytorch|slurm`` joins the process group that the launcher's
+environment describes (``parallel.mesh.init_distributed``: NCCL on the
+card, gloo with ``--device cpu``; nothing where it describes none), and
+``dist``, ``rank`` and ``world_size`` come from the process group.
+``num_gpu`` keeps the JAX package's meaning, the cards of the mesh:
+'auto' is the world size, and a number must equal it, so ``num_gpu: 2``
+needs two processes (``python -m torch.distributed.run --nproc_per_node 2
+-m bsvd_tpu_torch.train -opt ... --launcher pytorch``).
 """
 
 import argparse
@@ -22,7 +27,9 @@ from os import path as osp
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from bsvd_tpu_torch.parallel.mesh import init_distributed, master_only, world
 from bsvd_tpu_torch.utils import yaml_lite
 
 
@@ -71,15 +78,18 @@ def set_random_seed(seed):
     torch.manual_seed(seed)
 
 
-def _num_gpu(opt):
+def _num_gpu(opt, world_size):
+    """``num_gpu``: 'auto' is the world size; a number must equal it."""
     num_gpu = opt.get('num_gpu', 'auto')
     if num_gpu == 'auto':
-        return 1
-    if int(num_gpu) > 1:
-        raise NotImplementedError(
-            f'num_gpu {num_gpu}: the port runs on one card; data parallelism '
-            f'waits for parallel/ (ROADMAP Queue 1 item 5)')
-    return int(num_gpu)
+        return world_size
+    if int(num_gpu) != world_size:
+        raise ValueError(
+            f'num_gpu {num_gpu} with {world_size} process(es): the port runs '
+            f'one process per card; launch them with python -m '
+            f'torch.distributed.run --nproc_per_node {num_gpu} -m '
+            f'bsvd_tpu_torch.train -opt <yml> --launcher pytorch')
+    return world_size
 
 
 def parse_options(root_path, is_train=True, cmd=None, opt_path=None):
@@ -102,8 +112,8 @@ def parse_options(root_path, is_train=True, cmd=None, opt_path=None):
         parser.add_argument('--launcher', choices=['none', 'pytorch',
                                                    'slurm'],
                             default='none',
-                            help='accepted and ignored: the port runs one '
-                                 'process on one card')
+                            help='join the process group of torchrun '
+                                 '(pytorch) or srun (slurm)')
         parser.add_argument('--auto_resume', action='store_true')
         parser.add_argument('--debug', action='store_true')
         parser.add_argument('--local_rank', type=int, default=0)
@@ -123,10 +133,16 @@ def parse_options(root_path, is_train=True, cmd=None, opt_path=None):
     if args.device is not None:
         opt['device'] = args.device
 
+    if args.launcher != 'none':
+        on_cpu = str(opt.get('device', 'cuda')).startswith('cpu')
+        init_distributed(backend='gloo' if on_cpu else None)
+    opt['dist'] = dist.is_available() and dist.is_initialized()
+    opt['rank'], opt['world_size'] = world()
+
     if args.debug and not opt['name'].startswith('debug'):
         opt['name'] = 'debug_' + opt['name']
 
-    opt['num_gpu'] = _num_gpu(opt)
+    opt['num_gpu'] = _num_gpu(opt, opt['world_size'])
 
     seed = opt.get('manual_seed')
     if seed is None:
@@ -175,9 +191,10 @@ def parse_options(root_path, is_train=True, cmd=None, opt_path=None):
     return opt, args
 
 
+@master_only
 def copy_opt_file(opt_file, experiments_root):
     """Copy the option file into the experiment folder, stamped with the
-    launch time and command."""
+    launch time and command (rank 0 only)."""
     cmd = ' '.join(sys.argv)
     filename = osp.join(experiments_root, osp.basename(opt_file))
     shutil.copyfile(opt_file, filename)

@@ -165,11 +165,36 @@ Phases, each printed as one JSON object on its own line:
    (bf16 AMP, 10 iterations, one validation of 10 frames a clip): the
    frames' routes (JPEG only), K1-K4 launched (K7 28 a step), the ms per
    iteration and the data wait.
+13. parallel: N = 1, 2, 4, 8 bidirectional bf16 540x960 streams through
+   one ``StreamDenoiser(batch=N)``, stream k the 24-frame clip rolled by
+   k frames: all 24 frames pushed and flushed, each stream held by phase
+   4's PSNR rule against the fp32 MIMO forward of its own clip; ms per
+   steady push (64 pushes, best of 3) and per frame per stream, state per
+   stream, peak memory, the launches of a steady push (the same for every
+   N). The host ms of one rank's batch noise (``noisy_batch``, 8 x 11 x
+   96x96), its own rows against the rows of 8 ranks' global batch. Then
+   ``python -m bsvd_tpu_torch.parallel.dryrun`` with two gloo ranks that
+   share cuda:0 (``--size full``): the 544x960 whole clip and stream (24
+   pushes, a push_block of 8, a flush) in fp32 and bf16 with the rows
+   over both ranks, and three fp32 train steps at 8 x 11 x 96 x 96 a
+   rank as data 2 x spatial 1 and data 1 x spatial 2, each held by the
+   dryrun against the unsharded call on the card (fp32 1e-4 x max|ref|,
+   bf16 phase 4's PSNR rule, the first step's gradients, every step's
+   loss within 1e-4 relative, the parameters within 2 x lr a step of the
+   unsharded run's and the same bits on both ranks); per rank its launches (K2 and K6 none
+   under the row mask), gathered bytes and ms (two processes on one
+   card: no scaling number). ``"multi_card"`` says "1 device", or holds
+   the NCCL dryrun over every card. Last, the train CLI under
+   ``python -m torch.distributed.run --nproc_per_node 1`` with
+   ``--launcher pytorch`` (NCCL, world size 1; this script as the rank,
+   calling ``train_pipeline`` as ``python -m bsvd_tpu_torch.train``
+   does), bf16, 10 iterations on phase 12's PNG folders: K1-K4 and K7
+   launched, one checkpoint, ms per iteration beside phase 12's bf16 run.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12 and 12a (counters set to 0 before each run,
-read after), the
+phases 3, 5, 8, 9, 10, 11, 12, 12a and 13 (counters set to 0 before each
+run, read after; phase 13's ranks count their sharded runs), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
 summed at the counts of
@@ -193,6 +218,7 @@ import logging
 import os
 import re
 import shutil
+import socket
 import statistics
 import subprocess
 import sys
@@ -2514,6 +2540,7 @@ def phase_entry(data):
             rec['steady'] = clock.steady(11, CLI_ITERS)
             # the window of phase 12a's JPEG run, for a like comparison
             rec['steady_3_10'] = clock.steady(3, JPEG_CLI_ITERS)
+            ENTRY[f'{label}_steady_3_10'] = rec['steady_3_10']
             rec['timers_logged'] = clock.timers(10, CLI_ITERS)
             # the same model's step on one in-memory batch, fed to the
             # card before each step as the loop feeds it (phase 8 times
@@ -2697,8 +2724,267 @@ def phase_train_cli_jpeg(jdata):
     return run
 
 
+# ---------------------------------------------------------------------------
+# phase 13: parallel (N streams, two gloo ranks on the card, NCCL CLI)
+# ---------------------------------------------------------------------------
+
+N_STREAMS = (1, 2, 4, 8)
+# the NCCL train CLI's iterations (bf16 AMP) and its steady window
+NCCL_CLI_ITERS = 10
+DRYRUN = ['--nproc', '2', '--data', '1', '--spatial', '2', '--backend',
+          'gloo', '--device', 'cuda', '--size', 'full', '--checks',
+          'eval,stream,train', '--train_layouts', '2x1,1x2']
+# phase 12's bf16 CLI run (no launcher), for the NCCL run's comparison
+ENTRY = {}
+
+
+def phase_streams(net, clip):
+    """N bidirectional bf16 streams of 540x960 on one card through one
+    StreamDenoiser(batch=N). Stream k is the clip rolled by k frames: the
+    checked run pushes all STREAM_T frames and flushes, and each stream's
+    output is held by phase 4's PSNR rule against the fp32 MIMO forward
+    of its own rolled clip (within 1 dB of the bf16 MIMO forward's PSNR),
+    so a fault across the batch (a stride, another stream's state) fails.
+    Then the steady ms per push and per frame per stream (TIMED pushes,
+    best of 3), the state per stream, the peak memory of the steady pushes
+    (and of the checked run, which holds its outputs), and the launches of
+    a steady push, which must not grow with N. Returns the checked runs'
+    launches."""
+    _, noisy = clip
+    x1 = _stream_input(noisy)                    # (T, 1, H, W, 4)
+    cfg = net.cfg
+    refs = []              # stream k: (fp32 MIMO on the host, bf16 dB)
+    with torch.no_grad():
+        for k in range(max(N_STREAMS)):
+            xm = x1.roll(-k, 0)[:, 0][None]
+            ref32 = wnet_apply(net.prepared('cuda', torch.float32),
+                               xm.float(), cfg)
+            mimo16 = wnet_apply(net.prepared('cuda', torch.bfloat16), xm,
+                                cfg)
+            refs.append((ref32.cpu(), psnr(mimo16, ref32)))
+            del ref32, mimo16
+    launches = dict.fromkeys(KERNELS, 0)
+    for n in N_STREAMS:
+        x = torch.cat([x1.roll(-k, 0) for k in range(n)], dim=1)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        sd = StreamDenoiser(net, None, batch=n, height=H, width=W,
+                            dtype=torch.bfloat16)
+        lat = sd.latency
+        reset_counts()
+        outs, steady = [], None
+        with _NoConv2d():
+            for i in range(STREAM_T):
+                before = counts()
+                out = sd.push(x[i])
+                if i == lat + 1:
+                    steady = delta_since(before)
+                if out is not None:
+                    outs.append(out)
+            outs += sd.flush()
+        for k, v in counts().items():
+            launches[k] += v
+        if steady != per_steady_push():
+            raise AssertionError(f'{n} streams: a steady push launched '
+                                 f'{steady}, not {per_steady_push()}')
+        y = torch.stack(outs, dim=1)             # (n, T, H, W, 3)
+        if y.shape != (n, STREAM_T, H, W, 3) or not torch.isfinite(y).all():
+            raise AssertionError(f'{n} streams: output {tuple(y.shape)}')
+        dbs = []
+        for k in range(n):
+            ref32, mimo_db = refs[k]
+            dbs.append(psnr(y[k:k + 1], ref32.cuda()))
+            if not dbs[-1] > mimo_db - 1.0:
+                raise AssertionError(f'{n} streams: stream {k} {dbs[-1]} dB'
+                                     f' vs fp32 MIMO of its clip, bf16 MIMO'
+                                     f' {mimo_db} dB')
+        del outs, y
+        torch.cuda.synchronize()
+        checked_gb = torch.cuda.max_memory_allocated() / 1e9
+        torch.cuda.reset_peak_memory_stats()
+        sd.reset()
+        for i in range(lat + 4):
+            sd.push(x[i % STREAM_T])
+        push_ms = _time_per_frame(sd, x, block=False)
+        torch.cuda.synchronize()
+        emit({'phase': 'streams', 'streams': n, 'shift_mode': 'TSM',
+              'dtype': 'bf16', 'hw': [H, W], 'frames_checked': STREAM_T,
+              'psnr_db_vs_fp32_mimo': dbs,
+              'mimo_bf16_psnr_db': [refs[k][1] for k in range(n)],
+              'ms_per_push': push_ms,
+              'ms_per_frame_per_stream': push_ms / n,
+              'state_gb_per_stream': _state_bytes(sd.state) / n / 1e9,
+              'peak_allocated_gb': torch.cuda.max_memory_allocated() / 1e9,
+              'checked_run_peak_allocated_gb': checked_gb,
+              'launches_per_steady_push': steady})
+        del sd, x
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_loader_draws():
+    """Host ms of one rank's batch assembly and noise (``noisy_batch`` on
+    the train yml's 8 x 11 x 96x96 clips a rank, best of 5): its own rows
+    (one rank, or a loader of several workers) against the rows of a
+    global batch of 8 ranks (one worker, where every rank makes JAX's
+    global draws)."""
+    clips = np.random.default_rng(SEED).integers(0, 256, (8, 11, 3, 96, 96),
+                                                 dtype=np.uint8)
+    rec = {'phase': 'loader_draws', 'clips_per_rank': list(clips.shape),
+           'host': 'the card machine\'s CPU'}
+    for label, total in (('own_rows_ms', None), ('of_8_ranks_ms', (0, 64))):
+        best = float('inf')
+        for _ in range(5):
+            t0 = time.perf_counter()
+            noisy_batch(clips, np.random.default_rng(1), [5, 55], 'NF',
+                        False, total)
+            best = min(best, time.perf_counter() - t0)
+        rec[label] = best * 1e3
+    emit(rec)
+
+
+def _sum_launches(total, got):
+    for k, v in got.items():
+        total[k] += v
+
+
+def phase_parallel_dryrun():
+    """Two gloo ranks that share cuda:0, driven by parallel.dryrun at full
+    size: the 544x960 whole clip (fp32, bf16) and stream (fp32, bf16) with
+    the rows over both ranks, three fp32 train steps as data 2 x spatial 1
+    and data 1 x spatial 2, each held against the unsharded call on the
+    card (the dryrun asserts: fp32 1e-4 x max|ref|, bf16 the PSNR rule,
+    the first step's gradients, every step's loss, the parameters' gap,
+    the ranks' bits). Returns the sharded runs' launches, summed
+    over the ranks."""
+    launches = dict.fromkeys(KERNELS, 0)
+    res = subprocess.run([sys.executable, '-m',
+                          'bsvd_tpu_torch.parallel.dryrun', *DRYRUN],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=600)
+    if res.returncode != 0:
+        raise AssertionError(f'parallel.dryrun failed ({res.returncode}): '
+                             f'{res.stdout[-2000:]} {res.stderr[-3000:]}')
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    if out['dryrun'] != 'ok' or len(out['ranks']) != 2:
+        raise AssertionError(f'parallel.dryrun: {out}')
+    note = 'two processes sharing one card: says nothing about scaling'
+    for check in ('eval', 'stream'):
+        per_rank = [r[check] for r in out['ranks']]
+        for r, rec in enumerate(per_rank):
+            for dtype in ('float32', 'bfloat16'):
+                got = rec[dtype]['launches']
+                if got['conv_chain'] != 0 or got['bibuffer_chain'] != 0:
+                    raise AssertionError(f'{check} rank {r} {dtype}: K2 / K6 '
+                                         f'under the row mask: {got}')
+                used = ('conv3x3', 'conv_s2', 'conv_ps') + (
+                    ('bibuffer_conv', 'bibuffer_multi') if check == 'stream'
+                    else ())
+                if not all(got[k] > 0 for k in used):
+                    raise AssertionError(f'{check} rank {r} {dtype}: {got}')
+                _sum_launches(launches, got)
+        emit({'phase': f'parallel_{check}', 'mesh': {'data': 1,
+                                                      'spatial': 2},
+              'backend': 'gloo', 'ranks_share': 'cuda:0', 'note': note,
+              'per_rank': per_rank})
+    for i, layout in enumerate(('2x1', '1x2')):
+        per_rank = [r['train'][i] for r in out['ranks']]
+        for rec in per_rank:
+            if not rec['ranks_identical'] or \
+                    not rec['launches']['conv3x3_dw'] > 0:
+                raise AssertionError(f'train {layout}: {rec}')
+            _sum_launches(launches, rec['launches'])
+        emit({'phase': 'parallel_train', 'layout_data_x_spatial': layout,
+              'backend': 'gloo', 'ranks_share': 'cuda:0', 'note': note,
+              'per_rank': per_rank})
+    emit({'phase': 'parallel_dryrun', 'seconds': out['seconds'],
+          'argv': DRYRUN})
+    if torch.cuda.device_count() >= 2:
+        n = torch.cuda.device_count()
+        res = subprocess.run(
+            [sys.executable, '-m', 'bsvd_tpu_torch.parallel.dryrun',
+             '--nproc', str(n), '--data', '1', '--spatial', str(n),
+             '--backend', 'nccl', '--device', 'cuda', '--size', 'full'],
+            cwd=ROOT, capture_output=True, text=True, timeout=600)
+        if res.returncode != 0:
+            raise AssertionError(f'NCCL dryrun on {n} cards failed: '
+                                 f'{res.stderr[-3000:]}')
+        emit({'phase': 'parallel_multi_card', 'multi_card': json.loads(
+            res.stdout.strip().splitlines()[-1])})
+    else:
+        emit({'phase': 'parallel_multi_card', 'multi_card': '1 device'})
+    return launches
+
+
+def phase_nccl_train_cli(data):
+    """The train CLI under torchrun at world size 1 with --launcher pytorch
+    (NCCL), bf16 AMP, NCCL_CLI_ITERS iterations on phase 12's PNG folders:
+    the launches, the one checkpoint, ms per iteration beside phase 12's
+    run without a launcher. Returns the launches."""
+    root = os.path.join(WORK, 'entry_nccl')
+    out = os.path.join(WORK, 'nccl_cli.json')
+    cmd = _train_cli_cmd(data, '--launcher', 'pytorch',
+                         iters=NCCL_CLI_ITERS) + ['train:fp16=true',
+                                                  'val:val_freq=~']
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
+    t0 = time.perf_counter()
+    res = subprocess.run(
+        [sys.executable, '-m', 'torch.distributed.run', '--nproc_per_node',
+         '1', '--master_addr', '127.0.0.1', '--master_port', str(port),
+         os.path.join(ROOT, 'chip_smoke.py'), '--train-cli-rank', root, out,
+         *cmd], cwd=ROOT, capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    if res.returncode != 0:
+        raise AssertionError(f'torchrun train CLI failed: '
+                             f'{res.stderr[-3000:]}')
+    with open(out) as f:
+        rec = json.load(f)
+    run = rec['launches']
+    for k in ('conv3x3', 'conv_chain', 'conv_s2', 'conv_ps'):
+        if not run[k] > 0:
+            raise AssertionError(f'NCCL train CLI: {k} never launched')
+    if run['conv3x3_dw'] != PER_TRAIN_STEP['conv3x3_dw'] * NCCL_CLI_ITERS:
+        raise AssertionError(f'NCCL train CLI: K7 {run["conv3x3_dw"]}')
+    models = os.path.join(root, 'experiments', 'bsvd_c64_unblind', 'models')
+    saved = sorted(os.listdir(models))
+    if saved != ['net_g_latest.npz'] or rec['backend'] != 'nccl' or \
+            rec['world_size'] != 1 or not math.isfinite(rec['loss_last']):
+        raise AssertionError(f'NCCL train CLI: {saved} {rec}')
+    emit(dict(rec, phase='train_cli_nccl', launcher='torch.distributed.run '
+              '--nproc_per_node 1, --launcher pytorch', wall_s=wall,
+              checkpoints=saved, no_launcher_steady_3_10=ENTRY.get(
+                  'bf16_steady_3_10')))
+    return run
+
+
+def train_cli_rank(root, out, cmd):
+    """One torchrun rank of phase 13: the train entry point
+    (``train_pipeline``, what ``python -m bsvd_tpu_torch.train`` runs) with
+    the launcher's process group, its launches and step clock written to
+    ``out``."""
+    import torch.distributed as dist
+    reset_counts()
+    with _StepClock() as clock:
+        model = train_pipeline(root, cmd=cmd)
+    torch.cuda.synchronize()
+    rec = {'backend': dist.get_backend(), 'world_size':
+           dist.get_world_size(), 'launches': counts(), 'amp': model.amp,
+           'iters': model.optimizer.count,
+           'loss_last': model.get_current_log()['l_pix'],
+           'steady': clock.steady(3, NCCL_CLI_ITERS)}
+    with open(out, 'w') as f:
+        json.dump(rec, f)
+    dist.destroy_process_group()
+
+
 def main():
     global WORK
+    if sys.argv[1:2] == ['--train-cli-rank']:
+        train_cli_rank(sys.argv[2], sys.argv[3], sys.argv[4:])
+        return
     if not torch.cuda.is_available():
         raise SystemExit('chip_smoke: no CUDA device (torch.cuda.is_available()'
                          ' is False); this script runs only on a GPU')
@@ -2762,11 +3048,15 @@ def run():
     option_launches_run = phase_options(nets, clip24)
     entry_launches = phase_entry(data)
     jpeg_train_launches = phase_train_cli_jpeg(jdata)
+    parallel_launches = phase_streams(nets['TSM'], clip24)
+    phase_loader_draws()
+    _sum_launches(parallel_launches, phase_parallel_dryrun())
+    _sum_launches(parallel_launches, phase_nccl_train_cli(data))
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]
                         + option_launches_run[k] + entry_launches[k]
-                        + jpeg_train_launches[k])
+                        + jpeg_train_launches[k] + parallel_launches[k])
         if k not in off_route and not launches[k] > 0:
             raise AssertionError(f'{k} never launched on a main path')
         if k in off_route and launches[k]:

@@ -351,9 +351,25 @@ def test_block_stream_short_stream_raises_as_jax():
 
 
 def test_block_stream_mesh_raises_not_implemented():
+    """A mesh of one process (world size 1) gives the unsharded client's
+    frames exactly; a mesh that is not a parallel.mesh.Mesh raises
+    TypeError (multi-rank meshes: tests/test_torch_spatial.py)."""
+    from bsvd_tpu_torch.parallel.mesh import make_mesh
     _, _, pcfg, params = _pair('TSM')
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='Mesh'):
         BlockStreamDenoiser(params, pcfg, mesh=object())
+    frames = _frames(_seq(81, 7), 0.1)
+    outs = []
+    for bsd in (BlockStreamDenoiser(params, pcfg, psz=3, future_buffer_len=1,
+                                    mesh=make_mesh()),
+                BlockStreamDenoiser(params, pcfg, psz=3,
+                                    future_buffer_len=1)):
+        got = []
+        for f in frames:
+            got += bsd.push(torch.from_numpy(f))
+        outs.append(torch.stack(got + bsd.flush()))
+    assert outs[0].shape[0] == len(frames)
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_no_shift_chunk_is_the_per_frame_forward_unlike_jax():

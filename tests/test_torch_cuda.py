@@ -1010,3 +1010,32 @@ def test_option_paths_match_plain_path(dev, variant):
         want = {k: n for k, n in option_launches(cfg, unit).items()
                 if k in seen}
         assert seen == want, (unit, seen, want)
+
+
+def test_two_gloo_ranks_on_one_card_match_unsharded(dev):
+    """Two gloo ranks on cuda:0 (``parallel.dryrun``): the BSVD-c64 whole
+    clip with its rows over both ranks, and one train step with its rows
+    over both, each held against the same call unsharded on the card
+    (fp32: 1e-4 x max|ref|; the step's gradients 1e-4 of each tensor's
+    max, the parameters the same bits on both ranks), the kernels
+    launched on every rank and K2 not under the row mask."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, '-m', 'bsvd_tpu_torch.parallel.dryrun', '--nproc',
+         '2', '--data', '1', '--spatial', '2', '--backend', 'gloo',
+         '--device', 'cuda', '--checks', 'eval,train', '--timeout', '500'],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out['dryrun'] == 'ok' and len(out['ranks']) == 2
+    for rank in out['ranks']:
+        ev = rank['eval']['float32']
+        assert ev['launches']['conv_chain'] == 0
+        assert all(ev['launches'][k] > 0 for k in ('conv3x3', 'conv_s2',
+                                                   'conv_ps'))
+        (tr,) = rank['train']
+        assert tr['ranks_identical'] and tr['launches']['conv3x3_dw'] > 0

@@ -169,14 +169,39 @@ def test_parse_options_from_a_file_and_the_device(tmp_path):
 
 
 def test_num_gpu_is_one_card(tmp_path):
-    """'auto' is the one card; more raises naming parallel/ (ROADMAP Queue
-    1 item 5) instead of training at a batch other than the one asked."""
+    """'auto' is the world size: 1 without a process group, and 1 on a
+    world-size-1 group joined by --launcher pytorch (dist then True); a
+    number other than the world size raises with the torchrun command
+    instead of training at a batch other than the one asked."""
+    import socket
+    import torch.distributed as dist
+    with socket.socket() as sock:
+        sock.bind(('127.0.0.1', 0))
+        port = sock.getsockname()[1]
     got, _ = options.parse_options(str(tmp_path), True, cmd=['-opt',
                                                              TRAIN_YML])
-    assert got['num_gpu'] == 1
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
+    assert got['num_gpu'] == 1 and not got['dist']
+    with pytest.raises(ValueError, match='torch.distributed.run'):
         options.parse_options(str(tmp_path), True, cmd=[
             '-opt', TRAIN_YML, '--force_yml', 'num_gpu=2'])
+    env = {'MASTER_ADDR': '127.0.0.1', 'MASTER_PORT': str(port),
+           'RANK': '0', 'WORLD_SIZE': '1', 'LOCAL_RANK': '0'}
+    saved = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        got, _ = options.parse_options(str(tmp_path), True, cmd=[
+            '-opt', TRAIN_YML, '--launcher', 'pytorch', '--device', 'cpu'])
+        assert dist.is_initialized() and dist.get_backend() == 'gloo'
+        assert (got['num_gpu'], got['dist'], got['rank'],
+                got['world_size']) == (1, True, 0, 1)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 def test_force_yml_values_resolve_as_pyyaml():

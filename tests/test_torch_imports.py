@@ -37,7 +37,10 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.utils.jpeg_encode',
         'bsvd_tpu_torch.data.val_folder_dataset',
         'bsvd_tpu_torch.data.png_decode', 'bsvd_tpu_torch.data._gxx',
-        'bsvd_tpu_torch.utils.options', 'bsvd_tpu_torch.utils.yaml_lite'} \
+        'bsvd_tpu_torch.utils.options', 'bsvd_tpu_torch.utils.yaml_lite',
+        'bsvd_tpu_torch.parallel', 'bsvd_tpu_torch.parallel.mesh',
+        'bsvd_tpu_torch.parallel.spatial',
+        'bsvd_tpu_torch.parallel.dryrun'} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build

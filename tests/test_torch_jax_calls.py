@@ -146,13 +146,34 @@ def test_build_dataloader_train_passes_through(folders):
     assert jax_loader(sentinel, opt, num_gpu=1) is sentinel
 
 
-@pytest.mark.parametrize('kw,match', [
-    ({'num_gpu': 2}, 'num_gpu 2'), ({'dist': True}, 'dist'),
-    ({'sampler': object()}, 'sampler')], ids=['num_gpu', 'dist', 'sampler'])
-def test_build_dataloader_refuses_what_it_does_not_run(folders, kw, match):
+@pytest.mark.parametrize('kw,loader_kw,err,match', [
+    ({'num_gpu': 2, 'dist': True}, {}, ValueError, 'num_gpu 2'),
+    ({'dist': True}, {'num_devices': 2, 'rank': 1}, ValueError,
+     'rank 1 of 2'),
+    ({'sampler': object()}, {}, NotImplementedError, 'sampler')],
+    ids=['num_gpu', 'dist', 'sampler'])
+def test_build_dataloader_refuses_what_it_does_not_run(folders, kw,
+                                                       loader_kw, err,
+                                                       match):
+    """A train loader made for another rank or mesh than the one it is
+    handed to, and a sampler, raise; a val dataset is read whole on every
+    rank, whatever num_gpu and dist say (the JAX package's loader too)."""
+    from bsvd_tpu_torch.data import SimpleLoader
+    from bsvd_tpu_torch.data.video_train_loader import train_video_loader
     opt = _val_opt(folders / 'png')
-    with pytest.raises(NotImplementedError, match=match):
-        build_dataloader(build_dataset(opt), opt, **kw)
+    assert isinstance(build_dataloader(build_dataset(opt), opt, num_gpu=2,
+                                       dist=True), SimpleLoader)
+    topt = dict({'trainset_dir': str(folders / 'jpg'),
+                 'batch_size_per_gpu': 1, 'temp_patch_size': 3,
+                 'patch_size': [16, 16], 'noise_ival': [5, 55],
+                 'num_workers': 1, 'manual_seed': 3, 'phase': 'train'},
+                **loader_kw)
+    loader = train_video_loader(topt)
+    try:
+        with pytest.raises(err, match=match):
+            build_dataloader(loader, topt, **kw)
+    finally:
+        loader.close()
 
 
 TENSOR2IMG = {

@@ -358,8 +358,8 @@ def test_train_loader_refuses_video_files_and_more_devices(clip_root,
     (tmp_path / 'davis.mp4').write_bytes(b'\x00' * 16)
     with pytest.raises(NotImplementedError, match='davis.mp4'):
         train_video_loader(_opt(str(tmp_path)))
-    with pytest.raises(NotImplementedError, match='num_devices'):
-        train_video_loader(_opt(clip_root, num_devices=2))
+    with pytest.raises(ValueError, match='num_devices'):
+        train_video_loader(_opt(clip_root, num_devices=2, rank=2))
 
 
 def test_train_loader_is_registered_under_both_names(clip_root):

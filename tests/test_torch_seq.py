@@ -133,9 +133,15 @@ def test_jax_signature_runs_the_whole_clip(mode):
 
 
 def test_mesh_raises_not_implemented():
-    """Spatial sharding is not ported: a mesh raises NotImplementedError,
-    never a TypeError."""
+    """A mesh that is not a parallel.mesh.Mesh raises TypeError; a mesh of
+    one process (world size 1) gives the unsharded array exactly
+    (multi-rank meshes: tests/test_torch_spatial.py)."""
+    from bsvd_tpu_torch.parallel.mesh import make_mesh
     _, _, pcfg, params = _pair(30)
-    with pytest.raises(NotImplementedError, match='Queue 1 item 5'):
+    with pytest.raises(TypeError, match='Mesh'):
         denoise_seq(params, pcfg, _clip(31), noise_sigma=0.1,
                     mesh=object())
+    got = denoise_seq(params, pcfg, _clip(31), noise_sigma=0.1,
+                      mesh=make_mesh())
+    np.testing.assert_array_equal(got, denoise_seq(params, pcfg, _clip(31),
+                                                   noise_sigma=0.1))

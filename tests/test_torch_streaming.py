@@ -307,9 +307,15 @@ def test_stream_denoiser_from_build_network():
 
 
 def test_stream_denoiser_rejects_mesh_and_odd_sizes():
+    """A mesh that is not a parallel.mesh.Mesh, and sizes off the stride-2
+    grids, raise; a mesh of one process (world size 1) leaves the client
+    unsharded."""
+    from bsvd_tpu_torch.parallel.mesh import make_mesh
     _, _, cfg, params = _pair(49)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match='Mesh'):
         StreamDenoiser(params, cfg, batch=1, height=16, width=16,
                        mesh=object())
+    assert StreamDenoiser(params, cfg, batch=1, height=16, width=16,
+                          mesh=make_mesh()).mesh is None
     with pytest.raises(ValueError):
         StreamDenoiser(params, cfg, batch=1, height=18, width=16)
