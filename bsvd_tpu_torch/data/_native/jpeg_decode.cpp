@@ -14,7 +14,10 @@
 // nearer sample 3/4, the further 1/4, alternating rounding biases, edges
 // replicated; plain replication where a chroma row is 2 samples or
 // fewer wide), and the fixed-point YCbCr -> RGB tables (jdcolor.c,
-// 16 fraction bits). Gray frames give R = G = B = Y.
+// 16 fraction bits). Gray frames give R = G = B = Y. In gray mode the
+// output is Y alone, as libjpeg's JCS_GRAYSCALE gives it (cv2's
+// IMREAD_GRAYSCALE): the chroma is entropy-decoded but never transformed,
+// upsampled or converted.
 //
 // A window (y0, x0, ch, cw) of a frame is decoded as the train loader crops
 // it: the entropy decoder walks each scan up to the last MCU row the window
@@ -466,6 +469,7 @@ struct Decoder {
   bool qt_defined[4] = {false, false, false, false};
   // the window (output pixels)
   int wy0 = 0, wx0 = 0, wh = 0, ww = 0;
+  bool gray = false;           // output Y only (JCS_GRAYSCALE)
 
   Decoder(const uint8_t* d, size_t n) : data(d), size(n) {}
 
@@ -729,10 +733,18 @@ struct Decoder {
 
   // the block ranges each component's window needs: the rows and columns
   // of its samples that the window's pixels read, one more on each side
-  // where the component is upsampled (the triangle filter's neighbour)
+  // where the component is upsampled (the triangle filter's neighbour);
+  // none of the chroma in gray mode
   void plan_window() {
     for (int i = 0; i < ncomp; ++i) {
       Component& c = comp[i];
+      if (gray && i > 0) {
+        c.by0 = c.by1 = c.bx0 = c.bx1 = 0;
+        if (progressive) {
+          c.coef.reset(new int16_t[static_cast<size_t>(c.bh) * c.bw * 64]());
+        }
+        continue;
+      }
       int r0 = wy0, r1 = wy0 + wh - 1, c0 = wx0, c1 = wx0 + ww - 1;
       if (c.rv == 2) {
         r0 = r0 / 2 - 1;
@@ -1160,8 +1172,16 @@ struct Decoder {
     memcpy(out, o + (x0 & 1), n);
   }
 
-  // the window as RGB8 rows at dst (stride ww * 3)
+  // the window as RGB8 rows at dst (stride ww * 3), or as Y rows (stride
+  // ww) in gray mode
   void emit(uint8_t* dst) const {
+    if (gray) {
+      for (int r = 0; r < wh; ++r) {
+        upsample_row(comp[0], wy0 + r, wx0, ww,
+                     dst + static_cast<size_t>(r) * ww);
+      }
+      return;
+    }
     std::vector<uint8_t> rows(static_cast<size_t>(ww) * 3);
     uint8_t* y_row = rows.data();
     uint8_t* cb_row = y_row + ww;
@@ -1211,11 +1231,14 @@ void set_error(char* err, int errlen, const std::string& msg) {
   err[n] = '\0';
 }
 
-// decode one buffer's window into dst; whole = the window must be the frame
+// decode one buffer's window into dst (RGB, or Y in gray mode); whole = the
+// window must be the frame
 int decode_window(const uint8_t* data, size_t len, int y0, int x0, int ch,
-                  int cw, bool whole, uint8_t* dst, std::string* msg) {
+                  int cw, bool whole, bool gray, uint8_t* dst,
+                  std::string* msg) {
   try {
     Decoder d(data, len);
+    d.gray = gray;
     d.decode(y0, x0, ch, cw, whole);
     d.emit(dst);
     return kOk;
@@ -1323,12 +1346,14 @@ int bsvd_jpeg_image_dims(const char* path, int* h, int* w, char* err,
 }
 
 // Decode T files in parallel, each cropped to (ch, cw) at (y0, x0), into a
-// contiguous (T, ch, cw, 3) RGB8 array; y0 = x0 = -1 takes whole frames of
-// exactly (ch, cw). Returns 0, else the 1-based index of the first frame
-// that failed, with its error kind in *kind and its message in err.
+// contiguous (T, ch, cw, 3) RGB8 array, or (T, ch, cw) Y with gray = 1;
+// y0 = x0 = -1 takes whole frames of exactly (ch, cw). Returns 0, else the
+// 1-based index of the first frame that failed, with its error kind in
+// *kind and its message in err.
 int bsvd_jpeg_load_crop_seq(const char** paths, int t, int y0, int x0,
-                            int ch, int cw, uint8_t* out, BsvdJpegLoader* l,
-                            int* kind, char* err, int errlen) {
+                            int ch, int cw, int gray, uint8_t* out,
+                            BsvdJpegLoader* l, int* kind, char* err,
+                            int errlen) {
   std::vector<int> status(t, 0);
   std::vector<std::string> msgs(t);
   const bool whole = y0 < 0 && x0 < 0;
@@ -1340,10 +1365,11 @@ int bsvd_jpeg_load_crop_seq(const char** paths, int t, int y0, int x0,
         status[i] = kIO;
         msgs[i] = "cannot read the file";
       } else {
-        uint8_t* dst = out + static_cast<size_t>(i) * ch * cw * 3;
+        uint8_t* dst =
+            out + static_cast<size_t>(i) * ch * cw * (gray ? 1 : 3);
         status[i] = decode_window(buf.data(), buf.size(), whole ? 0 : y0,
-                                  whole ? 0 : x0, ch, cw, whole, dst,
-                                  &msgs[i]);
+                                  whole ? 0 : x0, ch, cw, whole, gray != 0,
+                                  dst, &msgs[i]);
       }
       latch.Done();
     };

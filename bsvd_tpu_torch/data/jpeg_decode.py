@@ -9,7 +9,9 @@ It reads sequential and progressive Huffman-coded 8-bit JPEG (gray, or
 YCbCr at 4:4:4, 4:2:2, 4:4:0 or 4:2:0, restart intervals, any size) and
 gives (H, W, 3) uint8 RGB equal bit for bit to libjpeg-turbo's default
 decode: the accurate integer IDCT, fancy upsampling, its YCbCr -> RGB
-tables; gray gives R = G = B. A window (``load_crop_seq``) equals the crop
+tables; gray gives R = G = B. ``load_gray`` gives (H, W) uint8, the Y
+plane alone, as libjpeg's ``JCS_GRAYSCALE`` output (cv2's
+``IMREAD_GRAYSCALE``): the chroma is never transformed. A window (``load_crop_seq``) equals the crop
 of the whole decode: only the blocks it touches are transformed, and the
 entropy decoder stops after the last MCU row it needs.
 
@@ -65,9 +67,9 @@ def lib():
             so.bsvd_jpeg_load_crop_seq.restype = ctypes.c_int
             so.bsvd_jpeg_load_crop_seq.argtypes = [
                 ctypes.POINTER(ctypes.c_char_p), ctypes.c_int, ctypes.c_int,
-                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-                ctypes.c_void_p, ctypes.POINTER(ctypes.c_int),
-                ctypes.c_char_p, ctypes.c_int]
+                ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                ctypes.c_void_p, ctypes.c_void_p,
+                ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
             so.bsvd_jpeg_image_dims.restype = ctypes.c_int
             so.bsvd_jpeg_image_dims.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
@@ -102,18 +104,18 @@ def image_dims(path):
     return h.value, w.value
 
 
-def load_crop_seq(paths, y0, x0, ch, cw):
+def load_crop_seq(paths, y0, x0, ch, cw, gray=False):
     """The (ch, cw) window at (y0, x0) of each frame, decoded in parallel
-    -> (T, ch, cw, 3) uint8 RGB; y0 = x0 = -1 takes whole frames of
-    exactly (ch, cw)."""
+    -> (T, ch, cw, 3) uint8 RGB, or (T, ch, cw) Y with ``gray``; y0 = x0
+    = -1 takes whole frames of exactly (ch, cw)."""
     paths = [str(p) for p in paths]
-    out = np.empty((len(paths), ch, cw, 3), np.uint8)
+    out = np.empty((len(paths), ch, cw) + (() if gray else (3,)), np.uint8)
     c_paths = (ctypes.c_char_p * len(paths))(*[p.encode() for p in paths])
     kind = ctypes.c_int()
     err = ctypes.create_string_buffer(_ERRLEN)
     bad = lib().bsvd_jpeg_load_crop_seq(
-        c_paths, len(paths), y0, x0, ch, cw, out.ctypes.data, _get_loader(),
-        ctypes.byref(kind), err, _ERRLEN)
+        c_paths, len(paths), y0, x0, ch, cw, int(gray), out.ctypes.data,
+        _get_loader(), ctypes.byref(kind), err, _ERRLEN)
     if bad:
         _raise(kind.value, paths[bad - 1], err)
     return out
@@ -124,8 +126,14 @@ def load(path):
     return load_seq([path])[0]
 
 
-def load_seq(paths):
+def load_seq(paths, gray=False):
     """Whole frames of one size, decoded in parallel -> (T, H, W, 3) uint8
-    RGB; raises IOError where a frame cannot be read or differs in size."""
+    RGB, or (T, H, W) Y with ``gray``; raises IOError where a frame cannot
+    be read or differs in size."""
     h, w = image_dims(paths[0])
-    return load_crop_seq(paths, -1, -1, h, w)
+    return load_crop_seq(paths, -1, -1, h, w, gray)
+
+
+def load_gray(path):
+    """A whole JPEG file -> (H, W) uint8 Y."""
+    return load_seq([path], gray=True)[0]

@@ -1,7 +1,9 @@
 """Reading clips from folders of frames (counterpart of bsvd_tpu/data/
 utils_common.py get_imagenames / open_image / open_sequence): digit-sorted
-file names, RGB (C, H, W) float32 in [0, 1], odd sizes optionally expanded
-by their last row and column.
+file names, RGB (3, H, W) or gray (1, H, W) float32 in [0, 1], odd sizes
+optionally expanded by their last row and column. Gray frames are what
+``cv2.imread(path, cv2.IMREAD_GRAYSCALE)`` gives, bit for bit, by each
+reader's ``load_gray``.
 
 Each frame takes a route by its file type, never by what failed to build:
 ``.png`` the zlib reader (``png_decode``), ``.jpg`` / ``.jpeg`` the
@@ -68,21 +70,16 @@ def image_dims(path):
     return _MODULES[route(path)].image_dims(path)
 
 
-def load_seq(paths):
-    """Whole frames of one size -> (T, H, W, 3) uint8 RGB."""
-    return _reader(paths).load_seq(paths)
+def load_seq(paths, gray=False):
+    """Whole frames of one size -> (T, H, W, 3) uint8 RGB, or (T, H, W)
+    uint8 gray with ``gray``."""
+    return _reader(paths).load_seq(paths, gray)
 
 
 def load_crop_seq(paths, y0, x0, ch, cw):
     """The (ch, cw) window at (y0, x0) of each frame -> (T, ch, cw, 3)
     uint8 RGB."""
     return _reader(paths).load_crop_seq(paths, y0, x0, ch, cw)
-
-
-def _refuse_gray(gray_mode, fn):
-    if gray_mode:
-        raise NotImplementedError(f'{fn}(gray_mode=True): the readers give '
-                                  f'RGB only (ROADMAP Queue 1 item 6)')
 
 
 def _expand(img, expand_if_needed):
@@ -101,12 +98,12 @@ def _expand(img, expand_if_needed):
 
 def open_image(fpath, gray_mode=False, expand_if_needed=False,
                normalize_data=True):
-    """One frame -> ((3, H, W) RGB, expanded_h, expanded_w): float32 in
-    [0, 1], or uint8 with ``normalize_data=False``; an odd H or W gains a
-    copy of its last row or column with ``expand_if_needed``. Gray frames
-    are not ported."""
-    _refuse_gray(gray_mode, 'open_image')
-    img = np.transpose(load_seq([fpath])[0], (2, 0, 1))
+    """One frame -> ((3, H, W) RGB or, with ``gray_mode``, (1, H, W) gray,
+    expanded_h, expanded_w): float32 in [0, 1], or uint8 with
+    ``normalize_data=False``; an odd H or W gains a copy of its last row
+    or column with ``expand_if_needed``."""
+    img = load_seq([fpath], gray_mode)[0]
+    img = img[None] if gray_mode else np.transpose(img, (2, 0, 1))
     img, expanded_h, expanded_w = _expand(img, expand_if_needed)
     if normalize_data:
         img = np.float32(img / 255.)
@@ -115,13 +112,13 @@ def open_image(fpath, gray_mode=False, expand_if_needed=False,
 
 def open_sequence(seq_dir, gray_mode=False, expand_if_needed=False,
                   max_num_fr=100):
-    """The first ``max_num_fr`` frames of a folder -> ((T, 3, H, W) float32
-    in [0, 1], expanded_h, expanded_w), the frames expanded as
-    ``open_image`` expands them. Gray frames are not ported."""
-    _refuse_gray(gray_mode, 'open_sequence')
+    """The first ``max_num_fr`` frames of a folder -> ((T, 3, H, W), or
+    (T, 1, H, W) with ``gray_mode``, float32 in [0, 1], expanded_h,
+    expanded_w), the frames expanded as ``open_image`` expands them."""
     files = get_imagenames(seq_dir)[:max_num_fr]
     if not files:
         raise IOError(f'no images found in {seq_dir}')
-    seq = np.transpose(load_seq(files), (0, 3, 1, 2))  # (T, 3, H, W) uint8
+    seq = load_seq(files, gray_mode)                   # uint8
+    seq = seq[:, None] if gray_mode else np.transpose(seq, (0, 3, 1, 2))
     seq, expanded_h, expanded_w = _expand(seq, expand_if_needed)
     return seq.astype(np.float32) / 255., expanded_h, expanded_w

@@ -12,6 +12,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from bsvd_tpu_torch.ops import _flops
+
 ACTS = ('relu', 'relu6', 'none')
 NORMS = ('none', 'in', 'bn')
 BN_EPS = 1e-5
@@ -39,6 +41,8 @@ def conv2d_input_grad(dz, w, x, stride=1):
     cotangent, ``x`` the conv's input (its shape and layout only). Runs
     aten's convolution_backward, as the JAX package leaves this transpose
     to XLA."""
+    _flops.conv3x3(x.shape[0], x.shape[1], x.shape[2], x.shape[3],
+                   dz.shape[-1], stride)
     dx = torch.ops.aten.convolution_backward(
         _nchw(dz), _nchw(x), w, None, [stride, stride], [1, 1], [1, 1],
         False, [0, 0], 1, [True, False, False])[0]
@@ -48,6 +52,8 @@ def conv2d_input_grad(dz, w, x, stride=1):
 def conv2d_weight_grad(x, dz, w_shape, stride=1):
     """Weight gradient (OIHW) of the 3x3 conv (pad 1) over NHWC, through
     aten's convolution_backward."""
+    _flops.conv3x3(x.shape[0], x.shape[1], x.shape[2], x.shape[3],
+                   w_shape[0], stride)
     w = torch.empty(w_shape, dtype=dz.dtype, device=dz.device)
     return torch.ops.aten.convolution_backward(
         _nchw(dz), _nchw(x), w, None, [stride, stride], [1, 1], [1, 1],

@@ -19,7 +19,7 @@ state they read: the next state is a new tensor. ``bibuffer_conv`` and
 import torch
 
 from bsvd_tpu_torch.nn.layers import conv2d
-from bsvd_tpu_torch.ops import _build
+from bsvd_tpu_torch.ops import _build, _flops
 from bsvd_tpu_torch.ops._pack import (act_code, apply_act, as_weights,
                                       check_cuda, is_cpu, ptr, vec_ok)
 
@@ -115,9 +115,11 @@ def bibuffer_conv(x, state, w, b=None, *, fold_div=8, act='relu6',
     if tuple(x.shape) != tuple(state.shape):
         raise ValueError(f'frame {tuple(x.shape)} and state '
                          f'{tuple(state.shape)} differ')
+    _flops.conv3x3(*x.shape, cw.cout)
     if is_cpu(x):
-        return bibuffer_conv_reference(x, state, cw, fold_div=fold_div,
-                                       act=act, causal=causal)
+        with _flops.hidden():
+            return bibuffer_conv_reference(x, state, cw, fold_div=fold_div,
+                                           act=act, causal=causal)
     y, new_state = _launch_bibuffer('bibuffer_conv', x[None], state, cw,
                                     fold_div, act, causal)
     bibuffer_conv.launches += 1
@@ -140,9 +142,12 @@ def bibuffer_multi(x, state, w, b=None, *, fold_div=8, act='relu6',
     """
     cw = as_weights(w, b)
     xs = _frames(x, state)
+    nf, n, h, w_, c = xs.shape
+    _flops.conv3x3(nf * n, h, w_, c, cw.cout)
     if is_cpu(x):
-        return bibuffer_multi_reference(x, state, cw, fold_div=fold_div,
-                                        act=act, causal=causal)
+        with _flops.hidden():
+            return bibuffer_multi_reference(x, state, cw, fold_div=fold_div,
+                                            act=act, causal=causal)
     y, new_state = _launch_bibuffer('bibuffer_multi', xs, state, cw,
                                     fold_div, act, causal)
     bibuffer_multi.launches += 1
@@ -175,9 +180,12 @@ def bibuffer_chain(x, s1, s2, w1, b1, w2, b2, *, fold_div=8, act='relu6',
                          f'{c1w.cin}->{c1w.cout}, w2 {c2w.cin}->{c2w.cout}')
     fold1 = _check_fold(c, fold_div)
     fold2 = _check_fold(c1w.cout, fold_div)
+    _flops.conv3x3(n, h, w_, c, c1w.cout)
+    _flops.conv3x3(n, h, w_, c1w.cout, c2w.cout)
     if is_cpu(x):
-        return bibuffer_chain_reference(x, s1, s2, c1w, None, c2w, None,
-                                        fold_div, act, act2, causal)
+        with _flops.hidden():
+            return bibuffer_chain_reference(x, s1, s2, c1w, None, c2w, None,
+                                            fold_div, act, act2, causal)
     x, s1, s2 = check_cuda('bibuffer_chain', x, s1, s2)
     w1p, b1p = c1w.packed(x.device, x.dtype)          # (C1P, 3, 3, CinP)
     w2p, b2p = c2w.packed(x.device, x.dtype, 64)      # (CoutP, 3, 3, C1P)

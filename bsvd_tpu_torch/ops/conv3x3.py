@@ -9,7 +9,8 @@ Counterparts of bsvd_tpu/ops/conv3x3.py ``conv3x3_pallas``,
 runs its plain version (``*_reference``); on a CUDA tensor it launches the
 kernel or raises.
 ``conv3x3.launches`` / ``conv_ps.launches`` / ``conv3x3_dw.launches``
-count kernel launches.
+count kernel launches; each call counts its FLOPs on either route
+(``ops/_flops``).
 
 ``conv3x3`` and ``conv_ps`` are differentiable: with grad mode on and an
 input that requires grad they run as ``torch.autograd.Function``s whose
@@ -29,7 +30,7 @@ from bsvd_tpu_torch.nn.layers import (conv2d, conv2d_input_grad,
                                       conv2d_weight_grad, pixel_shuffle,
                                       pixel_unshuffle)
 from bsvd_tpu_torch.nn.shift import temporal_shift, temporal_shift_transpose
-from bsvd_tpu_torch.ops import _build
+from bsvd_tpu_torch.ops import _build, _flops
 from bsvd_tpu_torch.ops._pack import (ConvWeights, act_code, apply_act,
                                       as_weights, check_cuda,
                                       check_same_shape, grad_needed, is_cpu,
@@ -107,9 +108,11 @@ def conv3x3(x, w, b=None, x2=None, *, t_len=None, shift='none', fold_div=8,
     if grad_needed(x, x2, cw):
         return _Conv3x3Fn.apply(x, x2, cw.w, cw.b, t_len, shift, fold_div,
                                 act)
+    _flops.conv3x3(nt, h, w_, c, cw.cout)
     if is_cpu(x):
-        return conv3x3_reference(x, cw, x2=x2, t_len=t_len, shift=shift,
-                                 fold_div=fold_div, act=act)
+        with _flops.hidden():
+            return conv3x3_reference(x, cw, x2=x2, t_len=t_len, shift=shift,
+                                     fold_div=fold_div, act=act)
     x, x2 = check_cuda('conv3x3', x, x2)
     wp, bp = cw.packed(x.device, x.dtype)
     y = torch.empty((nt, h, w_, cw.cout), dtype=x.dtype, device=x.device)
@@ -173,8 +176,10 @@ def conv_ps(x, w, b=None):
         raise ValueError(f'weights take {cw.cin} channels, input has {c}')
     if grad_needed(x, cw):
         return _ConvPsFn.apply(x, cw.w, cw.b)
+    _flops.conv3x3(nt, h, w_, c, cw.cout)
     if is_cpu(x):
-        return conv_ps_reference(x, cw)
+        with _flops.hidden():
+            return conv_ps_reference(x, cw)
     (x,) = check_cuda('conv_ps', x)
     wp, bp = cw.packed(x.device, x.dtype, order='ps')
     y = torch.empty((nt, 2 * h, 2 * w_, cw.cout // 4), dtype=x.dtype,
@@ -271,9 +276,11 @@ def conv3x3_dw(x, dz, x2=None, *, t_len=None, shift='none', fold_div=8):
     if shift != 'none' and (t_len is None or nt % t_len):
         raise ValueError(f'{nt} frames do not split into clips of {t_len}')
     check_same_shape('conv3x3_dw', x, x2)
+    _flops.conv3x3(nt, h, w_, c, dz.shape[-1])
     if is_cpu(x):
-        return conv3x3_dw_reference(x, dz, x2, t_len=t_len, shift=shift,
-                                    fold_div=fold_div)
+        with _flops.hidden():
+            return conv3x3_dw_reference(x, dz, x2, t_len=t_len, shift=shift,
+                                        fold_div=fold_div)
     x, x2, dz = check_cuda('conv3x3_dw', x, x2, dz)
     co = dz.shape[-1]
     cfg, cinp, coutp, _, splits = dw_plan(nt, h, w_, c, co, x.dtype,

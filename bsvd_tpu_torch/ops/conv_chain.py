@@ -21,7 +21,7 @@ first ``res_ch`` channels in the natural layout.
 import torch
 
 from bsvd_tpu_torch.nn.layers import conv2d, conv2d_input_grad
-from bsvd_tpu_torch.ops import _build
+from bsvd_tpu_torch.ops import _build, _flops
 from bsvd_tpu_torch.ops._pack import (ConvWeights, act_code, apply_act,
                                       as_weights, check_cuda,
                                       check_same_shape, grad_needed, is_cpu,
@@ -68,9 +68,12 @@ def _chain(x, x2, x_res, w1, b1, w2, b2, act1, act2, res_ch):
     if grad_needed(x, x2, x_res, c1w, c2w):
         return _ChainFn.apply(x, x2, x_res if res_ch else None, c1w.w, c1w.b,
                               c2w.w, c2w.b, act1, act2, res_ch)
+    _flops.conv3x3(nt, h, w_, c, c1w.cout)
+    _flops.conv3x3(nt, h, w_, c1w.cout, c2w.cout)
     if is_cpu(x):
-        return conv_chain_reference(x, c1w, None, c2w, None, act1, act2,
-                                    x2=x2, x_res=x_res, res_ch=res_ch)
+        with _flops.hidden():
+            return conv_chain_reference(x, c1w, None, c2w, None, act1, act2,
+                                        x2=x2, x_res=x_res, res_ch=res_ch)
     x, x2, x_res = check_cuda('conv_chain', x, x2,
                               x_res if res_ch else None)
     w1p, b1p = c1w.packed(x.device, x.dtype)          # (C1P, 3, 3, CinP)

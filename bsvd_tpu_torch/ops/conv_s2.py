@@ -16,7 +16,7 @@ import torch
 
 from bsvd_tpu_torch.nn.layers import (conv2d, conv2d_input_grad,
                                       conv2d_weight_grad)
-from bsvd_tpu_torch.ops import _build
+from bsvd_tpu_torch.ops import _build, _flops
 from bsvd_tpu_torch.ops._pack import (ConvWeights, act_code, apply_act,
                                       as_weights, check_cuda, grad_needed,
                                       is_cpu, masked, ptr, vec_ok)
@@ -35,8 +35,10 @@ def conv_s2(x, w, b=None, act='relu6'):
         raise ValueError(f'weights take {cw.cin} channels, input has {c}')
     if grad_needed(x, cw):
         return _ConvS2Fn.apply(x, cw.w, cw.b, act)
+    _flops.conv3x3(nt, h, w_, c, cw.cout, stride=2)
     if is_cpu(x):
-        return conv_s2_reference(x, cw, act=act)
+        with _flops.hidden():
+            return conv_s2_reference(x, cw, act=act)
     (x,) = check_cuda('conv_s2', x)
     wp, bp = cw.packed(x.device, x.dtype, cout_mult=128)
     y = torch.empty((nt, (h - 1) // 2 + 1, (w_ - 1) // 2 + 1, cw.cout),

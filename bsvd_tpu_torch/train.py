@@ -121,7 +121,7 @@ def load_resume_state(opt):
 
 
 def train_loop(opt, train_loader, device=None, val_loaders=None,
-               resume_state=None):
+               resume_state=None, tb_logger=None):
     """Train for ``opt['train']['total_iter']`` iterations over
     ``train_loader`` (an iterable with ``__len__``, the batches of one
     epoch; re-iterated per epoch, as bsvd_tpu/train.py:118-162 does);
@@ -129,7 +129,9 @@ def train_loop(opt, train_loader, device=None, val_loaders=None,
     ``logger.print_freq`` iterations. Resumes from ``resume_state``, else from
     what ``load_resume_state(opt)`` finds. With ``val.val_freq`` the model
     is validated on ``val_loaders`` (default: ``build_val_loaders(opt)``)
-    every ``val_freq`` iterations and after the last."""
+    every ``val_freq`` iterations and after the last. ``tb_logger`` (a
+    ``utils.logger.TBLogger``) receives the losses and the validation
+    metrics; the caller closes it."""
     opt = copy.deepcopy(opt)
     logger = get_root_logger()
     val_freq = (opt.get('val') or {}).get('val_freq')
@@ -152,7 +154,7 @@ def train_loop(opt, train_loader, device=None, val_loaders=None,
     total_epochs = math.ceil(total_iters / max(len(train_loader), 1))
     print_freq = int(opt['logger']['print_freq'])
     save_freq = int(opt['logger']['save_checkpoint_freq'])
-    msg_logger = MessageLogger(opt, current_iter)
+    msg_logger = MessageLogger(opt, current_iter, tb_logger)
     logger.info(f'Start training from epoch: {start_epoch}, iter: '
                 f'{current_iter}')
     data_timer, iter_timer = AvgTimer(), AvgTimer()
@@ -183,7 +185,7 @@ def train_loop(opt, train_loader, device=None, val_loaders=None,
                 logger.info('Saving models and training states.')
                 model.save(epoch, current_iter)
             if val_freq and current_iter % int(val_freq) == 0:
-                validate(model, opt, val_loaders, current_iter)
+                validate(model, opt, val_loaders, current_iter, tb_logger)
             data_timer.start()
             iter_timer.start()
         if not fed and not stop:
@@ -194,14 +196,16 @@ def train_loop(opt, train_loader, device=None, val_loaders=None,
     logger.info('Save the latest model.')
     model.save(epoch=-1, current_iter=-1)
     if val_freq:
-        validate(model, opt, val_loaders, min(current_iter, total_iters))
+        validate(model, opt, val_loaders, min(current_iter, total_iters),
+                 tb_logger)
     return model
 
 
-def validate(model, opt, val_loaders, current_iter):
-    """One validation of ``model`` on each loader (no TensorBoard)."""
+def validate(model, opt, val_loaders, current_iter, tb_logger=None):
+    """One validation of ``model`` on each loader, its metrics also written
+    to ``tb_logger``."""
     for val_loader in val_loaders:
-        model.validation(val_loader, current_iter, None,
+        model.validation(val_loader, current_iter, tb_logger,
                          opt['val'].get('save_img', False))
 
 
@@ -230,17 +234,21 @@ def train_pipeline(root_path, cmd=None, opt_path=None, device=None):
     wandb = opt['logger'].get('wandb')
     if wandb is not None and wandb.get('project') is not None:
         init_wandb_logger(opt)
+    tb_logger = None
     if opt['logger'].get('use_tb_logger'):
-        init_tb_logger(osp.join(opt['path']['experiments_root'], 'tb_logger'))
+        tb_logger = init_tb_logger(osp.join(opt['path']['experiments_root'],
+                                            'tb_logger'))
 
     train_loader, val_loaders, _, _ = create_train_val_dataloader(opt,
                                                                   logger)
     try:
         return train_loop(opt, train_loader, val_loaders=val_loaders,
-                          resume_state=resume_state)
+                          resume_state=resume_state, tb_logger=tb_logger)
     finally:
         if hasattr(train_loader, 'close'):
             train_loader.close()
+        if tb_logger is not None:
+            tb_logger.close()
 
 
 def main():

@@ -1,10 +1,11 @@
 """Logging of the port (counterpart of bsvd_tpu/utils/logger.py): the root
 logger (rank-gated: ranks other than 0 log errors only, to no file), the
-train loop's timers and message logger, and the environment line.
+train loop's timers and message logger, the TensorBoard scalar writer
+(event files written by ``utils/tb_events``, no package), and the
+environment line.
 
-TensorBoard and wandb are not ported: ``use_tb_logger`` logs one line
-saying the scalars go to the text log only, and a ``logger.wandb.project``
-raises (ROADMAP Queue 1)."""
+wandb is not ported: a ``logger.wandb.project`` raises (it needs a package
+and the network)."""
 
 import datetime
 import logging
@@ -13,6 +14,7 @@ import time
 import torch
 
 from bsvd_tpu_torch.parallel.mesh import is_main_process
+from bsvd_tpu_torch.utils.tb_events import EventWriter
 
 LOGGER = 'bsvd_tpu_torch'
 
@@ -85,13 +87,17 @@ class AvgTimer:
 
 class MessageLogger:
     """The train loop's periodic line: epoch, iteration, learning rates,
-    ETA, iteration and data time, and the losses."""
+    ETA, iteration and data time, and the losses, each loss also written to
+    ``tb_logger`` (``losses/<k>`` for keys starting with ``l_``, else
+    ``<k>``)."""
 
-    def __init__(self, opt, start_iter=1):
+    def __init__(self, opt, start_iter=1, tb_logger=None):
         self.exp_name = opt['name']
         self.interval = opt['logger']['print_freq']
         self.start_iter = start_iter
         self.max_iters = int(opt['train']['total_iter'])
+        self.use_tb_logger = opt['logger'].get('use_tb_logger', False)
+        self.tb_logger = tb_logger
         self.start_time = time.time()
         self.logger = get_root_logger()
 
@@ -121,15 +127,24 @@ class MessageLogger:
 
         for k, v in log_vars.items():
             message += f'{k}: {v:.4e} '
+            if self.tb_logger is not None:
+                label = f'losses/{k}' if k.startswith('l_') else k
+                self.tb_logger.add_scalar(label, v, current_iter)
         self.logger.info(message)
 
 
+# the JAX package's TensorBoard scalar writer: add_scalar / flush / close
+# on one event file under log_dir, each scalar as tf.summary.scalar writes
+# it
+TBLogger = EventWriter
+
+
 def init_tb_logger(log_dir):
-    """TensorBoard is not ported: one line in the log, and None (no
-    writer)."""
-    get_root_logger().info(f'use_tb_logger: TensorBoard is not ported; the '
-                           f'scalars go to the text log only (not to '
-                           f'{log_dir})')
+    """The TensorBoard writer on the main process; None on the other ranks
+    (callers treat None as no writer)."""
+    if not is_main_process():
+        return None
+    return TBLogger(log_dir)
 
 
 def init_wandb_logger(opt):

@@ -190,11 +190,32 @@ Phases, each printed as one JSON object on its own line:
    calling ``train_pipeline`` as ``python -m bsvd_tpu_torch.train``
    does), bf16, 10 iterations on phase 12's PNG folders: K1-K4 and K7
    launched, one checkpoint, ms per iteration beside phase 12's bf16 run.
+14. the profiler: ``python -m bsvd_tpu_torch.profile_net -opt
+   options/test/bsvd_c64.yml --trace`` as a subprocess (the reference's
+   protocol: a 1 x 10 x 540 x 960 bf16 forward, best of 3 x 5): its lines
+   in the root profile.py's order, its params equal to ``count_params`` of
+   phase 3's net, its FLOPs equal to the valid-tap count of the c64 convs
+   (``c64_convs``, counted tap by tap here) and within 1% of phase 2's
+   padded per-forward FLOPs, K1-K4 at 16 / 4 / 4 / 4 launches; its ms and
+   peak memory beside phase 3's. Then ``python -m
+   bsvd_tpu_torch.tools.parse_trace <trace> --group --json``: the traced
+   forward launched K1-K4 at those counts and no library convolution
+   (the no-fallback check); device busy ms, idle share, the longest gaps
+   and what the host was doing. Phase 12's bf16 train CLI run (which sets
+   a PSNR metric for its validation) read back from its ``tb_logger``
+   event files with the port's reader: every CRC, ``losses/l_pix`` at
+   each print equal to the text log's ``.4e`` value, ``metrics/psnr`` and
+   its per-folder tags at the validation. The gray-mode and Adam7
+   fixtures (``tests/fixtures/frames``, cv2's decodes in
+   ``decoded.npz``; the JPEG fixtures' Y planes) decoded bit for bit.
+   Phases 5, 8, 11 and 12 take their device profiles from
+   ``bsvd_tpu_torch.profiler.device_profile``.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12, 12a and 13 (counters set to 0 before each
-run, read after; phase 13's ranks count their sharded runs), the
+phases 3, 5, 8, 9, 10, 11, 12, 12a, 13 and 14 (counters set to 0 before
+each run, read after; phase 13's ranks and phase 14's profile entry count
+their runs in their own processes), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
 summed at the counts of
@@ -269,9 +290,11 @@ from bsvd_tpu_torch.ops.conv_chain import (conv_chain,  # noqa: E402
                                            conv_chain_reference)
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2, conv_s2_reference  # noqa: E402
 from bsvd_tpu_torch.ops.shift_conv import shift_conv_fused_v1  # noqa: E402
+from bsvd_tpu_torch.profiler import count_params, device_profile  # noqa: E402
 from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
 from bsvd_tpu_torch.train import train_loop, train_pipeline  # noqa: E402
-from bsvd_tpu_torch.utils import jpeg_encode  # noqa: E402
+from bsvd_tpu_torch.data import bmp_decode  # noqa: E402
+from bsvd_tpu_torch.utils import jpeg_encode, tb_events  # noqa: E402
 from bsvd_tpu_torch.utils.img_util import encode_png  # noqa: E402
 from bsvd_tpu_torch.utils.logger import get_root_logger  # noqa: E402
 from bsvd_tpu_torch.utils.options import (parse_options,  # noqa: E402
@@ -285,6 +308,15 @@ TEST_YML = os.path.join(ROOT, 'options', 'test', 'bsvd_c64.yml')
 # the scratch root of the option files' experiments / results folders and
 # of the PNG frame folders (made in main, removed at its end)
 WORK = None
+
+
+# phase 3's forward times and phase 2's per-unit sums, read by phase 14
+MAIN_TIMING, KERNEL_SUMS = {}, {}
+# phase 12's bf16 train CLI validates with a PSNR metric (the train yml
+# names none), so that its event files hold metrics/psnr
+TB_VAL_METRICS = ['val:metrics:psnr:type=calculate_psnr',
+                  'val:metrics:psnr:crop_border=2',
+                  'val:metrics:psnr:test_y_channel=false']
 
 
 def shipped_net(path):
@@ -384,6 +416,16 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def _run_module(args, timeout):
+    """``python -m <args>`` from the repo root; its stdout lines."""
+    res = subprocess.run([sys.executable, '-m', *args], cwd=ROOT,
+                         capture_output=True, text=True, timeout=timeout)
+    if res.returncode:
+        raise AssertionError(f'{args[0]} exited {res.returncode}: '
+                             f'{res.stdout[-2000:]}{res.stderr[-3000:]}')
+    return res.stdout.strip().splitlines()
 
 
 def counts():
@@ -799,7 +841,7 @@ def phase_kernels():
                    'library_ms': 0.0, 'library_pair_ms': 0.0,
                    'bound_ms': 0.0, 'ops_ms': 0.0, 'bytes_ms': 0.0}
                for k in KERNELS}
-    per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0}
+    per_unit = {u: {'ms': 0.0, 'plain_ms': 0.0, 'bound_ms': 0.0, 'flops': 0}
                 for u in ('forward', 'push', 'push_block', 'train_step')}
     for kernel, variant, count, own, unit, make in _sites():
         run, plain32, plain_bf16, exact, wk = make(g)
@@ -849,9 +891,11 @@ def phase_kernels():
             per_unit[unit]['ms'] += count * ms
             per_unit[unit]['plain_ms'] += count * plain_ms
             per_unit[unit]['bound_ms'] += count * bound
+            per_unit[unit]['flops'] += count * wk['flops']
         del got, outs
         torch.cuda.empty_cache()
     emit({'phase': 'kernel_sums', 'per_unit': per_unit})
+    KERNEL_SUMS.update(per_unit)
     for s in summary.values():
         if not s['library_pair_ms']:
             s['library_pair_ms'] = None
@@ -947,6 +991,8 @@ def phase_main(clips):
         emit({'phase': 'main_timing', 'shift_mode': mode,
               'forward_ms_median_of_5': ms, 'frames': T,
               'peak_allocated_gb': peak_gb})
+        MAIN_TIMING[mode] = {'forward_ms_median_of_5': ms,
+                             'peak_allocated_gb': peak_gb}
     return nets, outs, launches
 
 
@@ -1079,65 +1125,13 @@ def _time_per_frame(sd, x, block):
     return best * 1e3
 
 
-def _device_profile(run, n, label):
-    """Device busy time (union of all device activity) and idle share of
-    ``run()`` (n units of work, ending in a synchronize) under
-    torch.profiler; the kernels and the ``record_function`` ranges inside
-    by device time, per unit."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile, record_function
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        with record_function(label):
-            run()
-    events = prof.events()
-    win = next(e for e in events if e.name == label)
-    ws, we = win.time_range.start, win.time_range.end
-    # device activity: kernels, copies and sets; a record_function range
-    # also shows on the device timeline (an annotation spanning its
-    # kernels), which is no activity of its own
-    device = [e for e in events if e.device_type == DeviceType.CUDA
-              and not e.is_user_annotation]
-    spans = sorted((max(e.time_range.start, ws), min(e.time_range.end, we))
-                   for e in device)
-    busy, cur = 0.0, None
-    for a, b in spans:
-        if b <= a:
-            continue
-        if cur is None or a > cur[1]:
-            busy += 0 if cur is None else cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    busy += 0 if cur is None else cur[1] - cur[0]
-    # device time by kernel name (a CPU op's row in key_averages() carries
-    # its kernels' time as well), and the device span of each range
-    totals, ranges = {}, {}
-    for e in events:
-        if e.device_type != DeviceType.CUDA:
-            continue
-        into = ranges if e.is_user_annotation else totals
-        into[e.name] = into.get(e.name, 0) + (e.time_range.end -
-                                              e.time_range.start)
-    by_name = sorted(totals.items(), key=lambda kv: -kv[1])
-    ranges = {k: v / 1e3 / n for k, v in ranges.items() if k != label}
-    return {'units': n, 'window_ms_per_unit': (we - ws) / 1e3 / n,
-            'device_busy_ms_per_unit': busy / 1e3 / n,
-            'idle_share': (1 - busy / (we - ws)) if spans else None,
-            'top_device_ms_per_unit': [[k, v / 1e3 / n]
-                                       for k, v in by_name[:12]],
-            'by_kernel': [[k, v / 1e3 / n] for k, v in by_name],
-            'ranges_device_ms_per_unit': ranges}
-
-
 def _profile_pushes(sd, x, n=16):
     """The device profile of n steady pushes."""
     def run():
         for k in range(n):
             sd.push(x[k % STREAM_T])
         torch.cuda.synchronize()
-    prof = _device_profile(run, n, 'steady_pushes')
+    prof = device_profile(run, n, 'steady_pushes')
     return {'pushes': n,
             'window_ms_per_push': prof['window_ms_per_unit'],
             'device_busy_ms_per_push': prof['device_busy_ms_per_unit'],
@@ -1490,7 +1484,7 @@ def _profile_steps(model, n, first_iter):
             for i in range(n):
                 model.optimize_parameters(first_iter + i)
             torch.cuda.synchronize()
-        prof = _device_profile(run, n, 'train_steps')
+        prof = device_profile(run, n, 'train_steps')
     finally:
         for m, ig, wg in saved:
             if ig is not None:
@@ -2190,7 +2184,7 @@ def phase_options(nets, clip):
                                  f'or not finite')
         with torch.no_grad():
             ms = median_ms(lambda: wnet_apply(p, x, cfg), reps=5)
-            prof = None if cfg.norm != 'in' else _device_profile(
+            prof = None if cfg.norm != 'in' else device_profile(
                 lambda: (wnet_apply(p, x, cfg), torch.cuda.synchronize()),
                 1, 'in_forward')
         rec = {'phase': 'options', 'config': name, 'shift_num':
@@ -2439,7 +2433,7 @@ def _profile_loader_fed(model, data, first_iter, n=10):
         def run():
             iterations(first_iter + 3, n)
             torch.cuda.synchronize()
-        prof = _device_profile(run, n, 'loader_fed_iterations')
+        prof = device_profile(run, n, 'loader_fed_iterations')
     finally:
         loader.close()
     return {'iterations': n,
@@ -2493,7 +2487,7 @@ def phase_entry(data):
                          TRAIN_HW)
     for label, extra, force, iters in (
             ('fp32', [], [], CLI_ITERS),
-            ('bf16', [], ['train:fp16=true'], CLI_ITERS),
+            ('bf16', [], ['train:fp16=true', *TB_VAL_METRICS], CLI_ITERS),
             ('bf16_auto_resume', ['--auto_resume'], ['train:fp16=true'],
              CLI_RESUME_ITERS)):
         cmd = _train_cli_cmd(data, *extra, iters=iters) + force
@@ -2523,6 +2517,17 @@ def phase_entry(data):
         missing = [p for p in saved if not os.path.isfile(p)]
         if missing:
             raise AssertionError(f'train CLI {label}: missing {missing}')
+        if label == 'bf16':
+            # its TensorBoard files and text log, read back in phase 14
+            tb_dir = os.path.join(exp, 'tb_logger')
+            ENTRY['bf16_tb'] = {
+                'files': sorted(os.path.join(tb_dir, f)
+                                for f in os.listdir(tb_dir)
+                                if f.startswith('events.out.tfevents.')),
+                'log': max((os.path.join(exp, f) for f in os.listdir(exp)
+                            if f.startswith('train_') and f.endswith('.log')),
+                           key=os.path.getmtime),
+                'val_dirs': sorted(os.listdir(data['val']))}
         if len(clock.marks) != steps:
             raise AssertionError(f'train CLI {label}: {len(clock.marks)} '
                                  f'iterations clocked, not {steps}')
@@ -2735,6 +2740,7 @@ DRYRUN = ['--nproc', '2', '--data', '1', '--spatial', '2', '--backend',
           'gloo', '--device', 'cuda', '--size', 'full', '--checks',
           'eval,stream,train', '--train_layouts', '2x1,1x2']
 # phase 12's bf16 CLI run (no launcher), for the NCCL run's comparison
+# and phase 14's TensorBoard check
 ENTRY = {}
 
 
@@ -2859,14 +2865,8 @@ def phase_parallel_dryrun():
     the ranks' bits). Returns the sharded runs' launches, summed
     over the ranks."""
     launches = dict.fromkeys(KERNELS, 0)
-    res = subprocess.run([sys.executable, '-m',
-                          'bsvd_tpu_torch.parallel.dryrun', *DRYRUN],
-                         cwd=ROOT, capture_output=True, text=True,
-                         timeout=600)
-    if res.returncode != 0:
-        raise AssertionError(f'parallel.dryrun failed ({res.returncode}): '
-                             f'{res.stdout[-2000:]} {res.stderr[-3000:]}')
-    out = json.loads(res.stdout.strip().splitlines()[-1])
+    out = json.loads(_run_module(['bsvd_tpu_torch.parallel.dryrun',
+                                  *DRYRUN], 600)[-1])
     if out['dryrun'] != 'ok' or len(out['ranks']) != 2:
         raise AssertionError(f'parallel.dryrun: {out}')
     note = 'two processes sharing one card: says nothing about scaling'
@@ -2980,6 +2980,191 @@ def train_cli_rank(root, out, cmd):
     dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the profile entry and its trace, TensorBoard files, frames
+# ---------------------------------------------------------------------------
+
+FRAME_FIXTURES = os.path.join(ROOT, 'tests', 'fixtures', 'frames')
+
+
+def c64_convs():
+    """The convs of a c64 forward (options/test/bsvd_c64.yml at 540x960):
+    (count, H, W, Cin, Cout, stride) of K1's 16, K2's 4 pairs, K3's 4 and
+    K4's 4 launches."""
+    h2, w2, h4, w4 = H // 2, W // 2, H // 4, W // 4
+    return [(8, h2, w2, 128, 128, 1), (8, h4, w4, 256, 256, 1),
+            (1, H, W, 4, 64, 1), (6, H, W, 64, 64, 1), (1, H, W, 64, 3, 1),
+            (2, H, W, 64, 128, 2), (2, h2, w2, 128, 256, 2),
+            (2, h4, w4, 256, 512, 1), (2, h2, w2, 128, 256, 1)]
+
+
+def _taps(n, s):
+    """Taps of a 3x3 (pad 1, stride s) axis of n that land inside it,
+    counted one by one."""
+    return sum(1 for o in range((n - 1) // s + 1) for k in range(3)
+               if 0 <= s * o + k - 1 < n)
+
+
+def _c64_flops():
+    """(valid-tap FLOPs, padded FLOPs) of a 10-frame c64 forward."""
+    valid = padded = 0
+    for n, h, w, ci, co, s in c64_convs():
+        valid += n * 2 * ci * co * T * _taps(h, s) * _taps(w, s)
+        padded += n * 2 * 9 * ci * co * T * ((h - 1) // s + 1) * \
+            ((w - 1) // s + 1)
+    return valid, padded
+
+
+def _profile_entry(net):
+    """python -m bsvd_tpu_torch.profile_net --trace at the reference
+    protocol, its numbers held to the net and the layer shapes; then its
+    trace through parse_trace. Returns the entry's launches."""
+    trace_dir = os.path.join(WORK, 'trace')
+    t0 = time.perf_counter()
+    lines = _run_module(['bsvd_tpu_torch.profile_net', '-opt', TEST_YML,
+                         '--trace', '--trace_dir', trace_dir], 600)
+    wall = time.perf_counter() - t0
+    rec = json.loads(lines[-1])
+    heads = ['input shape:', f'time per {T}-frame forward:', 'params:',
+             'flops:', 'temp_size_in_bytes:', 'argument_size_in_bytes:',
+             'output_size_in_bytes:', 'cuda:0 peak memory:',
+             'traced forward:']
+    at = [next((i for i, ln in enumerate(lines) if ln.startswith(h)), None)
+          for h in heads]
+    if None in at or at != sorted(at):
+        raise AssertionError(f'profile_net lines out of the reference\'s '
+                             f'order: {dict(zip(heads, at))}')
+    valid, padded = _c64_flops()
+    want_params = count_params(net)
+    if padded != KERNEL_SUMS['forward']['flops']:
+        raise AssertionError(f'c64_convs padded FLOPs {padded} != phase 2\'s '
+                             f'{KERNEL_SUMS["forward"]["flops"]}')
+    checks = {'params': rec['params'] == want_params,
+              'flops_valid_taps': rec['flops'] == valid,
+              'flops_within_1pct_of_padded': 0.99 * padded <= rec['flops']
+              <= padded,
+              'launches_per_forward': all(
+                  rec['launches_per_forward'][k] == PER_FORWARD[k]
+                  for k in rec['launches_per_forward']),
+              'device': rec['device'] == 'cuda'}
+    emit({'phase': 'profile_entry', 'cmd': 'python -m '
+          'bsvd_tpu_torch.profile_net -opt options/test/bsvd_c64.yml '
+          '--trace', 'wall_s': wall, 'ms_per_forward':
+          rec['sec_per_forward'] * 1e3, 'ms_per_frame': rec['ms_per_frame'],
+          'phase3_forward_ms_median_of_5':
+          MAIN_TIMING['TSM']['forward_ms_median_of_5'],
+          'peak_gb': rec['peak_bytes_in_use']['cuda:0'] / 1e9,
+          'phase3_peak_gb': MAIN_TIMING['TSM']['peak_allocated_gb'],
+          'temp_gb': rec['temp_size_in_bytes'] / 1e9, 'params': rec['params'],
+          'flops': rec['flops'], 'flops_valid_taps': valid,
+          'flops_padded_phase2': padded, 'valid_over_padded': valid / padded,
+          'launches_per_forward': rec['launches_per_forward'],
+          'traced_forward_s': rec['traced_forward_s'], 'checks': checks,
+          'lines': lines[:-1]})
+    if not all(checks.values()):
+        raise AssertionError(f'profile_net: {checks}')
+
+    rep = json.loads(_run_module(['bsvd_tpu_torch.tools.parse_trace',
+                                  trace_dir, '--group', '--json'], 300)[-1])
+    dev = rep['device']
+    groups = {g: v['launches'] for g, v in dev['groups'].items()}
+    want = {'K1 conv3x3': PER_FORWARD['conv3x3'],
+            'K2 conv_chain': PER_FORWARD['conv_chain'],
+            'K3 conv_s2': PER_FORWARD['conv_s2'],
+            'K4 conv_ps': PER_FORWARD['conv_ps']}
+    emit({'phase': 'profile_trace', 'trace': os.path.relpath(rep['trace'],
+                                                             WORK),
+          'device_busy_ms': dev['busy_ms'], 'device_span_ms': dev['span_ms'],
+          'idle_share': dev['idle_share'],
+          'groups': dev['groups'], 'top_kernels': dev['kernels'][:6],
+          'longest_gaps': dev['gaps'][:3]})
+    got = {g: groups.get(g, 0) for g in want}
+    if got != want:
+        raise AssertionError(f'traced forward launched {got}, not {want}')
+    if 'library convolution' in groups:
+        raise AssertionError(f'a library convolution ran in the traced '
+                             f'forward: {dev["groups"]}')
+    return {k: rec['launches'].get(k, 0) for k in KERNELS}
+
+
+def _tb_check():
+    """Phase 12's bf16 train CLI run read back from its tb_logger folder:
+    every CRC, losses/l_pix at each print against the text log, the
+    validation's metrics."""
+    tb = ENTRY['bf16_tb']
+    if not tb['files']:
+        raise AssertionError('train CLI bf16: no event file in tb_logger')
+    scalars = [r for f in tb['files'] for r in tb_events.read_scalars(f)]
+    losses = {step: v for _, step, tag, v in scalars if tag == 'losses/l_pix'}
+    logged = {}
+    with open(tb['log']) as f:
+        for line in f:
+            m = re.search(r'iter: *([0-9,]+),.* l_pix: ([-+0-9.e]+)', line)
+            if m:
+                logged[int(m.group(1).replace(',', ''))] = m.group(2)
+    want_steps = list(range(10, CLI_ITERS + 1, 10))
+    if sorted(losses) != want_steps or sorted(logged) != want_steps:
+        raise AssertionError(f'losses/l_pix at {sorted(losses)}, logged at '
+                             f'{sorted(logged)}, not {want_steps}')
+    # the log prints .4e of the float64 loss, the file holds its float32
+    for step in want_steps:
+        text = float(logged[step])
+        half_unit = 0.5 * 10.0 ** (math.floor(math.log10(abs(text))) - 4)
+        if not abs(losses[step] - text) <= half_unit * 1.01 + 1e-7 * abs(text):
+            raise AssertionError(f'losses/l_pix at {step}: {losses[step]} in '
+                                 f'the file, {logged[step]} in the log')
+    metrics = {tag: v for _, step, tag, v in scalars
+               if tag.startswith('metrics/') and step == CLI_ITERS}
+    want_tags = {'metrics/psnr'} | {f'metrics/psnr/{d}'
+                                    for d in tb['val_dirs']}
+    if set(metrics) != want_tags or not all(math.isfinite(v)
+                                            for v in metrics.values()):
+        raise AssertionError(f'metrics at {CLI_ITERS}: {metrics}, want '
+                             f'{sorted(want_tags)}')
+    emit({'phase': 'tensorboard', 'files': len(tb['files']),
+          'scalars': len(scalars), 'losses_l_pix': losses,
+          'logged_l_pix': logged, 'metrics': metrics})
+
+
+def _frames_check():
+    """The gray and Adam7 fixtures decoded here against cv2's decodes made
+    with them (tests/fixtures/frames/decoded.npz), bit for bit."""
+    ref = np.load(os.path.join(FRAME_FIXTURES, 'decoded.npz'))
+    names = sorted(f for f in os.listdir(FRAME_FIXTURES)
+                   if f.endswith(('.png', '.bmp')))
+    done = []
+    for f in names:
+        path, stem = os.path.join(FRAME_FIXTURES, f), f[:-4]
+        mod = png_decode if f.endswith('.png') else bmp_decode
+        rgb, gray = mod.load(path), mod.load_gray(path)
+        ok = (np.array_equal(rgb, ref[stem])
+              and np.array_equal(gray, ref[f'{stem}_gray']))
+        if mod is png_decode and min(rgb.shape[:2]) > 2:
+            h, w = rgb.shape[:2]
+            ok = ok and np.array_equal(
+                png_decode.load_crop(path, 1, 1, h - 2, w - 2),
+                rgb[1:-1, 1:-1])
+        if not ok:
+            raise AssertionError(f'{f}: differs from cv2\'s decode')
+        done.append(f)
+    for f in sorted(os.listdir(JPEG_FIXTURES)):
+        if not f.endswith('.jpg'):
+            continue
+        got = jpeg_decode.load_gray(os.path.join(JPEG_FIXTURES, f))
+        if not np.array_equal(got, ref[f'jpeg_{f[:-4]}_gray']):
+            raise AssertionError(f'{f}: gray decode differs from cv2\'s')
+        done.append(f'{f} (gray)')
+    emit({'phase': 'frames_gray_adam7', 'bit_equal': done})
+
+
+def phase_profile(net):
+    """Phase 14. Returns the profile entry's launches."""
+    launches = _profile_entry(net)
+    _tb_check()
+    _frames_check()
+    return launches
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -3052,6 +3237,7 @@ def run():
     phase_loader_draws()
     _sum_launches(parallel_launches, phase_parallel_dryrun())
     _sum_launches(parallel_launches, phase_nccl_train_cli(data))
+    _sum_launches(parallel_launches, phase_profile(nets['TSM']))
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

@@ -1039,3 +1039,38 @@ def test_two_gloo_ranks_on_one_card_match_unsharded(dev):
                                                    'conv_ps'))
         (tr,) = rank['train']
         assert tr['ranks_identical'] and tr['launches']['conv3x3_dw'] > 0
+
+
+def test_kernel_routes_count_the_plain_routes_flops(dev):
+    """profiler.flops_and_memory counts a wrapper's kernel launch as its
+    plain route on the CPU counts it (one formula a wrapper, ops/_flops):
+    K1-K5 and K7, bf16."""
+    from bsvd_tpu_torch.ops.bibuffer_conv import bibuffer_conv
+    from bsvd_tpu_torch.ops.conv3x3 import conv3x3_dw
+    from bsvd_tpu_torch.profiler import flops_and_memory
+    rng = np.random.default_rng(13)
+
+    def t(*shape):
+        return _t(rng, shape, 0.5, 'cpu')
+    x, x2, dz = t(6, 13, 21, 64), t(6, 13, 21, 64), t(6, 13, 21, 64)
+    w64, b64, w128 = t(64, 64, 3, 3), t(64), t(128, 64, 3, 3)
+    w3, b3 = t(3, 64, 3, 3), t(3)
+    ops = {
+        'conv3x3': lambda d, v: conv3x3(v(x), v(w64), v(b64), x2=v(x2),
+                                        t_len=3, shift='tsm'),
+        'conv_chain': lambda d, v: conv_chain(v(x), v(w64), v(b64), v(w3),
+                                              v(b3)),
+        'conv_s2': lambda d, v: conv_s2(v(x), v(w128), v(t(128))),
+        'conv_ps': lambda d, v: conv_ps(v(x), v(w128), v(t(128))),
+        'bibuffer_conv': lambda d, v: bibuffer_conv(v(x[:2]), v(x2[:2]),
+                                                    v(w64), v(b64)),
+        'conv3x3_dw': lambda d, v: conv3x3_dw(v(x), v(dz), t_len=3,
+                                              shift='causal'),
+    }
+    for name, op in ops.items():
+        cpu = flops_and_memory(lambda: op('cpu', lambda a: a))['flops']
+        # an argument on the card: the report's temp_size_in_bytes
+        card = flops_and_memory(lambda _: op(dev, lambda a: a.to(
+            dev, torch.bfloat16)), x.to(dev))
+        assert cpu > 0 and card['flops'] == cpu, name
+        assert card['temp_size_in_bytes'] >= 0

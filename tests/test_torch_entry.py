@@ -347,8 +347,9 @@ def _train_cmd(data, iters, *extra):
 def test_train_pipeline_from_the_shipped_yml(png_root, tmp_path,
                                              monkeypatch):
     """Two iterations on PNG folders with validation at 2 and at the end,
-    the model, state and option-file copy written, the TensorBoard line
-    in the log; --auto_resume continues from iteration 2 to 3."""
+    the model, state and option-file copy written, the losses in the
+    TensorBoard event file; --auto_resume continues from iteration 2 to
+    3."""
     from bsvd_tpu_torch.models.denoising_model import DenoisingModel
     from bsvd_tpu_torch.train import train_pipeline
     calls = []
@@ -368,7 +369,11 @@ def test_train_pipeline_from_the_shipped_yml(png_root, tmp_path,
         assert (exp / rel).is_file(), rel
     assert len(list((exp / 'visualization').rglob('*.png'))) == 12
     log = next(exp.glob('train_*.log')).read_text()
-    assert 'TensorBoard is not ported' in log and 'l_pix' in log
+    assert 'l_pix' in log
+    # use_tb_logger: the losses in an event file under tb_logger
+    from bsvd_tpu_torch.utils.tb_events import read_dir
+    assert [(step, tag) for _, step, tag, _ in read_dir(
+        str(exp / 'tb_logger'))] == [(1, 'losses/l_pix'), (2, 'losses/l_pix')]
     assert re.search(r'iter: +2, .*time \(data\): [0-9.]+ \([0-9.]+\)\]',
                      log)
     model = train_pipeline(root, cmd=_train_cmd(png_root, 3,

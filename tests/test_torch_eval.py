@@ -177,7 +177,9 @@ def test_native_decoder_matches_cv2_and_jax(tmp_path, fmt):
 
 def test_open_sequence_orders_by_digits_and_refuses_gray(tmp_path):
     """Frames in the order of the digits in their names (10 after 9), as
-    the JAX package reads them; gray frames raise, an empty folder too."""
+    the JAX package reads them; gray frames (cv2's IMREAD_GRAYSCALE) equal
+    JAX's too, with and without the odd-size expansion; an empty folder
+    raises."""
     from bsvd_tpu.data.utils_common import open_sequence as jax_open
     rng = np.random.default_rng(4)
     frames = rng.integers(0, 256, (11, 21, 33, 3), dtype=np.uint8)
@@ -187,8 +189,15 @@ def test_open_sequence_orders_by_digits_and_refuses_gray(tmp_path):
     np.testing.assert_array_equal(got, jax_open(str(tmp_path / 'clip'))[0])
     np.testing.assert_array_equal(
         got, np.transpose(frames[..., ::-1], (0, 3, 1, 2)) / np.float32(255))
-    with pytest.raises(NotImplementedError):
-        open_sequence(str(tmp_path / 'clip'), gray_mode=True)
+    for expand in (False, True):
+        got = open_sequence(str(tmp_path / 'clip'), gray_mode=True,
+                            expand_if_needed=expand)
+        ref = jax_open(str(tmp_path / 'clip'), gray_mode=True,
+                       expand_if_needed=expand)
+        assert got[1:] == ref[1:] == (expand, expand)
+        assert got[0].dtype == ref[0].dtype and got[0].shape == (
+            11, 1, 21 + expand, 33 + expand)
+        np.testing.assert_array_equal(got[0], ref[0])
     with pytest.raises(IOError):
         open_sequence(str(tmp_path))
 

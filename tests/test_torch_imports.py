@@ -1,7 +1,7 @@
 """Import hygiene of the port: every bsvd_tpu_torch module imports in a
 fresh interpreter without a GPU or nvcc, and pulls in neither jax, the JAX
-package, yaml, cv2 nor pandas (the machine with the card has none of
-them)."""
+package, yaml, cv2, pandas, tensorflow nor tensorboard (the machine with
+the card has none of them)."""
 
 import os
 import subprocess
@@ -18,7 +18,8 @@ for n in names:
     importlib.import_module(n)
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml',
-                                    'cv2', 'pandas'))
+                                    'cv2', 'pandas', 'tensorflow',
+                                    'tensorboard'))
 print(len(names), bad)
 assert len(names) >= 40, names
 assert {'bsvd_tpu_torch.archs.streaming',
@@ -40,7 +41,9 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.utils.options', 'bsvd_tpu_torch.utils.yaml_lite',
         'bsvd_tpu_torch.parallel', 'bsvd_tpu_torch.parallel.mesh',
         'bsvd_tpu_torch.parallel.spatial',
-        'bsvd_tpu_torch.parallel.dryrun'} \
+        'bsvd_tpu_torch.parallel.dryrun', 'bsvd_tpu_torch.profiler',
+        'bsvd_tpu_torch.profile_net', 'bsvd_tpu_torch.tools.parse_trace',
+        'bsvd_tpu_torch.utils.tb_events', 'bsvd_tpu_torch.ops._flops'} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build

@@ -1,5 +1,6 @@
 """The calls the JAX package's own code makes into its data and utils API,
-made on the port with the same arguments (bsvd_tpu/train.py:27, :45, :86;
+made on the port with the same arguments (bsvd_tpu/train.py:27, :45, :86,
+:114;
 bsvd_tpu/test.py:18, :29; bsvd_tpu/data/val_folder_dataset.py:47-49;
 bsvd_tpu/data/video_test_dataset.py:42-43; bsvd_tpu/models/
 denoising_model.py's tensor2img / imwrite / print_network /
@@ -371,3 +372,34 @@ def test_model_calls_of_the_jax_package(tmp_path, caplog):
     pm.feed_data(dict(item, gt=item['lq']))
     pm.test()
     assert list(pm.get_current_visuals()) == ['lq', 'result', 'gt']
+
+
+class _Recorder:
+    """A tb_logger that records its add_scalar calls."""
+
+    def __init__(self):
+        self.calls = []
+
+    def add_scalar(self, tag, value, step):
+        self.calls.append((tag, float(value), int(step)))
+
+
+def test_message_logger_takes_jaxs_arguments():
+    """bsvd_tpu/train.py:114 ``MessageLogger(opt, current_iter, tb_logger)``:
+    the port mirrors each loss to the writer as the JAX package does."""
+    from bsvd_tpu.utils.logger import MessageLogger as JaxMessageLogger
+    from bsvd_tpu_torch.utils.logger import MessageLogger
+    opt = {'name': 'calls', 'logger': {'print_freq': 10,
+                                       'use_tb_logger': True},
+           'train': {'total_iter': 100}}
+    recs = []
+    for cls in (MessageLogger, JaxMessageLogger):
+        tb = _Recorder()
+        msg = cls(opt, 20, tb)
+        msg({'epoch': 1, 'iter': 30, 'lrs': [1e-3], 'time': 0.5,
+             'data_time': 0.1, 'l_pix': 0.0125, 'l_reg': 2.0,
+             'psnr': 31.5})
+        recs.append(tb.calls)
+    assert recs[0] == recs[1] == [('losses/l_pix', 0.0125, 30),
+                                  ('losses/l_reg', 2.0, 30),
+                                  ('psnr', 31.5, 30)]

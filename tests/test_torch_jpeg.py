@@ -4,8 +4,9 @@ bit against ``cv2.imread`` (the JAX package's ``open_image``) on every kind
 it reads, its windows against the crop of the whole decode and against the
 JAX package's libjpeg-turbo ROI decode, its errors; the JPEG writer
 (``utils/jpeg_encode``) against ``cv2.imencode``; the committed fixtures
-the card's run is held to; the BMP reader against cv2; ``open_image`` /
-``open_sequence`` on JPEG folders against the JAX package's.
+the card's run is held to; the BMP reader against cv2; gray mode (the Y
+plane; cv2's BMP conversion); ``open_image`` / ``open_sequence`` on JPEG
+folders against the JAX package's.
 
 Tolerances: none. Every decode is integer arithmetic on both sides; the
 writer's files decode to the same pixels as cv2's.
@@ -316,8 +317,8 @@ def test_fixtures_are_cv2s_decode():
 @pytest.mark.parametrize('expand', [False, True])
 def test_open_image_and_sequence_on_jpeg_equal_jax(tmp_path, expand):
     """open_image (float and uint8) and open_sequence of a JPEG folder of
-    odd-sized frames, with and without expand_if_needed, equal the JAX
-    package's; the frames take the JPEG route."""
+    odd-sized frames, with and without expand_if_needed, in colour and in
+    gray_mode, equal the JAX package's; the frames take the JPEG route."""
     from bsvd_tpu.data import utils_common as jax_uc
     for i in range(3):
         _write(str(tmp_path / f'{i}.jpg'), 's420', 21, 33, seed=i)
@@ -339,8 +340,34 @@ def test_open_image_and_sequence_on_jpeg_equal_jax(tmp_path, expand):
     assert got[1:] == ref[1:] and got[0].shape == (2, 3, 21 + expand,
                                                    33 + expand)
     np.testing.assert_array_equal(got[0], ref[0])
-    with pytest.raises(NotImplementedError, match='gray'):
-        utils_common.open_image(path, gray_mode=True)
+    # gray_mode: the Y plane, as the JAX package's cv2.IMREAD_GRAYSCALE
+    for norm in (True, False):
+        got = utils_common.open_image(path, True, expand, norm)
+        ref = jax_uc.open_image(path, True, expand, norm)
+        assert got[1:] == ref[1:] and got[0].dtype == ref[0].dtype
+        assert got[0].shape == (1, 21 + expand, 33 + expand)
+        np.testing.assert_array_equal(got[0], ref[0])
+    got = utils_common.open_sequence(str(tmp_path), True, expand, 3)
+    ref = jax_uc.open_sequence(str(tmp_path), True, expand, 3)
+    assert got[1:] == ref[1:] and got[0].shape == (3, 1, 21 + expand,
+                                                   33 + expand)
+    np.testing.assert_array_equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize('kind,h,w', CASES,
+                         ids=[f'{k}-{h}x{w}' for k, h, w in CASES])
+def test_gray_mode_is_the_y_plane(tmp_path, kind, h, w):
+    """load_gray equals cv2.IMREAD_GRAYSCALE (libjpeg's JCS_GRAYSCALE: Y
+    alone, the chroma never upsampled), its windows the crop of it."""
+    path = _write(str(tmp_path / 'f.jpg'), kind, h, w)
+    got = jpeg_decode.load_gray(path)
+    np.testing.assert_array_equal(got, cv2.imread(path,
+                                                  cv2.IMREAD_GRAYSCALE))
+    y0, x0 = h // 3, w // 4
+    ch, cw = max(1, h - y0 - 1), max(1, w - x0 - 2)
+    np.testing.assert_array_equal(
+        jpeg_decode.load_crop_seq([path, path], y0, x0, ch, cw, gray=True),
+        np.stack([got[y0:y0 + ch, x0:x0 + cw]] * 2))
 
 
 def _own_bmp(path, rgb, bpp, top_down=False, palette=None, info=40):
@@ -398,6 +425,21 @@ def test_bmp_reader_matches_cv2(tmp_path, kind):
     np.testing.assert_array_equal(bmp_decode.load_crop(path, 3, 2, 9, 4),
                                   got[3:12, 2:6])
     assert utils_common.route(path) == 'bmp_decode'
+
+
+@pytest.mark.parametrize('kind', sorted(BMP_KINDS))
+def test_bmp_gray_matches_cv2(tmp_path, kind):
+    """gray_mode on BMP: cv2's conversion (fixed point for 24-bit pixels and
+    palettes, float32 for 32-bit pixels), as the JAX package reads it."""
+    from bsvd_tpu.data.utils_common import open_image as jax_open_image
+    path = str(tmp_path / 'f.bmp')
+    BMP_KINDS[kind](path)
+    np.testing.assert_array_equal(bmp_decode.load_gray(path),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    got = utils_common.open_image(path, True, True)
+    ref = jax_open_image(path, True, True)
+    assert got[1:] == ref[1:] == (True, True)
+    np.testing.assert_array_equal(got[0], ref[0])
 
 
 def test_bmp_reader_refuses_other_kinds(tmp_path):

@@ -1,7 +1,9 @@
 """The port's frame reading and train loader on CPU against the JAX package
 and libpng: the zlib-only PNG reader (``data/png_decode``) bit for bit
 against cv2.imread and the JAX package's native decoder on every PNG kind
-the reader takes, its crop entry and its errors; the route by file type;
+the reader takes, Adam7-interlaced files, gray mode (cv2's
+IMREAD_GRAYSCALE and the JAX package's open_image), its crop entry and
+its errors; the committed gray / Adam7 fixtures; the route by file type;
 ``train_video_loader`` with one worker bit for bit against the JAX
 package's loader, its epoch length, the skipped short clip, the refused
 video files and the reference's alias.
@@ -140,8 +142,9 @@ def _corrupt(data, kind):
 @pytest.mark.parametrize('kind', ['truncated', 'no_iend', 'bad_crc',
                                   'bad_signature', 'bad_filter', 'adam7'])
 def test_png_reader_refuses_broken_and_interlaced_files(tmp_path, kind):
-    """Each raises IOError naming the file; cv2 reads the Adam7 file (it
-    is a valid PNG), the port does not read interlacing yet."""
+    """Each broken file raises IOError naming the file; the Adam7 file is
+    valid and reads as cv2 reads it (the reader takes interlacing now),
+    whole and cropped."""
     path = str(tmp_path / 'f.png')
     if kind == 'adam7':
         data = make_png(IMG[..., :3], 8, 2, interlace=True)
@@ -149,13 +152,135 @@ def test_png_reader_refuses_broken_and_interlaced_files(tmp_path, kind):
         data = _corrupt(make_png(IMG[..., :3], 8, 2), kind)
     open(path, 'wb').write(data)
     if kind == 'adam7':
+        want = IMG[..., :3].astype(np.uint8)
         np.testing.assert_array_equal(
-            cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB),
-            IMG[..., :3].astype(np.uint8))
-    with pytest.raises(IOError, match='Adam7' if kind == 'adam7' else 'f.png'):
+            cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB), want)
+        np.testing.assert_array_equal(png_decode.load(path), want)
+        np.testing.assert_array_equal(png_decode.load_crop(path, 0, 0, 2, 2),
+                                      want[:2, :2])
+        return
+    with pytest.raises(IOError, match='f.png'):
         png_decode.load(path)
     with pytest.raises(IOError):
         png_decode.load_crop(path, 0, 0, 2, 2)
+
+
+# Adam7 files: every colour type and depth, tRNS, sizes under 8 pixels
+# (passes without pixels), filters 0-4
+ADAM7 = [(color, depth, h, w) for color, depths in (
+    (0, (1, 2, 4, 8, 16)), (2, (8, 16)), (3, (1, 2, 4, 8)), (4, (8, 16)),
+    (6, (8, 16))) for depth in depths for h, w in ((19, 23), (1, 1), (3, 5),
+                                                  (7, 2))]
+
+
+def _adam7(path, color, depth, h, w):
+    rng = np.random.default_rng(color * 100 + depth * 10 + h + w)
+    ch = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}[color]
+    n_pal = min(1 << depth, 256) - 1 if color == 3 else 0
+    samples = rng.integers(0, 1 << depth, (h, w, ch))
+    trns = None
+    if (h + w) % 2 and color in (0, 2):
+        trns = struct.pack(f'>{ch}H', *(int(v) for v in samples[0, 0]))
+    elif (h + w) % 2 and color == 3:
+        trns = bytes(rng.integers(0, 256, max(1, n_pal // 2)).astype(
+            np.uint8))
+    open(path, 'wb').write(make_png(
+        samples if ch > 1 else samples[..., 0], depth, color,
+        palette=rng.integers(0, 256, (n_pal, 3)) if color == 3 else None,
+        trns=trns, filters=rng.integers(0, 5, h), interlace=True))
+
+
+@pytest.mark.parametrize('color,depth,h,w', ADAM7,
+                         ids=[f'c{c}_d{d}_{h}x{w}' for c, d, h, w in ADAM7])
+def test_adam7_matches_libpng(tmp_path, color, depth, h, w):
+    """Each pass unfiltered on its own width and put in place: equal to
+    cv2.imread in colour and in gray mode, windows the crop of the frame;
+    the passes of a frame under 8 pixels may hold no pixel."""
+    path = str(tmp_path / 'f.png')
+    _adam7(path, color, depth, h, w)
+    got = png_decode.load(path)
+    np.testing.assert_array_equal(
+        got, cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB))
+    gray = png_decode.load_gray(path)
+    np.testing.assert_array_equal(gray,
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    y0, x0 = h // 3, w // 3
+    np.testing.assert_array_equal(
+        png_decode.load_crop(path, y0, x0, h - y0, w - x0), got[y0:, x0:])
+    np.testing.assert_array_equal(
+        png_decode.load_crop(path, y0, x0, h - y0, w - x0, gray=True),
+        gray[y0:, x0:])
+
+
+@pytest.mark.parametrize('kind', sorted(KINDS))
+def test_png_gray_matches_cv2_and_jax(tmp_path, kind):
+    """gray_mode on every PNG kind: libpng's rgb_to_gray with cv2's weights
+    (colour and palettes), 16-bit reduced as cv2 does; open_image's gray
+    frame equal to the JAX package's."""
+    from bsvd_tpu.data.utils_common import open_image as jax_open_image
+    path = str(tmp_path / f'{kind}.png')
+    KINDS[kind](path)
+    np.testing.assert_array_equal(png_decode.load_gray(path),
+                                  cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+    for norm in (True, False):
+        got = utils_common.open_image(path, True, True, norm)
+        ref = jax_open_image(path, True, True, norm)
+        assert got[1:] == ref[1:] and got[0].dtype == ref[0].dtype
+        np.testing.assert_array_equal(got[0], ref[0])
+
+
+@pytest.mark.parametrize('chunk_type,payload,refused', [
+    (b'gAMA', struct.pack('>I', 45455), True), (b'sRGB', b'\x00', True),
+    (b'gAMA', struct.pack('>I', 100000), False)],
+    ids=['gAMA_0.45455', 'sRGB', 'gAMA_1.0'])
+def test_png_gray_of_a_colour_space(tmp_path, chunk_type, payload, refused):
+    """libpng converts a colour file that names a non-linear colour space
+    in linear light: refused in gray mode (colour reads as before); a
+    gray file and a gAMA of 1.0 read as cv2 reads them."""
+    path = str(tmp_path / 'f.png')
+    for color, samples in ((2, IMG[..., :3]), (0, IMG[..., 0])):
+        data = make_png(samples, 8, color)
+        open(path, 'wb').write(data[:33] + chunk(chunk_type, payload)
+                               + data[33:])
+        np.testing.assert_array_equal(
+            png_decode.load(path),
+            cv2.cvtColor(cv2.imread(path), cv2.COLOR_BGR2RGB))
+        if refused and color == 2:
+            with pytest.raises(png_decode.UnsupportedPNG, match=chunk_type
+                               .decode()):
+                png_decode.load_gray(path)
+            continue
+        np.testing.assert_array_equal(png_decode.load_gray(path),
+                                      cv2.imread(path, cv2.IMREAD_GRAYSCALE))
+
+
+def test_frame_fixtures_are_cv2s_decode():
+    """The committed gray / Adam7 fixtures (tools/make_frame_fixtures.py)
+    decode here as their .npz holds, by cv2 and by the port's readers; the
+    card's run is held to the same .npz."""
+    from bsvd_tpu_torch.data import bmp_decode, jpeg_decode
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        'fixtures')
+    ref = np.load(os.path.join(root, 'frames', 'decoded.npz'))
+    files = sorted(f for f in os.listdir(os.path.join(root, 'frames'))
+                   if not f.endswith('.npz'))
+    assert len(files) == 13 and len(ref.files) == 2 * 13 + 8
+    for f in files:
+        path, stem = os.path.join(root, 'frames', f), f[:-4]
+        mod = png_decode if f.endswith('.png') else bmp_decode
+        for got, want, cv in ((mod.load(path), ref[stem], cv2.cvtColor(
+                cv2.imread(path), cv2.COLOR_BGR2RGB)),
+                (mod.load_gray(path), ref[f'{stem}_gray'],
+                 cv2.imread(path, cv2.IMREAD_GRAYSCALE))):
+            np.testing.assert_array_equal(cv, want)
+            np.testing.assert_array_equal(got, want)
+    for f in sorted(os.listdir(os.path.join(root, 'jpeg'))):
+        if f.endswith('.jpg'):
+            path = os.path.join(root, 'jpeg', f)
+            want = ref[f'jpeg_{f[:-4]}_gray']
+            np.testing.assert_array_equal(
+                cv2.imread(path, cv2.IMREAD_GRAYSCALE), want)
+            np.testing.assert_array_equal(jpeg_decode.load_gray(path), want)
 
 
 def test_frames_take_a_route_by_file_type(tmp_path):
@@ -305,10 +430,10 @@ def test_train_loader_epoch_and_short_clips(clip_root, tmp_path):
 
 def test_train_loader_raises_on_unread_kinds_and_endless_redraws(
         clip_root, tmp_path, monkeypatch):
-    """An Adam7 frame is not skipped: at construction where no other clip
-    holds a window, else in __next__. A clip whose windows never decode
-    raises in __next__ after MAX_REDRAWS draws in a row, each reason
-    logged once."""
+    """Adam7 frames are read: a folder of interlaced clips gives the batches
+    of the same frames written without interlacing. A clip whose windows
+    never decode raises in __next__ after MAX_REDRAWS draws in a row, each
+    reason logged once."""
     from bsvd_tpu_torch.data import video_train_loader as vtl
     img = np.random.default_rng(3).integers(0, 256, (32, 32, 3), np.uint8)
     good, adam7 = tmp_path / 'mixed' / 'clip0', tmp_path / 'mixed' / 'clip1'
@@ -320,17 +445,26 @@ def test_train_loader_raises_on_unread_kinds_and_endless_redraws(
         for folder in (adam7, only):
             (folder / f'{k}.png').write_bytes(make_png(img, 8, 2,
                                                        interlace=True))
-    with pytest.raises(NotImplementedError, match='Adam7'):
-        train_video_loader(_opt(str(only.parent)))
-    loader = train_video_loader(_opt(str(tmp_path / 'mixed'),
-                                     max_number_patches=200))
+    plain = tmp_path / 'plain' / 'clip0'
+    plain.mkdir(parents=True)
+    for k in range(6):
+        (plain / f'{k}.png').write_bytes(make_png(img, 8, 2))
+    batches = []
+    for root in (only.parent, plain.parent):
+        loader = train_video_loader(_opt(str(root)))
+        try:
+            batches.append([b for b in loader])
+        finally:
+            loader.close()
+    assert len(batches[0]) == len(batches[1]) == 3
+    for got, want in zip(*batches):
+        for key in want:
+            np.testing.assert_array_equal(got[key], want[key])
+    loader = train_video_loader(_opt(str(tmp_path / 'mixed')))
     try:
-        with pytest.raises(RuntimeError, match='worker failed') as err:
-            for _ in loader:
-                pass
+        assert len([b for b in loader]) == 3
     finally:
         loader.close()
-    assert isinstance(err.value.__cause__, png_decode.UnsupportedPNG)
 
     broken = tmp_path / 'broken' / 'clip0'
     broken.mkdir(parents=True)
