@@ -1,9 +1,11 @@
 """Arch registry of the port: importing this package registers the WNet
-wrappers (BSVD, TSN, BufferConv) in ARCH_REGISTRY."""
+wrappers (BSVD, TSN, BufferConv) and the zoo's SR nets, VGG feature
+extractor and discriminators in ARCH_REGISTRY."""
 
 import torch
 
-from bsvd_tpu_torch.archs import wnet_arch  # noqa: F401  registers archs
+from bsvd_tpu_torch.archs import (discriminator_arch, sr_archs,  # noqa: F401
+                                  vgg_arch, wnet_arch)
 from bsvd_tpu_torch.utils.registry import ARCH_REGISTRY
 
 

@@ -36,24 +36,27 @@ class SimpleLoader:
 
 def build_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
                      sampler=None, seed=None):
-    """The loader of a phase (bsvd_tpu/data/__init__.py:41): a
-    self-iterating train loader (the video loader) passes through; val /
-    test datasets get a SimpleLoader. A map-style train dataset raises:
-    only the zoo's datasets are map-style, and their sampler and batch
-    loader come with the zoo (ROADMAP Queue 1 item 9). ``seed`` seeds that
-    batch loader in the JAX package; the loaders here draw nothing (the
-    video loader is seeded by its options' ``manual_seed``). ``num_gpu``
-    is the mesh's ranks; with ``dist`` a train loader must have been made
-    for this rank of them (``num_devices`` and ``rank`` in its options:
-    its batches are this rank's rows of the global batch), and a val
-    dataset is read whole by every rank. A ``sampler`` raises: no loader
-    here takes one."""
-    if sampler is not None:
-        raise NotImplementedError(
-            f'build_dataloader: sampler {type(sampler).__name__}: '
-            f'{type(dataset).__name__} '
-            + ('iterates itself' if hasattr(dataset, '__next__')
-               else 'is read in order by a SimpleLoader'))
+    """The loader of a phase (bsvd_tpu/data/__init__.py:41):
+
+    - a self-iterating train loader (the video loader) passes through;
+      with ``dist`` it must have been made for this rank (``num_devices``
+      and ``rank`` in its options: its batches are this rank's rows of the
+      global batch); a ``sampler`` raises, it takes none;
+    - a map-style train dataset gets a ``BatchLoader`` of the global batch
+      (``batch_size_per_gpu`` x ``num_gpu``) over ``sampler``, by default
+      an ``EnlargedSampler`` by ``dataset_enlarge_ratio``, with
+      ``num_worker_per_gpu`` workers (default 4) and ``seed``, as the JAX
+      package builds it; with ``dist`` its batches are this rank's rows
+      of the global batch, the only rows it decodes;
+    - val / test datasets get a SimpleLoader (a ``sampler`` raises)."""
+    phase = dataset_opt.get('phase', 'val')
+    if hasattr(dataset, '__next__') or phase != 'train':
+        if sampler is not None:
+            raise NotImplementedError(
+                f'build_dataloader: sampler {type(sampler).__name__}: '
+                f'{type(dataset).__name__} '
+                + ('iterates itself' if hasattr(dataset, '__next__')
+                   else 'is read in order by a SimpleLoader'))
     if hasattr(dataset, '__next__'):
         if dist:
             from bsvd_tpu_torch.parallel.mesh import world
@@ -67,9 +70,21 @@ def build_dataloader(dataset, dataset_opt, num_gpu=1, dist=False,
                     f'this is rank {rank} of {size}: set its options\' '
                     f'num_devices and rank')
         return dataset
-    if dataset_opt.get('phase', 'val') == 'train':
-        raise NotImplementedError(
-            f'build_dataloader: map-style train dataset '
-            f'{type(dataset).__name__}: its sampler and batch loader come '
-            f'with the zoo (ROADMAP Queue 1 item 9)')
+    if phase == 'train':
+        from bsvd_tpu_torch.data.sampler import BatchLoader, EnlargedSampler
+        from bsvd_tpu_torch.parallel.mesh import world
+        if sampler is None:
+            sampler = EnlargedSampler(
+                dataset, ratio=dataset_opt.get('dataset_enlarge_ratio', 1))
+        rank, ranks = world() if dist else (0, 1)
+        n = num_gpu if isinstance(num_gpu, int) else ranks
+        if dist and n != ranks:
+            raise ValueError(f'build_dataloader(dist=True): num_gpu {n} on '
+                             f'{ranks} ranks')
+        return BatchLoader(dataset,
+                           dataset_opt.get('batch_size_per_gpu', 1)
+                           * max(n, 1), sampler=sampler,
+                           num_workers=dataset_opt.get('num_worker_per_gpu',
+                                                       4), seed=seed,
+                           rank=rank, num_ranks=ranks)
     return SimpleLoader(dataset)

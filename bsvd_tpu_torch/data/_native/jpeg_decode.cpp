@@ -1390,4 +1390,30 @@ int bsvd_jpeg_load_crop_seq(const char** paths, int t, int y0, int x0,
   return 0;
 }
 
+// (H, W) and the component count (1 or 3) of a JPEG file held in memory.
+// Returns 0, or the error kind with its message in err.
+int bsvd_jpeg_buffer_dims(const uint8_t* data, size_t len, int* h, int* w,
+                          int* comps, char* err, int errlen) {
+  try {
+    Decoder d(data, len);
+    d.dims(h, w);
+    *comps = d.ncomp;
+    return kOk;
+  } catch (const JpegError& e) {
+    set_error(err, errlen, e.msg);
+    return e.kind;
+  }
+}
+
+// Decode a whole JPEG file held in memory, of exactly (h, w), into out:
+// (h, w, 3) RGB8, or (h, w) Y with gray = 1. Returns 0 or the error kind.
+int bsvd_jpeg_decode_buffer(const uint8_t* data, size_t len, int h, int w,
+                            int gray, uint8_t* out, char* err, int errlen) {
+  std::string msg;
+  const int kind = decode_window(data, len, 0, 0, h, w, true, gray != 0,
+                                 out, &msg);
+  if (kind) set_error(err, errlen, msg);
+  return kind;
+}
+
 }  // extern "C"

@@ -86,30 +86,30 @@ def _read(path):
         return f.read()
 
 
-def _header(path):
-    with open(path, 'rb') as f:
-        return _Bmp(f.read(14 + max(_INFO_SIZES)), path, header_only=True)
+def buffer_dims(data, name='<buffer>'):
+    """(H, W) of a BMP file's bytes, from its header."""
+    bmp = _Bmp(data, name, header_only=True)
+    return bmp.height, bmp.width
 
 
 def image_dims(path):
     """(H, W) of a BMP file, from its header."""
-    bmp = _header(path)
-    return bmp.height, bmp.width
+    with open(path, 'rb') as f:
+        return buffer_dims(f.read(14 + max(_INFO_SIZES)), path)
 
 
-def load_crop(path, y0, x0, ch, cw):
-    """The (ch, cw) window at (y0, x0) of a BMP file -> (ch, cw, 3) uint8
-    RGB."""
-    data = _read(path)
-    bmp = _Bmp(data, path)
+def _rows(bmp, data):
+    """The pixel rows top to bottom, (H, stride) uint8."""
+    rows = np.frombuffer(data, np.uint8, bmp.stride * bmp.height,
+                         bmp.offset).reshape(bmp.height, bmp.stride)
+    return rows if bmp.top_down else rows[::-1]
+
+
+def _crop(bmp, data, y0, x0, ch, cw, path):
     if y0 < 0 or x0 < 0 or y0 + ch > bmp.height or x0 + cw > bmp.width:
         raise IOError(f'{path}: window ({y0}, {x0}, {ch}, {cw}) outside the '
                       f'{bmp.height}x{bmp.width} frame')
-    rows = np.frombuffer(data, np.uint8, bmp.stride * bmp.height,
-                         bmp.offset).reshape(bmp.height, bmp.stride)
-    if not bmp.top_down:
-        rows = rows[::-1]
-    rows = rows[y0:y0 + ch]
+    rows = _rows(bmp, data)[y0:y0 + ch]
     if bmp.bpp == 8:
         return bmp.palette[rows[:, x0:x0 + cw]]
     px = bmp.bpp // 8
@@ -117,16 +117,26 @@ def load_crop(path, y0, x0, ch, cw):
     return np.ascontiguousarray(bgr[:, x0:x0 + cw, 2::-1])
 
 
+def load_crop(path, y0, x0, ch, cw):
+    """The (ch, cw) window at (y0, x0) of a BMP file -> (ch, cw, 3) uint8
+    RGB."""
+    data = _read(path)
+    return _crop(_Bmp(data, path), data, y0, x0, ch, cw, path)
+
+
 def load(path):
     """A whole BMP file -> (H, W, 3) uint8 RGB."""
-    h, w = image_dims(path)
-    return load_crop(path, 0, 0, h, w)
+    return decode(_read(path), name=path)
 
 
 def load_gray(path):
     """A whole BMP file -> (H, W) uint8 gray, as cv2 converts it."""
-    rgb = load(path)
-    if _header(path).alpha:
+    return decode(_read(path), 'gray', path)
+
+
+def _gray(bmp, rgb):
+    """(H, W, 3) RGB of ``bmp`` -> uint8 gray by cv2's rule for its kind."""
+    if bmp.alpha:
         r, g, b = np.moveaxis(rgb.astype(np.float32), -1, 0)
         y = (np.float32(0.299) * r + np.float32(0.587) * g
              + np.float32(0.114) * b)
@@ -135,6 +145,30 @@ def load_gray(path):
     y = (r * _GRAY_R + g * _GRAY_G + b * _GRAY_B
          + (1 << (_GRAY_SHIFT - 1))) >> _GRAY_SHIFT
     return y.astype(np.uint8)
+
+
+def decode(data, mode='color', name='<buffer>'):
+    """A whole BMP file's bytes -> (H, W, 3) uint8 RGB (``'color'``), (H, W)
+    gray (``'gray'``) or cv2's IMREAD_UNCHANGED image (``'unchanged'``: a
+    gray palette gives (H, W), a 32-bit file with an alpha mask (H, W, 4)
+    BGRA, any other (H, W, 3) BGR). ``name`` names the buffer in
+    errors."""
+    bmp = _Bmp(data, name)
+    rgb = _crop(bmp, data, 0, 0, bmp.height, bmp.width, name)
+    if mode == 'color':
+        return rgb
+    if mode == 'gray':
+        return _gray(bmp, rgb)
+    if mode != 'unchanged':
+        raise ValueError(f'decode: mode {mode!r} (color, gray, unchanged)')
+    if bmp.bpp == 8 and (bmp.palette[:, 0] == bmp.palette[:, 1]).all() \
+            and (bmp.palette[:, 1] == bmp.palette[:, 2]).all():
+        return np.ascontiguousarray(rgb[..., 0])
+    if bmp.alpha:
+        rows = _rows(bmp, data)
+        return np.ascontiguousarray(rows[:, :4 * bmp.width].reshape(
+            bmp.height, bmp.width, 4))
+    return np.ascontiguousarray(rgb[..., ::-1])
 
 
 def load_crop_seq(paths, y0, x0, ch, cw):

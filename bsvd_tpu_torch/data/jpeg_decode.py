@@ -70,6 +70,15 @@ def lib():
                 ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+            so.bsvd_jpeg_buffer_dims.restype = ctypes.c_int
+            so.bsvd_jpeg_buffer_dims.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t,
+                ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int),
+                ctypes.POINTER(ctypes.c_int), ctypes.c_char_p, ctypes.c_int]
+            so.bsvd_jpeg_decode_buffer.restype = ctypes.c_int
+            so.bsvd_jpeg_decode_buffer.argtypes = [
+                ctypes.c_char_p, ctypes.c_size_t, ctypes.c_int, ctypes.c_int,
+                ctypes.c_int, ctypes.c_void_p, ctypes.c_char_p, ctypes.c_int]
             so.bsvd_jpeg_image_dims.restype = ctypes.c_int
             so.bsvd_jpeg_image_dims.argtypes = [
                 ctypes.c_char_p, ctypes.POINTER(ctypes.c_int),
@@ -137,3 +146,42 @@ def load_seq(paths, gray=False):
 def load_gray(path):
     """A whole JPEG file -> (H, W) uint8 Y."""
     return load_seq([path], gray=True)[0]
+
+
+def _buffer_header(data, name):
+    """(H, W, components) of a JPEG file's bytes, from its markers up to
+    the frame header."""
+    h, w, comps = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = ctypes.create_string_buffer(_ERRLEN)
+    kind = lib().bsvd_jpeg_buffer_dims(data, len(data), ctypes.byref(h),
+                                       ctypes.byref(w), ctypes.byref(comps),
+                                       err, _ERRLEN)
+    if kind:
+        _raise(kind, name, err)
+    return h.value, w.value, comps.value
+
+
+def buffer_dims(data, name='<buffer>'):
+    """(H, W) of a JPEG file's bytes, from its frame header."""
+    return _buffer_header(bytes(data), name)[:2]
+
+
+def decode(data, mode='color', name='<buffer>'):
+    """A whole JPEG file's bytes, decoded in the calling thread -> (H, W, 3)
+    uint8 RGB (``'color'``), (H, W) Y (``'gray'``), or what cv2's
+    IMREAD_UNCHANGED gives (``'unchanged'``: a one-component file's Y,
+    else BGR). ``name`` names the buffer in errors."""
+    if mode not in ('color', 'gray', 'unchanged'):
+        raise ValueError(f'decode: mode {mode!r} (color, gray, unchanged)')
+    data = bytes(data)
+    h, w, comps = _buffer_header(data, name)
+    gray = mode == 'gray' or (mode == 'unchanged' and comps == 1)
+    out = np.empty((h, w) + (() if gray else (3,)), np.uint8)
+    err = ctypes.create_string_buffer(_ERRLEN)
+    kind = lib().bsvd_jpeg_decode_buffer(data, len(data), h, w, int(gray),
+                                         out.ctypes.data, err, _ERRLEN)
+    if kind:
+        _raise(kind, name, err)
+    if mode == 'unchanged' and not gray:
+        return np.ascontiguousarray(out[..., ::-1])
+    return out

@@ -86,11 +86,13 @@ def lib():
 class _Png:
     """The parsed chunks of one file."""
 
-    def __init__(self, path, header, palette, idat, colour_space):
+    def __init__(self, path, header, palette, idat, colour_space, trns=None):
         width, height, depth, color, interlace = header
         self.path, self.width, self.height = path, width, height
         self.depth, self.color, self.interlace = depth, color, interlace
         self.palette, self.idat = palette, idat
+        # the tRNS chunk's bytes (None without one)
+        self.trns = trns
         # the chunk that makes libpng's RGB -> gray conversion non-linear
         self.colour_space = colour_space
         self.channels = _CHANNELS[color]
@@ -134,7 +136,7 @@ def _parse(data, path):
     header = _header(data, path)
     color = header[3]
     view = memoryview(data)
-    pos, palette, idat, ended, space = 33, None, [], False, None
+    pos, palette, idat, ended, space, trns = 33, None, [], False, None, None
     while pos < len(data):
         if pos + 12 > len(data):
             break
@@ -158,6 +160,8 @@ def _parse(data, path):
         elif ctype == b'IEND':
             ended = True
             break
+        elif ctype == b'tRNS':
+            trns = bytes(data[pos + 8:end])
         elif ctype in (b'sRGB', b'iCCP') or (
                 ctype == b'gAMA' and data[pos + 8:end] !=
                 struct.pack('>I', 100000)):
@@ -172,7 +176,7 @@ def _parse(data, path):
         raise IOError(f'{path}: no IDAT chunk')
     if color == 3 and palette is None:
         raise IOError(f'{path}: palette image without PLTE')
-    return _Png(path, header, palette, b''.join(idat), space)
+    return _Png(path, header, palette, b''.join(idat), space, trns)
 
 
 def _read(path):
@@ -313,11 +317,72 @@ def _to_gray(png, rows, x0, x1):
     return np.ascontiguousarray(_to_rgb(png, rows, x0, x1)[..., 0])
 
 
+def _to_unchanged(png, rows):
+    """Unfiltered rows -> what ``cv2.imdecode(..., IMREAD_UNCHANGED)``
+    gives: gray (H, W); colour and palette (H, W, 3) BGR, or (H, W, 4)
+    BGRA where the file has alpha (a channel, or ``tRNS`` on a colour or
+    palette image; gray + alpha becomes BGRA); 16-bit files uint16, others
+    uint8 (1/2/4-bit gray scaled to 8 bits)."""
+    n, w, c, depth = rows.shape[0], png.width, png.channels, png.depth
+    if depth == 16:
+        px = rows[:, :2 * w * c].reshape(n, w, c, 2).astype(np.uint16)
+        px = px[..., 0] << 8 | px[..., 1]
+    elif depth == 8:
+        px = rows[:, :w * c].reshape(n, w, c)
+    else:
+        px = _unpack(rows, depth, w)[:, :, None]
+        if png.color == 0:
+            px = px * np.uint8(255 // ((1 << depth) - 1))
+    top = np.iinfo(px.dtype).max
+    if png.color == 0:
+        return np.ascontiguousarray(px[..., 0])
+    if png.color == 3:
+        rgb = png.palette[px[..., 0]]
+        if png.trns is None:
+            return np.ascontiguousarray(rgb[..., ::-1])
+        alpha = np.full(256, 255, np.uint8)
+        alpha[:len(png.trns)] = np.frombuffer(png.trns, np.uint8)[:256]
+        return np.concatenate([rgb[..., ::-1], alpha[px[..., :1]]], -1)
+    if png.color == 4:
+        return np.concatenate([np.repeat(px[..., :1], 3, -1), px[..., 1:]],
+                              -1)
+    if png.color == 6:
+        return np.ascontiguousarray(px[..., [2, 1, 0, 3]])
+    bgr = np.ascontiguousarray(px[..., ::-1])
+    if png.trns is None or len(png.trns) < 6:
+        return bgr
+    key = np.frombuffer(png.trns[:6], '>u2').astype(px.dtype)
+    alpha = np.where((px == key).all(-1, keepdims=True), 0, top).astype(
+        px.dtype)
+    return np.concatenate([bgr, alpha], -1)
+
+
+def decode(data, mode='color', name='<buffer>'):
+    """A whole PNG file's bytes -> (H, W, 3) uint8 RGB (``'color'``), (H, W)
+    uint8 (``'gray'``, as ``load_gray``) or the unchanged samples
+    (``'unchanged'``, BGR / BGRA order as cv2 gives them). ``name`` names
+    the buffer in errors."""
+    png = _parse(data, name)
+    rows = _rows(png, png.height)
+    if mode == 'color':
+        return _to_rgb(png, rows, 0, png.width)
+    if mode == 'gray':
+        return _to_gray(png, rows, 0, png.width)
+    if mode == 'unchanged':
+        return _to_unchanged(png, rows)
+    raise ValueError(f'decode: mode {mode!r} (color, gray, unchanged)')
+
+
+def buffer_dims(data, name='<buffer>'):
+    """(H, W) of a PNG file's bytes, from its header."""
+    width, height, _, _, _ = _header(data, name)
+    return height, width
+
+
 def image_dims(path):
     """(H, W) of a PNG file, from its header."""
     with open(path, 'rb') as f:
-        width, height, _, _, _ = _header(f.read(33), path)
-    return height, width
+        return buffer_dims(f.read(33), path)
 
 
 def load_crop(path, y0, x0, ch, cw, gray=False):

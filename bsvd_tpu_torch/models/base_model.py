@@ -5,7 +5,8 @@ EMA copy and the optimizer state live on the model's device.
 Network files are ``.npz`` in the JAX package's tree layout (HWIO, BN
 leaves or empty norm slots), so each package loads the other's; a reference ``.pth`` TSN
 state dict loads too. Training states are the port's own format
-(``models/checkpoint.py``).
+(``models/checkpoint.py``). ``build_model`` makes a registered model from
+the options.
 """
 
 import os
@@ -17,11 +18,13 @@ import torch
 from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
                                                load_tsn_state_dict,
                                                to_jax_params)
+from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
 from bsvd_tpu_torch.models.checkpoint import (load_npz_params,
                                               save_npz_params,
                                               save_training_state)
 from bsvd_tpu_torch.parallel.mesh import is_main_process
 from bsvd_tpu_torch.utils.logger import get_root_logger
+from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
 def _zip_leaves(a, b, fn):
@@ -84,8 +87,10 @@ class BaseModel:
     # ---- checkpoint io --------------------------------------------------
     def save_network(self, param_trees, net_label, current_iter,
                      param_key='params'):
-        """Port trees (one or a list) into models/net_<label>_<iter>.npz,
-        in the JAX package's layout; ``current_iter`` -1 writes 'latest'.
+        """Port trees or zoo modules (one or a list) into
+        models/net_<label>_<iter>.npz, in the JAX package's layout (a
+        WNet tree through ``convert.torch_ckpt``, a module through
+        ``convert.torch_generic``); ``current_iter`` -1 writes 'latest'.
         Rank 0 writes (every rank holds the same parameters); the others
         return None."""
         if not is_main_process():
@@ -100,7 +105,9 @@ class BaseModel:
             else [param_key]
         if len(trees) != len(keys):
             raise ValueError('one param_key per tree')
-        save_npz_params(path, {k: to_jax_params(t, self.cfg)
+        save_npz_params(path, {k: to_jax_tree(t)
+                               if isinstance(t, torch.nn.Module)
+                               else to_jax_params(t, self.cfg)
                                for k, t in zip(keys, trees)})
         return path
 
@@ -137,6 +144,15 @@ class BaseModel:
         optimizer's count, which the state carries."""
         if resume_state.get('opt_state') is not None:
             self.optimizer.load_state_dict(resume_state['opt_state'])
+
+
+def build_model(opt, device=None):
+    """A registered model from the options dict ({'model_type': ...}) on
+    ``device`` (default: the options' ``device``, else the card)."""
+    import bsvd_tpu_torch.models  # noqa: F401  registers the models
+    model = MODEL_REGISTRY.get(opt['model_type'])(opt, device=device)
+    get_root_logger().info(f'Model [{model.__class__.__name__}] is created.')
+    return model
 
 
 def latest_resume_state(state_dir):

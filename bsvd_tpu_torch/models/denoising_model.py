@@ -26,9 +26,15 @@ in one ``all_reduce``, so every rank applies the same update; validation
 shares the folders out over a data mesh and writes its CSVs and log on
 rank 0 (``validation``).
 
-Not ported here: the perceptual loss (the zoo); norm 'bn' on a mesh of
-more than one rank, and norm 'in' with the rows split (the statistics
-would need an all-reduce: ROADMAP.md Queue 1).
+With ``train.perceptual_opt`` the step adds the VGG perceptual (and
+style) loss of the fp32 output against the target, frames flattened to
+(N*T, C, H, W), the VGG in fp32 outside autocast (``losses.
+PerceptualLoss``); with the rows split the ranks gather their rows first
+(``parallel.mesh.gather_rows``), so the VGG sees whole frames.
+
+Not ported here: norm 'bn' on a mesh of more than one rank, and norm 'in'
+with the rows split (the statistics would need an all-reduce: ROADMAP.md
+Queue 1).
 """
 
 import csv
@@ -50,28 +56,13 @@ from bsvd_tpu_torch.models.lr_scheduler import build_schedule
 from bsvd_tpu_torch.models.optim import Adam
 from bsvd_tpu_torch.models.seq_inference import denoise_seq
 from bsvd_tpu_torch.nn.layers import bn_update
-from bsvd_tpu_torch.parallel.mesh import (all_gather, all_reduce_mean,
-                                          gather_objects, is_main_process,
-                                          make_mesh)
+from bsvd_tpu_torch.parallel.mesh import (all_gather, gather_objects,
+                                          gather_rows, is_main_process,
+                                          make_mesh, mean_over_ranks)
 from bsvd_tpu_torch.parallel.spatial import _local_forward, spatial_ok
 from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
 from bsvd_tpu_torch.utils.logger import get_root_logger
 from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
-
-
-def _mean_grads(params, loss):
-    """Every parameter's gradient and the loss, averaged over every rank in
-    one all_reduce of one flat fp32 buffer; returns the mean loss."""
-    grads = [torch.zeros_like(p) if p.grad is None else p.grad
-             for p in params]
-    flat = torch.cat([g.reshape(-1).float() for g in grads]
-                     + [loss.detach().reshape(1).float()])
-    all_reduce_mean(flat)
-    at = 0
-    for p, g in zip(params, grads):
-        p.grad = flat[at:at + g.numel()].view_as(g).to(g.dtype)
-        at += g.numel()
-    return flat[-1]
 
 
 def _check_equal_shards(batch):
@@ -84,10 +75,18 @@ def _check_equal_shards(batch):
                          f'the global mean')
 
 
-def make_train_step(net, optimizer, cri_pix, amp=False, mesh=None):
-    """The step ``(batch, ema_params, ema_decay) -> {'l_pix': loss}`` over
-    ``net``'s parameters, updated in place by ``optimizer``; ``batch``
-    holds 'lq' and 'gt' (N, T, H, W, C) on the parameters' device. With
+def _frames_nchw(x):
+    """(N, T, H, W, C) -> (N*T, C, H, W) for the VGG."""
+    return x.reshape(-1, *x.shape[-3:]).permute(0, 3, 1, 2)
+
+
+def make_train_step(net, optimizer, cri_pix, amp=False, mesh=None,
+                    cri_perceptual=None):
+    """The step ``(batch, ema_params, ema_decay) -> {'l_pix': loss, ...}``
+    over ``net``'s parameters, updated in place by ``optimizer``; ``batch``
+    holds 'lq' and 'gt' (N, T, H, W, C) on the parameters' device.
+    ``cri_perceptual`` (a ``losses.PerceptualLoss``) adds 'l_percep' /
+    'l_style' on the fp32 output's frames, ``gt`` taking no gradient. With
     norm 'bn' the forward runs BN on the batch's statistics, and once the
     optimizer has stepped they are folded into the module's running
     statistics (bsvd_tpu make_train_step's bn_fold_running_stats), which
@@ -129,16 +128,32 @@ def make_train_step(net, optimizer, cri_pix, amp=False, mesh=None):
         optimizer.zero_grad()
         stats = [] if bn else None
         out = forward(batch['lq'], stats)
-        l_pix = cri_pix(out, batch['gt'].float())
-        l_pix.backward()
+        gt = batch['gt'].float()
+        losses = OrderedDict()
+        if cri_pix is not None:
+            losses['l_pix'] = cri_pix(out, gt)
+        if cri_perceptual is not None:
+            out32 = out.float()
+            if n_sp > 1:
+                axis = mesh.axis('spatial')
+                out32 = gather_rows(out32, axis, 2)
+                gt = all_gather(gt, axis, 2)
+            percep, style = cri_perceptual(_frames_nchw(out32),
+                                           _frames_nchw(gt))
+            if percep is not None:
+                losses['l_percep'] = percep
+            if style is not None:
+                losses['l_style'] = style
+        sum(losses.values()).backward()
         if sharded:
-            l_pix = _mean_grads(optimizer.params, l_pix)
+            losses = OrderedDict(zip(losses, mean_over_ranks(
+                optimizer.params, list(losses.values()))))
         optimizer.step()
         if bn:
             bn_update(stats)
         if ema_params is not None:
             BaseModel.ema_update(ema_params, net.param_tree(), ema_decay)
-        return {'l_pix': l_pix.detach()}
+        return OrderedDict((k, v.detach()) for k, v in losses.items())
 
     return step
 
@@ -186,12 +201,14 @@ class DenoisingModel(BaseModel):
             else:
                 self.ema_params = _map_tree(self.net.param_tree(),
                                             torch.clone)
+        self.cri_pix = self.cri_perceptual = None
+        if train_opt.get('pixel_opt'):
+            self.cri_pix = build_loss(train_opt['pixel_opt'])
         if train_opt.get('perceptual_opt'):
-            raise NotImplementedError('perceptual_opt: the VGG loss comes '
-                                      'with the zoo (ROADMAP.md Queue 1)')
-        if not train_opt.get('pixel_opt'):
+            self.cri_perceptual = build_loss(train_opt['perceptual_opt'])
+            self.cri_perceptual.vgg.to(self.device)
+        if self.cri_pix is None and self.cri_perceptual is None:
             raise ValueError('Both pixel and perceptual losses are None.')
-        self.cri_pix = build_loss(train_opt['pixel_opt'])
         self.lr_schedule = build_schedule(train_opt)
         self.optimizer = self._build_optimizer(train_opt)
         self.amp = bool(train_opt.get('fp16', False))
@@ -200,9 +217,9 @@ class DenoisingModel(BaseModel):
                 'train.fp16 ignored for norm=bn (BN batch stats stay fp32, '
                 'matching autocast BN policy)')
             self.amp = False
-        self._train_step = make_train_step(self.net, self.optimizer,
-                                           self.cri_pix, amp=self.amp,
-                                           mesh=self.mesh)
+        self._train_step = make_train_step(
+            self.net, self.optimizer, self.cri_pix, amp=self.amp,
+            mesh=self.mesh, cri_perceptual=self.cri_perceptual)
 
     def _build_optimizer(self, train_opt):
         optim_opt = dict(train_opt['optim_g'])
@@ -483,8 +500,3 @@ class DenoisingModel(BaseModel):
             self.save_network(params, 'g', current_iter)
         self.save_training_state(epoch, current_iter,
                                  opt_state=self.optimizer.state_dict())
-
-
-def build_model(opt, device=None):
-    """A registered model from the options dict ({'model_type': ...})."""
-    return MODEL_REGISTRY.get(opt['model_type'])(opt, device=device)

@@ -372,6 +372,24 @@ def all_reduce_mean(flat):
     return flat
 
 
+def mean_over_ranks(params, losses):
+    """Every parameter's gradient and each loss, averaged over every rank
+    in one all_reduce of one flat fp32 buffer (nothing where there is one
+    rank); returns the losses' means."""
+    if world()[1] == 1:
+        return [v.detach() for v in losses]
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flat = torch.cat([g.reshape(-1).float() for g in grads]
+                     + [v.detach().reshape(1).float() for v in losses])
+    all_reduce_mean(flat)
+    at = 0
+    for p, g in zip(params, grads):
+        p.grad = flat[at:at + g.numel()].view_as(g).to(g.dtype)
+        at += g.numel()
+    return list(flat[at:])
+
+
 def gather_objects(obj):
     """[obj of rank 0, obj of rank 1, ...] on every rank (pickled)."""
     n = world()[1]

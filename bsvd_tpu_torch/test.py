@@ -19,7 +19,7 @@ import logging
 from os import path as osp
 
 from bsvd_tpu_torch.data import build_dataloader, build_dataset
-from bsvd_tpu_torch.models.denoising_model import build_model
+from bsvd_tpu_torch.models.base_model import build_model
 from bsvd_tpu_torch.parallel.mesh import barrier, is_main_process
 from bsvd_tpu_torch.utils.logger import get_env_info, get_root_logger
 from bsvd_tpu_torch.utils.misc import get_time_str, make_exp_dirs

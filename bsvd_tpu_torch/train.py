@@ -30,9 +30,9 @@ import time
 from os import path as osp
 
 from bsvd_tpu_torch.data import build_dataloader, build_dataset
-from bsvd_tpu_torch.models.base_model import latest_resume_state
+from bsvd_tpu_torch.models.base_model import (build_model,
+                                              latest_resume_state)
 from bsvd_tpu_torch.models.checkpoint import load_training_state
-from bsvd_tpu_torch.models.denoising_model import build_model
 from bsvd_tpu_torch.parallel.mesh import (barrier, broadcast_object,
                                           is_main_process)
 from bsvd_tpu_torch.utils.logger import (AvgTimer, MessageLogger,

@@ -1,7 +1,7 @@
-"""Host-side image conversion and the PNG / JPEG writers, with no image
-library (counterpart of bsvd_tpu/utils/img_util.py tensor2img / imwrite,
-without cv2): metric parity depends on tensor2img's clip, scale and round
-order.
+"""Host-side image conversion, the PNG / JPEG writers and ``imfrombytes``,
+with no image library (counterpart of bsvd_tpu/utils/img_util.py
+tensor2img / img2tensor / imwrite / imfrombytes / crop_border, without
+cv2): metric parity depends on tensor2img's clip, scale and round order.
 
 ``imwrite`` takes cv2's ``params``, a flat list of (flag, value) integers;
 the port defines the flags it reads with cv2's numbers."""
@@ -158,3 +158,72 @@ def imwrite(img, file_path, params=None, auto_mkdir=True):
     with open(file_path, 'wb') as f:
         f.write(data)
     return True
+
+
+def img2tensor(img, bgr2rgb=True, float32=True):
+    """(H, W, C) BGR (or (H, W) gray) -> contiguous (C, H, W) numpy, RGB
+    with ``bgr2rgb``, float32 / 255 with ``float32``."""
+    img = np.asarray(img)
+    if img.ndim == 2:
+        img = img[..., None]
+    if bgr2rgb and img.shape[2] == 3:
+        img = img[..., ::-1]
+    img = np.transpose(img, (2, 0, 1))
+    if float32:
+        img = img.astype(np.float32) / 255.0
+    return np.ascontiguousarray(img)
+
+
+def crop_border(imgs, crop_border):
+    """Crop ``crop_border`` pixels off each side of (H, W, ...) image(s)."""
+    if crop_border == 0:
+        return imgs
+    if isinstance(imgs, list):
+        return [v[crop_border:-crop_border, crop_border:-crop_border, ...]
+                for v in imgs]
+    return imgs[crop_border:-crop_border, crop_border:-crop_border, ...]
+
+
+# file signatures -> the reader of that format (data/<module>.decode)
+_SIGNATURES = ((b'\x89PNG', 'png_decode'), (b'\xff\xd8', 'jpeg_decode'),
+               (b'BM', 'bmp_decode'))
+_MODES = {'color': 'color', 'grayscale': 'gray', 'unchanged': 'unchanged'}
+
+
+def _reader(content, caller):
+    """The reader module of the format that ``content`` starts with."""
+    import importlib        # the readers' package imports this module
+    for sig, mod in _SIGNATURES:
+        if content.startswith(sig):
+            return importlib.import_module(f'bsvd_tpu_torch.data.{mod}')
+    raise ValueError(f'{caller}: unknown image signature {content[:8]!r} '
+                     f'(PNG, JPEG and BMP are read)')
+
+
+def imsize(content):
+    """(H, W) of a PNG, JPEG or BMP file's bytes, from its header, without
+    decoding it (the reader picked by the signature, as ``imfrombytes``
+    picks it)."""
+    content = bytes(content)
+    return _reader(content, 'imsize').buffer_dims(content)
+
+
+def imfrombytes(content, flag='color', float32=False):
+    """Decode a file's bytes as ``cv2.imdecode`` does for the JAX package,
+    with the port's own readers, picked by the signature (PNG, JPEG, BMP;
+    other bytes raise ValueError naming their first bytes). ``flag``
+    'color': (H, W, 3) uint8 BGR (a 16-bit PNG reduced to 8 bits);
+    'grayscale': (H, W) uint8; 'unchanged': the file's own channels and
+    depth (gray (H, W), BGR, BGRA; 16-bit PNG uint16). ``float32`` divides
+    by 255, whatever the depth (a 16-bit image then runs past 1, as in
+    the JAX package)."""
+    if flag not in _MODES:
+        raise ValueError(f'imfrombytes: flag {flag!r} (color, grayscale, '
+                         f'unchanged)')
+    content = bytes(content)
+    img = _reader(content, 'imfrombytes').decode(content, _MODES[flag])
+    if flag == 'color':
+        img = np.ascontiguousarray(img[..., ::-1])
+    if float32:
+        img = img.astype(np.float32) / 255.0
+    return img

@@ -211,10 +211,33 @@ Phases, each printed as one JSON object on its own line:
    Phases 5, 8, 11 and 12 take their device profiles from
    ``bsvd_tpu_torch.profiler.device_profile``.
 
+15. zoo_sr: the zoo's image-SR family and BSVD's perceptual loss, fp32
+   with TF32 off unless said. Parity: MSRResNet 64x16 x4, EDSR 64x16 x4,
+   RRDBNet 64x23x32 x4, RCAN 10x20 (its RCABs' convs scaled by 0.1: at
+   the JAX init 200 residual blocks grow to ~1e30) and RIDNet on 2 x 3 x
+   64 x 64, VGG19's conv5_4 features and VGGStyleDiscriminator128 (eval)
+   on 2 x 3 x 128 x 128, the card against the CPU with the same weights,
+   to 1e-4 x max|ref|. The train CLI on options/train/msrresnet_x4.yml and
+   esrgan_x4.yml (--force_yml pointing at 16 synthetic DIV2K _sub-layout
+   GT PNGs of 480 x 480 with their 4x4-mean LQs and a Set5-layout val
+   set): 30 iterations at the yml's batch 16 and gt_size 128, ms an
+   iteration over 11-30 (the wait for data and the step), peak memory,
+   the validation PSNR and that of the reloaded checkpoint (the same to
+   1e-3 dB); ESRGAN's losses, EMA, both networks' files and both
+   optimizers in the resume state, the random VGG's warning; an ESRGAN
+   run with net_d_init_iters 5 (G the same bits through iteration 5).
+   The SR loader's batches a second with 1 and 4 workers. BSVD's c64
+   bf16 step (phase 8's batch) with the VGG19 conv5_4 perceptual loss:
+   K1-K4 and K7 launches per step (on the kernels line), the loss terms,
+   ms per step beside phase 8's plain bf16 step, peak memory; phase 7's
+   fp32 step card against CPU with the loss, the WNet's masks and the
+   perceptual loss's discontinuities (VGG ReLU masks, max-pool picks,
+   the l1 signs) shared, to 1e-4 x max|ref| per tensor.
+
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12, 12a, 13 and 14 (counters set to 0 before
-each run, read after; phase 13's ranks and phase 14's profile entry count
+phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14 and 15 (counters set to 0
+before each run, read after; phase 13's ranks and phase 14's profile entry count
 their runs in their own processes), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
@@ -310,8 +333,9 @@ TEST_YML = os.path.join(ROOT, 'options', 'test', 'bsvd_c64.yml')
 WORK = None
 
 
-# phase 3's forward times and phase 2's per-unit sums, read by phase 14
-MAIN_TIMING, KERNEL_SUMS = {}, {}
+# phase 3's forward times and phase 2's per-unit sums, read by phase 14;
+# phase 8's ms per step by amp, read by phase 15
+MAIN_TIMING, KERNEL_SUMS, TRAIN_MS = {}, {}, {}
 # phase 12's bf16 train CLI validates with a PSNR metric (the train yml
 # names none), so that its event files hold metrics/psnr
 TB_VAL_METRICS = ['val:metrics:psnr:type=calculate_psnr',
@@ -1575,6 +1599,7 @@ def phase_train():
                 prof['idle_share_of_timed_step'] = \
                     1 - prof['device_busy_ms_per_unit'] / ms
         first, last = np.mean(losses[:10]), np.mean(losses[20:30])
+        TRAIN_MS[amp] = ms
         emit({'phase': 'train', 'amp': amp,
               'batch': [TRAIN_N, TRAIN_T, TRAIN_HW, TRAIN_HW],
               'launches_per_step': per_step, 'ms_per_step': ms,
@@ -2357,20 +2382,30 @@ class _StepClock:
     LINE = re.compile(r'iter: *([0-9,]+), .*time \(data\): ([0-9.]+) '
                       r'\(([0-9.]+)\)')
 
+    def __init__(self, classes=None):
+        # the model classes whose feed_data / optimize_parameters are
+        # clocked (each its own: a subclass may override either)
+        self.classes = classes or (DenoisingModel,)
+
     def __enter__(self):
         self.marks, self.logged, self.fed = [], {}, None
-        self.orig = (DenoisingModel.feed_data,
-                     DenoisingModel.optimize_parameters)
+        self.orig = [(c, c.__dict__.get('feed_data'),
+                      c.__dict__.get('optimize_parameters'))
+                     for c in self.classes]
         clock = self
 
-        def feed(model, data):
-            clock.fed = time.perf_counter()
-            return clock.orig[0](model, data)
+        def wrap_feed(fn):
+            def feed(model, data):
+                clock.fed = time.perf_counter()
+                return fn(model, data)
+            return feed
 
-        def step(model, *a, **k):
-            out = clock.orig[1](model, *a, **k)
-            clock.marks.append((clock.fed, time.perf_counter()))
-            return out
+        def wrap_step(fn):
+            def step(model, *a, **k):
+                out = fn(model, *a, **k)
+                clock.marks.append((clock.fed, time.perf_counter()))
+                return out
+            return step
 
         class Lines(logging.Handler):
             def emit(self, record):
@@ -2378,15 +2413,21 @@ class _StepClock:
                 if m:
                     clock.logged[int(m.group(1).replace(',', ''))] = (
                         float(m.group(2)) * 1e3, float(m.group(3)) * 1e3)
-        DenoisingModel.feed_data, DenoisingModel.optimize_parameters = \
-            feed, step
+        for c, feed, step in self.orig:
+            if feed is not None:
+                c.feed_data = wrap_feed(feed)
+            if step is not None:
+                c.optimize_parameters = wrap_step(step)
         self.handler = Lines()
         get_root_logger().addHandler(self.handler)
         return self
 
     def __exit__(self, *exc):
-        DenoisingModel.feed_data, DenoisingModel.optimize_parameters = \
-            self.orig
+        for c, feed, step in self.orig:
+            if feed is not None:
+                c.feed_data = feed
+            if step is not None:
+                c.optimize_parameters = step
         get_root_logger().removeHandler(self.handler)
 
     def steady(self, first, last):
@@ -3165,6 +3206,459 @@ def phase_profile(net):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the zoo's image-SR family, and BSVD with the perceptual loss
+# ---------------------------------------------------------------------------
+
+SR_ARCHS = {
+    'MSRResNet_64x16_x4': {'type': 'MSRResNet', 'num_feat': 64,
+                           'num_block': 16, 'upscale': 4},
+    'EDSR_64x16_x4': {'type': 'EDSR', 'num_feat': 64, 'num_block': 16,
+                      'upscale': 4},
+    'RRDBNet_64x23x32_x4': {'type': 'RRDBNet', 'num_feat': 64,
+                            'num_block': 23, 'num_grow_ch': 32},
+    'RCAN_10x20_x4': {'type': 'RCAN', 'num_group': 10, 'num_block': 20},
+    'RIDNet': {'type': 'RIDNet'},
+}
+SR_YMLS = {name: os.path.join(ROOT, 'options', 'train', f'{name}.yml')
+           for name in ('msrresnet_x4', 'esrgan_x4')}
+# DIV2K's _sub crops (480 x 480 GT, 120 x 120 x4 LQ), 16 of them (one
+# batch of the yml's 16); a Set5-layout val set, GT a multiple of 12
+SR_TRAIN_N, SR_GT_HW, SR_VAL = 16, 480, ((228, 228), (240, 180),
+                                         (156, 204), (180, 240), (204, 156))
+SR_ITERS = 30
+PERCEPTUAL = ['train:perceptual_opt:type=PerceptualLoss',
+              'train:perceptual_opt:layer_weights:conv5_4=1',
+              'train:perceptual_opt:vgg_type=vgg19']
+
+
+def _sr_parity():
+    """Each arch at full width, the VGG19 extractor and the VGG-style
+    discriminator: the card's fp32 forward (TF32 off) against the CPU's,
+    the same weights, within 1e-4 x max|ref|."""
+    from bsvd_tpu_torch.archs import build_network as build
+    rng = np.random.default_rng(SEED + 40)
+    cases = [(name, dict(o, seed=SEED), (2, 3, 64, 64))
+             for name, o in SR_ARCHS.items()]
+    cases += [('VGG19_conv5_4', {'type': 'VGGFeatureExtractor',
+                                 'layer_name_list': ['conv5_4'],
+                                 'vgg_type': 'vgg19', 'seed': SEED},
+               (2, 3, 128, 128)),
+              ('VGGStyleDiscriminator128_eval',
+               {'type': 'VGGStyleDiscriminator128', 'seed': SEED},
+               (2, 3, 128, 128))]
+    out = {}
+    for name, o, shape in cases:
+        net = build(o, 'cpu').eval()
+        if o['type'] == 'RCAN':
+            # 200 residual blocks at the JAX init grow the activations to
+            # ~1e30, where fp32 rounding alone passes 1e-4 x max|ref|: the
+            # RCABs' convs take the MSRResNet / RRDB init family's 0.1
+            with torch.no_grad():
+                for m in net.body.modules():
+                    if hasattr(m, 'rcab'):
+                        m.rcab[0].weight.mul_(0.1)
+                        m.rcab[2].weight.mul_(0.1)
+        x = torch.from_numpy(rng.uniform(0, 1, shape).astype(np.float32))
+        with torch.no_grad():
+            ref = net(x)
+            card = copy.deepcopy(net).to('cuda')
+            got = card(x.cuda())
+        if isinstance(ref, dict):
+            ref, got = ref['conv5_4'], got['conv5_4']
+        err = (got.float().cpu() - ref).abs().max().item()
+        scale = ref.abs().max().item()
+        out[name] = {'shape_in': list(shape), 'shape_out': list(ref.shape),
+                     'max_abs_err': err, 'max_abs_ref': scale,
+                     'params': count_params(net)}
+        if not err <= FP32_TOL * scale or not torch.isfinite(got).all():
+            raise AssertionError(f'{name}: card vs CPU max |diff| {err} '
+                                 f'(max |ref| {scale})')
+        del card
+    emit({'phase': 'zoo_sr_parity', 'fp32_tf32_off': True,
+          'tol': f'{FP32_TOL} x max|ref|', 'nets': out})
+
+
+def _sr_folders():
+    """DIV2K _sub-layout train folders and a Set5-layout val set, written
+    with the port's PNG writer (LQ: 4 x 4 area means)."""
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    root = os.path.join(WORK, 'div2k')
+    rng = np.random.default_rng(SEED + 41)
+    dirs = {k: os.path.join(root, k) for k in ('train_gt', 'train_lq',
+                                               'val_gt', 'val_lq')}
+    for d in dirs.values():
+        os.makedirs(d)
+
+    def pair(split, i, h, w):
+        # smooth colour fields with texture: a coarse grid upscaled, noise
+        base = rng.uniform(0, 255, (h // 12 + 2, w // 12 + 2, 3))
+        img = F.interpolate(torch.from_numpy(base).permute(2, 0, 1)[None],
+                            size=(h, w), mode='bilinear',
+                            align_corners=False)[0].permute(1, 2, 0).numpy()
+        gt = np.clip(img + rng.normal(0, 8, img.shape), 0, 255).round()
+        gt = gt.astype(np.uint8)
+        lq = gt.reshape(h // 4, 4, w // 4, 4, 3).mean((1, 3)).round()
+        imwrite(gt, os.path.join(dirs[f'{split}_gt'], f'{i:04d}.png'))
+        imwrite(lq.astype(np.uint8), os.path.join(dirs[f'{split}_lq'],
+                                                  f'{i:04d}.png'))
+    t0 = time.perf_counter()
+    for i in range(SR_TRAIN_N):
+        pair('train', i, SR_GT_HW, SR_GT_HW)
+    for i, (h, w) in enumerate(SR_VAL):
+        pair('val', i, h, w)
+    return dirs, time.perf_counter() - t0
+
+
+def _sr_cmd(yml, dirs, *force):
+    return ['-opt', SR_YMLS[yml], '--force_yml',
+            f"datasets:train:dataroot_gt={dirs['train_gt']}",
+            f"datasets:train:dataroot_lq={dirs['train_lq']}",
+            f"datasets:val:dataroot_gt={dirs['val_gt']}",
+            f"datasets:val:dataroot_lq={dirs['val_lq']}",
+            f'train:total_iter={SR_ITERS}', 'logger:print_freq=10',
+            f'logger:save_checkpoint_freq={SR_ITERS}',
+            f'val:val_freq={SR_ITERS}', *force]
+
+
+def _sr_cli(yml, dirs):
+    """The train CLI on a shipped SR yml: 30 iterations at its batch and
+    gt_size; ms per iteration (11-30) split into the wait for data and the
+    step, peak memory, the validation PSNR and that of the reloaded
+    checkpoint."""
+    from bsvd_tpu_torch.models.base_model import build_model
+    from bsvd_tpu_torch.models.sr_model import SRModel
+    from bsvd_tpu_torch.models.srgan_model import SRGANModel
+    from bsvd_tpu_torch.train import build_val_loaders
+    root = os.path.join(WORK, f'sr_{yml}')
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with _StepClock((SRModel, SRGANModel)) as clock:
+        model = train_pipeline(root, cmd=_sr_cmd(yml, dirs))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if len(clock.marks) != SR_ITERS or model.optimizer.count != SR_ITERS:
+        raise AssertionError(f'{yml}: {len(clock.marks)} iterations, '
+                             f'optimizer count {model.optimizer.count}')
+    opt = model.opt
+    loader = build_val_loaders(opt)[0]
+    psnr = model.validation(loader, SR_ITERS, None)['psnr']
+    exp = os.path.join(root, 'experiments', opt['name'])
+    test_opt = copy.deepcopy(opt)
+    test_opt['is_train'] = False
+    test_opt['path']['pretrain_network_g'] = os.path.join(
+        exp, 'models', f'net_g_{SR_ITERS}.npz')
+    test_opt['path']['param_key_g'] = ('params_ema' if model.net_g_ema
+                                       is not None else 'params')
+    reloaded = build_model(test_opt).validation(loader, SR_ITERS,
+                                                None)['psnr']
+    log = model.get_current_log()
+    rec = {'phase': 'zoo_sr_train_cli', 'yml': os.path.relpath(SR_YMLS[yml],
+                                                                ROOT),
+           'model': type(model).__name__, 'iters': SR_ITERS,
+           'batch': opt['datasets']['train']['batch_size_per_gpu'],
+           'gt_size': opt['datasets']['train']['gt_size'],
+           'network_g_params': count_params(model.net), 'wall_s': wall,
+           'steady': clock.steady(11, SR_ITERS), 'peak_allocated_gb': peak,
+           'val_psnr': psnr, 'reloaded_val_psnr': reloaded, 'losses': log,
+           'fp32_tf32_off': True}
+    # the reloaded network's PSNR on the same card: the same to 1e-3 dB
+    if not (math.isfinite(psnr) and abs(psnr - reloaded) <= 1e-3 and
+            all(math.isfinite(v) for v in log.values())):
+        raise AssertionError(f'{yml}: PSNR {psnr} / reloaded {reloaded}, '
+                             f'losses {log}')
+    if yml == 'esrgan_x4':
+        state = torch.load(os.path.join(exp, 'training_states',
+                                        f'{SR_ITERS}.state'),
+                           weights_only=True)
+        files = sorted(os.listdir(os.path.join(exp, 'models')))
+        with open(max((os.path.join(exp, f) for f in os.listdir(exp)
+                       if f.startswith('train_')), key=os.path.getmtime)) \
+                as f:
+            warned = 'no pretrained VGG weights' in f.read()
+        rec.update(
+            network_d_params=count_params(model.net_d),
+            ema=model.net_g_ema is not None,
+            resume_state={'opt_state_count': state['opt_state']['count'],
+                          'opt_state_d_count':
+                          state['extra']['opt_state_d']['count']},
+            models=files, random_vgg_warned=warned)
+        want = {'l_g_pix', 'l_g_percep', 'l_g_gan', 'l_d_real', 'l_d_fake'}
+        if not (want <= set(log) and rec['ema'] and warned and
+                rec['resume_state'] == {'opt_state_count': SR_ITERS,
+                                        'opt_state_d_count': SR_ITERS}
+                and f'net_d_{SR_ITERS}.npz' in files):
+            raise AssertionError(f'esrgan_x4: {rec}')
+    emit(rec)
+    return model
+
+
+def _esrgan_gate(dirs):
+    """ESRGANModel from the shipped yml with net_d_init_iters 5, fed by
+    its loader: G's parameters the same bits through iteration 5, changed
+    at 6; D steps every iteration."""
+    from bsvd_tpu_torch.data import build_dataloader
+    from bsvd_tpu_torch.models.base_model import build_model
+    opt, _ = parse_options(WORK, is_train=True, cmd=_sr_cmd(
+        'esrgan_x4', dirs, 'train:net_d_init_iters=5'))
+    dopt = opt['datasets']['train']
+    loader = build_dataloader(build_dataset(dopt), dopt, num_gpu=1)
+    model = build_model(opt)
+    g0 = [p.detach().clone() for p in model.net.parameters()]
+    same = []
+    it = 0
+    while it < 6:
+        for batch in loader:
+            it += 1
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            same.append(all(torch.equal(a, b) for a, b in
+                            zip(g0, model.net.parameters())))
+            if it == 6:
+                break
+    rec = {'phase': 'zoo_esrgan_gate', 'net_d_init_iters': 5,
+           'g_unchanged_by_iter': same, 'g_count': model.optimizer.count,
+           'd_count': model.optimizer_d.count}
+    emit(rec)
+    if same != [True] * 5 + [False] or rec['g_count'] != 1 or \
+            rec['d_count'] != 6:
+        raise AssertionError(f'ESRGAN gate: {rec}')
+
+
+class _SharedVggMasks:
+    """The perceptual loss's discontinuities of one step, recorded in
+    call order on one device and used by the same step on the other: the
+    VGG's ReLU masks (``x * mask``), its max pools' picks and the sign of
+    the l1 criterion's feature differences, counting where that device's
+    own differ. A value
+    within rounding of 0 takes the other side on the other device, as the
+    WNet's masks do (``_SharedMasks``). ``feats`` keeps the features each
+    device gave the criterion (x's and gt's, float64 on the host): the
+    card's first, then the other device's."""
+
+    def __init__(self):
+        self.masks, self.signs = [], []
+        self.flips = self.sign_flips = self.pool_flips = 0
+        self.handles, self.loss, self.criterion = [], None, None
+        self.feats = {True: [], False: []}
+
+    def _record(self, module, inp, out):
+        self.masks.append(out > 0)
+
+    def _replay(self, module, inp, out):
+        mask = self.masks.pop(0).to(out.device)
+        self.flips += int(((out > 0) != mask).sum())
+        return inp[0] * mask
+
+    def _pool_record(self, module, inp, out):
+        _, idx = F.max_pool2d(inp[0], module.kernel_size, module.stride,
+                              return_indices=True)
+        self.masks.append(idx)
+
+    def _pool_replay(self, module, inp, out):
+        idx = self.masks.pop(0).to(out.device)
+        _, own = F.max_pool2d(inp[0], module.kernel_size, module.stride,
+                              return_indices=True)
+        self.pool_flips += int((own != idx).sum())
+        x = inp[0].flatten(2)
+        return x.gather(2, idx.flatten(2)).view_as(out)
+
+    def _keep(self, record, a, b):
+        self.feats[record].append((a.detach().double().cpu(),
+                                   b.detach().double().cpu()))
+
+    def _l1_record(self, a, b):
+        self._keep(True, a, b)
+        self.signs.append(torch.sign(a - b).detach())
+        return (a - b).abs().mean()
+
+    def _l1_replay(self, a, b):
+        self._keep(False, a, b)
+        sign = self.signs.pop(0).to(a.device)
+        self.sign_flips += int((torch.sign(a - b) != sign).sum())
+        return ((a - b) * sign).mean()
+
+    def on(self, model, record):
+        hooks = {torch.nn.ReLU: (self._record, self._replay),
+                 torch.nn.MaxPool2d: (self._pool_record, self._pool_replay)}
+        self.loss = model.cri_perceptual
+        self.handles = [m.register_forward_hook(hooks[type(m)][not record])
+                        for m in self.loss.vgg.vgg_net if type(m) in hooks]
+        if self.loss.criterion_type != 'l1':
+            raise AssertionError('the shared signs are the l1 criterion\'s')
+        self.criterion = self.loss.criterion
+        self.loss.criterion = self._l1_record if record else self._l1_replay
+        return self
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        for h in self.handles:
+            h.remove()
+        self.loss.criterion = self.criterion
+
+
+def _percep_gap(vgg_masks, card_loss, cpu_loss):
+    """l_percep of the card and of the CPU beside what they were computed
+    from: the conv5_4 features of x each device gave the l1 criterion
+    (their max gap over max|CPU's|), and the criterion's mean recomputed
+    in float64 from each device's features. Fails where the CPU's
+    features are the card's bits: the two sides would not be computed
+    apart. Two fp32 losses whose float64 means differ by less than the
+    spacing of fp32 numbers there may round to the same bits."""
+    (ca, cb), = vgg_masks.feats[True]
+    (pa, pb), = vgg_masks.feats[False]
+    card64 = float((ca - cb).abs().mean())
+    cpu64 = float((pa - pb).abs().mean())
+    gap = {'card': card_loss, 'cpu': cpu_loss,
+           'card_hex': float(card_loss).hex(), 'cpu_hex': float(cpu_loss).hex(),
+           'conv5_4_shape': list(pa.shape),
+           'conv5_4_x_max_gap': float((ca - pa).abs().max()
+                                      / pa.abs().max()),
+           'conv5_4_x_minus_gt_max_gap': float(((ca - cb) - (pa - pb)).abs()
+                                               .max() / (pa - pb).abs().max()),
+           'card_f64_mean': card64, 'cpu_f64_mean': cpu64,
+           'f64_mean_rel_gap': abs(card64 - cpu64) / abs(cpu64),
+           'fp32_spacing_rel': float(np.spacing(np.float32(cpu_loss))
+                                     / np.float32(cpu_loss))}
+    if not gap['conv5_4_x_max_gap'] > 0:
+        raise AssertionError(f'perceptual step: the CPU\'s conv5_4 features '
+                             f'are the card\'s bits: {gap}')
+    return gap
+
+
+def _perceptual_opt(t_len, amp):
+    opt, _ = parse_options(WORK, is_train=True, cmd=[
+        '-opt', TRAIN_YML, '--force_yml', f'network_g:num_segments={t_len}',
+        f'train:fp16={str(amp).lower()}', 'train:ema_decay=0', *PERCEPTUAL])
+    return opt
+
+
+def _bsvd_perceptual():
+    """The c64 train step of phase 8 (batch 8 x 11 x 96 x 96, bf16 AMP)
+    with the VGG19 conv5_4 perceptual loss: launches per step, the loss
+    terms, ms per step beside phase 8's plain bf16 step, peak memory; then
+    phase 7's fp32 step card against CPU with the loss. Returns the
+    launches."""
+    per_step = {k: PER_TRAIN_STEP.get(k, 0) for k in KERNELS}
+    launches = dict.fromkeys(KERNELS, 0)
+    batch = _train_batch(np.random.default_rng(SEED + 5), TRAIN_N, TRAIN_T,
+                         TRAIN_HW)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    model = DenoisingModel(_perceptual_opt(TRAIN_T, True), device='cuda')
+    model.feed_data(batch)
+    reset_counts()
+    _time_steps(model, 2, 1)
+    reset_counts()
+    ms, _ = _time_steps(model, 10, 3)
+    run = counts()
+    for k, v in run.items():
+        if v != per_step[k] * 10:
+            raise AssertionError(f'perceptual step: {k} launched {v} times '
+                                 f'in 10 steps')
+        launches[k] += v
+    log = model.get_current_log()
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    del model
+    # phase 7's fp32 step, card against CPU, the WNet's masks shared
+    opt = _perceptual_opt(GRAD_T, False)
+    gbatch = _train_batch(np.random.default_rng(SEED + 4), GRAD_N, GRAD_T,
+                          GRAD_HW)
+    card = DenoisingModel(copy.deepcopy(opt), device='cuda')
+    cpu = DenoisingModel(copy.deepcopy(opt), device='cpu')
+    masks, vgg_masks = _SharedMasks(), _SharedVggMasks()
+    card.feed_data(gbatch)
+    reset_counts()
+    with masks.record(), vgg_masks.on(card, True):
+        card.optimize_parameters(1)
+    for k, v in counts().items():
+        launches[k] += v
+    cpu.feed_data(gbatch)
+    with masks.replay(), vgg_masks.on(cpu, False):
+        cpu.optimize_parameters(1)
+    if vgg_masks.masks or vgg_masks.signs:
+        raise AssertionError(f'{len(vgg_masks.masks)} VGG masks, '
+                             f'{len(vgg_masks.signs)} signs not used')
+    cl, rl = card.get_current_log(), cpu.get_current_log()
+    errs = {k: abs(cl[k] - rl[k]) / abs(rl[k]) for k in rl}
+    percep = _percep_gap(vgg_masks, cl['l_percep'], rl['l_percep'])
+    cpu_named = dict(cpu.net.named_parameters())
+    grad_errs = {n: _max_rel(p.grad, cpu_named[n].grad)
+                 for n, p in card.net.named_parameters()}
+    worst = max(grad_errs, key=grad_errs.get)
+    rec = {'phase': 'zoo_bsvd_perceptual', 'perceptual_opt': PERCEPTUAL,
+           'batch': [TRAIN_N, TRAIN_T, TRAIN_HW, TRAIN_HW], 'amp': True,
+           'launches_per_step': per_step, 'losses': log, 'ms_per_step': ms,
+           'phase8_plain_bf16_ms_per_step': TRAIN_MS.get(True),
+           'peak_allocated_gb': peak,
+           'grad_check': {'batch': [GRAD_N, GRAD_T, GRAD_HW, GRAD_HW],
+                          'loss_rel_err': errs,
+                          'grad_max_rel_err': [worst, grad_errs[worst]],
+                          'tensors': len(grad_errs),
+                          'mask_flips': masks.flips,
+                          'vgg_mask_flips': vgg_masks.flips,
+                          'l1_sign_flips': vgg_masks.sign_flips,
+                          'pool_flips': vgg_masks.pool_flips,
+                          'l_percep': percep,
+                          'worst_5': sorted(grad_errs.items(),
+                                            key=lambda kv: -kv[1])[:5],
+                          'tol': FP32_TOL}}
+    emit(rec)
+    if list(log) != ['l_pix', 'l_percep'] or not all(
+            math.isfinite(v) for v in log.values()):
+        raise AssertionError(f'perceptual step losses {log}')
+    for what, e in list(errs.items()) + list(grad_errs.items()):
+        if not e <= FP32_TOL:
+            raise AssertionError(f'perceptual step card vs CPU: {what} max '
+                                 f'rel err {e}')
+    return launches
+
+
+def _sr_loader_rates(dirs):
+    """Batches a second of the msrresnet_x4 train loader (BatchLoader of
+    PairedImageDataset, batch 16, gt_size 128) with 1 and 4 workers (the
+    dataset reads serially either way: one RNG draws every crop)."""
+    from bsvd_tpu_torch.data import build_dataloader
+    opt, _ = parse_options(WORK, is_train=True, cmd=_sr_cmd('msrresnet_x4',
+                                                             dirs))
+    rates = []
+    for workers in (1, 4):
+        # 4 batches an epoch, 2 epochs after a first one
+        dopt = dict(opt['datasets']['train'], num_worker_per_gpu=workers,
+                    dataset_enlarge_ratio=4)
+        loader = build_dataloader(build_dataset(dopt), dopt, num_gpu=1)
+        for batch in loader:
+            pass
+        t0 = time.perf_counter()
+        n = 0
+        for _ in range(2):
+            for batch in loader:
+                n += 1
+        secs = time.perf_counter() - t0
+        rates.append({'workers': workers, 'batch': list(batch['gt'].shape),
+                      'batches_per_s': n / secs, 'batches': n,
+                      'dataset_enlarge_ratio': 4})
+    return rates
+
+
+def phase_zoo_sr():
+    """Phase 15. Returns the BSVD perceptual steps' launches."""
+    _sr_parity()
+    dirs, write_s = _sr_folders()
+    emit({'phase': 'zoo_sr_data', 'write_s': write_s,
+          'train': [SR_TRAIN_N, SR_GT_HW, SR_GT_HW], 'val': SR_VAL})
+    for yml in SR_YMLS:
+        _sr_cli(yml, dirs)
+    _esrgan_gate(dirs)
+    emit({'phase': 'zoo_sr_loader', 'cpu_count': os.cpu_count(),
+          'rates': _sr_loader_rates(dirs)})
+    return _bsvd_perceptual()
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -3238,6 +3732,7 @@ def run():
     _sum_launches(parallel_launches, phase_parallel_dryrun())
     _sum_launches(parallel_launches, phase_nccl_train_cli(data))
     _sum_launches(parallel_launches, phase_profile(nets['TSM']))
+    _sum_launches(parallel_launches, phase_zoo_sr())
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

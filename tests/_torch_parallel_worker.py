@@ -106,3 +106,39 @@ def validation_cli(mesh, device, workdir):
         '-opt', os.path.join(workdir, 'opt.yml'), '--device', 'cpu',
         '--launcher', 'pytorch'])
     return {'results': results, 'mesh': mesh.shape}
+
+
+def sr_train(mesh, device, workdir):
+    """The zoo's engines on a data mesh of every rank (and DenoisingModel's
+    perceptual loss with the rows split as well): each case of
+    ``inputs.pt`` (options, a starting state per network, the global
+    batches, each cut to this rank's rows as the loaders cut them)
+    built, loaded and stepped; rank 0 writes each case's logged
+    losses and final state dicts; every rank returns a checksum of its
+    parameters."""
+    from bsvd_tpu_torch.models.base_model import build_model
+    inputs = torch.load(os.path.join(workdir, 'inputs.pt'),
+                        weights_only=False)
+    out, sums = {}, {}
+    for name, case in sorted(inputs.items()):
+        model = build_model(case['opt'], device=device)
+        for attr, state in case['states'].items():
+            getattr(model, attr).load_state_dict(state)
+        logs = []
+        for it, batch in enumerate(case['batches'], 1):
+            n = len(batch['lq']) // mesh.size
+            batch = {k: v[mesh.rank * n:(mesh.rank + 1) * n]
+                     for k, v in batch.items()}
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            logs.append(model.get_current_log())
+        states = {attr: {k: v.detach().clone() for k, v in
+                         getattr(model, attr).state_dict().items()}
+                  for attr in case['states']}
+        out[name] = {'logs': logs, 'states': states,
+                     'mesh': dict(model.mesh.shape)}
+        sums[name] = float(sum(v.double().sum() for s in states.values()
+                               for v in s.values()))
+    if mesh.rank == 0:
+        torch.save(out, os.path.join(workdir, 'outputs.pt'))
+    return {'sums': sums}

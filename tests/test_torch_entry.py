@@ -294,6 +294,11 @@ def test_misc_helpers_equal_jax(tmp_path):
 
 
 def test_dataloader_factory_by_kind():
+    """A self-iterating train loader passes through; a map-style train
+    dataset gets the JAX package's BatchLoader over an EnlargedSampler
+    (the zoo's datasets); a val dataset a SimpleLoader."""
+    from bsvd_tpu_torch.data.sampler import BatchLoader, EnlargedSampler
+
     class Iterating:
         def __next__(self):
             return {}
@@ -303,14 +308,19 @@ def test_dataloader_factory_by_kind():
             return 2
 
         def __getitem__(self, i):
-            return i
+            return {'i': i}
 
     it = Iterating()
     assert build_dataloader(it, {'phase': 'train'}) is it
-    with pytest.raises(NotImplementedError, match='zoo'):
-        build_dataloader(MapStyle(), {'phase': 'train'})
+    train = build_dataloader(MapStyle(), {'phase': 'train',
+                                          'batch_size_per_gpu': 1,
+                                          'num_worker_per_gpu': 1})
+    assert isinstance(train, BatchLoader)
+    assert isinstance(train.sampler, EnlargedSampler) and len(train) == 2
+    assert sorted(b['i'][0] for b in train) == [0, 1]
     loader = build_dataloader(MapStyle(), {'phase': 'val'})
-    assert isinstance(loader, SimpleLoader) and list(loader) == [0, 1]
+    assert isinstance(loader, SimpleLoader) and \
+        [d['i'] for d in loader] == [0, 1]
 
 
 # ---------------------------------------------------------------------------

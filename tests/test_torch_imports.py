@@ -1,7 +1,8 @@
 """Import hygiene of the port: every bsvd_tpu_torch module imports in a
 fresh interpreter without a GPU or nvcc, and pulls in neither jax, the JAX
 package, yaml, cv2, pandas, tensorflow nor tensorboard (the machine with
-the card has none of them)."""
+the card has none of them), nor torchvision (the zoo's VGG is the port's
+own)."""
 
 import os
 import subprocess
@@ -19,7 +20,7 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml',
                                     'cv2', 'pandas', 'tensorflow',
-                                    'tensorboard'))
+                                    'tensorboard', 'torchvision'))
 print(len(names), bad)
 assert len(names) >= 40, names
 assert {'bsvd_tpu_torch.archs.streaming',
@@ -43,7 +44,15 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.parallel.spatial',
         'bsvd_tpu_torch.parallel.dryrun', 'bsvd_tpu_torch.profiler',
         'bsvd_tpu_torch.profile_net', 'bsvd_tpu_torch.tools.parse_trace',
-        'bsvd_tpu_torch.utils.tb_events', 'bsvd_tpu_torch.ops._flops'} \
+        'bsvd_tpu_torch.utils.tb_events', 'bsvd_tpu_torch.ops._flops',
+        'bsvd_tpu_torch.convert.torch_generic',
+        'bsvd_tpu_torch.archs.sr_archs', 'bsvd_tpu_torch.archs.vgg_arch',
+        'bsvd_tpu_torch.archs.discriminator_arch',
+        'bsvd_tpu_torch.losses.gan_loss', 'bsvd_tpu_torch.utils.file_client',
+        'bsvd_tpu_torch.data.data_util', 'bsvd_tpu_torch.data.transforms',
+        'bsvd_tpu_torch.data.paired_image_dataset',
+        'bsvd_tpu_torch.data.sampler', 'bsvd_tpu_torch.models.sr_model',
+        'bsvd_tpu_torch.models.srgan_model'} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build

@@ -356,3 +356,118 @@ def test_denoise_seq_async_matches_jax(mode):
     np.testing.assert_array_equal(got.permute(0, 3, 1, 2).numpy(),
                                   denoise_seq(params, pcfg, seq, 0.1,
                                               mode=mode))
+
+
+def _sr_cases(tmp_path):
+    """SRModel (L1 + perceptual), ESRGANModel (its G gated at step 1) and
+    DenoisingModel with the perceptual loss over data and over rows, tiny,
+    each with 2 steps of a global batch of 4 (2 a rank)."""
+    from bsvd_tpu_torch.archs import build_network
+    rng = np.random.default_rng(7)
+    vgg = tmp_path / 'vgg.npz'
+    np.savez(vgg, **{'features.0.weight': rng.normal(
+        0, 0.27, (64, 3, 3, 3)).astype(np.float32),
+        'features.0.bias': rng.uniform(-0.1, 0.1, 64).astype(np.float32)})
+    percep = {'type': 'PerceptualLoss', 'layer_weights': {'conv1_1': 1.0},
+              'style_weight': 0.2, 'pretrain_path': str(vgg)}
+    g = {'type': 'MSRResNet', 'num_feat': 8, 'num_block': 1, 'upscale': 4}
+
+    def opt(model_type, train, **extra):
+        base = {'name': model_type, 'model_type': model_type,
+                'is_train': True, 'num_gpu': 'auto', 'scale': 4,
+                'network_g': dict(g), 'path': {}, 'logger': {},
+                'train': dict({'optim_g': {'type': 'Adam', 'lr': 2e-3,
+                                           'betas': [0.9, 0.99]},
+                               'total_iter': 2}, **train)}
+        base.update(extra)
+        return base
+
+    def sr_batches(size):
+        return [{'lq': rng.uniform(0, 1, (4, 3, size // 4, size // 4)
+                                   ).astype(np.float32),
+                 'gt': rng.uniform(0, 1, (4, 3, size, size)).astype(
+                     np.float32)} for _ in range(2)]
+
+    def state(net_opt):
+        return build_network(dict(net_opt, seed=5), 'cpu').state_dict()
+    d = {'type': 'VGGStyleDiscriminator128', 'num_feat': 4}
+    tsn = {'type': 'TSN', 'num_segments': 3, 'base_model': 'WNet_multistage',
+           'shift_type': 'TSM', 'shift_div': 8, 'seed': 2,
+           'net2d_opt': {'chns': [8, 16, 32], 'mid_ch': 8, 'norm': 'none',
+                         'interm_ch': 8, 'act': 'relu6'}}
+    vid = []
+    for _ in range(2):
+        gt = rng.uniform(0, 1, (4, 3, 3, 16, 16)).astype(np.float32)
+        vid.append({'gt': gt, 'noise_map': np.full((4, 3, 1, 16, 16), 0.1,
+                                                   np.float32),
+                    'lq': (gt + rng.normal(0, 0.1, gt.shape)).astype(
+                        np.float32)})
+    den_train = {'pixel_opt': {'type': 'MSELoss'}, 'perceptual_opt': percep}
+    return {
+        'sr': {'opt': opt('SRModel', {'pixel_opt': {'type': 'L1Loss'},
+                                      'perceptual_opt': percep}),
+               'states': {'net': state(g)}, 'batches': sr_batches(32)},
+        'esrgan': {'opt': opt('ESRGANModel', {
+            'pixel_opt': {'type': 'L1Loss', 'loss_weight': 0.1},
+            'gan_opt': {'type': 'GANLoss', 'gan_type': 'vanilla',
+                        'loss_weight': 0.1}, 'net_d_init_iters': 1},
+            network_d=d), 'states': {'net': state(g), 'net_d': state(d)},
+            'batches': sr_batches(128)},
+        'denoise_data': {'opt': opt('DenoisingModel', den_train,
+                                    network_g=tsn),
+                         'states': {}, 'batches': vid},
+        'denoise_rows': {'opt': opt('DenoisingModel', den_train,
+                                    network_g=tsn, parallel={'spatial': 2}),
+                         'states': {}, 'batches': vid},
+    }
+
+
+def test_sr_engines_data_parallel_equal_serial(tmp_path):
+    """Two gloo ranks (one spawn of ``parallel.dryrun --target
+    tests/_torch_parallel_worker.py:sr_train``): SRModel and ESRGANModel
+    stepping on their halves of the global batch, DenoisingModel with the
+    perceptual loss over data and over rows (the rows gathered before the
+    VGG). Each step's losses equal the serial run's (1e-5 x |ref|, the
+    order of the mean), the parameters after 2 steps within 1e-5 x
+    max|ref| plus 2% of lr (Adam's step of a gradient near 0), and both
+    ranks hold the same parameters."""
+    import json
+    from bsvd_tpu_torch.models.base_model import build_model
+    cases = _sr_cases(tmp_path)
+    torch.save(cases, tmp_path / 'inputs.pt')
+    res = subprocess.run(
+        [sys.executable, '-m', 'bsvd_tpu_torch.parallel.dryrun', '--nproc',
+         '2', '--data', '2', '--spatial', '1', '--backend', 'gloo',
+         '--device', 'cpu', '--checks', 'none', '--timeout', '200',
+         '--target', os.path.join(ROOT, 'tests',
+                                  '_torch_parallel_worker.py:sr_train'),
+         '--workdir', str(tmp_path)], cwd=ROOT, capture_output=True,
+        text=True, timeout=240)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    ranks = json.loads(res.stdout.strip().splitlines()[-1])['ranks']
+    assert ranks[0]['target']['sums'] == ranks[1]['target']['sums']
+    got = torch.load(tmp_path / 'outputs.pt', weights_only=False)
+    assert got['denoise_rows']['mesh'] == {'data': 1, 'spatial': 2}
+    assert got['sr']['mesh'] == {'data': 2, 'spatial': 1}
+    for name, case in cases.items():
+        opt = copy.deepcopy(case['opt'])
+        opt['num_gpu'] = 1
+        opt.pop('parallel', None)
+        model = build_model(opt, device='cpu')
+        for attr, state in case['states'].items():
+            getattr(model, attr).load_state_dict(state)
+        for it, batch in enumerate(case['batches'], 1):
+            model.feed_data(batch)
+            model.optimize_parameters(it)
+            ref = model.get_current_log()
+            mine = got[name]['logs'][it - 1]
+            assert list(mine) == list(ref), name
+            for k in ref:
+                assert abs(mine[k] - ref[k]) <= 1e-5 * abs(ref[k]), \
+                    (name, it, k, mine[k], ref[k])
+        for attr in got[name]['states']:
+            want = getattr(model, attr).state_dict()
+            for k, v in got[name]['states'][attr].items():
+                err = float((v - want[k]).abs().max())
+                assert err <= 1e-5 * float(want[k].abs().max()) + \
+                    2e-2 * 2e-3, (name, attr, k, err)

@@ -627,12 +627,25 @@ def test_train_pipeline_runs_saves_and_auto_resumes(tmp_path):
 
 
 def test_unported_options_raise():
-    """The perceptual loss waits for the zoo and raises; norm 'bn' builds
-    and trains (tests/test_torch_options.py holds it against JAX)."""
+    """Options that once raised now build: the perceptual loss (a VGG19 of
+    random weights without a pretrained file) trains beside the pixel
+    loss, its terms logged under net_g's keys l_pix / l_percep / l_style
+    (tests/test_torch_sr_model.py holds them and the gradients against
+    JAX); norm 'bn' builds and trains (tests/test_torch_options.py holds
+    it against JAX)."""
     from bsvd_tpu_torch.models.denoising_model import DenoisingModel
-    with pytest.raises(NotImplementedError):
-        DenoisingModel(_opt(perceptual_opt={'type': 'PerceptualLoss'}),
-                       device='cpu')
+    model = DenoisingModel(_opt(perceptual_opt={
+        'type': 'PerceptualLoss', 'layer_weights': {'conv1_1': 1.0},
+        'style_weight': 0.5}), device='cpu')
+    assert model.cri_perceptual is not None
+    assert not any(p.requires_grad for p in
+                   model.cri_perceptual.vgg.parameters())
+    b = _batch(4, n=1, h=16, w=16)
+    model.feed_data(b)
+    model.optimize_parameters(1)
+    log = model.get_current_log()
+    assert list(log) == ['l_pix', 'l_percep', 'l_style']
+    assert all(np.isfinite(v) for v in log.values())
     bn = _opt()
     bn['network_g']['net2d_opt']['norm'] = 'bn'
     assert DenoisingModel(bn, device='cpu').cfg.norm == 'bn'
