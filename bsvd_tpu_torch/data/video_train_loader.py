@@ -25,10 +25,18 @@ augmentation and noise of its own rows only, from a stream of its own
 (seeded from ``manual_seed`` and the rank).
 
 Frames are read by their file type (``data/utils_common.route``): PNG
-through the port's zlib reader, JPEG through the native decoder. Video
-files (mp4 and the other ``_VIDEO_EXTS``) raise NotImplementedError: the
-card's machine has no cv2, and NVDEC needs headers the CUDA toolkit does
-not ship (ROADMAP Queue 1).
+through the port's zlib reader, JPEG through the native decoder. mp4 clips
+(``.mp4`` / ``.m4v`` / ``.mov``, H.264 4:2:0 8-bit) are demuxed by the
+port's own reader (``data/mp4_demux``), decoded on the card's NVDEC
+(``data/nvdec``: one decoder per worker thread and clip, as the JAX
+package keeps a ``VideoCapture``), and their NV12 frames stay on the card
+until the window is drawn; the kernel ``csrc/nv12_rgb.cu``
+(``data/yuv``) converts only the window, as cv2's swscale would, and
+the window reaches the queue as the frame route gives it, (T, 3, ch, cw)
+uint8 on the host. A video window draws its clip and start, is decoded,
+then draws its row and column, the JAX package's order for video. An mp4
+on a CPU device raises NotImplementedError naming NVDEC; ``.avi`` /
+``.mkv`` / ``.webm`` raise NotImplementedError naming the container.
 """
 
 import os
@@ -36,40 +44,42 @@ import queue
 import threading
 
 import numpy as np
+import torch
 
-from bsvd_tpu_torch.data import utils_common
+from bsvd_tpu_torch.data import mp4_demux, nvdec, utils_common, yuv
 from bsvd_tpu_torch.data.utils_common import get_imagenames
 from bsvd_tpu_torch.utils.logger import get_root_logger
 from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
 
-_VIDEO_EXTS = ('.mp4', '.avi', '.mov', '.mkv', '.m4v', '.webm')
 # undecodable windows a worker draws in a row before it gives up
 MAX_REDRAWS = 1000
 
 
 class _ClipIndex:
-    """The frame folders under ``root`` and their frame counts."""
+    """The frame folders and mp4 clips under ``root`` and their frame
+    counts; mp4 clips decode on ``device``."""
 
-    def __init__(self, root):
-        self.entries = []   # (path, num_frames)
-        videos = []
+    def __init__(self, root, device='cuda'):
+        self.entries = []   # (path, kind 'frames' | 'video', num_frames)
+        self._tracks = {}   # path -> mp4_demux.Track
         for name in sorted(os.listdir(root)):
             path = os.path.join(root, name)
             if os.path.isdir(path):
                 frames = get_imagenames(path)
                 if frames:
-                    self.entries.append((path, len(frames)))
-            elif name.lower().endswith(_VIDEO_EXTS):
-                videos.append(name)
-        if videos:
-            raise NotImplementedError(
-                f'{root} holds video files ({", ".join(videos[:3])}'
-                f'{", ..." if len(videos) > 3 else ""}): the port reads '
-                f'folders of frames only (mp4 clips: ROADMAP Queue 1)')
+                    self.entries.append((path, 'frames', len(frames)))
+            elif name.lower().endswith(mp4_demux.VIDEO_EXTS):
+                track = mp4_demux.open_track(path)
+                # the count cv2.CAP_PROP_FRAME_COUNT gives, as JAX draws
+                if track.frame_count > 0:
+                    self._tracks[path] = track
+                    self.entries.append((path, 'video', track.frame_count))
         if not self.entries:
-            raise IOError(f'no frame folders under {root}')
+            raise IOError(f'no video files or frame folders under {root}')
+        self.device = nvdec.require(device) if self._tracks else None
         self._dims = {}                  # path -> (H, W)
         self._lock = threading.Lock()
+        self._tls = threading.local()    # a worker's decoders and stream
 
     def _frame_dims(self, path, files):
         """Cached (H, W) of a frame folder (one header probe per clip)."""
@@ -84,9 +94,12 @@ class _ClipIndex:
     def holds(self, i, seq_len, crop_hw):
         """Whether clip ``i`` has ``seq_len`` frames of at least
         ``crop_hw`` (False where its first frame cannot be read)."""
-        path, n = self.entries[i]
+        path, kind, n = self.entries[i]
         if n < seq_len:
             return False
+        if kind == 'video':
+            h, w = self._tracks[path].hw
+            return h >= crop_hw[0] and w >= crop_hw[1]
         try:
             h, w = self._frame_dims(path, get_imagenames(path))
         except NotImplementedError:      # a frame not read yet: tell
@@ -99,12 +112,15 @@ class _ClipIndex:
         """A random window -> (T, ch, cw, 3) uint8 RGB (None without
         ``decode``: the draws only); IOError where it cannot be read (a
         short clip, a corrupt frame)."""
-        path, n = self.entries[rng.integers(len(self.entries))]
+        path, kind, n = self.entries[rng.integers(len(self.entries))]
         if n < seq_len:
             raise IOError(f'clip {path} shorter ({n}) than temp_patch_size '
                           f'{seq_len}')
         start = int(rng.integers(0, n - seq_len + 1))
         ch, cw = crop_hw
+        if kind == 'video':
+            return self._video_window(rng, path, start, seq_len, crop_hw,
+                                      decode)
         files = get_imagenames(path)[start:start + seq_len]
         h, w = self._frame_dims(path, files)
         if h < ch or w < cw:
@@ -115,6 +131,48 @@ class _ClipIndex:
         if not decode:
             return None
         return utils_common.load_crop_seq(files, y0, x0, ch, cw)
+
+    def _video_window(self, rng, path, start, seq_len, crop_hw, decode):
+        """An mp4 window: decoded before its row and column are drawn, as
+        the JAX package draws (a window that fails to decode draws
+        neither)."""
+        track = self._tracks[path]
+        ch, cw = crop_hw
+        with torch.cuda.stream(self._stream()):
+            if decode:
+                frames = self._decoder(path).decode(track, start, seq_len)
+            else:           # the frames every rank can tell are missing
+                track.window_samples(start, seq_len)
+            h, w = track.hw
+            if h < ch or w < cw:
+                raise IOError(f'clip {path} smaller than crop {crop_hw}')
+            y0 = int(rng.integers(0, h - ch + 1))
+            x0 = int(rng.integers(0, w - cw + 1))
+            if not decode:
+                return None
+            return yuv.nv12_to_rgb(frames, y0, x0, ch, cw).cpu().numpy()
+
+    def _decoder(self, path):
+        """This thread's decoder of clip ``path``, kept alive."""
+        decoders = getattr(self._tls, 'decoders', None)
+        if decoders is None:
+            decoders = self._tls.decoders = {}
+        if path not in decoders:
+            decoders[path] = nvdec.Decoder(self.device)
+        return decoders[path]
+
+    def _stream(self):
+        """This thread's CUDA stream (its decodes and conversions)."""
+        stream = getattr(self._tls, 'stream', None)
+        if stream is None:
+            stream = self._tls.stream = torch.cuda.Stream(self.device)
+        return stream
+
+    def release(self):
+        """Close the calling thread's decoders."""
+        for dec in getattr(self._tls, 'decoders', {}).values():
+            dec.close()
+        self._tls.decoders = {}
 
 
 def normalize_augment(batch, rng, total=None):
@@ -260,7 +318,8 @@ class train_video_loader:
         ps = opt['patch_size']
         self.crop_hw = (ps[0], ps[1]) if isinstance(ps, (list, tuple)) \
             else (ps, ps)
-        self.index = _ClipIndex(opt['trainset_dir'])
+        self.index = _ClipIndex(opt['trainset_dir'],
+                                opt.get('device', 'cuda'))
         if not any(self.index.holds(i, self.seq_len, self.crop_hw)
                    for i in range(len(self.index.entries))):
             raise IOError(f"no clip under {opt['trainset_dir']} has "
@@ -268,7 +327,7 @@ class train_video_loader:
                           f'least patch_size {self.crop_hw}')
         patches = int(opt.get('max_number_patches', -1))
         if patches <= 0:
-            total = sum(n for _, n in self.index.entries)
+            total = sum(n for _, _, n in self.index.entries)
             patches = max(total // self.seq_len, 1)
         self.epoch_size = max(-(-patches // self.global_batch), 1)
 
@@ -305,6 +364,12 @@ class train_video_loader:
                 continue
 
     def _worker(self, seed, wid):
+        try:
+            self._draw_windows(seed, wid)
+        finally:
+            self.index.release()         # this thread's decoders
+
+    def _draw_windows(self, seed, wid):
         rng = np.random.default_rng(seed)
         in_a_row = 0
         slot = wid               # of the global stream of windows

@@ -35,6 +35,7 @@ _SIGNATURES = {
     'bsvd_bibuffer': [_I] + [_P] * 6 + [_I] * 12 + [_P],
     'bsvd_bibuffer_chain': [_I] + [_P] * 10 + [_I] * 16 + [_P],
     'bsvd_conv3x3_dw': [_I] + [_P] * 5 + [_I] * 14 + [_P],
+    'bsvd_nv12_rgb': [_P] * 2 + [_I] * 7 + [_P],
 }
 
 _lock = threading.Lock()

@@ -55,6 +55,8 @@ def create_train_val_dataloader(opt, logger):
             dataset_opt.setdefault('manual_seed', opt.get('manual_seed', 0))
             dataset_opt.setdefault('num_devices', opt.get('num_gpu', 1))
             dataset_opt.setdefault('rank', opt.get('rank', 0))
+            # where mp4 clips decode (NVDEC on the card)
+            dataset_opt.setdefault('device', opt.get('device', 'cuda'))
             train_loader = build_dataloader(build_dataset(dataset_opt),
                                             dataset_opt,
                                             num_gpu=opt['num_gpu'],

@@ -233,10 +233,39 @@ Phases, each printed as one JSON object on its own line:
    fp32 step card against CPU with the loss, the WNet's masks and the
    perceptual loss's discontinuities (VGG ReLU masks, max-pool picks,
    the l1 signs) shared, to 1e-4 x max|ref| per tensor.
+16. mp4: the train loader's mp4 route on the card. Fixture clips from
+   tools/make_video_fixtures.py (H.264 of I_PCM / P_Skip macroblocks,
+   which decode exactly to the planes written): IDR/P 320 x 240, IDR/P
+   854 x 480 (coded 864 x 480), High-profile B frames with ctts and an
+   edit list at 416 x 234, 24 frames each. The refusals name their
+   cause: an mp4 on the CPU (NVDEC), a missing libnvcuvid (a fresh
+   process), cuvidGetDecoderCaps for H.264 4:2:0 / 4:4:4 / 4:2:2 8-bit
+   and 4:2:0 10-bit. From every start of each fixture, libnvcuvid's
+   parser (``nvdec.parse``: host code) on the port's CUVID structs: its
+   sequence equal to the SPS, one picture a sample, the demuxer's
+   display order. NVDEC counts as hidden only on
+   ``nvdec.NvdecNotExposed`` (cuvidGetDecoderCaps out of memory where
+   NVIDIA_DRIVER_CAPABILITIES lacks 'video'); any other caps failure
+   fails the phase. The kernel nv12_rgb against its plain version, bit
+   for bit, at odd and even window origins and the whole 854 x 480 frame
+   (NVDEC's planes, or the writer's where NVDEC is hidden); both timed
+   (CUDA events, median of 50) on an 11 x 96 x 96 window beside its
+   bound (bytes at 3.35 TB/s). Where NVDEC is exposed: its NV12 from
+   every start equal to the writer's planes, and its frames a second;
+   the yml's loader (one worker, the same seed) over 4 mp4 clips x 24
+   frames at 854 x 480 and over PNG folders of the same RGB frames: the
+   same 3 batches; the train CLI on options/train/bsvd_c64_unblind.yml
+   over the mp4 folder: bf16 AMP, 30 iterations, one validation of 10
+   frames a clip; K1-K4 and K7 launches per step, ms an iteration over
+   11-30 (the wait and the step) and over 3-10, beside phase 12's PNG
+   run and 12a's JPEG run; the loader's batches a second with 1 and 8
+   workers. Where it is hidden these runs cannot decode: the record says
+   "not run" with the driver's error, and nv12_rgb's main-path launches
+   are 0 (its ``main_path`` says why).
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14 and 15 (counters set to 0
+phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14, 15 and 16 (counters set to 0
 before each run, read after; phase 13's ranks and phase 14's profile entry count
 their runs in their own processes), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
@@ -250,7 +279,11 @@ bibuffer_multi) or a c64 train step at batch 8 (K7). Where the main path
 routes every MemCvBlock through K5 (``CHAIN_MAX_C`` 0), K6 is off it: its
 ``launches`` are 0, its times one launch at each bidirectional site
 (``per`` says so), and ``off_path_launches`` holds each kernel's launches
-in phase 6's other-route run.
+in phase 6's other-route run. Its last entry is nv12_rgb (phase 16):
+its launches in the mp4 loader run and the CLI run (0 where NVDEC is
+hidden, ``main_path`` naming the cause), ``ms`` / ``plain_ms``
+/ ``bound_ms`` per 11 x 96 x 96 window; no single PyTorch call converts
+NV12 to RGB (``library_ms`` null).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
@@ -317,11 +350,13 @@ from bsvd_tpu_torch.profiler import count_params, device_profile  # noqa: E402
 from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
 from bsvd_tpu_torch.train import train_loop, train_pipeline  # noqa: E402
 from bsvd_tpu_torch.data import bmp_decode  # noqa: E402
+from bsvd_tpu_torch.data import mp4_demux, nvdec, yuv  # noqa: E402
 from bsvd_tpu_torch.utils import jpeg_encode, tb_events  # noqa: E402
 from bsvd_tpu_torch.utils.img_util import encode_png  # noqa: E402
 from bsvd_tpu_torch.utils.logger import get_root_logger  # noqa: E402
 from bsvd_tpu_torch.utils.options import (parse_options,  # noqa: E402
                                           yaml_load)
+from tools import make_video_fixtures as mvf  # noqa: E402
 
 SEED = 0
 T, H, W = 10, 540, 960
@@ -2587,6 +2622,7 @@ def phase_entry(data):
             # the window of phase 12a's JPEG run, for a like comparison
             rec['steady_3_10'] = clock.steady(3, JPEG_CLI_ITERS)
             ENTRY[f'{label}_steady_3_10'] = rec['steady_3_10']
+            ENTRY[f'{label}_steady'] = rec['steady']
             rec['timers_logged'] = clock.timers(10, CLI_ITERS)
             # the same model's step on one in-memory batch, fed to the
             # card before each step as the loop feeds it (phase 8 times
@@ -2766,6 +2802,7 @@ def phase_train_cli_jpeg(jdata):
            'timers_logged_1_10': clock.logged.get(JPEG_CLI_ITERS)}
     if not math.isfinite(rec['loss_last']):
         raise AssertionError('train CLI on JPEG: non-finite loss')
+    ENTRY['jpeg_steady_3_10'] = rec['steady']
     emit(rec)
     return run
 
@@ -3659,6 +3696,336 @@ def phase_zoo_sr():
     return _bsvd_perceptual()
 
 
+# ---------------------------------------------------------------------------
+# phase 16: mp4 clips on NVDEC, the NV12 -> RGB kernel, the train CLI
+# ---------------------------------------------------------------------------
+
+# fixture kinds held to the writer's planes: name -> (W, H, frames, writer
+# options); the train folder: MP4_CLIPS clips of TRAIN_FRAMES frames at
+# DAVIS's 854 x 480 (coded 864 x 480)
+MP4_FIXTURES = {
+    'idr_p': (320, 240, 24, dict(gop=8)),
+    'cropped_854x480': (854, 480, 24, dict(gop=8)),
+    'bframes_elst': (416, 234, 24, dict(gop=12, bframes=True,
+                                        profile=mvf.HIGH)),
+}
+MP4_CLIPS = 4
+# the kernel's windows: (y0, x0) odd and even, and the far corner
+MP4_WINDOWS = ((0, 0), (1, 1), (0, 1), (1, 0),
+               (TRAIN_FRAME_HW[0] - TRAIN_HW, TRAIN_FRAME_HW[1] - TRAIN_HW))
+MP4_LOADER_BATCHES = 3
+NV12_RGB = ('nv12_rgb', 'bsvd_tpu_torch/csrc/nv12_rgb.cu',
+            'bsvd_tpu/data/video_train_loader.py:122')
+
+
+def _mp4_errors():
+    """Each refusal names its cause: an mp4 on the CPU (NVDEC), a missing
+    libnvcuvid (in a fresh process), H.264 NVDEC does not decode
+    (cuvidGetDecoderCaps). Returns (record, whether NVDEC is exposed to
+    this process). It counts as hidden only on ``nvdec.NvdecNotExposed``
+    (cuvidGetDecoderCaps out of memory where NVIDIA_DRIVER_CAPABILITIES
+    lacks 'video'); any other failure of the 4:2:0 8-bit query, its
+    format refused included, fails the phase."""
+    rec = {}
+    try:
+        nvdec.require('cpu')
+        raise AssertionError('an mp4 on the CPU was not refused')
+    except NotImplementedError as e:
+        if 'NVDEC' not in str(e):
+            raise AssertionError(f'CPU refusal does not name NVDEC: {e}')
+        rec['cpu'] = str(e)
+    code = ('from bsvd_tpu_torch.data import nvdec\n'
+            'nvdec.NVCUVID = "libnvcuvid_absent.so.1"\n'
+            'try:\n    nvdec.lib()\n'
+            'except nvdec.NvdecError as e:\n    print("REFUSED", e)\n')
+    res = subprocess.run([sys.executable, '-c', code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    if 'REFUSED libnvcuvid_absent.so.1 not found' not in res.stdout:
+        raise AssertionError(f'missing libnvcuvid not named: {res.stdout}'
+                             f'{res.stderr[-2000:]}')
+    rec['missing_library'] = res.stdout.strip()
+    rec['NVIDIA_DRIVER_CAPABILITIES'] = os.environ.get(
+        'NVIDIA_DRIVER_CAPABILITIES')
+    caps = {}
+    try:
+        caps['1_8'] = nvdec.caps('cuda', 1, 8)
+        exposed = True
+    except nvdec.NvdecNotExposed as e:
+        caps['1_8'], exposed = str(e), False
+    for chroma, depth in ((3, 8), (2, 8), (1, 10)):
+        try:
+            caps[f'{chroma}_{depth}'] = nvdec.caps('cuda', chroma, depth)
+        except nvdec.NvdecError as e:
+            if 'cuvidGetDecoderCaps' not in str(e):
+                raise AssertionError(f'caps refusal not named: {e}')
+            caps[f'{chroma}_{depth}'] = str(e)
+    rec['caps'] = caps
+    if exposed and not any(isinstance(v, str) for v in caps.values()):
+        raise AssertionError(f'no H.264 format refused by '
+                             f'cuvidGetDecoderCaps: {caps}')
+    rec['nvdec_exposed'] = exposed
+    return rec, exposed
+
+
+def _mp4_decode_check(root, exposed):
+    """Each fixture kind from every start: libnvcuvid's parser (its
+    sequence against the SPS, one picture per access unit, the display
+    order of the demuxer's window); where NVDEC is exposed, its NV12 equal
+    to the writer's planes and its frames a second on the 854 x 480 clip.
+    Returns the 854 x 480 clip's NV12 on the card (NVDEC's, else the
+    writer's, for the kernel's comparison only) and the record."""
+    rec, planes854 = {}, None
+    for i, (name, (w, h, n, kw)) in enumerate(MP4_FIXTURES.items()):
+        path = os.path.join(root, f'{name}.mp4')
+        want = torch.from_numpy(mvf.nv12(*mvf.write_clip(
+            path, SEED + 160 + i, w, h, n, **kw))).cuda()
+        track = mp4_demux.open_track(path)
+        parsed = 0
+        t0 = time.perf_counter()
+        for start in range(n):
+            count = min(TRAIN_T, n - start)
+            first, last = track.window_samples(start, count)
+            fed = track.disp_index[first:last + 1]
+            got = nvdec.parse(track, start, count)
+            if got['decoded'] != len(fed) or got['shown'] != sorted(
+                    fed[fed >= 0].tolist()) or not got['window']:
+                raise AssertionError(f'libnvcuvid parser {name}@{start}: '
+                                     f'{got} for samples {fed.tolist()}')
+            parsed += got['decoded']
+        r = {'hw': [h, w], 'coded_hw': list(track.coded_hw), 'frames': n,
+             'sync_samples': int(track.sync.sum()),
+             'bytes_per_frame': float(track.sizes.mean()),
+             'parser_starts_checked': n,
+             'parser_frames_per_s': parsed / (time.perf_counter() - t0),
+             'min_num_decode_surfaces': got['min_surfaces']}
+        clip = want
+        if exposed:
+            nv, clip = _nvdec_planes(track, want, name, n)
+            r.update(nv)
+        else:
+            dec = nvdec.Decoder('cuda')
+            try:
+                dec.decode(track, 0, 1)
+                raise AssertionError('NVDEC decoded where caps refused it')
+            except nvdec.NvdecNotExposed as e:
+                r['decode'] = f'not run: {e}'
+            finally:
+                dec.close()
+        rec[name] = r
+        if (h, w) == TRAIN_FRAME_HW:
+            planes854 = clip
+    return planes854, rec
+
+
+def _nvdec_planes(track, want, name, n):
+    """NVDEC's NV12 from every start equal to the writer's; its frames a
+    second decoding the whole clip. Returns (record, the whole clip)."""
+    dec = nvdec.Decoder('cuda')
+    try:
+        before = nvdec.frames_decoded
+        for start in range(n):
+            count = min(TRAIN_T, n - start)
+            got = dec.decode(track, start, count)
+            if not torch.equal(got, want[start:start + count]):
+                bad = (got != want[start:start + count]).nonzero()[:3]
+                raise AssertionError(f'NVDEC {name}@{start}: planes differ '
+                                     f'from the writer\'s at {bad.tolist()}')
+        decoded = nvdec.frames_decoded - before
+        t0 = time.perf_counter()
+        for _ in range(5):
+            clip = dec.decode(track, 0, n)
+        torch.cuda.synchronize()
+        whole_s = (time.perf_counter() - t0) / 5
+    finally:
+        dec.close()
+    if not torch.equal(clip, want):
+        raise AssertionError(f'NVDEC {name}: the whole clip differs')
+    return {'decode': 'nvdec', 'starts_checked': n, 'frames_decoded': decoded,
+            'whole_clip_frames_per_s': n / whole_s}, clip
+
+
+def _mp4_kernel_check(nv12):
+    """nv12_rgb against its plain version on the card, bit for bit, at
+    odd and even windows and the whole frame; both timed on one train
+    window, beside its bound."""
+    t = TRAIN_T
+    frames = nv12[:t].contiguous()
+    h, w = TRAIN_FRAME_HW
+    before = yuv.nv12_to_rgb.launches
+    cases = [(y0, x0, TRAIN_HW, TRAIN_HW) for y0, x0 in MP4_WINDOWS]
+    cases.append((0, 0, h, w))
+    for y0, x0, ch, cw in cases:
+        got = yuv.nv12_to_rgb(frames, y0, x0, ch, cw)
+        ref = yuv.nv12_to_rgb_plain(frames, y0, x0, ch, cw)
+        if not torch.equal(got, ref):
+            raise AssertionError(f'nv12_rgb differs from its plain version '
+                                 f'at {(y0, x0, ch, cw)}: max '
+                                 f'{(got.int() - ref.int()).abs().max()}')
+    y0, x0 = MP4_WINDOWS[1]
+    ms = median_ms(lambda: yuv.nv12_to_rgb(frames, y0, x0, TRAIN_HW,
+                                           TRAIN_HW), reps=50, warmup=5)
+    plain_ms = median_ms(lambda: yuv.nv12_to_rgb_plain(
+        frames, y0, x0, TRAIN_HW, TRAIN_HW), reps=50, warmup=5)
+    n_bytes = yuv.window_bytes(t, y0, x0, TRAIN_HW, TRAIN_HW)
+    yuv.nv12_to_rgb.launches = before      # comparisons are not the path
+    return {'cases': len(cases), 'max_abs_err': 0, 'ms': ms,
+            'plain_ms': plain_ms, 'bytes': n_bytes,
+            'bound_ms': n_bytes / PEAK_BYTES * 1e3, 'bound_by': 'bytes',
+            'library_ms': None,
+            'per': f'one {t} x {TRAIN_HW} x {TRAIN_HW} window of an '
+                   f'{h} x {w} NV12 clip'}
+
+
+def _mp4_folders(root):
+    """MP4_CLIPS synthetic 854 x 480 mp4 clips, and the same RGB frames
+    (cv2's conversion of the writer's planes) as PNG folders."""
+    mp4_dir, png_dir = os.path.join(root, 'mp4'), os.path.join(root, 'png')
+    os.makedirs(mp4_dir)
+    h, w = TRAIN_FRAME_HW
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(os.cpu_count() or 4) as pool:
+        for i in range(MP4_CLIPS):
+            path = os.path.join(mp4_dir, f'clip{i:02d}.mp4')
+            nv12 = mvf.nv12(*mvf.write_clip(path, SEED + 170 + i, w, h,
+                                            TRAIN_FRAMES, gop=8))
+            rgb = yuv.nv12_to_rgb_plain(torch.from_numpy(nv12).cuda(), 0, 0,
+                                        h, w).cpu().numpy()
+            _write_clip(os.path.join(png_dir, f'clip{i:02d}'), rgb, pool)
+    return mp4_dir, png_dir, time.perf_counter() - t0
+
+
+def _mp4_loader_equal(mp4_dir, png_dir, data):
+    """The yml's loader (one worker, the same seed) over the mp4 folder and
+    over the PNG folders of the same RGB frames: the same batches. Returns
+    the mp4 loader's nv12_rgb launches and K1-K7 launches (none)."""
+    batches = {}
+    launches = {}
+    for kind, folder in (('png', png_dir), ('mp4', mp4_dir)):
+        opt, _ = parse_options(WORK, is_train=True, cmd=_train_cli_cmd(
+            dict(data, train=folder)))
+        dopt = dict(opt['datasets']['train'], manual_seed=opt['manual_seed'],
+                    num_workers=1, device='cuda')
+        reset_counts()
+        yuv.nv12_to_rgb.launches = 0
+        loader = build_dataset(dopt)
+        try:
+            it = iter(loader)
+            batches[kind] = [next(it) for _ in range(MP4_LOADER_BATCHES)]
+        finally:
+            loader.close()
+        launches[kind] = yuv.nv12_to_rgb.launches
+    for i, (a, b) in enumerate(zip(batches['mp4'], batches['png'])):
+        if sorted(a) != sorted(b) or not all(
+                np.array_equal(a[k], b[k]) for k in b):
+            raise AssertionError(f'mp4 batch {i} differs from the PNG '
+                                 f'folders\' batch')
+    if launches['png'] or not launches['mp4'] >= \
+            MP4_LOADER_BATCHES * TRAIN_N:
+        raise AssertionError(f'nv12_rgb launches {launches}')
+    return launches['mp4']
+
+
+def _mp4_cli(mp4_dir, data):
+    """The train CLI on the shipped yml over the mp4 folder: bf16 AMP,
+    CLI_ITERS iterations, one validation of JPEG_VAL_T frames a clip at
+    the end. Returns (record, K1-K7 launches, nv12_rgb launches)."""
+    root = os.path.join(WORK, 'entry_mp4')
+    cmd = _train_cli_cmd(dict(data, train=mp4_dir)) + [
+        'train:fp16=true', f'datasets:val:num_validation_frames={JPEG_VAL_T}']
+    reset_counts()
+    yuv.nv12_to_rgb.launches = 0
+    decoded = nvdec.frames_decoded
+    t0 = time.perf_counter()
+    with _NoConv2d(), _ValSeconds() as secs, _StepClock() as clock:
+        model = train_pipeline(root, cmd=cmd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    run, conv = counts(), yuv.nv12_to_rgb.launches
+    step_kernels = ('conv3x3', 'conv_chain', 'conv_s2', 'conv_ps',
+                    'conv3x3_dw')
+    for k in step_kernels:
+        if not run[k] >= PER_TRAIN_STEP[k] * CLI_ITERS:
+            raise AssertionError(f'train CLI on mp4: {k} launched '
+                                 f'{run[k]} times in {CLI_ITERS} steps')
+    if run['conv3x3_dw'] != PER_TRAIN_STEP['conv3x3_dw'] * CLI_ITERS or \
+            model.optimizer.count != CLI_ITERS or not conv >= \
+            CLI_ITERS * TRAIN_N or len(clock.marks) != CLI_ITERS or not \
+            nvdec.frames_decoded - decoded >= CLI_ITERS * TRAIN_N * TRAIN_T:
+        raise AssertionError(f'train CLI on mp4: K7 {run["conv3x3_dw"]}, '
+                             f'optimizer count {model.optimizer.count}, '
+                             f'nv12_rgb {conv}, {len(clock.marks)} clocked, '
+                             f'{nvdec.frames_decoded - decoded} decoded')
+    rec = {'phase': 'train_cli', 'run': 'bf16_mp4', 'amp': model.amp,
+           'iters': CLI_ITERS, 'wall_s': wall, 'launches': run,
+           # a step's launches (K7's checked exactly above); the rest are
+           # the validations'
+           'launches_per_step': {k: PER_TRAIN_STEP[k] for k in step_kernels},
+           'validation_launches': {k: run[k] - PER_TRAIN_STEP[k] * CLI_ITERS
+                                   for k in step_kernels},
+           'nv12_rgb_launches': conv,
+           'nvdec_frames': nvdec.frames_decoded - decoded,
+           'validations': len(secs.runs),
+           'loss_last': model.get_current_log()['l_pix'],
+           'steady': clock.steady(11, CLI_ITERS),
+           'steady_3_10': clock.steady(3, JPEG_CLI_ITERS),
+           'png_bf16_steady': ENTRY.get('bf16_steady'),
+           'png_bf16_steady_3_10': ENTRY.get('bf16_steady_3_10'),
+           'jpeg_bf16_steady_3_10': ENTRY.get('jpeg_steady_3_10')}
+    if not math.isfinite(rec['loss_last']):
+        raise AssertionError('train CLI on mp4: non-finite loss')
+    del model
+    return rec, run, conv
+
+
+def _mp4_loader_rates(mp4_dir, data):
+    """Batches a second of the yml's loader over the mp4 folder with 1 and
+    8 workers (after the first batch), and NVDEC's frames a second then."""
+    rates = []
+    for workers, batches in ((1, 3), (8, 6)):
+        before = nvdec.frames_decoded
+        t0 = time.perf_counter()
+        rate = _loader_rate(dict(data, train=mp4_dir), workers, batches)
+        rate['nvdec_frames'] = nvdec.frames_decoded - before
+        rate['nvdec_frames_per_s_whole_run'] = rate['nvdec_frames'] / (
+            time.perf_counter() - t0)
+        rates.append(rate)
+    return rates
+
+
+def phase_mp4(data):
+    """Phase 16. Returns (K1-K7 launches of the CLI run, the nv12_rgb
+    record for the kernels line). Where NVDEC is hidden from the process
+    the mp4 loader and CLI runs cannot decode: they are reported as not
+    run, and nv12_rgb's main-path launches are 0."""
+    root = os.path.join(WORK, 'mp4')
+    os.makedirs(root)
+    errors, exposed = _mp4_errors()
+    rec = {'phase': 'mp4', 'errors': errors}
+    planes854, rec['decode'] = _mp4_decode_check(root, exposed)
+    kernel = _mp4_kernel_check(planes854)
+    rec['nv12_rgb'] = kernel
+    if not exposed:
+        why = f'not run: {errors["caps"]["1_8"]}'
+        kernel.update(launches=0, main_path=why)
+        rec.update(loader_equals_png=why, train_cli=why, loader_rates=why)
+        emit(rec)
+        name, src, rep = NV12_RGB
+        return {k: 0 for k in KERNELS}, dict(kernel, name=name, source=src,
+                                             replaces=rep)
+    mp4_dir, png_dir, rec['write_s'] = _mp4_folders(root)
+    kernel['launches'] = _mp4_loader_equal(mp4_dir, png_dir, data)
+    kernel['main_path'] = 'the mp4 loader and the train CLI'
+    rec['loader_equals_png'] = True
+    emit(rec)
+    cli, run, conv = _mp4_cli(mp4_dir, data)
+    emit(cli)
+    kernel['launches'] += conv
+    emit({'phase': 'mp4_loader', 'cpu_count': os.cpu_count(),
+          'rates': _mp4_loader_rates(mp4_dir, data)})
+    name, src, rep = NV12_RGB
+    return run, dict(kernel, name=name, source=src, replaces=rep)
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -3687,15 +4054,15 @@ def run():
 
     # the data path's g++ libraries build beside the kernels' nvcc runs
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(3) as pool:
+    with ThreadPoolExecutor(4) as pool:
         helpers = {name: pool.submit(mod.build) for name, mod in (
             ('png_unfilter', png_decode), ('jpeg_decode', jpeg_decode),
-            ('jpeg_encode', jpeg_encode))}
+            ('jpeg_encode', jpeg_encode), ('nvdec', nvdec))}
         lib_path = _build.build()
         _build.lib()
         t1 = time.perf_counter()
         helpers = {k: f.result() for k, f in helpers.items()}
-    for mod in (png_decode, jpeg_decode, jpeg_encode):
+    for mod in (png_decode, jpeg_decode, jpeg_encode, nvdec):
         mod.lib()
     emit({'phase': 'build', 'seconds': t1 - t0,
           'library': os.path.relpath(lib_path, ROOT),
@@ -3733,6 +4100,8 @@ def run():
     _sum_launches(parallel_launches, phase_nccl_train_cli(data))
     _sum_launches(parallel_launches, phase_profile(nets['TSM']))
     _sum_launches(parallel_launches, phase_zoo_sr())
+    mp4_launches, nv12_rgb = phase_mp4(data)
+    _sum_launches(parallel_launches, mp4_launches)
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]
@@ -3755,7 +4124,13 @@ def run():
          'library_ms': summary[k]['library_ms'],
          'library_pair_ms': summary[k]['library_pair_ms'], 'per': per[k],
          'off_path_launches': off_path[k]}
-        for k, (_, src, rep, _) in KERNELS.items()]})
+        for k, (_, src, rep, _) in KERNELS.items()] + [
+        {k: nv12_rgb[k] for k in (
+            'name', 'source', 'replaces', 'launches', 'max_abs_err', 'ms',
+            'plain_ms', 'bound_ms', 'bound_by', 'library_ms', 'per',
+            'main_path')}
+        | {'route': 'cuda', 'library_pair_ms': None,
+           'off_path_launches': 0}]})
     emit({'ok': True, 'device': {'platform': 'gpu', 'kind': name,
                                  'count': torch.cuda.device_count()}})
 

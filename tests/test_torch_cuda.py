@@ -1074,3 +1074,113 @@ def test_kernel_routes_count_the_plain_routes_flops(dev):
             dev, torch.bfloat16)), x.to(dev))
         assert cpu > 0 and card['flops'] == cpu, name
         assert card['temp_size_in_bytes'] >= 0
+
+
+def _fixture_clips(tmp_path):
+    """The CPU tests' three fixture kinds (tests/test_torch_video.py):
+    name -> (path, NV12 of the writer's display planes)."""
+    from tools import make_video_fixtures as mvf
+    kinds = {'idr_p': (128, 96, dict(gop=8), {}),
+             'cropped': (120, 96, dict(gop=5),
+                         dict(chunk=5, co64=True, moov_first=True)),
+             'bframes': (112, 90, dict(gop=6, bframes=True,
+                                       profile=mvf.HIGH), dict(chunk=3))}
+    out = {}
+    for seed, (name, (w, h, kw, mux_kw)) in enumerate(kinds.items()):
+        path = str(tmp_path / f'{name}.mp4')
+        out[name] = (path, mvf.nv12(*mvf.write_clip(path, seed, w, h, 12,
+                                                    **kw, **mux_kw)))
+    return out
+
+
+@pytest.fixture
+def nvdec_dev(dev):
+    """The card, where its NVDEC is exposed to this process. Skips only on
+    NvdecNotExposed (cuvidGetDecoderCaps out of memory in a container
+    whose NVIDIA_DRIVER_CAPABILITIES lacks 'video'); any other caps
+    failure, 4:2:0 8-bit H.264 unsupported included, fails here."""
+    from bsvd_tpu_torch.data import nvdec
+    try:
+        caps = nvdec.caps(dev)
+    except nvdec.NvdecNotExposed as e:
+        pytest.skip(str(e))
+    assert caps['supported'] == 1, caps
+    return dev
+
+
+def test_nvdec_parser_gives_the_demuxers_display_order(dev, tmp_path):
+    """libnvcuvid's parser (host code, no video engine) on the port's
+    CUVID structs: from every start of each kind, its sequence matches
+    the SPS (coded size, display area), it hands one picture a sample to
+    decode and displays the samples' display indices in order."""
+    from bsvd_tpu_torch.data import mp4_demux, nvdec
+    for name, (path, _) in _fixture_clips(tmp_path).items():
+        track = mp4_demux.open_track(path)
+        for start in range(12):
+            count = min(5, 12 - start)
+            first, last = track.window_samples(start, count)
+            fed = track.disp_index[first:last + 1]
+            got = nvdec.parse(track, start, count)
+            assert got['decoded'] == len(fed), (name, start)
+            assert got['shown'] == sorted(fed.tolist()), (name, start)
+            assert got['window'], (name, start)
+
+
+def test_nvdec_planes_equal_the_writers_from_every_start(nvdec_dev,
+                                                         tmp_path):
+    """NVDEC's NV12 (data/nvdec.py, the port's CUVID binding) equals the
+    fixture writer's planes bit for bit: every display frame of each
+    kind, from every start (so every seek)."""
+    from bsvd_tpu_torch.data import mp4_demux, nvdec
+    dev = nvdec_dev
+    for name, (path, want) in _fixture_clips(tmp_path).items():
+        track = mp4_demux.open_track(path)
+        want = torch.from_numpy(want).to(dev)
+        dec = nvdec.Decoder(dev)
+        try:
+            for start in range(12):
+                count = min(5, 12 - start)
+                got = dec.decode(track, start, count)
+                assert torch.equal(got, want[start:start + count]), \
+                    (name, start)
+        finally:
+            dec.close()
+        with pytest.raises(IOError, match='decode failed'):
+            nvdec.Decoder(dev).decode(track, 10, 5)
+
+
+@pytest.mark.parametrize('t,h,w', [(3, 90, 112), (11, 480, 854)])
+def test_nv12_rgb_kernel_equals_plain(dev, t, h, w):
+    """csrc/nv12_rgb.cu against data/yuv.py's plain version on the card,
+    bit for bit, at odd and even window origins, and the launch count."""
+    from bsvd_tpu_torch.data.yuv import nv12_to_rgb, nv12_to_rgb_plain
+    rng = np.random.default_rng(t)
+    nv12 = torch.from_numpy(rng.integers(
+        0, 256, (t, h * 3 // 2, w), dtype=np.uint8)).to(dev)
+    before = nv12_to_rgb.launches
+    cases = [(0, 0, h, w), (1, 1, 33, 47), (0, 1, 32, 48), (1, 0, 31, 45),
+             (h - 40, w - 50, 40, 50)]
+    for y0, x0, ch, cw in cases:
+        got = nv12_to_rgb(nv12, y0, x0, ch, cw)
+        assert got.shape == (t, ch, cw, 3) and got.dtype == torch.uint8
+        assert torch.equal(got, nv12_to_rgb_plain(nv12, y0, x0, ch, cw))
+        assert torch.equal(got.cpu(), nv12_to_rgb_plain(nv12.cpu(), y0, x0,
+                                                        ch, cw))
+    assert nv12_to_rgb.launches == before + len(cases)
+
+
+def test_mp4_refusals_name_their_cause(nvdec_dev):
+    """No CPU decoder; cuvidGetDecoderCaps names an H.264 format NVDEC
+    does not decode; 4:2:0 8-bit is decoded."""
+    from bsvd_tpu_torch.data import nvdec
+    dev = nvdec_dev
+    with pytest.raises(NotImplementedError, match='NVDEC'):
+        nvdec.require('cpu')
+    assert nvdec.caps(dev)['supported'] == 1
+    refused = []
+    for chroma, depth in ((3, 8), (2, 8), (1, 10)):
+        try:
+            nvdec.caps(dev, chroma, depth)
+        except nvdec.NvdecError as e:
+            refused.append(str(e))
+    assert any('cuvidGetDecoderCaps' in r for r in refused), refused

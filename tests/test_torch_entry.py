@@ -397,10 +397,18 @@ def test_train_pipeline_refuses_wandb_and_video_folders(png_root, tmp_path):
     with pytest.raises(NotImplementedError, match='wandb'):
         train_pipeline(str(tmp_path), cmd=_train_cmd(png_root, 1)
                        + ['logger:wandb:project=bsvd'])
+    # an unreadable .mp4 names the file; a .mkv names its container
     (tmp_path / 'videos').mkdir()
     (tmp_path / 'videos' / 'a.mp4').write_bytes(b'\x00')
-    with pytest.raises(NotImplementedError, match='a.mp4'):
+    with pytest.raises(IOError, match='a.mp4'):
         train_pipeline(str(tmp_path), cmd=_train_cmd(png_root, 1) + [
+            f'datasets:train:trainset_dir={tmp_path}/videos'])
+    os.remove(tmp_path / 'videos' / 'a.mp4')
+    (tmp_path / 'videos' / 'a.mkv').write_bytes(b'\x00')
+    with pytest.raises(NotImplementedError, match='a.mkv: Matroska'):
+        # another root: a third run in one second would reuse the first's
+        # archive folder name
+        train_pipeline(str(tmp_path / 'mkv'), cmd=_train_cmd(png_root, 1) + [
             f'datasets:train:trainset_dir={tmp_path}/videos'])
 
 

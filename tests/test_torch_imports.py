@@ -52,15 +52,18 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.data.data_util', 'bsvd_tpu_torch.data.transforms',
         'bsvd_tpu_torch.data.paired_image_dataset',
         'bsvd_tpu_torch.data.sampler', 'bsvd_tpu_torch.models.sr_model',
-        'bsvd_tpu_torch.models.srgan_model'} \
+        'bsvd_tpu_torch.models.srgan_model', 'bsvd_tpu_torch.data.mp4_demux',
+        'bsvd_tpu_torch.data.h264_headers', 'bsvd_tpu_torch.data.nvdec',
+        'bsvd_tpu_torch.data.yuv'} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
 from bsvd_tpu_torch.data import jpeg_decode, png_decode
 from bsvd_tpu_torch.utils import jpeg_encode
+from bsvd_tpu_torch.data import nvdec
 assert _build._lib is None       # nothing built or loaded at import
 assert jpeg_decode._lib is None and png_decode._lib is None
-assert jpeg_encode._lib is None
+assert jpeg_encode._lib is None and nvdec._lib is None
 """
 
 

@@ -408,7 +408,7 @@ def test_train_loader_epoch_and_short_clips(clip_root, tmp_path):
         assert len(ours) == len(ref)
     assert len(ours) == 1
     index = _ClipIndex(clip_root)
-    assert [n for _, n in index.entries] == [12, 12, 3, 12]
+    assert [n for _, _, n in index.entries] == [12, 12, 3, 12]
     seeds = [s for s in range(50)
              if np.random.default_rng(s).integers(4) == 2]
     with pytest.raises(IOError, match='shorter'):
@@ -487,11 +487,21 @@ def test_train_loader_raises_on_unread_kinds_and_endless_redraws(
 
 def test_train_loader_refuses_video_files_and_more_devices(clip_root,
                                                            tmp_path):
+    """An unreadable .mp4 raises IOError naming the file; .mkv / .avi
+    raise NotImplementedError naming the container; a rank outside
+    num_devices raises ValueError."""
     (tmp_path / 'clip0').mkdir()
     imwrite(np.zeros((8, 8, 3), np.uint8), str(tmp_path / 'clip0' / '0.png'))
     (tmp_path / 'davis.mp4').write_bytes(b'\x00' * 16)
-    with pytest.raises(NotImplementedError, match='davis.mp4'):
+    with pytest.raises(IOError, match='davis.mp4'):
         train_video_loader(_opt(str(tmp_path)))
+    os.remove(tmp_path / 'davis.mp4')
+    for name, container in (('davis.mkv', 'Matroska'), ('davis.avi', 'AVI')):
+        (tmp_path / name).write_bytes(b'\x00' * 16)
+        with pytest.raises(NotImplementedError,
+                           match=f'{name}: {container}'):
+            train_video_loader(_opt(str(tmp_path)))
+        os.remove(tmp_path / name)
     with pytest.raises(ValueError, match='num_devices'):
         train_video_loader(_opt(clip_root, num_devices=2, rank=2))
 
