@@ -1,10 +1,12 @@
 """Arch registry of the port: importing this package registers the WNet
-wrappers (BSVD, TSN, BufferConv) and the zoo's SR nets, VGG feature
-extractor and discriminators in ARCH_REGISTRY."""
+wrappers (BSVD, TSN, BufferConv), the zoo's SR nets, VGG feature
+extractor and discriminators, and its recurrent video SR (SpyNet,
+BasicVSR) in ARCH_REGISTRY."""
 
 import torch
 
-from bsvd_tpu_torch.archs import (discriminator_arch, sr_archs,  # noqa: F401
+from bsvd_tpu_torch.archs import (basicvsr_arch,  # noqa: F401
+                                  discriminator_arch, spynet_arch, sr_archs,
                                   vgg_arch, wnet_arch)
 from bsvd_tpu_torch.utils.registry import ARCH_REGISTRY
 

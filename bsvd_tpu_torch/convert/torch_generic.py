@@ -16,7 +16,11 @@ a transpose per leaf:
   (w, u) and not carried into the tree;
 - BatchNorm (a module with running statistics): ``weight`` / ``bias`` /
   ``running_mean`` / ``running_var`` <-> ``scale`` / ``bias`` / ``mean`` /
-  ``var``; ``num_batches_tracked`` is dropped.
+  ``var``; ``num_batches_tracked`` is dropped;
+- a module's constant buffers (named in its ``CONSTANT_BUFFERS``, such as
+  SpyNet's ImageNet ``mean`` / ``std``) are in BasicSR's state dicts but
+  not in the JAX trees: ``to_jax_tree`` leaves them out, and
+  ``from_jax_tree(tree, module)`` puts the module's own back.
 """
 
 import numpy as np
@@ -119,17 +123,35 @@ def tree_to_state_dict(tree, prefix=''):
     return state
 
 
-def from_jax_tree(tree):
+def _constant_keys(module):
+    """State-dict keys of the buffers that ``module``'s submodules name in
+    their ``CONSTANT_BUFFERS``."""
+    return {f'{name}.{b}' if name else b
+            for name, m in module.named_modules()
+            for b in getattr(m, 'CONSTANT_BUFFERS', ())}
+
+
+def from_jax_tree(tree, module=None):
     """A JAX parameter tree (numpy or JAX leaves) -> a state dict of fp32
-    CPU tensors for the port's module of the same arch."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-            for k, v in tree_to_state_dict(tree).items()}
+    CPU tensors for the port's module of the same arch; with ``module``,
+    its constant buffers too (a complete state dict for a strict
+    ``load_state_dict``)."""
+    state = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
+             for k, v in tree_to_state_dict(tree).items()}
+    if module is not None:
+        own = module.state_dict()
+        state.update({k: own[k].detach().cpu()
+                      for k in _constant_keys(module)})
+    return state
 
 
 def to_jax_tree(module):
     """A port module's parameters and buffers -> the JAX package's tree
-    (numpy fp32 leaves); non-persistent buffers are not in it."""
-    return state_dict_to_tree(module.state_dict())
+    (numpy fp32 leaves); non-persistent and constant buffers are not in
+    it."""
+    skip = _constant_keys(module)
+    return state_dict_to_tree({k: v for k, v in module.state_dict().items()
+                               if k not in skip})
 
 
 def _tree_paths(tree, prefix=()):

@@ -10,7 +10,13 @@ Each frame takes a route by its file type, never by what failed to build:
 standard-C++ JPEG decoder (``jpeg_decode``), ``.bmp`` the BMP reader
 (``bmp_decode``); ``.tif`` raises NotImplementedError (not read yet). A
 folder of frames of several types raises. ``ROUTES`` counts the frames
-each route read in this process."""
+each route read in this process.
+
+Where the JAX package reads through cv2 (``open_image``, and
+``open_sequence`` in gray or expand mode), a frame is turned by its EXIF
+orientation as cv2 turns it (``data/orientation``); where it takes its
+native decoder (``open_sequence`` by default; the train loader's
+``load_crop_seq``) the stored pixels are kept, as there."""
 
 import collections
 import glob
@@ -19,7 +25,8 @@ import threading
 
 import numpy as np
 
-from bsvd_tpu_torch.data import bmp_decode, jpeg_decode, png_decode
+from bsvd_tpu_torch.data import (bmp_decode, jpeg_decode, orientation,
+                                 png_decode)
 from bsvd_tpu_torch.utils.misc import digit_sort_key
 
 IMAGETYPES = ('*.bmp', '*.png', '*.jpg', '*.jpeg', '*.tif')
@@ -70,6 +77,14 @@ def image_dims(path):
     return _MODULES[route(path)].image_dims(path)
 
 
+def open_image_dims(path):
+    """(H, W) of the frame ``open_image`` reads from ``path`` (before any
+    expansion), from the file's headers: its stored size, turned by its
+    EXIF orientation."""
+    h, w = image_dims(path)
+    return orientation.oriented_dims(h, w, orientation.file_orientation(path))
+
+
 def load_seq(paths, gray=False):
     """Whole frames of one size -> (T, H, W, 3) uint8 RGB, or (T, H, W)
     uint8 gray with ``gray``."""
@@ -96,13 +111,25 @@ def _expand(img, expand_if_needed):
     return img, expanded_h, expanded_w
 
 
+def _oriented_seq(files, gray):
+    """Whole frames turned by their EXIF orientation, as cv2.imread gives
+    them -> (T, H, W, 3) uint8 RGB, or (T, H, W) gray."""
+    seq = load_seq(files, gray)
+    turns = [orientation.file_orientation(f) for f in files]
+    if all(o == 1 for o in turns):
+        return seq
+    return np.stack([orientation.orient(img, o)
+                     for img, o in zip(seq, turns)])
+
+
 def open_image(fpath, gray_mode=False, expand_if_needed=False,
                normalize_data=True):
-    """One frame -> ((3, H, W) RGB or, with ``gray_mode``, (1, H, W) gray,
-    expanded_h, expanded_w): float32 in [0, 1], or uint8 with
+    """One frame, turned by its EXIF orientation as cv2.imread turns it ->
+    ((3, H, W) RGB or, with ``gray_mode``, (1, H, W) gray, expanded_h,
+    expanded_w): float32 in [0, 1], or uint8 with
     ``normalize_data=False``; an odd H or W gains a copy of its last row
     or column with ``expand_if_needed``."""
-    img = load_seq([fpath], gray_mode)[0]
+    img = _oriented_seq([fpath], gray_mode)[0]
     img = img[None] if gray_mode else np.transpose(img, (2, 0, 1))
     img, expanded_h, expanded_w = _expand(img, expand_if_needed)
     if normalize_data:
@@ -114,11 +141,17 @@ def open_sequence(seq_dir, gray_mode=False, expand_if_needed=False,
                   max_num_fr=100):
     """The first ``max_num_fr`` frames of a folder -> ((T, 3, H, W), or
     (T, 1, H, W) with ``gray_mode``, float32 in [0, 1], expanded_h,
-    expanded_w), the frames expanded as ``open_image`` expands them."""
+    expanded_w), the frames expanded as ``open_image`` expands them. In
+    gray or expand mode the frames are turned by their EXIF orientation
+    (the JAX package reads them with cv2.imread there); by default they
+    are not (its native decoder)."""
     files = get_imagenames(seq_dir)[:max_num_fr]
     if not files:
         raise IOError(f'no images found in {seq_dir}')
-    seq = load_seq(files, gray_mode)                   # uint8
+    if gray_mode or expand_if_needed:
+        seq = _oriented_seq(files, gray_mode)          # uint8
+    else:
+        seq = load_seq(files, gray_mode)
     seq = seq[:, None] if gray_mode else np.transpose(seq, (0, 3, 1, 2))
     seq, expanded_h, expanded_w = _expand(seq, expand_if_needed)
     return seq.astype(np.float32) / 255., expanded_h, expanded_w

@@ -98,14 +98,13 @@ class SRModel(BaseModel):
                     'ranks of a square root is not that of the global batch')
 
     @staticmethod
-    def _adam(net, schedule, optim_opt):
+    def _adam(named_params, schedule, optim_opt):
         optim_opt = dict(optim_opt)
         if optim_opt.pop('type') != 'Adam':
             raise NotImplementedError(f'optimizer {optim_opt} is not '
                                       f'supported yet (Adam only)')
-        return Adam([(n, p) for n, p in net.named_parameters()
-                     if p.requires_grad], schedule,
-                    betas=optim_opt.get('betas', (0.9, 0.999)))
+        return Adam([(n, p) for n, p in named_params if p.requires_grad],
+                    schedule, betas=optim_opt.get('betas', (0.9, 0.999)))
 
     def init_training_settings(self):
         train_opt = self.opt['train']
@@ -114,7 +113,8 @@ class SRModel(BaseModel):
         if self.cri_pix is None and self.cri_perceptual is None:
             raise ValueError('Both pixel and perceptual losses are None.')
         self.lr_schedule = build_schedule(train_opt)
-        self.optimizer = self._adam(self.net, self.lr_schedule,
+        self.optimizer = self._adam(self.net.named_parameters(),
+                                    self.lr_schedule,
                                     train_opt['optim_g'])
 
     def feed_data(self, data):

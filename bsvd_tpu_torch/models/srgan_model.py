@@ -61,8 +61,10 @@ class SRGANModel(SRModel):
 
         def schedule_d(step):
             return np.float32(schedule_g(step) * ratio)
-        self.optimizer = self._adam(self.net, self.lr_schedule, og)
-        self.optimizer_d = self._adam(self.net_d, schedule_d, od)
+        self.optimizer = self._adam(self.net.named_parameters(),
+                                    self.lr_schedule, og)
+        self.optimizer_d = self._adam(self.net_d.named_parameters(),
+                                      schedule_d, od)
 
     def _gan_g(self, fake, gt):
         """G's adversarial loss on the (global) fake batch."""

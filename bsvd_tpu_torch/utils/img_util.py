@@ -203,9 +203,13 @@ def _reader(content, caller):
 def imsize(content):
     """(H, W) of a PNG, JPEG or BMP file's bytes, from its header, without
     decoding it (the reader picked by the signature, as ``imfrombytes``
-    picks it)."""
+    picks it): the size of ``imfrombytes``' colour or gray image, after
+    its EXIF orientation."""
+    from bsvd_tpu_torch.data import orientation  # data imports img_util
     content = bytes(content)
-    return _reader(content, 'imsize').buffer_dims(content)
+    h, w = _reader(content, 'imsize').buffer_dims(content)
+    return orientation.oriented_dims(
+        h, w, orientation.buffer_orientation(content))
 
 
 def imfrombytes(content, flag='color', float32=False):
@@ -214,9 +218,11 @@ def imfrombytes(content, flag='color', float32=False):
     other bytes raise ValueError naming their first bytes). ``flag``
     'color': (H, W, 3) uint8 BGR (a 16-bit PNG reduced to 8 bits);
     'grayscale': (H, W) uint8; 'unchanged': the file's own channels and
-    depth (gray (H, W), BGR, BGRA; 16-bit PNG uint16). ``float32`` divides
-    by 255, whatever the depth (a 16-bit image then runs past 1, as in
-    the JAX package)."""
+    depth (gray (H, W), BGR, BGRA; 16-bit PNG uint16). 'color' and
+    'grayscale' turn the image by its EXIF orientation as cv2 does
+    (``data/orientation``); 'unchanged' keeps the stored pixels, as cv2's
+    IMREAD_UNCHANGED does. ``float32`` divides by 255, whatever the depth
+    (a 16-bit image then runs past 1, as in the JAX package)."""
     if flag not in _MODES:
         raise ValueError(f'imfrombytes: flag {flag!r} (color, grayscale, '
                          f'unchanged)')
@@ -224,6 +230,9 @@ def imfrombytes(content, flag='color', float32=False):
     img = _reader(content, 'imfrombytes').decode(content, _MODES[flag])
     if flag == 'color':
         img = np.ascontiguousarray(img[..., ::-1])
+    if flag != 'unchanged':
+        from bsvd_tpu_torch.data import orientation  # data imports img_util
+        img = orientation.orient(img, orientation.buffer_orientation(content))
     if float32:
         img = img.astype(np.float32) / 255.0
     return img

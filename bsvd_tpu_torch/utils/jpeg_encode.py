@@ -14,8 +14,6 @@ from pathlib import Path
 
 import numpy as np
 
-from bsvd_tpu_torch.data import _gxx
-
 SOURCE = Path(__file__).resolve().parent.parent / 'data' / '_native' / \
     'jpeg_encode.cpp'
 GXX_FLAGS = ['-O3', '-shared', '-fPIC']
@@ -30,6 +28,8 @@ _lib = None
 def build():
     """Compile the writer if this source has no library yet; returns its
     path. Raises RuntimeError with g++'s output on failure."""
+    # read here: the data package's datasets import this module
+    from bsvd_tpu_torch.data import _gxx
     return _gxx.build(SOURCE, 'bsvd_jpeg_enc', GXX_FLAGS, [])
 
 

@@ -262,6 +262,22 @@ Phases, each printed as one JSON object on its own line:
    workers. Where it is hidden these runs cannot decode: the record says
    "not run" with the driver's error, and nv12_rgb's main-path launches
    are 0 (its ``main_path`` says why).
+17. zoo_vsr: the zoo's recurrent video SR, plain PyTorch (no kernel of
+   the port on its path, as the JAX package computes it in XLA), fp32
+   with TF32 off. One BasicVSR forward at the yml's widths (64 features,
+   30 blocks) on 5 frames of 64 x 64, the card against the CPU with the
+   same seeded weights, to 1e-4 x max|ref|. A REDS-layout train tree (2
+   clips x 20 frames, GT 256 x 320 PNGs of a moving textured field, 4x4-
+   mean LQs) and a REDS4-layout val tree (2 clips x 15 frames, LQ 90 x
+   160); the train CLI on options/train/basicvsr_reds.yml, --force_yml
+   changing only the folders, ``network_g:spynet_path=~`` (no SpyNet
+   weights in the repository), 30 iterations, fix_flow 10 and the print /
+   save / validation frequencies: the yml's batch 1, 15 frames, gt_size
+   256. Ms an iteration over 11-30 (the wait for data and the step), peak
+   memory, SpyNet's weights the same bits through iteration 9 and moved at
+   10, both Adams' counts, the validation PSNR and seconds a clip, the
+   checkpoint; the device profile of 3 more steps (busy ms, idle share,
+   the top kernels); then ``--auto_resume`` to 40 iterations.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
@@ -373,6 +389,8 @@ WORK = None
 MAIN_TIMING, KERNEL_SUMS, TRAIN_MS = {}, {}, {}
 # phase 12's bf16 train CLI validates with a PSNR metric (the train yml
 # names none), so that its event files hold metrics/psnr
+# nvidia-smi's name and power limit of the card (set in run)
+SMI = None
 TB_VAL_METRICS = ['val:metrics:psnr:type=calculate_psnr',
                   'val:metrics:psnr:crop_border=2',
                   'val:metrics:psnr:test_y_channel=false']
@@ -4026,6 +4044,205 @@ def phase_mp4(data):
     return run, dict(kernel, name=name, source=src, replaces=rep)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the zoo's recurrent video SR (BasicVSR) from basicvsr_reds.yml
+# ---------------------------------------------------------------------------
+
+VSR_YML = os.path.join(ROOT, 'options', 'train', 'basicvsr_reds.yml')
+# REDS-layout train clips, (clips, frames, GT H, GT W): enough frames for
+# the yml's num_frame 15, GT over its gt_size 256; REDS4-layout val clips
+# at half REDS4's size (LQ 90 x 160)
+VSR_TRAIN, VSR_VAL = (2, 20, 256, 320), (2, 15, 360, 640)
+VSR_ITERS, VSR_RESUME_ITERS, VSR_FIX_FLOW = 30, 40, 10
+VSR_NET = {'type': 'BasicVSR', 'num_feat': 64, 'num_block': 30}
+
+
+def _vsr_clips(root, clips, frames, h, w, rng, pool):
+    """clips x frames GT PNGs of h x w, a smooth textured field moving up
+    to 4 px a frame, and their 4x4-mean LQs, in REDS's layout
+    (<root>/gt/<clip>/<8 digits>.png, <root>/lq/...); returns the
+    writes' futures."""
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    futures, margin = [], 4 * frames
+    for c in range(clips):
+        dy, dx = rng.integers(-4, 5, 2)
+        hh, ww = h + 2 * margin, w + 2 * margin
+        base = rng.uniform(0, 255, (3, hh // 16 + 2, ww // 16 + 2))
+        field = F.interpolate(torch.from_numpy(base)[None], size=(hh, ww),
+                              mode='bilinear', align_corners=False)[0]
+        field = np.clip(field.permute(1, 2, 0).numpy()
+                        + rng.normal(0, 8, (hh, ww, 3)), 0, 255)
+        field = field.round().astype(np.uint8)
+        for i in range(frames):
+            y0, x0 = margin + i * dy, margin + i * dx
+            gt = np.ascontiguousarray(field[y0:y0 + h, x0:x0 + w])
+            lq = gt.reshape(h // 4, 4, w // 4, 4, 3).mean((1, 3)).round()
+            for tree, img in (('gt', gt), ('lq', lq.astype(np.uint8))):
+                futures.append(pool.submit(imwrite, img, os.path.join(
+                    root, tree, f'{c:03d}', f'{i:08d}.png')))
+    return futures
+
+
+def _vsr_parity():
+    """One full-width BasicVSR forward (5 frames of 64 x 64), the card's
+    fp32 (TF32 off) against the CPU's on the same weights, within 1e-4 x
+    max|ref|."""
+    net = build_network(dict(VSR_NET, seed=SEED), 'cpu').eval()
+    x = torch.from_numpy(np.random.default_rng(SEED + 51).uniform(
+        0, 1, (1, 5, 3, 64, 64)).astype(np.float32))
+    with torch.no_grad():
+        ref = net(x)
+        got = copy.deepcopy(net).to('cuda')(x.cuda()).cpu()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    rec = {'phase': 'zoo_vsr_parity', 'net': VSR_NET,
+           'shape_in': list(x.shape), 'shape_out': list(ref.shape),
+           'max_abs_err': err, 'max_abs_ref': scale,
+           'tol': f'{FP32_TOL} x max|ref|', 'fp32_tf32_off': True,
+           'params': count_params(net)}
+    emit(rec)
+    if not err <= FP32_TOL * scale or not torch.isfinite(got).all():
+        raise AssertionError(f'BasicVSR card vs CPU: {rec}')
+
+
+def _vsr_cmd(root, iters, *extra):
+    return ['-opt', VSR_YML, *extra, '--force_yml',
+            f'datasets:train:dataroot_gt={root}/train/gt',
+            f'datasets:train:dataroot_lq={root}/train/lq',
+            f'datasets:val:dataroot_gt={root}/val/gt',
+            f'datasets:val:dataroot_lq={root}/val/lq',
+            'network_g:spynet_path=~', f'train:total_iter={iters}',
+            f'train:fix_flow={VSR_FIX_FLOW}', 'logger:print_freq=10',
+            f'logger:save_checkpoint_freq={VSR_ITERS}',
+            f'val:val_freq={VSR_ITERS}']
+
+
+def _vsr_profile(model, dopt, n=3):
+    """The device profile of n more train steps of the CLI's model on one
+    item of its train dataset (after the CLI's run: its saved state is
+    what the resume reads)."""
+    item = build_dataset(dopt)[0]
+    model.feed_data({'lq': item['lq'][None], 'gt': item['gt'][None]})
+
+    def run():
+        for i in range(n):
+            model.optimize_parameters(VSR_ITERS + 1 + i)
+        torch.cuda.synchronize()
+    run()                                   # the same shapes, warm
+    prof = device_profile(run, n, 'vsr_steps')
+    prof.pop('by_kernel')
+    prof['top_device_ms_per_unit'] = prof['top_device_ms_per_unit'][:8]
+    return prof
+
+
+def _vsr_cli(root):
+    """The train CLI on basicvsr_reds.yml at its widths, batch, num_frame
+    and gt_size for VSR_ITERS iterations (SpyNet frozen before
+    VSR_FIX_FLOW), then --auto_resume to VSR_RESUME_ITERS."""
+    from bsvd_tpu_torch.models.video_recurrent_model import \
+        VideoRecurrentModel as VRM
+    from bsvd_tpu_torch.train import build_val_loaders
+    snaps, orig = {}, VRM.optimize_parameters
+
+    def watched(model, it):
+        first = model.net.spynet.basic_module[0].basic_module[0].weight
+        if it == 1:
+            snaps[0] = first.detach().clone()
+        orig(model, it)
+        if it in (VSR_FIX_FLOW - 1, VSR_FIX_FLOW):
+            snaps[it] = first.detach().clone()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    VRM.optimize_parameters = watched
+    try:
+        t0 = time.perf_counter()
+        with _StepClock((VRM,)) as clock:
+            model = train_pipeline(root, cmd=_vsr_cmd(root, VSR_ITERS))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        VRM.optimize_parameters = orig
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    opt = model.opt
+    loader = build_val_loaders(opt)[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    psnr = model.validation(loader, VSR_ITERS, None)['psnr']
+    torch.cuda.synchronize()
+    val_s = (time.perf_counter() - t0) / len(loader.dataset)
+    exp = os.path.join(root, 'experiments', opt['name'])
+    ckpt = os.path.join(exp, 'models', f'net_g_{VSR_ITERS}.npz')
+    dopt = opt['datasets']['train']
+    rec = {'phase': 'zoo_vsr_train_cli',
+           'yml': os.path.relpath(VSR_YML, ROOT),
+           'model': type(model).__name__, 'net': opt['network_g'],
+           'iters': VSR_ITERS, 'batch': dopt['batch_size_per_gpu'],
+           'num_frame': dopt['num_frame'], 'gt_size': dopt['gt_size'],
+           'lq_hw': [dopt['gt_size'] // opt['scale']] * 2,
+           'fix_flow': VSR_FIX_FLOW,
+           'network_g_params': count_params(model.net), 'wall_s': wall,
+           'steady': clock.steady(11, VSR_ITERS),
+           'peak_allocated_gb': peak, 'val_psnr': psnr,
+           'val_s_per_clip': val_s,
+           'val_clips': [len(loader.dataset), VSR_VAL[1],
+                         VSR_VAL[2] // 4, VSR_VAL[3] // 4],
+           'checkpoint': os.path.relpath(ckpt, WORK),
+           'checkpoint_mb': os.path.getsize(ckpt) / 1e6,
+           'spynet_frozen_through': torch.equal(snaps[0],
+                                                snaps[VSR_FIX_FLOW - 1]),
+           'spynet_moved_at_fix_flow': not torch.equal(
+               snaps[VSR_FIX_FLOW - 1], snaps[VSR_FIX_FLOW]),
+           'optimizer_counts': [model.optimizer.count,
+                                model.optimizer_flow.count],
+           'losses': model.get_current_log(), 'fp32_tf32_off': True,
+           'card': SMI}
+    emit(rec)
+    if not (len(clock.marks) == VSR_ITERS and math.isfinite(psnr)
+            and rec['optimizer_counts'] == [VSR_ITERS] * 2
+            and rec['spynet_frozen_through']
+            and rec['spynet_moved_at_fix_flow']
+            and all(math.isfinite(v) for v in rec['losses'].values())):
+        raise AssertionError(f'basicvsr_reds train CLI: {rec}')
+    emit({'phase': 'zoo_vsr_profile', **_vsr_profile(model, dopt)})
+    del model
+    with _StepClock((VRM,)) as clock:
+        resumed = train_pipeline(root, cmd=_vsr_cmd(
+            root, VSR_RESUME_ITERS, '--auto_resume'))
+    n = VSR_RESUME_ITERS - VSR_ITERS
+    rec = {'phase': 'zoo_vsr_auto_resume', 'from': VSR_ITERS,
+           'to': VSR_RESUME_ITERS, 'iters_run': len(clock.marks),
+           'optimizer_counts': [resumed.optimizer.count,
+                                resumed.optimizer_flow.count],
+           'steady': dict(clock.steady(2, n),
+                          global_iters=[VSR_ITERS + 2, VSR_RESUME_ITERS]),
+           'losses': resumed.get_current_log()}
+    emit(rec)
+    if not (rec['iters_run'] == n and rec['optimizer_counts'] ==
+            [VSR_RESUME_ITERS] * 2 and all(
+                math.isfinite(v) for v in rec['losses'].values())):
+        raise AssertionError(f'basicvsr_reds --auto_resume: {rec}')
+
+
+def phase_zoo_vsr():
+    """Phase 17: BasicVSR card against CPU, then the train CLI on
+    basicvsr_reds.yml and its --auto_resume. No kernel of the port is on
+    this path (plain PyTorch, as the JAX package's XLA)."""
+    _vsr_parity()
+    root = os.path.join(WORK, 'reds')
+    rng = np.random.default_rng(SEED + 50)
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        futures = (_vsr_clips(os.path.join(root, 'train'), *VSR_TRAIN, rng,
+                              pool)
+                   + _vsr_clips(os.path.join(root, 'val'), *VSR_VAL, rng,
+                                pool))
+        for f in futures:
+            f.result()
+    emit({'phase': 'zoo_vsr_data', 'write_s': time.perf_counter() - t0,
+          'train': VSR_TRAIN, 'val': VSR_VAL})
+    _vsr_cli(root)
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -4042,6 +4259,7 @@ def main():
 
 
 def run():
+    global SMI
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader', '-i', '0'],
@@ -4049,6 +4267,7 @@ def run():
     emit({'phase': 'device', 'name': name, 'count': torch.cuda.device_count(),
           'torch': torch.__version__, 'cuda': torch.version.cuda})
     print(smi.strip(), flush=True)
+    SMI = smi.strip()
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
@@ -4102,6 +4321,7 @@ def run():
     _sum_launches(parallel_launches, phase_zoo_sr())
     mp4_launches, nv12_rgb = phase_mp4(data)
     _sum_launches(parallel_launches, mp4_launches)
+    phase_zoo_vsr()
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

@@ -137,6 +137,11 @@ PARSE_CASES = {
     'train_auto_resume': (True, ['-opt', TRAIN_YML, '--auto_resume',
                                  '--launcher', 'pytorch', '--local_rank',
                                  '0', '--force_yml', 'num_gpu=1']),
+    'basicvsr_reds': (True, [
+        '-opt', os.path.join(ROOT, 'options', 'train', 'basicvsr_reds.yml'),
+        '--force_yml', 'num_gpu=1', 'network_g:spynet_path=~',
+        'datasets:train:dataroot_gt=/data/REDS/gt',
+        'datasets:val:dataroot_lq=/data/REDS4/lq', 'train:fix_flow=10']),
     'test': (False, ['-opt', TEST_YML, '--force_yml', 'num_gpu=1']),
     'test_force': (False, ['-opt', TEST_YML, '--force_yml', 'num_gpu=1',
                            'val:temp_psz=11', 'manual_seed=3',

@@ -8,6 +8,8 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 _PROBE = r"""
@@ -54,7 +56,13 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.data.sampler', 'bsvd_tpu_torch.models.sr_model',
         'bsvd_tpu_torch.models.srgan_model', 'bsvd_tpu_torch.data.mp4_demux',
         'bsvd_tpu_torch.data.h264_headers', 'bsvd_tpu_torch.data.nvdec',
-        'bsvd_tpu_torch.data.yuv'} \
+        'bsvd_tpu_torch.data.yuv', 'bsvd_tpu_torch.data.orientation',
+        'bsvd_tpu_torch.nn.warp', 'bsvd_tpu_torch.utils.flow_util',
+        'bsvd_tpu_torch.archs.spynet_arch',
+        'bsvd_tpu_torch.archs.basicvsr_arch',
+        'bsvd_tpu_torch.data.video_test_dataset',
+        'bsvd_tpu_torch.data.reds_dataset',
+        'bsvd_tpu_torch.models.video_recurrent_model'} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
@@ -73,6 +81,17 @@ def test_port_imports_without_jax_yaml_or_nvcc():
     res = subprocess.run([sys.executable, '-c', _PROBE], cwd=ROOT, env=env,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+@pytest.mark.parametrize('module', ['bsvd_tpu_torch.utils.jpeg_encode',
+                                    'bsvd_tpu_torch.utils.flow_util'])
+def test_module_imports_first(module):
+    """A module imported first in a fresh interpreter (no circular import
+    through the data package's datasets)."""
+    res = subprocess.run([sys.executable, '-c', f'import {module}'],
+                         cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert res.returncode == 0, res.stderr
 
 
 def test_chip_smoke_alone_fails(tmp_path):
