@@ -20,6 +20,9 @@ norm must run between a conv and its act (norm 'in'; BN on the batch's
 statistics while training) the route splits (``_Norms``): each conv runs
 with act 'none', then the norm and the act as plain torch ops, and the
 two-conv K2 sites become K1 launches (outc's residual then a torch op).
+A K2 site whose intermediate is too wide for K2's shared memory
+(``ops.conv_chain.fits``: bf16 past 256 channels, 192 with x2; fp32 past
+192) takes the same two K1 launches.
 
 Parameters are a nested dict mirroring the JAX tree, with torch OIHW conv
 weights: ``{'stage0': {'inc': {'c1': {'w', 'b'}, 'n1': {...}, ...}, ...}}``.
@@ -48,7 +51,8 @@ from bsvd_tpu_torch.nn.layers import (ACTS, NORMS, conv_init, fold_bn_conv,
 from bsvd_tpu_torch.nn.shift import chunk_carry, chunk_frame0
 from bsvd_tpu_torch.ops._pack import ConvWeights
 from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
-from bsvd_tpu_torch.ops.conv_chain import conv_chain, conv_chain_add2_res
+from bsvd_tpu_torch.ops.conv_chain import (conv_chain, conv_chain_add2_res,
+                                           fits)
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 from bsvd_tpu_torch.ops.shift_conv import shift_conv, shift_conv_add2
 from bsvd_tpu_torch.utils.registry import ARCH_REGISTRY
@@ -301,8 +305,9 @@ def _residual(x, y, rc):
 
 def _stem(inc, x, cfg, nrm):
     """inc without shift_input (conv, act, conv, act): one K2, or two K1
-    (+ norm) + act where the route splits."""
-    if nrm.split:
+    (+ norm) + act where the route splits or the intermediate is too wide
+    for K2 (``conv_chain.fits``)."""
+    if nrm.split or not fits(_cw(inc['c1']).cout, x.dtype, False):
         act = nrm.kernel_act
         x = nrm(conv3x3(x, _cw(inc['c1']), act=act), inc.get('n1'))
         return nrm(conv3x3(x, _cw(inc['c2']), act=act), inc.get('n2'))
@@ -319,8 +324,8 @@ def _down(d, x, nrm, level):
 def _outc(o, x, x2, res, cfg, nrm):
     """outc on (x + x2) (act(conv), then conv), then the residual from
     ``res`` (the stage input): one K2, or two K1 and a torch op where the
-    route splits."""
-    if nrm.split:
+    route splits or the intermediate is too wide for K2."""
+    if nrm.split or not fits(_cw(o['c1']).cout, x.dtype, True):
         y = nrm(conv3x3(x, _cw(o['c1']), x2=x2, act=nrm.kernel_act),
                 o.get('n1'))
         return _residual(res, conv3x3(y, _cw(o['c2']), act='none'),

@@ -14,7 +14,9 @@ Where the tag is (found against cv2 5.0):
 - PNG: the first ``eXIf`` chunk, anywhere before IEND, holding the TIFF
   structure itself (it must start with ``II`` or ``MM``, else libpng drops
   it);
-- BMP: none. (TIFF's tag 274 goes through ``tiff_orientation`` too.)
+- TIFF: the file is the TIFF structure, its IFD0's tag 274 read by the
+  same walk (cv2 turns a TIFF in every mode, IMREAD_UNCHANGED too);
+- BMP: none.
 
 The TIFF walk is cv2's ``ExifReader``: byte order ``II`` (little endian),
 anything else big endian; the mark 42; IFD0 at the offset in bytes 4-8;
@@ -135,6 +137,8 @@ def stream_orientation(f):
     for BMP and for files with no (readable) tag."""
     try:
         head = f.read(8)
+        if head[:4] in (b'II*\0', b'MM\0*'):
+            return tiff_orientation(head + f.read())
         if head[:2] == b'\xff\xd8':
             f.seek(2)
             tiff = _jpeg_exif(f)

@@ -8,15 +8,17 @@ reader's ``load_gray``.
 Each frame takes a route by its file type, never by what failed to build:
 ``.png`` the zlib reader (``png_decode``), ``.jpg`` / ``.jpeg`` the
 standard-C++ JPEG decoder (``jpeg_decode``), ``.bmp`` the BMP reader
-(``bmp_decode``); ``.tif`` raises NotImplementedError (not read yet). A
-folder of frames of several types raises. ``ROUTES`` counts the frames
-each route read in this process.
+(``bmp_decode``), ``.tif`` / ``.tiff`` the TIFF reader (``tiff_decode``);
+other types raise NotImplementedError. A folder of frames of several
+types raises. ``ROUTES`` counts the frames each route read in this
+process.
 
 Where the JAX package reads through cv2 (``open_image``, and
-``open_sequence`` in gray or expand mode), a frame is turned by its EXIF
-orientation as cv2 turns it (``data/orientation``); where it takes its
-native decoder (``open_sequence`` by default; the train loader's
-``load_crop_seq``) the stored pixels are kept, as there."""
+``open_sequence`` in gray or expand mode, or of TIFF frames, which its
+native decoder does not read), a frame is turned by its orientation (EXIF,
+or TIFF's tag 274) as cv2 turns it (``data/orientation``); where it takes
+its native decoder (``open_sequence`` of PNG / JPEG / BMP by default; the
+train loader's ``load_crop_seq``) the stored pixels are kept, as there."""
 
 import collections
 import glob
@@ -26,14 +28,15 @@ import threading
 import numpy as np
 
 from bsvd_tpu_torch.data import (bmp_decode, jpeg_decode, orientation,
-                                 png_decode)
+                                 png_decode, tiff_decode)
 from bsvd_tpu_torch.utils.misc import digit_sort_key
 
 IMAGETYPES = ('*.bmp', '*.png', '*.jpg', '*.jpeg', '*.tif')
 _MODULES = {'png_decode': png_decode, 'jpeg_decode': jpeg_decode,
-            'bmp_decode': bmp_decode}
+            'bmp_decode': bmp_decode, 'tiff_decode': tiff_decode}
 _BY_EXT = {'.png': 'png_decode', '.jpg': 'jpeg_decode',
-           '.jpeg': 'jpeg_decode', '.bmp': 'bmp_decode'}
+           '.jpeg': 'jpeg_decode', '.bmp': 'bmp_decode',
+           '.tif': 'tiff_decode', '.tiff': 'tiff_decode'}
 ROUTES = collections.Counter()
 _routes_lock = threading.Lock()
 
@@ -50,13 +53,14 @@ def get_imagenames(seq_dir, pattern=None):
 
 
 def route(path):
-    """The reader of a frame file by its type: 'png_decode', 'jpeg_decode'
-    or 'bmp_decode'. Other types (``.tif``) raise NotImplementedError."""
+    """The reader of a frame file by its type: 'png_decode', 'jpeg_decode',
+    'bmp_decode' or 'tiff_decode'. Other types raise
+    NotImplementedError."""
     ext = os.path.splitext(str(path))[1].lower()
     if ext not in _BY_EXT:
         raise NotImplementedError(
-            f'{path}: {ext or "extensionless"} frames are not read yet '
-            f'(PNG, JPEG and BMP only; TIFF: ROADMAP Queue 1)')
+            f'{path}: {ext or "extensionless"} frames are not read (PNG, '
+            f'JPEG, BMP and TIFF)')
     return _BY_EXT[ext]
 
 
@@ -142,13 +146,13 @@ def open_sequence(seq_dir, gray_mode=False, expand_if_needed=False,
     """The first ``max_num_fr`` frames of a folder -> ((T, 3, H, W), or
     (T, 1, H, W) with ``gray_mode``, float32 in [0, 1], expanded_h,
     expanded_w), the frames expanded as ``open_image`` expands them. In
-    gray or expand mode the frames are turned by their EXIF orientation
-    (the JAX package reads them with cv2.imread there); by default they
-    are not (its native decoder)."""
+    gray or expand mode, and for TIFF frames, the frames are turned by
+    their orientation (the JAX package reads them with cv2.imread there);
+    otherwise they are not (its native decoder)."""
     files = get_imagenames(seq_dir)[:max_num_fr]
     if not files:
         raise IOError(f'no images found in {seq_dir}')
-    if gray_mode or expand_if_needed:
+    if gray_mode or expand_if_needed or route(files[0]) == 'tiff_decode':
         seq = _oriented_seq(files, gray_mode)          # uint8
     else:
         seq = load_seq(files, gray_mode)

@@ -25,7 +25,9 @@ augmentation and noise of its own rows only, from a stream of its own
 (seeded from ``manual_seed`` and the rank).
 
 Frames are read by their file type (``data/utils_common.route``): PNG
-through the port's zlib reader, JPEG through the native decoder. mp4 clips
+through the port's zlib reader, JPEG through the native decoder, TIFF
+through ``data/tiff_decode`` (a window decodes only its strips or tiles;
+the stored pixels, as for PNG and JPEG). mp4 clips
 (``.mp4`` / ``.m4v`` / ``.mov``, H.264 4:2:0 8-bit) are demuxed by the
 port's own reader (``data/mp4_demux``), decoded on the card's NVDEC
 (``data/nvdec``: one decoder per worker thread and clip, as the JAX

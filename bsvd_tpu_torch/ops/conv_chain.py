@@ -6,10 +6,11 @@ Variants: ``conv_chain`` (inc), ``conv_chain_add2`` (conv1 reads x + x2)
 and ``conv_chain_add2_res`` (also out[..., c] = x_res[..., c] - y[..., c]
 for c < res_ch, the natural-layout per-stage residual; x_res keeps its own
 channel count). CPU tensors run ``conv_chain_reference``; CUDA tensors
-launch the kernel or raise (both kernels keep the whole intermediate in
-shared memory: bf16 takes up to 256 channels, 192 with x2, fp32 192; a
-wider one is refused at launch with CUDA's error; every WNet chain has
-64). ``conv_chain.launches`` counts launches of all three variants.
+launch the kernel or raise. Both kernels keep the whole intermediate in
+shared memory, so a wide one is refused at launch with CUDA's error:
+``fits`` says which widths launch (bf16 up to 256 channels, 192 with x2;
+fp32 192), and the arch sends a wider chain to two K1 launches before it
+gets here. ``conv_chain.launches`` counts launches of all three variants.
 
 All three are differentiable, with conv_chain.py _chain_direct_bwd's
 backward: the act2 mask from the saved output and only the intermediate h
@@ -41,6 +42,37 @@ def conv_chain_reference(x, w1, b1, w2, b2, act1='relu6', act2='none',
         y = torch.cat([x_res[..., :res_ch] - y[..., :res_ch],
                        y[..., res_ch:]], dim=-1)
     return y
+
+
+# the most dynamic shared memory a block may ask for on sm_90
+# (cudaFuncAttributeMaxDynamicSharedMemorySize, 227 KB)
+SMEM_MAX = 232448
+
+
+def smem_bytes(c_mid, dtype, has_x2):
+    """The shared memory K2 asks for at ``c_mid`` intermediate channels
+    (padded to 64), by csrc/conv_chain.cu's launch_chain: bf16 ChainCfg's
+    ring of conv1 slices (PipeCfg<1, TH + 2, 64, NX, 2, 32>: NX patches of
+    (TH + 4) x 34 pixels x 16 channels and 9 x 64 x 16 weights a stage, two
+    stages) plus the (TH + 2) x 32 intermediate, with TH 14 for a 64-wide
+    chain on x + x2 and 8 otherwise; fp32 conv_chain_kernel's 12 x 20
+    patch and 9 x 64 weight rows at a 24-element stride plus the 10 x 18
+    intermediate at C1P + 8."""
+    c1p = -(-c_mid // 64) * 64
+    if dtype == torch.bfloat16:
+        nx = 2 if has_x2 else 1
+        th = 14 if has_x2 and c1p == 64 else 8
+        stage = nx * (th + 4) * 34 * 16 + 9 * 64 * 16
+        return (2 * stage + (th + 2) * 32 * c1p) * 2
+    return (12 * 20 * 24 + 9 * 64 * 24 + 10 * 18 * (c1p + 8)) * 4
+
+
+def fits(c_mid, dtype, has_x2):
+    """Whether K2 launches a chain with ``c_mid`` intermediate channels
+    in ``dtype`` (``has_x2``: conv1 reads x + x2): its intermediate and
+    ring fit a block's shared memory. bf16 takes up to 256 channels, 192
+    with x2; fp32 192 either way (the fp32 kernel reads x2 with x)."""
+    return smem_bytes(c_mid, dtype, has_x2) <= SMEM_MAX
 
 
 def packed_w2(c2w, device, dtype):

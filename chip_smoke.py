@@ -278,11 +278,29 @@ Phases, each printed as one JSON object on its own line:
    10, both Adams' counts, the validation PSNR and seconds a clip, the
    checkpoint; the device profile of 3 more steps (busy ms, idle share,
    the top kernels); then ``--auto_resume`` to 40 iterations.
+18. k2_route, tiff_frames, tools: K2's width gate (``ops/conv_chain.fits``)
+   against the kernel at each limit (bf16 256, 192 with x2; fp32 192:
+   the widest launches, 64 more is refused); the c64 net with interm_ch
+   320 in bf16 at 10 x 540 x 960 (inc as two K1 launches, outc on K2:
+   K2 2, K1 20 a forward) by phase 4's PSNR rule against the fp32 plain
+   route, and in fp32, and with chns[0] 256 too (every chain split, K2
+   0), on 3 x 136 x 240 against the plain route to 1e-4 x max|ref|. A
+   540 x 960 frame written as TIFF by the port (LZW and Deflate with
+   predictor 2, none) and as PNG: read back equal, ms a decode of each
+   and of a 96 x 96 TIFF window. ``tools/run_eval_burnin`` (the JAX
+   repo's option file) on one 25-frame 540 x 960 .tif folder at sigma 20
+   (``test_pipeline``; K1-K4 at one forward's counts, every frame by the
+   TIFF reader, finite metrics) and on a 10-frame DAVIS-shaped PNG folder;
+   then each timing tool once at full width (BSVD-c64, 540 x 960 bf16
+   clip and stream, the batch-16 train step with ``--real-data``), in
+   this process: its JSON line parsed, every kernel it times held against
+   its plain version by the tool (fp32 1e-4 x max|ref|, bf16 2^-6 x max(1,
+   max|ref|)); the tools' numbers and seconds.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14, 15 and 16 (counters set to 0
-before each run, read after; phase 13's ranks and phase 14's profile entry count
+phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14, 15, 16 and 18 (counters set to
+0 before each run, read after; phase 13's ranks and phase 14's profile entry count
 their runs in their own processes), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
 / ``library_pair_ms`` / ``bound_ms``, the phase-2 site medians and bounds
@@ -335,7 +353,7 @@ from bsvd_tpu_torch.archs.wnet_arch import (wnet_apply,  # noqa: E402
 from bsvd_tpu_torch.convert.torch_ckpt import to_jax_params  # noqa: E402
 from bsvd_tpu_torch.data import build_dataset  # noqa: E402
 from bsvd_tpu_torch.data import (jpeg_decode, png_decode,  # noqa: E402
-                                 utils_common)
+                                 tiff_decode, utils_common)
 from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
     noisy_batch, synthetic_clips)
 from bsvd_tpu_torch.metrics import calculate_psnr_float  # noqa: E402
@@ -4242,6 +4260,271 @@ def phase_zoo_vsr():
           'train': VSR_TRAIN, 'val': VSR_VAL})
     _vsr_cli(root)
 
+# ---------------------------------------------------------------------------
+# phase 18: K2's width gate, TIFF frames and the timing tools
+# ---------------------------------------------------------------------------
+
+# chains past K2's shared memory: the c64 net with interm_ch 320 (bf16 and
+# fp32: inc split, outc on K2) and chns[0] 256 with interm_ch 320 in fp32
+# (both chains of each stage split; outc's is the x2 chain, past fp32's
+# 192); the fp32 checks on a reduced clip
+WIDE_FP32_T, WIDE_FP32_HW = 3, (136, 240)
+# each tool once at full width, few repetitions
+TOOL_RUNS = (
+    ('profile_blocks', ['--reps', '3']),
+    ('profile_stream', ['--reps', '5', '--pushes', '20']),
+    ('bench_train', ['--batch', '16', '--iters', '5', '--real-data',
+                     '--synth-clips', '2', '--synth-frames', '12',
+                     '--workers', '4']),
+    ('bench_push_block', ['--reps', '2']),
+    ('bench_stream_block_step', ['--reps', '2']),
+    ('bench_block_stream', ['--reps', '2']),
+    ('probe_mem', ['--reps', '3']),
+    ('probe_streams', ['--pushes', '10']),
+)
+TIFF_T = 25
+
+
+def _k2_limits():
+    """conv_chain.fits against the kernel at each limit: the widest
+    intermediate launches, 64 channels more is refused (not counted)."""
+    x = torch.zeros((1, 8, 30, 16), device='cuda')
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for has_x2 in (False, True):
+            widest = max(c for c in range(64, 513, 64)
+                         if conv_chain_mod.fits(c, dtype, has_x2))
+            ok = {}
+            for c1 in (widest, widest + 64):
+                w1 = torch.zeros((c1, 16, 3, 3), device='cuda')
+                w2 = torch.zeros((64, c1, 3, 3), device='cuda')
+                v = x.to(dtype)
+                before = conv_chain.launches
+                try:
+                    if has_x2:
+                        conv_chain_add2_res(v, v, v, w1, None, w2, None,
+                                            res_ch=3)
+                    else:
+                        conv_chain(v, w1, None, w2, None)
+                    torch.cuda.synchronize()
+                    ok[c1] = conv_chain.launches == before + 1
+                except RuntimeError as e:
+                    if 'CUDA error' not in str(e):
+                        raise
+                    ok[c1] = False
+            if ok != {widest: True, widest + 64: False}:
+                raise AssertionError(f'K2 at {dtype}, x2 {has_x2}: fits '
+                                     f'says {widest}, the kernel {ok}')
+            out[f'{str(dtype)[6:]}{"_x2" if has_x2 else ""}'] = widest
+    return out
+
+
+def _wide_forward(cfg_over, dtype, t_len, hw, seed, device):
+    """A forward of the c64 net changed by ``cfg_over`` through the
+    kernels, its launches, and its input and fp32 weights."""
+    from bsvd_tpu_torch.archs.wnet_arch import (WNetConfig, prepare_params,
+                                                wnet_init)
+    base = dict(chns=tuple(C64['chns']), mid_ch=C64['mid_ch'],
+                interm_ch=C64['interm_ch'], norm='none', act=C64['act'])
+    cfg = WNetConfig(**dict(base, **cfg_over))
+    raw = prepare_params(wnet_init(cfg, seed=seed), device, torch.float32)
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = torch.rand((1, t_len, *hw, 4), generator=g, device=device)
+    reset_counts()
+    with torch.no_grad(), _no_conv2d_on(device):
+        y = wnet_apply(prepare_params(raw, device, dtype), x.to(dtype), cfg)
+    _sync(device)
+    return cfg, raw, x, y, counts()
+
+
+def _sync(device):
+    if torch.device(device).type == 'cuda':
+        torch.cuda.synchronize()
+
+
+def _no_conv2d_on(device):
+    """F.conv2d refused on the card's kernel path (on the CPU the ops'
+    plain versions call it)."""
+    import contextlib
+    return (_NoConv2d() if torch.device(device).type == 'cuda'
+            else contextlib.nullcontext())
+
+
+def _wide_chains(device='cuda', full=(T, (H, W)),
+                 small=(WIDE_FP32_T, WIDE_FP32_HW)):
+    """The split route at full width (bf16, interm_ch 320) and the fp32
+    split sites against the plain route (on ``small`` clips); returns the
+    records and the launches (on the CPU the ops run their plain versions
+    and launch nothing: a rehearsal)."""
+    from bsvd_tpu_torch.archs.wnet_arch import prepare_params
+    from bsvd_tpu_torch.tools import _common as tc
+    launches = dict.fromkeys(KERNELS, 0)
+    recs = []
+    on_card = torch.device(device).type == 'cuda'
+    for name, over, dtype, (t_len, hw), k2 in (
+            ('bf16_interm320', {'interm_ch': 320}, torch.bfloat16, full, 2),
+            ('fp32_interm320', {'interm_ch': 320}, torch.float32, small, 2),
+            ('fp32_c256_interm320', {'interm_ch': 320,
+                                     'chns': (256, 128, 256)},
+             torch.float32, small, 0)):
+        cfg, raw, x, y, n = _wide_forward(over, dtype, t_len, hw, SEED + 18,
+                                          device)
+        want = dict(PER_FORWARD, conv_chain=k2,
+                    conv3x3=PER_FORWARD['conv3x3'] + 2 * (4 - k2))
+        for k in KERNELS:
+            if on_card and n[k] != want.get(k, 0):
+                raise AssertionError(f'{name}: {k} launched {n[k]}, '
+                                     f'expected {want.get(k, 0)}')
+            launches[k] += n[k]
+        with torch.no_grad(), tc.plain_route():
+            ref = wnet_apply(raw, x, cfg)
+            if dtype == torch.bfloat16:
+                plain = wnet_apply(prepare_params(raw, device, dtype),
+                                   x.to(dtype), cfg)
+        if dtype == torch.float32:
+            err, _ = rel_err(y, ref)
+            tol = FP32_TOL * ref.abs().max().item()
+            if not err <= tol:
+                raise AssertionError(f'{name}: max|diff| {err} > {tol}')
+            check = {'max_abs_err': err, 'tol': tol}
+        else:
+            # phase 4's rule: the kernels' bf16 output no more than 1 dB
+            # below the plain bf16 route's, both against the plain fp32
+            p_k, p_plain = psnr(y, ref), psnr(plain, ref)
+            if not p_k >= p_plain - 1:
+                raise AssertionError(f'{name}: {p_k} dB against fp32, the '
+                                     f'plain bf16 route {p_plain}')
+            p = prepare_params(raw, device, dtype)
+            xb = x.to(dtype)
+            with torch.no_grad():
+                ms = (median_ms(lambda: wnet_apply(p, xb, cfg), reps=5)
+                      if on_card else None)
+            check = {'psnr_vs_fp32_plain_db': p_k,
+                     'plain_bf16_psnr_db': p_plain, 'forward_ms': ms}
+            del plain, p, xb
+        recs.append({'net': name, 'interm_ch': cfg.interm_ch,
+                     'chns': list(cfg.chns), 'frames': t_len, 'hw': list(hw),
+                     'launches': {k: v for k, v in n.items() if v},
+                     'k2_at_split_sites': 0, **check})
+        del y, ref
+    return recs, launches
+
+
+def _tiff_rates():
+    """ms to decode a 540x960 frame as TIFF (LZW + predictor 2, Deflate +
+    predictor 2, none: the port's writer, cv2's defaults) beside PNG's,
+    the same frame; each read back equal to it."""
+    from bsvd_tpu_torch.utils import img_util
+    clean = _clips(np.random.default_rng(SEED + 19), 1, 1)[0][0][0]
+    rgb = np.round(clean.transpose(1, 2, 0) * 255).astype(np.uint8)
+    bgr = np.ascontiguousarray(rgb[..., ::-1])
+    folder = os.path.join(WORK, 'tiff_rates')
+    os.makedirs(folder, exist_ok=True)
+    out = {}
+    for name, ext, params, load in (
+            ('tiff_lzw_predictor', 'tif', [5], tiff_decode.load),
+            ('tiff_deflate_predictor', 'tif', [8], tiff_decode.load),
+            ('tiff_none', 'tif', [1], tiff_decode.load),
+            ('png', 'png', None, png_decode.load)):
+        path = os.path.join(folder, f'{name}.{ext}')
+        t0 = time.perf_counter()
+        img_util.imwrite(bgr, path, None if params is None else
+                         [img_util.IMWRITE_TIFF_COMPRESSION, params[0]])
+        write_ms = (time.perf_counter() - t0) * 1e3
+        if not np.array_equal(load(path), rgb):
+            raise AssertionError(f'{name}: read back differs')
+        out[name] = {'ms_per_frame': _median_ms(lambda: load(path), 10),
+                     'write_ms': write_ms, 'bytes': os.path.getsize(path)}
+    path = os.path.join(folder, 'tiff_lzw_predictor.tif')
+    win = min(TRAIN_HW, H // 2, W // 2)
+    out['tiff_lzw_window_96_ms'] = _median_ms(
+        lambda: tiff_decode.load_crop(path, H // 3, W // 3, win, win), 10)
+    return out
+
+
+def _run_tool(name, argv, device='cuda'):
+    """``bsvd_tpu_torch.tools.<name>.main(argv)`` in this process; its
+    stdout's last line parsed as JSON (and equal to what main returns)."""
+    import importlib
+    import io
+    from contextlib import redirect_stdout
+    mod = importlib.import_module(f'bsvd_tpu_torch.tools.{name}')
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with redirect_stdout(buf):
+        rec = mod.main(list(argv))
+    seconds = time.perf_counter() - t0
+    lines = buf.getvalue().strip().splitlines()
+    if json.loads(lines[-1]) != json.loads(json.dumps(rec)):
+        raise AssertionError(f'{name}: its JSON line is not its record')
+    if rec['tool'] != name or rec['device'] != device:
+        raise AssertionError(f'{name}: {rec["tool"]} on {rec["device"]}')
+    return rec, seconds
+
+
+def _tool_summary(name, rec):
+    """The numbers PERF.md keeps of a tool's record (the whole record is
+    printed as the tool's own line before)."""
+    sites = [k for k in ('blocks', 'sites') if isinstance(rec.get(k), list)]
+    keep = {k: v for k, v in rec.items()
+            if k not in sites + ['device', 'device_name']}
+    for key in sites:
+        keep[key] = {s['site']: {k: s[k] for k in (
+            'ms', 'plain_ms', 'library_ms', 'bound_ms', 'bound_by',
+            'max_abs_err_fp32', 'tol_fp32', 'max_abs_err_bf16', 'tol_bf16')}
+            for s in rec[key]}
+    return keep
+
+
+def phase_tools(device='cuda', tool_args=(), burnin_args=(), wide=None):
+    """Phase 18. Returns the launches of this slice's main paths: the wide
+    chains' forwards and test_pipeline on the .tif folder. On the CPU (a
+    rehearsal at the sizes ``tool_args`` / ``burnin_args`` / ``wide``
+    give) the launch and K2-limit checks are left out."""
+    on_card = torch.device(device).type == 'cuda'
+    t0 = time.perf_counter()
+    limits = _k2_limits() if on_card else None
+    wide, launches = _wide_chains(device, **(wide or {}))
+    emit({'phase': 'k2_route', 'widest_k2_intermediate': limits,
+          'nets': wide, 'smi': SMI})
+    emit({'phase': 'tiff_frames', 'hw': [H, W], 'smi': SMI,
+          'decode': _tiff_rates()})
+    # test_pipeline on a 25-frame 540x960 .tif folder (the Set8 family of
+    # the burn-in tool), the slice's main path: counted
+    burnin = ['--root', os.path.join(WORK, 'burnin'), '--device', device,
+              *burnin_args]
+    routes = dict(utils_common.ROUTES)
+    reset_counts()
+    with _no_conv2d_on(device):
+        rec, secs = _run_tool('run_eval_burnin', burnin + [
+            '--only', 'set8', '--set8-clips', '1', '--frames', str(TIFF_T),
+            '--sigmas', '20', '--format', 'tif'], device)
+    n = counts()
+    for k in KERNELS:
+        want = PER_FORWARD.get(k, 0)
+        if on_card and n[k] != want:
+            raise AssertionError(f'tif test_pipeline: {k} launched {n[k]}, '
+                                 f'expected {want}')
+        launches[k] += n[k]
+    if _routes_since(routes) != {'tiff_decode': TIFF_T}:
+        raise AssertionError(f'tif frames read by {_routes_since(routes)}')
+    if not all(math.isfinite(v) for m in rec['results'].values()
+               for v in m.values()):
+        raise AssertionError('tif test_pipeline: a metric is not finite')
+    tools = {'run_eval_burnin_set8_tif': dict(_tool_summary(
+        'run_eval_burnin', rec), seconds=secs)}
+    rec, secs = _run_tool('run_eval_burnin', burnin + [
+        '--only', 'davis', '--davis-clips', '1', '--frames', '10',
+        '--sigmas', '30'], device)
+    tools['run_eval_burnin_davis_png'] = dict(
+        _tool_summary('run_eval_burnin', rec), seconds=secs)
+    for name, argv in TOOL_RUNS:
+        rec, secs = _run_tool(name, list(argv) + ['--device', device,
+                                                  *tool_args], device)
+        tools[name] = dict(_tool_summary(name, rec), seconds=secs)
+    emit({'phase': 'tools', 'smi': SMI, 'tools': tools,
+          'seconds': time.perf_counter() - t0})
+    return launches
 
 def main():
     global WORK
@@ -4276,12 +4559,13 @@ def run():
     with ThreadPoolExecutor(4) as pool:
         helpers = {name: pool.submit(mod.build) for name, mod in (
             ('png_unfilter', png_decode), ('jpeg_decode', jpeg_decode),
-            ('jpeg_encode', jpeg_encode), ('nvdec', nvdec))}
+            ('jpeg_encode', jpeg_encode), ('nvdec', nvdec),
+            ('tiff_decode', tiff_decode))}
         lib_path = _build.build()
         _build.lib()
         t1 = time.perf_counter()
         helpers = {k: f.result() for k, f in helpers.items()}
-    for mod in (png_decode, jpeg_decode, jpeg_encode, nvdec):
+    for mod in (png_decode, jpeg_decode, jpeg_encode, nvdec, tiff_decode):
         mod.lib()
     emit({'phase': 'build', 'seconds': t1 - t0,
           'library': os.path.relpath(lib_path, ROOT),
@@ -4322,6 +4606,7 @@ def run():
     mp4_launches, nv12_rgb = phase_mp4(data)
     _sum_launches(parallel_launches, mp4_launches)
     phase_zoo_vsr()
+    _sum_launches(parallel_launches, phase_tools())
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

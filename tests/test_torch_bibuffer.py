@@ -17,6 +17,7 @@ import torch
 
 from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain, bibuffer_conv,
                                               bibuffer_multi)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jnp = pytest.importorskip('jax.numpy')
 

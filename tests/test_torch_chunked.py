@@ -29,6 +29,7 @@ from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 
 from golden_util import golden
 from reference_util import SMALL_NET2D_OPT
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')

@@ -11,6 +11,7 @@ from bsvd_tpu_torch.archs.wnet_arch import WNetConfig
 from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
                                                load_tsn_state_dict,
                                                to_tsn_state_dict, tsn_key_map)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 

@@ -1184,3 +1184,36 @@ def test_mp4_refusals_name_their_cause(nvdec_dev):
         except nvdec.NvdecError as e:
             refused.append(str(e))
     assert any('cuvidGetDecoderCaps' in r for r in refused), refused
+
+
+@pytest.mark.parametrize('dtype,chns,interm', [
+    (torch.float32, (64, 32, 64), 320), (torch.float32, (256, 32, 64), 16),
+    (torch.bfloat16, (64, 32, 64), 320), (torch.bfloat16, (256, 32, 64),
+                                          16)],
+    ids=['fp32_inc320', 'fp32_outc256', 'bf16_inc320', 'bf16_outc256'])
+def test_wide_chains_run_as_two_k1_on_the_card(dev, dtype, chns, interm):
+    """A chain too wide for K2 (``conv_chain.fits``) runs as two K1
+    launches: K2 launches only at the sites that fit (2 of the 4), the
+    rest through K1, and the forward equals the plain route on the CPU
+    (fp32: 1e-4 x max|ref|; bf16: above 30 dB PSNR against the fp32 plain
+    forward of the same bf16 input, chip_smoke phase 4's kind of rule for
+    a whole bf16 net)."""
+    from bsvd_tpu_torch.archs.wnet_arch import (WNetConfig, prepare_params,
+                                                wnet_apply, wnet_init)
+    cfg = WNetConfig(chns=chns, mid_ch=16, interm_ch=interm, norm='none',
+                     act='relu6')
+    raw = wnet_init(cfg, seed=5)
+    x = torch.rand((1, 2, 24, 40, 4), generator=torch.Generator()
+                   .manual_seed(5)).to(dtype)
+    k2, k1 = conv_chain.launches, conv3x3.launches
+    got = wnet_apply(prepare_params(raw, dev, dtype), x.to(dev), cfg)
+    torch.cuda.synchronize()
+    assert conv_chain.launches - k2 == 2
+    assert conv3x3.launches - k1 == 16 + 2 * 2
+    ref = wnet_apply(prepare_params(raw, 'cpu', torch.float32), x.float(),
+                     cfg)
+    if dtype == torch.float32:
+        _close(got.cpu(), ref, dtype)
+    else:
+        mse = ((got.cpu().float().clamp(0, 1) - ref.clamp(0, 1)) ** 2).mean()
+        assert 10 * np.log10(1 / max(mse.item(), 1e-20)) > 30

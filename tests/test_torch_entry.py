@@ -27,6 +27,7 @@ from bsvd_tpu_torch.data import SimpleLoader, build_dataloader
 from bsvd_tpu_torch.utils import logger as port_logger
 from bsvd_tpu_torch.utils import misc, options, yaml_lite
 from bsvd_tpu_torch.utils.img_util import imwrite
+from torch_threads import one_torch_thread  # noqa: F401
 
 yaml = pytest.importorskip('yaml')
 pytest.importorskip('jax')

@@ -36,6 +36,7 @@ from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
 
 from golden_util import golden
 from reference_util import SMALL_NET2D_OPT
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')
@@ -128,17 +129,17 @@ def test_png_writer_round_trips_through_cv2(tmp_path, shape):
 
 
 def test_png_writer_refuses_other_formats(tmp_path):
-    """imwrite writes PNG and JPEG by the extension (the JPEG read back by
-    cv2 as cv2's own file at quality 95, 4:2:0); other formats, float
-    images and flags the format does not read raise ValueError."""
+    """imwrite writes PNG, JPEG and TIFF by the extension (the JPEG read
+    back by cv2 as cv2's own file at quality 95, 4:2:0); other formats,
+    float images and flags the format does not read raise ValueError."""
     img = np.random.default_rng(2).integers(0, 256, (12, 20, 3),
                                             dtype=np.uint8)
     imwrite(img, str(tmp_path / 'f.jpg'))
     _, ref = cv2.imencode('.jpg', img)
     np.testing.assert_array_equal(cv2.imread(str(tmp_path / 'f.jpg')),
                                   cv2.imdecode(ref, cv2.IMREAD_COLOR))
-    for name in ('f.bmp', 'f.tif', 'f'):
-        with pytest.raises(ValueError, match='PNG and JPEG only'):
+    for name in ('f.bmp', 'f.gif', 'f'):
+        with pytest.raises(ValueError, match='PNG, JPEG and TIFF only'):
             imwrite(img, str(tmp_path / name))
     for name in ('f.png', 'f.jpg'):
         with pytest.raises(ValueError, match='uint8'):

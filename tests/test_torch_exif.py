@@ -32,6 +32,7 @@ from bsvd_tpu_torch.data import orientation
 from bsvd_tpu_torch.data import utils_common as port
 from bsvd_tpu_torch.utils import img_util
 from bsvd_tpu_torch.utils.jpeg_encode import encode_jpeg
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax_uc = pytest.importorskip('bsvd_tpu.data.utils_common')
 cv2 = pytest.importorskip('cv2')

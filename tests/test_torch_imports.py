@@ -62,15 +62,23 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.archs.basicvsr_arch',
         'bsvd_tpu_torch.data.video_test_dataset',
         'bsvd_tpu_torch.data.reds_dataset',
-        'bsvd_tpu_torch.models.video_recurrent_model'} \
+        'bsvd_tpu_torch.models.video_recurrent_model',
+        'bsvd_tpu_torch.data.tiff_decode'} | {
+        f'bsvd_tpu_torch.tools.{t}' for t in (
+            '_common', '_stream_bench', 'make_synth_dataset',
+            'profile_blocks', 'profile_stream', 'bench_train',
+            'bench_push_block', 'bench_stream_block_step',
+            'bench_block_stream', 'run_eval_burnin', 'probe_mem',
+            'probe_streams')} \
     <= set(names), names
 assert not bad, bad
 from bsvd_tpu_torch.ops import _build
-from bsvd_tpu_torch.data import jpeg_decode, png_decode
+from bsvd_tpu_torch.data import jpeg_decode, png_decode, tiff_decode
 from bsvd_tpu_torch.utils import jpeg_encode
 from bsvd_tpu_torch.data import nvdec
 assert _build._lib is None       # nothing built or loaded at import
 assert jpeg_decode._lib is None and png_decode._lib is None
+assert tiff_decode._lib is None
 assert jpeg_encode._lib is None and nvdec._lib is None
 """
 

@@ -24,6 +24,7 @@ from bsvd_tpu_torch.data import build_dataloader, build_dataset
 from bsvd_tpu_torch.data.utils_common import open_image, open_sequence
 from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
 from bsvd_tpu_torch.utils.logger import get_root_logger
+from torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 jax = pytest.importorskip('jax')

@@ -21,6 +21,7 @@ import pytest
 from bsvd_tpu_torch.data import bmp_decode, jpeg_decode, utils_common
 from bsvd_tpu_torch.utils.img_util import imwrite
 from bsvd_tpu_torch.utils.jpeg_encode import encode_jpeg
+from torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 

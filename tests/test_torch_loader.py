@@ -27,6 +27,7 @@ from bsvd_tpu_torch.utils.img_util import imwrite
 from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
 
 from png_util import chunk, make_png, pack_rows
+from torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 
@@ -285,13 +286,15 @@ def test_frame_fixtures_are_cv2s_decode():
 
 def test_frames_take_a_route_by_file_type(tmp_path):
     """.png always the zlib reader, .jpg / .jpeg the standard-C++ JPEG
-    decoder, .bmp the BMP reader; .tif raises NotImplementedError naming
-    the type; open_sequence counts each frame's route."""
+    decoder, .bmp the BMP reader, .tif / .tiff the TIFF reader; other
+    types raise NotImplementedError naming the type; open_sequence counts
+    each frame's route."""
     assert [utils_common.route(f'a{e}') for e in (
-        '.png', '.PNG', '.jpg', '.jpeg', '.JPG', '.bmp')] == \
-        ['png_decode'] * 2 + ['jpeg_decode'] * 3 + ['bmp_decode']
-    with pytest.raises(NotImplementedError, match='.tif'):
-        utils_common.route('a.tif')
+        '.png', '.PNG', '.jpg', '.jpeg', '.JPG', '.bmp', '.tif', '.TIFF')] \
+        == ['png_decode'] * 2 + ['jpeg_decode'] * 3 + ['bmp_decode'] + \
+        ['tiff_decode'] * 2
+    with pytest.raises(NotImplementedError, match='.webp'):
+        utils_common.route('a.webp')
     frames = RNG.integers(0, 256, (3, 9, 11, 3), dtype=np.uint8)
     for i, f in enumerate(frames):
         imwrite(f[..., ::-1], str(tmp_path / f'{i}.png'))

@@ -21,6 +21,7 @@ from bsvd_tpu_torch.ops.conv_chain import (conv_chain, conv_chain_add2,
                                            conv_chain_add2_res)
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 from bsvd_tpu_torch.ops.shift_conv import shift_conv, shift_conv_add2
+from torch_threads import one_torch_thread  # noqa: F401
 
 jnp = pytest.importorskip('jax.numpy')
 

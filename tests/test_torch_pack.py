@@ -6,6 +6,7 @@ import torch
 
 from bsvd_tpu_torch.ops._pack import ConvWeights, ps_order
 from bsvd_tpu_torch.ops.conv3x3 import dw_plan, dw_split_tiles
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def test_ps_order_maps_rows_to_sub_pixels():

@@ -36,6 +36,7 @@ from bsvd_tpu_torch.ops.conv3x3 import (conv3x3, conv3x3_dw,
 from bsvd_tpu_torch.ops.conv_chain import conv_chain_add2_res
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 from bsvd_tpu_torch.tools import parse_trace
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 C64_YML = os.path.join(ROOT, 'options', 'test', 'bsvd_c64.yml')

@@ -31,6 +31,7 @@ from bsvd_tpu_torch.convert.torch_generic import (from_jax_tree,
                                                   state_dict_to_tree,
                                                   to_jax_tree,
                                                   tree_to_state_dict)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')

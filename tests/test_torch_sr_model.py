@@ -35,6 +35,7 @@ import torch
 
 from bsvd_tpu_torch.convert.torch_generic import from_jax_tree
 from bsvd_tpu_torch.losses import build_loss
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')

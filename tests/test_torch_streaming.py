@@ -26,6 +26,7 @@ from bsvd_tpu_torch.ops.bibuffer_conv import (bibuffer_chain, bibuffer_conv,
 from bsvd_tpu_torch.ops.conv3x3 import conv3x3, conv_ps
 from bsvd_tpu_torch.ops.conv_chain import conv_chain
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')

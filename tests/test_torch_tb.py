@@ -16,6 +16,7 @@ import pytest
 from bsvd_tpu_torch.utils import logger as port_logger
 from bsvd_tpu_torch.utils import tb_events
 from bsvd_tpu_torch.utils.img_util import imwrite
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 TRAIN_YML = os.path.join(ROOT, 'options', 'train', 'bsvd_c64_unblind.yml')

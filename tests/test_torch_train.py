@@ -37,6 +37,7 @@ from bsvd_tpu_torch.ops.conv_chain import (conv_chain, conv_chain_add2,
 from bsvd_tpu_torch.ops.conv_s2 import conv_s2
 from bsvd_tpu_torch.ops.shift_conv import (shift_conv, shift_conv_add2,
                                            shift_conv_fused_v1)
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')
@@ -341,13 +342,27 @@ def _models(opt, jparams):
     return jm, pm
 
 
+@pytest.fixture(scope='module')
+def jax_first_step():
+    """_jax_net(3)'s weights and the JAX DenoisingModel's first
+    optimize_parameters loss on _batch(11) from them: the same for every
+    optimizer of test_optimize_parameters_matches_jax (clipping and weight
+    decay act after the loss), so its JAX step is compiled once."""
+    _, _, jparams = _jax_net(3)
+    jm, _ = _models(_opt(), jparams)
+    jm.feed_data(_batch(11))
+    jm.optimize_parameters(1)
+    return jparams, float(jm.log_dict['l_pix'])
+
+
 @pytest.mark.parametrize('clip,wd', [(False, 0), (True, 0), (False, 0.05)],
                          ids=['adam', 'adam_clip', 'adamw'])
-def test_optimize_parameters_matches_jax(clip, wd):
+def test_optimize_parameters_matches_jax(clip, wd, jax_first_step):
     """3 optimize_parameters steps (the MultiStepLR milestone at update 2,
     EMA on), with and without the global-norm clip, and as AdamW (weight
     decay set), against the JAX
-    DenoisingModel: the first step's loss against its make_train_step, and
+    DenoisingModel: the first step's loss against its make_train_step
+    (``jax_first_step``), and
     the parameters and EMA after 3 steps against the JAX model's optax
     chain (``tx``, the one its make_train_step applies) and its ema_update
     fed the port's gradients of each step.
@@ -361,7 +376,7 @@ def test_optimize_parameters_matches_jax(clip, wd):
     from bsvd_tpu.models.base_model import BaseModel as JaxBase
     opt = _opt(use_grad_clip=clip)
     opt['train']['optim_g']['weight_decay'] = wd
-    _, _, jparams = _jax_net(3)
+    jparams, jax_loss = jax_first_step
     jm, pm = _models(opt, jparams)
     params = jax.tree.map(jnp.array, jparams)
     ema = jax.tree.map(jnp.array, jparams)
@@ -371,10 +386,7 @@ def test_optimize_parameters_matches_jax(clip, wd):
         pm.feed_data(b)
         pm.optimize_parameters(i)
         if i == 1:
-            jm.feed_data(b)
-            jm.optimize_parameters(i)
-            _rel_close(pm.get_current_log()['l_pix'], jm.log_dict['l_pix'],
-                       1e-4)
+            _rel_close(pm.get_current_log()['l_pix'], jax_loss, 1e-4)
         grads = to_jax_params(_map_tree(_to_tree(pm.net.params),
                                         lambda p: p.grad), pm.cfg)
         updates, state = jm.tx.update(grads, state, params)

@@ -33,6 +33,7 @@ from bsvd_tpu_torch.data import video_train_loader as vtl
 from bsvd_tpu_torch.data.video_train_loader import train_video_loader
 from bsvd_tpu_torch.data.yuv import nv12_to_rgb, nv12_to_rgb_plain
 from tools import make_video_fixtures as mvf
+from torch_threads import one_torch_thread  # noqa: F401
 
 cv2 = pytest.importorskip('cv2')
 

@@ -41,6 +41,7 @@ from bsvd_tpu_torch.convert.torch_generic import (from_jax_tree,
                                                   to_jax_tree)
 from bsvd_tpu_torch.models.base_model import build_model
 from bsvd_tpu_torch.utils.img_util import imwrite
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')

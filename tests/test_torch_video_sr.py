@@ -42,6 +42,7 @@ from bsvd_tpu_torch.data import build_dataset
 from bsvd_tpu_torch.data.data_util import generate_frame_indices
 from bsvd_tpu_torch.nn import warp
 from bsvd_tpu_torch.utils import flow_util, img_util
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')

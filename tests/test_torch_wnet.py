@@ -18,6 +18,7 @@ from bsvd_tpu_torch.convert.torch_ckpt import (from_jax_params,
 
 from golden_util import golden
 from reference_util import SMALL_NET2D_OPT
+from torch_threads import one_torch_thread  # noqa: F401
 
 jax = pytest.importorskip('jax')
 jnp = pytest.importorskip('jax.numpy')
