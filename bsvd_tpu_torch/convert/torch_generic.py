@@ -20,7 +20,12 @@ a transpose per leaf:
 - a module's constant buffers (named in its ``CONSTANT_BUFFERS``, such as
   SpyNet's ImageNet ``mean`` / ``std``) are in BasicSR's state dicts but
   not in the JAX trees: ``to_jax_tree`` leaves them out, and
-  ``from_jax_tree(tree, module)`` puts the module's own back.
+  ``from_jax_tree(tree, module)`` puts the module's own back;
+- a module whose JAX tree is not that key walk (StyleGAN2's: NHWC
+  constant input and noise, renamed conv layers) carries its own
+  ``tree_from_state(state)`` / ``state_from_tree(tree)``, which
+  ``to_jax_tree``, ``from_jax_tree(tree, module)`` and
+  ``load_torch_generic`` use in place of these rules.
 """
 
 import numpy as np
@@ -134,10 +139,11 @@ def _constant_keys(module):
 def from_jax_tree(tree, module=None):
     """A JAX parameter tree (numpy or JAX leaves) -> a state dict of fp32
     CPU tensors for the port's module of the same arch; with ``module``,
-    its constant buffers too (a complete state dict for a strict
-    ``load_state_dict``)."""
+    by its own ``state_from_tree`` where it has one, and with its constant
+    buffers (a complete state dict for a strict ``load_state_dict``)."""
+    to_state = getattr(module, 'state_from_tree', tree_to_state_dict)
     state = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32))
-             for k, v in tree_to_state_dict(tree).items()}
+             for k, v in to_state(tree).items()}
     if module is not None:
         own = module.state_dict()
         state.update({k: own[k].detach().cpu()
@@ -150,8 +156,9 @@ def to_jax_tree(module):
     (numpy fp32 leaves); non-persistent and constant buffers are not in
     it."""
     skip = _constant_keys(module)
-    return state_dict_to_tree({k: v for k, v in module.state_dict().items()
-                               if k not in skip})
+    to_tree = getattr(module, 'tree_from_state', state_dict_to_tree)
+    return to_tree({k: v for k, v in module.state_dict().items()
+                    if k not in skip})
 
 
 def _tree_paths(tree, prefix=()):
@@ -179,7 +186,7 @@ def load_torch_generic(path, module, param_key='params', strict=True):
         ckpt = torch.load(path, map_location='cpu', weights_only=True)
         if param_key and param_key in ckpt:
             ckpt = ckpt[param_key]
-        tree = state_dict_to_tree(ckpt)
+        tree = getattr(module, 'tree_from_state', state_dict_to_tree)(ckpt)
     have = dict(_tree_paths(tree))
     want = to_jax_tree(module)
     for pth, tmpl in _tree_paths(want):
@@ -196,6 +203,6 @@ def load_torch_generic(path, module, param_key='params', strict=True):
     def build(node, prefix=()):
         return {k: build(v, prefix + (k,)) if isinstance(v, dict)
                 else have[prefix + (k,)] for k, v in node.items()}
-    state = from_jax_tree(build(want))
+    state = from_jax_tree(build(want), module)
     module.load_state_dict(state, strict=False)
     return module

@@ -109,14 +109,19 @@ def gradient_penalty_loss(disc_fn, real_data, fake_data, generator=None,
 
 
 def g_path_regularize(gen_fn, latents, mean_path_length, generator=None,
-                      decay=0.01):
+                      decay=0.01, noise=None):
     """StyleGAN2's path-length regulariser: (penalty, path lengths, the
-    new running mean). The noise is drawn from ``generator``."""
-    latents = latents.detach().requires_grad_(True)
+    new running mean). The probe noise is ``noise`` (a normal draw of the
+    image's shape) where given, else drawn from ``generator``. Latents
+    that carry a graph (the mapping net's output) keep it: the penalty's
+    gradient then reaches what made them, as in the JAX package's step."""
+    if not latents.requires_grad:
+        latents = latents.detach().requires_grad_(True)
     img = gen_fn(latents)
-    noise = torch.randn(img.shape, generator=generator, dtype=img.dtype,
-                        device='cpu' if generator is None
-                        else generator.device).to(img.device)
+    if noise is None:
+        noise = torch.randn(img.shape, generator=generator, dtype=img.dtype,
+                            device='cpu' if generator is None
+                            else generator.device).to(img.device)
     noise = noise / (img.shape[-2] * img.shape[-1]) ** 0.5
     grad = torch.autograd.grad((img * noise).sum(), latents,
                                create_graph=True)[0]

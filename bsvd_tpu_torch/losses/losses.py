@@ -147,8 +147,8 @@ class PerceptualLoss:
     switches a term off. ``gt`` takes no gradient.
 
     The VGG (``archs.vgg_arch.VGGFeatureExtractor``, built on the CPU)
-    runs in fp32 outside autocast; the model that owns the loss moves
-    ``vgg`` to its device. Without
+    runs in its own dtype (fp32 unless a test casts it) outside autocast;
+    the model that owns the loss moves ``vgg`` to its device. Without
     pretrained weights (``pretrain_path`` or BSVD_VGG_PRETRAIN_PATH) it is
     initialised at random and a warning is logged, as in the JAX
     package."""
@@ -179,10 +179,11 @@ class PerceptualLoss:
         return (f @ f.transpose(1, 2)) / (c * h * w)
 
     def __call__(self, x, gt):
+        dtype = next(self.vgg.parameters()).dtype
         with torch.autocast(x.device.type, enabled=False):
-            xf = self.vgg(x.float())
+            xf = self.vgg(x.to(dtype))
             with torch.no_grad():
-                gf = self.vgg(gt.detach().float())
+                gf = self.vgg(gt.detach().to(dtype))
             percep = style = None
             if self.perceptual_weight > 0:
                 percep = sum(self.criterion(xf[k], gf[k])

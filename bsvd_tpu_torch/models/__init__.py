@@ -1,7 +1,8 @@
 """The port's train / eval engines; importing the package registers
-DenoisingModel, SRModel, SRGANModel, ESRGANModel and VideoRecurrentModel
-in MODEL_REGISTRY (``base_model.build_model`` makes one from the
-options)."""
+DenoisingModel, SRModel, SRGANModel, ESRGANModel, VideoRecurrentModel,
+HiFaceGANModel and StyleGAN2Model in MODEL_REGISTRY
+(``base_model.build_model`` makes one from the options)."""
 
-from bsvd_tpu_torch.models import (denoising_model, sr_model,  # noqa: F401
-                                   srgan_model, video_recurrent_model)
+from bsvd_tpu_torch.models import (denoising_model,  # noqa: F401
+                                   hifacegan_model, sr_model, srgan_model,
+                                   stylegan2_model, video_recurrent_model)

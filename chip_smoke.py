@@ -296,6 +296,28 @@ Phases, each printed as one JSON object on its own line:
    this process: its JSON line parsed, every kernel it times held against
    its plain version by the tool (fp32 1e-4 x max|ref|, bf16 2^-6 x max(1,
    max|ref|)); the tools' numbers and seconds.
+19. face_parity, face_data, face_hifacegan_cli, face_stylegan2_cli,
+   face_inference (the zoo's face GANs; fp32, TF32 off; no kernel of the
+   port on these paths): HiFaceGAN at num_feat 48 (64 x 64 LQ), StyleGAN2's
+   256 Cmul2 generator (stored noise, two styles) and discriminator, card
+   against CPU to 1e-4 x max|ref|. 8 synthetic 512 x 512 faces (LQ: 4x
+   area-down, bicubic-up in torch) and 16 of 256 x 256. The train CLI on
+   options/train/hifacegan_sr4x.yml at its widths (num_feat 48, gt_size
+   512, batch 1, VGG19 perceptual at random weights), --force_yml
+   changing the folders and total_iter (30) only: ms an iteration over
+   11-30 and the share spent waiting, peak memory, finite losses, every
+   D spectral-norm u moved, its one validation's PSNR. The train CLI on a
+   yml of BasicSR's train_StyleGAN2_256_Cmul2_FFHQ.yml widths and losses
+   (FFHQDataset, mean / std 0.5, wgan_softplus, r1 10 every 16, path 2
+   every 4, mixing 0.9, Adam 2e-3, batch 4), 32 iterations: ms a plain,
+   path and r1 + path iteration (each between two synchronizations), peak
+   memory, both penalties nonzero, and one more iteration of each kind
+   under the profiler (device busy ms, idle share, the top kernels).
+   Then ``python -m
+   bsvd_tpu_torch.inference.inference_stylegan2 --size 1024 --sample 4``
+   on random weights saved here, ``inference_esrgan`` and
+   ``inference_ridnet`` on two synthetic PNGs each: the images' shapes,
+   command seconds.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
@@ -4526,6 +4548,401 @@ def phase_tools(device='cuda', tool_args=(), burnin_args=(), wide=None):
           'seconds': time.perf_counter() - t0})
     return launches
 
+# ---------------------------------------------------------------------------
+# phase 19: the zoo's face GANs (HiFaceGAN, StyleGAN2) and the inference
+# scripts
+# ---------------------------------------------------------------------------
+
+HIFACEGAN_YML = os.path.join(ROOT, 'options', 'train', 'hifacegan_sr4x.yml')
+FACE_ITERS, SG_ITERS = 30, 32
+# 8 GT faces at the yml's gt_size 512 (LQ: 4x area-down, bicubic-up) and
+# 16 FFHQ-sized 256 x 256 faces for StyleGAN2
+FACE_N, FACE_HW, SG_N, SG_HW = 8, 512, 16, 256
+# BasicSR's options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml: its
+# nets, losses, lazy-regularisation intervals, mixing, Adam and data
+# normalisation; the folder (the port reads no lmdb), the batch (4 on one
+# card) and the iteration count are this phase's
+SG_YML = """name: stylegan2_256_cmul2_ffhq
+model_type: StyleGAN2Model
+num_gpu: auto
+manual_seed: 2021
+datasets:
+  train:
+    name: FFHQ
+    type: FFHQDataset
+    dataroot_gt: {data}
+    io_backend:
+      type: disk
+    use_hflip: true
+    mean: [0.5, 0.5, 0.5]
+    std: [0.5, 0.5, 0.5]
+    num_worker_per_gpu: 3
+    batch_size_per_gpu: 4
+    dataset_enlarge_ratio: 100
+network_g:
+  type: StyleGAN2Generator
+  out_size: 256
+  num_style_feat: 512
+  num_mlp: 8
+  channel_multiplier: 2
+  resample_kernel: [1, 3, 3, 1]
+  lr_mlp: 0.01
+network_d:
+  type: StyleGAN2Discriminator
+  out_size: 256
+  channel_multiplier: 2
+  resample_kernel: [1, 3, 3, 1]
+path:
+  pretrain_network_g: ~
+  strict_load_g: true
+  resume_state: ~
+train:
+  optim_g:
+    type: Adam
+    lr: !!float 2e-3
+  optim_d:
+    type: Adam
+    lr: !!float 2e-3
+  scheduler:
+    type: MultiStepLR
+    milestones: [600000]
+    gamma: 0.5
+  total_iter: {iters}
+  warmup_iter: -1
+  gan_opt:
+    type: GANLoss
+    gan_type: wgan_softplus
+    loss_weight: !!float 1
+  r1_reg_weight: 10
+  path_batch_shrink: 2
+  path_reg_weight: 2
+  net_g_reg_every: 4
+  net_d_reg_every: 16
+  mixing_prob: 0.9
+  net_d_iters: 1
+  net_d_init_iters: 0
+logger:
+  print_freq: 100
+  save_checkpoint_freq: !!float 5e3
+  use_tb_logger: false
+"""
+
+
+def _faces(n, hw, rng):
+    """n uint8 (hw, hw, 3) images: a smooth random field (a 16x-coarser
+    grid, bilinear) under a bright ellipse, with pixel noise; made on the
+    card."""
+    gen = torch.Generator('cuda').manual_seed(int(rng.integers(1 << 31)))
+    base = torch.rand((n, 3, hw // 16 + 2, hw // 16 + 2), generator=gen,
+                      device='cuda') * 255
+    field = F.interpolate(base, size=(hw, hw), mode='bilinear',
+                          align_corners=False)
+    yy, xx = torch.meshgrid(torch.linspace(-1, 1, hw, device='cuda'),
+                            torch.linspace(-1, 1, hw, device='cuda'),
+                            indexing='ij')
+    face = ((xx / 0.6) ** 2 + (yy / 0.8) ** 2 < 1).float() * 60
+    img = field + face + torch.randn(field.shape, generator=gen,
+                                     device='cuda') * 6
+    return img.clamp(0, 255).round()
+
+
+def _write_faces(folder, imgs, pool):
+    """Futures of the PNG writes of (n, 3, h, w) float [0, 255] RGB."""
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    arr = imgs.permute(0, 2, 3, 1).flip(-1).to(torch.uint8).cpu().numpy()
+    return [pool.submit(imwrite, np.ascontiguousarray(a),
+                        os.path.join(folder, f'{i:05d}.png'))
+            for i, a in enumerate(arr)]
+
+
+def _face_data(root, rng):
+    """root/gt, root/lq (HiFaceGAN) and root/ffhq (StyleGAN2)."""
+    gt = _faces(FACE_N, FACE_HW, rng)
+    lq = F.interpolate(F.avg_pool2d(gt, 4), scale_factor=4, mode='bicubic',
+                       align_corners=False).clamp(0, 255).round()
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        for f in (_write_faces(os.path.join(root, 'gt'), gt, pool)
+                  + _write_faces(os.path.join(root, 'lq'), lq, pool)
+                  + _write_faces(os.path.join(root, 'ffhq'),
+                                 _faces(SG_N, SG_HW, rng), pool)):
+            f.result()
+    return time.perf_counter() - t0
+
+
+class _StoredNoise(torch.nn.Module):
+    """A StyleGAN2 generator on two styles with its stored noise."""
+
+    def __init__(self, g):
+        super().__init__()
+        self.g = g
+
+    def forward(self, s1, s2):
+        return self.g([s1, s2], randomize_noise=False)[0]
+
+
+def _face_parity():
+    """Card (fp32, TF32 off) against CPU on the same weights, to 1e-4 x
+    max|ref|: HiFaceGAN at num_feat 48 on a 64 x 64 LQ, StyleGAN2's 256
+    Cmul2 generator (stored noise, two styles) and its discriminator on
+    the generator's image."""
+    rng = np.random.default_rng(SEED + 60)
+    out = []
+
+    def check(name, net, *args):
+        with torch.no_grad():
+            ref = net(*args)
+            got = copy.deepcopy(net).to('cuda')(*[a.cuda()
+                                                  for a in args]).cpu()
+        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+        out.append({'net': name, 'shape_out': list(ref.shape),
+                    'max_abs_err': err, 'max_abs_ref': scale})
+        if not err <= FP32_TOL * scale or not torch.isfinite(got).all():
+            raise AssertionError(f'{name} card vs CPU: {out[-1]}')
+        return ref
+    lq = torch.from_numpy(rng.uniform(0, 1, (1, 3, 64, 64)).astype(
+        np.float32))
+    check('HiFaceGAN num_feat 48', build_network(
+        {'type': 'HiFaceGAN', 'num_feat': 48, 'is_train': False,
+         'seed': SEED}, 'cpu').eval(), lq)
+    z = [torch.from_numpy(rng.standard_normal((1, 512)).astype(np.float32))
+         for _ in range(2)]
+    img = check('StyleGAN2Generator 256 Cmul2', _StoredNoise(build_network(
+        {'type': 'StyleGAN2Generator', 'out_size': SG_HW, 'seed': SEED},
+        'cpu')), *z)
+    check('StyleGAN2Discriminator 256 Cmul2', build_network(
+        {'type': 'StyleGAN2Discriminator', 'out_size': SG_HW,
+         'seed': SEED}, 'cpu'), img)
+    emit({'phase': 'face_parity', 'nets': out,
+          'tol': f'{FP32_TOL} x max|ref|', 'fp32_tf32_off': True})
+
+
+def _hifacegan_cli(root):
+    """The train CLI on hifacegan_sr4x.yml at its widths (num_feat 48,
+    gt_size 512, batch 1, VGG19 perceptual at random weights), --force_yml
+    changing the folders and total_iter only: FACE_ITERS iterations and
+    the run's one validation (the yml's val_freq is past them)."""
+    from bsvd_tpu_torch.models.hifacegan_model import HiFaceGANModel as HF
+    from bsvd_tpu_torch.models.sr_model import SRModel
+    u0, vals = {}, []
+    step, validation = HF.optimize_parameters, SRModel.validation
+
+    def watched(model, it):
+        if it == 1:
+            u0.update({k: v.clone() for k, v in
+                       model.net_d.state_dict().items()
+                       if k.endswith('weight_u')})
+        step(model, it)
+
+    def timed_validation(model, *a, **k):
+        t0 = time.perf_counter()
+        res = validation(model, *a, **k)
+        torch.cuda.synchronize()
+        vals.append((res, time.perf_counter() - t0))
+        return res
+    cmd = ['-opt', HIFACEGAN_YML, '--force_yml',
+           *(f'datasets:{ph}:dataroot_{k}={root}/{k}'
+             for ph in ('train', 'val') for k in ('gt', 'lq')),
+           f'train:total_iter={FACE_ITERS}']
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    HF.optimize_parameters, SRModel.validation = watched, timed_validation
+    try:
+        t0 = time.perf_counter()
+        with _StepClock((SRModel, HF)) as clock:
+            model = train_pipeline(root, cmd=cmd)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        HF.optimize_parameters, SRModel.validation = step, validation
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    u1 = {k: v for k, v in model.net_d.state_dict().items()
+          if k.endswith('weight_u')}
+    steady = clock.steady(11, FACE_ITERS)
+    opt, dopt = model.opt, model.opt['datasets']['train']
+    exp = os.path.join(root, 'experiments', opt['name'], 'models')
+    rec = {'phase': 'face_hifacegan_cli',
+           'yml': os.path.relpath(HIFACEGAN_YML, ROOT),
+           'model': type(model).__name__, 'network_g': opt['network_g'],
+           'network_d': opt['network_d'], 'iters': FACE_ITERS,
+           'batch': dopt['batch_size_per_gpu'], 'gt_size': dopt['gt_size'],
+           'params_g': count_params(model.net),
+           'params_d': count_params(model.net_d),
+           'vgg19_pretrained': model.cri_perceptual.vgg.pretrained,
+           'wall_s': wall, 'steady': steady,
+           'wait_share': steady['data_wait_ms'] / steady['ms_per_iter'],
+           'peak_allocated_gb': peak, 'losses': model.get_current_log(),
+           'optimizer_counts': [model.optimizer.count,
+                                model.optimizer_d.count],
+           'u_vectors': len(u1),
+           'u_moved': sum(not torch.equal(u0[k], v) for k, v in u1.items()),
+           'validations': len(vals),
+           'val_psnr': vals[0][0]['psnr'] if vals else None,
+           'val_s': vals[0][1] if vals else None,
+           'val_images': FACE_N,
+           'checkpoints': sorted(os.listdir(exp)), 'fp32_tf32_off': True,
+           'card': SMI}
+    emit(rec)
+    if not (len(clock.marks) == FACE_ITERS and len(vals) == 1
+            and math.isfinite(rec['val_psnr'])
+            and rec['optimizer_counts'] == [FACE_ITERS] * 2
+            and rec['u_vectors'] == 10 and rec['u_moved'] == 10
+            and {'net_g_latest.npz', 'net_d_latest.npz'}
+            <= set(rec['checkpoints'])
+            and all(math.isfinite(v) for v in rec['losses'].values())):
+        raise AssertionError(f'hifacegan_sr4x train CLI: {rec}')
+
+
+def _stylegan2_cli(root):
+    """The train CLI on SG_YML (BasicSR's 256 Cmul2 FFHQ widths) for
+    SG_ITERS iterations: r1 at 16 and 32 (with the path penalty, every 4
+    iterations); each iteration clocked between two synchronizations."""
+    from bsvd_tpu_torch.models.stylegan2_model import StyleGAN2Model as SG
+    yml = os.path.join(root, 'train_StyleGAN2_256_Cmul2_FFHQ.yml')
+    with open(yml, 'w') as f:
+        f.write(SG_YML.format(data=os.path.join(root, 'ffhq'),
+                              iters=SG_ITERS))
+    ms, step = {}, SG.optimize_parameters
+
+    def timed(model, it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(model, it)
+        torch.cuda.synchronize()
+        ms[it] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    SG.optimize_parameters = timed
+    try:
+        t0 = time.perf_counter()
+        model = train_pipeline(root, cmd=['-opt', yml])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        SG.optimize_parameters = step
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    kinds = {'plain': [i for i in ms if i % 4 and i > 4],
+             'path': [i for i in ms if i % 4 == 0 and i % 16 and i > 4],
+             'r1_and_path': [i for i in ms if i % 16 == 0]}
+    opt = model.opt
+    exp = os.path.join(root, 'experiments', opt['name'], 'models')
+    rec = {'phase': 'face_stylegan2_cli',
+           'source': 'BasicSR options/train/StyleGAN/'
+                     'train_StyleGAN2_256_Cmul2_FFHQ.yml (widths, losses, '
+                     'regularisation; folder, batch 4 and iterations here)',
+           'network_g': opt['network_g'], 'network_d': opt['network_d'],
+           'iters': SG_ITERS,
+           'batch': opt['datasets']['train']['batch_size_per_gpu'],
+           'params_g': count_params(model.net),
+           'params_d': count_params(model.net_d), 'wall_s': wall,
+           'ms_per_iter': {k: statistics.median(ms[i] for i in v)
+                           for k, v in kinds.items()},
+           'iters_by_kind': kinds, 'first_iter_ms': ms[1],
+           'peak_allocated_gb': peak, 'losses': model.get_current_log(),
+           'mean_path_length': float(model.mean_path_length),
+           'optimizer_counts': [model.optimizer.count,
+                                model.optimizer_d.count],
+           'checkpoints': sorted(os.listdir(exp)), 'fp32_tf32_off': True,
+           'card': SMI}
+    emit(rec)
+    log = rec['losses']
+    if not (len(ms) == SG_ITERS and rec['optimizer_counts'] == [SG_ITERS] * 2
+            and log['l_d_r1'] > 0 and log['l_g_path'] > 0
+            and rec['mean_path_length'] > 0
+            and 'net_g_latest.npz' in rec['checkpoints']
+            and all(math.isfinite(v) for v in log.values())):
+        raise AssertionError(f'StyleGAN2 256 Cmul2 train CLI: {rec}')
+    # where an iteration's time goes, by kind: one more iteration of each
+    # on the CLI's model and last batch, under the profiler
+    prof = {}
+    for kind, it in (('plain', SG_ITERS + 1), ('path', SG_ITERS + 4),
+                     ('r1_and_path', SG_ITERS + 16)):
+        def run(it=it):
+            model.optimize_parameters(it)
+            torch.cuda.synchronize()
+        prof[kind] = device_profile(run, 1, f'stylegan2_{kind}')
+        prof[kind].pop('by_kernel')
+        prof[kind]['top_device_ms_per_unit'] = \
+            prof[kind]['top_device_ms_per_unit'][:8]
+    emit({'phase': 'face_stylegan2_profile', 'iterations': prof,
+          'card': SMI})
+
+
+def _inference_scripts(root, rng):
+    """The three inference modules as commands: StyleGAN2 at --size 1024
+    --sample 4 on a checkpoint of random weights saved here, ESRGAN (x4)
+    and RIDNet on two synthetic PNGs each."""
+    from bsvd_tpu_torch.archs.stylegan2_arch import StyleGAN2Generator
+    from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
+    from bsvd_tpu_torch.utils.img_util import imfrombytes, imwrite
+
+    def read(path):
+        with open(path, 'rb') as f:
+            return imfrombytes(f.read(), 'color')
+    ckpts = {'stylegan2': os.path.join(root, 'stylegan2_1024.npz'),
+             'esrgan': os.path.join(root, 'rrdbnet_x4.npz'),
+             'ridnet': os.path.join(root, 'ridnet.npz')}
+    save_npz_params(ckpts['stylegan2'], {'params_ema': to_jax_tree(
+        StyleGAN2Generator(1024, seed=SEED))})
+    save_npz_params(ckpts['esrgan'], {'params': to_jax_tree(build_network(
+        {'type': 'RRDBNet', 'num_in_ch': 3, 'num_out_ch': 3, 'num_feat': 64,
+         'num_block': 23, 'scale': 4, 'seed': SEED}, 'cpu'))})
+    save_npz_params(ckpts['ridnet'], {'params': to_jax_tree(build_network(
+        {'type': 'RIDNet', 'in_channels': 3, 'mid_channels': 64,
+         'out_channels': 3, 'seed': SEED}, 'cpu'))})
+    for i, hw in enumerate((128, 200)):
+        img = rng.integers(0, 256, (hw, hw + 24, 3)).astype(np.uint8)
+        imwrite(img, os.path.join(root, 'inputs', f'{i:02d}.png'))
+    runs = {
+        'inference_stylegan2': ['--ckpt', ckpts['stylegan2'], '--size',
+                                '1024', '--sample', '4', '--output',
+                                os.path.join(root, 'samples')],
+        'inference_esrgan': ['--model_path', ckpts['esrgan'], '--input',
+                             os.path.join(root, 'inputs'), '--output',
+                             os.path.join(root, 'esrgan')],
+        'inference_ridnet': ['--model_path', ckpts['ridnet'], '--test_path',
+                             os.path.join(root, 'inputs'), '--output',
+                             os.path.join(root, 'ridnet')]}
+    rec = {'phase': 'face_inference', 'card': SMI}
+    for name, argv in runs.items():
+        t0 = time.perf_counter()
+        _run_module([f'bsvd_tpu_torch.inference.{name}', *argv], 600)
+        folder = argv[argv.index('--output') + 1]
+        shapes = {f: list(read(os.path.join(folder, f)).shape)
+                  for f in sorted(os.listdir(folder))}
+        rec[name] = {'command_s': time.perf_counter() - t0,
+                     'outputs': shapes}
+    want = {'inference_stylegan2': {'000000.png': [2048, 2048, 3]},
+            'inference_esrgan': {'00_ESRGAN.png': [512, 608, 3],
+                                 '01_ESRGAN.png': [800, 896, 3]},
+            'inference_ridnet': {'00_RIDNet.png': [128, 152, 3],
+                                 '01_RIDNet.png': [200, 224, 3]}}
+    emit(rec)
+    for name, outs in want.items():
+        if rec[name]['outputs'] != outs:
+            raise AssertionError(f'{name}: {rec[name]} (expected {outs})')
+    grid = read(os.path.join(root, 'samples', '000000.png'))
+    if not grid.std() > 0:
+        raise AssertionError('inference_stylegan2: a constant image')
+
+
+def phase_face_gans():
+    """Phase 19: the zoo's face GANs from the command line and the
+    inference scripts. No kernel of the port is on these paths (plain
+    PyTorch, as the JAX package's XLA): the kernels line is unchanged."""
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, 'faces')
+    rng = np.random.default_rng(SEED + 61)
+    _face_parity()
+    emit({'phase': 'face_data', 'write_s': _face_data(root, rng),
+          'hifacegan': [FACE_N, FACE_HW, FACE_HW],
+          'ffhq': [SG_N, SG_HW, SG_HW]})
+    _hifacegan_cli(root)
+    _stylegan2_cli(root)
+    _inference_scripts(root, rng)
+    emit({'phase': 'face_gans', 'seconds': time.perf_counter() - t0})
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -4607,6 +5024,7 @@ def run():
     _sum_launches(parallel_launches, mp4_launches)
     phase_zoo_vsr()
     _sum_launches(parallel_launches, phase_tools())
+    phase_face_gans()
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

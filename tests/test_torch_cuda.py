@@ -1217,3 +1217,148 @@ def test_wide_chains_run_as_two_k1_on_the_card(dev, dtype, chns, interm):
     else:
         mse = ((got.cpu().float().clamp(0, 1) - ref.clamp(0, 1)) ** 2).mean()
         assert 10 * np.log10(1 / max(mse.item(), 1e-20)) > 30
+
+
+# ---------------------------------------------------------------------------
+# the face GANs: one step on the card against the same step on the CPU
+# ---------------------------------------------------------------------------
+
+def _capture_grads(optim, into):
+    step = optim.step
+
+    def capture():
+        into.update({n: (torch.zeros_like(p) if p.grad is None
+                         else p.grad).detach().cpu().clone()
+                     for n, p in zip(optim.names, optim.params)})
+        step()
+    optim.step = capture
+
+
+def _grads_close(card, cpu, exact):
+    """The card's fp32 gradients no further from the CPU's float64 ones
+    than twice the CPU's fp32 gradients are, plus 1e-5 x the net's
+    largest |g| (fp32's own distance from exact grows with depth and with
+    instance norm over few pixels: 4.5e-3 x max|g| on the CPU for
+    HiFaceGAN's LIP encoder at 64 x 64)."""
+    scale = max(float(g.abs().max()) for g in exact.values())
+    for name, g in exact.items():
+        own = float((cpu[name].double() - g).abs().max())
+        err = float((card[name].double() - g).abs().max())
+        assert err <= 2 * own + 1e-5 * scale, (name, err, own, scale)
+
+
+def _face_gan_models(opt, dev):
+    """The model on the CPU in fp32, on the CPU in float64 (its nets
+    converted after the build) and on the card, with the same weights;
+    each optimizer keeps the gradients of its step."""
+    from bsvd_tpu_torch.models.base_model import build_model
+    models = [build_model(copy.deepcopy(opt), device=d)
+              for d in ('cpu', 'cpu', dev)]
+    models[1].net.double()
+    models[1].net_d.double()
+    grads = [({}, {}) for _ in models]
+    for m, (g, d) in zip(models, grads):
+        _capture_grads(m.optimizer, g)
+        _capture_grads(m.optimizer_d, d)
+    return models, grads
+
+
+def _losses_close(card, exact, tol=1e-4):
+    for k, v in exact.items():
+        assert abs(card[k] - v) <= tol * abs(v), (k, card, exact)
+
+
+def _face_gan_opt(tmp_path, model_type, net_g, net_d, train):
+    return {'name': model_type, 'model_type': model_type, 'is_train': True,
+            'num_gpu': 1, 'manual_seed': 0, 'scale': 1,
+            'network_g': net_g, 'network_d': net_d, 'logger': {},
+            'path': {'models': str(tmp_path / 'm'),
+                     'training_states': str(tmp_path / 's')},
+            'train': train}
+
+
+def test_hifacegan_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One HiFaceGANModel step (num_feat 4, 64 x 64, batch 2; pixel, GAN,
+    feature matching) in fp32 with TF32 off against the same step on the
+    CPU in float64: the logged losses within 1e-4 x |ref|, G's and D's
+    gradients by ``_grads_close``, D's stored u vectors within 1e-5."""
+    opt = _face_gan_opt(
+        tmp_path, 'HiFaceGANModel',
+        {'type': 'HiFaceGAN', 'num_feat': 4, 'is_train': False},
+        {'type': 'HiFaceGANDiscriminator', 'num_d': 2, 'n_layers_d': 3,
+         'num_feat': 8},
+        {'optim_g': {'type': 'Adam', 'lr': 1e-3},
+         'optim_d': {'type': 'Adam', 'lr': 4e-3},
+         'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1.0},
+         'gan_opt': {'type': 'MultiScaleGANLoss', 'gan_type': 'lsgan'},
+         'feature_matching_opt': {'type': 'GANFeatLoss',
+                                  'loss_weight': 10.0}})
+    models, grads = _face_gan_models(opt, dev)
+    rng = np.random.default_rng(5)
+    batch = {k: rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32)
+             for k in ('lq', 'gt')}
+    for i, m in enumerate(models):
+        m.feed_data(batch)
+        if i == 1:
+            m.lq, m.gt = m.lq.double(), m.gt.double()
+        m.optimize_parameters(1)
+    cpu, exact, card = models
+    assert list(card.get_current_log()) == list(exact.get_current_log())
+    _losses_close(card.get_current_log(), exact.get_current_log())
+    for net in (0, 1):
+        _grads_close(grads[2][net], grads[0][net], grads[1][net])
+    want = exact.net_d.state_dict()
+    for k, v in card.net_d.state_dict().items():
+        if k.endswith('weight_u'):
+            assert (v.cpu().double() - want[k]).abs().max() <= 1e-5, k
+
+
+def test_stylegan2_g_path_step_on_the_card_matches_cpu(dev, tmp_path):
+    """One StyleGAN2Model iteration with both regularisers (d+r1, then
+    g+path; out_size 32, narrow 0.25, batch 4) on the same draws (made on
+    the CPU, fed to every model's ``draws_d`` / ``draws_g``) against the
+    same iteration on the CPU in float64: the losses within 1e-4 x |ref|,
+    both nets' gradients by ``_grads_close``, the mean path length within
+    1e-4 x |ref|."""
+    nets = {'type': 'StyleGAN2Generator', 'out_size': 32,
+            'num_style_feat': 16, 'num_mlp': 2, 'narrow': 0.25}
+    opt = _face_gan_opt(
+        tmp_path, 'StyleGAN2Model', nets,
+        {'type': 'StyleGAN2Discriminator', 'out_size': 32, 'narrow': 0.25},
+        {'optim_g': {'type': 'Adam', 'lr': 2e-3},
+         'optim_d': {'type': 'Adam', 'lr': 2e-3},
+         'gan_opt': {'type': 'GANLoss', 'gan_type': 'wgan_softplus'},
+         'r1_reg_weight': 10, 'path_reg_weight': 2, 'net_g_reg_every': 1,
+         'net_d_reg_every': 1, 'mixing_prob': 0.9})
+    models, grads = _face_gan_models(opt, dev)
+    with torch.no_grad():
+        for p in models[0].net.parameters():
+            if p.ndim == 1:                    # noise strengths, biases
+                p.add_(0.1)
+        for m in models[1:]:
+            m.net.load_state_dict(models[0].net.state_dict())
+    draws = (models[0].draws_d(4), models[0].draws_g(4, True))
+    rng = np.random.default_rng(6)
+    real = rng.uniform(-1, 1, (4, 3, 32, 32)).astype(np.float32)
+
+    def to(v, m, dtype):
+        if isinstance(v, list):
+            return [to(t, m, dtype) for t in v]
+        return v.to(m.device, dtype)
+    for i, m in enumerate(models):
+        dtype = torch.float64 if i == 1 else torch.float32
+        on_d = {k: to(v, m, dtype) for k, v in draws[0].items()}
+        on_g = {k: to(v, m, dtype) for k, v in draws[1].items()}
+        m.draws_d = lambda b, d=on_d: d
+        m.draws_g = lambda b, p, g=on_g: g
+        m.feed_data({'gt': real})
+        m.real_img = m.real_img.to(dtype)
+        m.optimize_parameters(1)
+    cpu, exact, card = models
+    ref = exact.get_current_log()
+    assert ref['l_d_r1'] > 0 and ref['l_g_path'] > 0
+    _losses_close(card.get_current_log(), ref)
+    for net in (0, 1):
+        _grads_close(grads[2][net], grads[0][net], grads[1][net])
+    mpl = float(exact.mean_path_length)
+    assert abs(float(card.mean_path_length) - mpl) <= 1e-4 * abs(mpl)

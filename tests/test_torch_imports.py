@@ -63,7 +63,17 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.data.video_test_dataset',
         'bsvd_tpu_torch.data.reds_dataset',
         'bsvd_tpu_torch.models.video_recurrent_model',
-        'bsvd_tpu_torch.data.tiff_decode'} | {
+        'bsvd_tpu_torch.data.tiff_decode',
+        'bsvd_tpu_torch.archs.hifacegan_arch',
+        'bsvd_tpu_torch.models.hifacegan_model',
+        'bsvd_tpu_torch.ops.stylegan_ops',
+        'bsvd_tpu_torch.archs.stylegan2_arch',
+        'bsvd_tpu_torch.models.stylegan2_model',
+        'bsvd_tpu_torch.data.single_image_dataset',
+        'bsvd_tpu_torch.inference._common',
+        'bsvd_tpu_torch.inference.inference_stylegan2',
+        'bsvd_tpu_torch.inference.inference_esrgan',
+        'bsvd_tpu_torch.inference.inference_ridnet'} | {
         f'bsvd_tpu_torch.tools.{t}' for t in (
             '_common', '_stream_bench', 'make_synth_dataset',
             'profile_blocks', 'profile_stream', 'bench_train',
@@ -91,8 +101,11 @@ def test_port_imports_without_jax_yaml_or_nvcc():
     assert res.returncode == 0, res.stdout + res.stderr
 
 
-@pytest.mark.parametrize('module', ['bsvd_tpu_torch.utils.jpeg_encode',
-                                    'bsvd_tpu_torch.utils.flow_util'])
+@pytest.mark.parametrize('module', [
+    'bsvd_tpu_torch.utils.jpeg_encode', 'bsvd_tpu_torch.utils.flow_util',
+    'bsvd_tpu_torch.archs.stylegan2_arch',
+    'bsvd_tpu_torch.inference.inference_stylegan2',
+    'bsvd_tpu_torch.data.single_image_dataset'])
 def test_module_imports_first(module):
     """A module imported first in a fresh interpreter (no circular import
     through the data package's datasets)."""
