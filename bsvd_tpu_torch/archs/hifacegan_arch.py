@@ -63,8 +63,10 @@ def instance_norm(x, eps=IN_EPS):
 
 
 def avg_pool_excl(x, k=3, s=2, p=1):
-    """``avg_pool2d`` with the padding left out of the count."""
-    return F.avg_pool2d(x, k, s, p, count_include_pad=False)
+    """``avg_pool2d`` with the padding left out of the count, on a
+    contiguous copy: on the card (PyTorch 2.11, CUDA 12.8) the backward
+    of a padded F.avg_pool2d of a channels-last tensor is wrong."""
+    return F.avg_pool2d(x.contiguous(), k, s, p, count_include_pad=False)
 
 
 def lip2d(x, logit, k=3, s=2, p=1):

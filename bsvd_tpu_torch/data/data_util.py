@@ -1,10 +1,12 @@
 """Dataset path helpers (counterpart of bsvd_tpu/data/data_util.py):
 paired paths from two folders or a meta-info file, one folder's paths,
-and the temporal neighbour indices of the video datasets. The lmdb
-readers raise NotImplementedError (ROADMAP.md Queue 1); the DUF
-downsampling comes with the video family."""
+the temporal neighbour indices of the video datasets, and DUF's official
+Gaussian downsampling (scipy, as in the JAX package). The lmdb readers
+raise NotImplementedError (ROADMAP.md Queue 1)."""
 
 from os import path as osp
+
+import numpy as np
 
 from bsvd_tpu_torch.utils.misc import scandir
 
@@ -99,3 +101,39 @@ def generate_frame_indices(crt_idx, max_frame_num, num_frames,
             pad_idx = i
         indices.append(pad_idx)
     return indices
+
+
+def generate_gaussian_kernel(kernel_size=13, sigma=1.6):
+    """DUF's Gaussian kernel: a centred unit impulse through
+    ``scipy.ndimage.gaussian_filter``."""
+    from scipy.ndimage import gaussian_filter
+    kernel = np.zeros((kernel_size, kernel_size))
+    kernel[kernel_size // 2, kernel_size // 2] = 1
+    return gaussian_filter(kernel, sigma)
+
+
+def duf_downsample(x, kernel_size=13, scale=4):
+    """DUF's official downsampling of float frames (..., H, W) in [0, 1]:
+    reflect-pad by kernel_size // 2 + 2 * scale, blur by the Gaussian of
+    sigma 0.4 * scale, keep every ``scale``-th pixel (a 'valid' strided
+    correlation), crop 2 pixels a side -> float32 (..., h, w)."""
+    from scipy.ndimage import correlate
+    assert scale in (2, 3, 4), (f'Only support scale (2, 3, 4), but got '
+                                f'{scale}.')
+    kern = generate_gaussian_kernel(kernel_size, 0.4 * scale)
+    pad = kernel_size // 2 + scale * 2
+    k2 = kernel_size // 2
+    lead = x.shape[:-2]
+    h, w = x.shape[-2:]
+    out = []
+    for img in x.reshape(-1, h, w):
+        p = np.pad(img, pad, mode='reflect')
+        full = correlate(p, kern, mode='constant')
+        # output i of the strided 'valid' correlation is padded row
+        # i * scale + kernel_size // 2
+        nh = (p.shape[0] - kernel_size) // scale + 1
+        nw = (p.shape[1] - kernel_size) // scale + 1
+        sub = full[k2:k2 + nh * scale:scale, k2:k2 + nw * scale:scale]
+        out.append(sub[2:-2, 2:-2])
+    out = np.stack(out).astype(np.float32)
+    return out.reshape(*lead, *out.shape[-2:])

@@ -1,5 +1,5 @@
 """The video SR datasets over clip-folder trees (counterpart of
-bsvd_tpu/data/video_test_dataset.py:15-135, BasicSR's video_test_dataset
+bsvd_tpu/data/video_test_dataset.py, BasicSR's video_test_dataset
 and REDSRecurrentDataset): ``root/<clip>/<frames>``, LQ and GT trees of
 the same clips.
 
@@ -8,7 +8,13 @@ the same clips.
 - ``VideoTestDataset``: one item a frame, its ``num_frame`` LQ neighbours
   (``data_util.generate_frame_indices``) and its GT frame;
 - ``REDSRecurrentDataset``: training windows of ``num_frame`` frames at a
-  random interval and start, paired-cropped and flipped.
+  random interval and start, paired-cropped and flipped;
+- ``VideoTestVimeo90KDataset``: one Vimeo90K-Test septuplet an item (a
+  meta-info file's folders), its ``num_frame`` middle LQ frames and the
+  centre GT frame ``im4``;
+- ``VideoTestDUFDataset``: ``VideoTestDataset`` whose LQ window is, with
+  ``use_duf_downsampling``, made from the GT frames by
+  ``data_util.duf_downsample`` (both mod-cropped to ``scale``).
 
 Single frames are read by ``open_image`` (cv2's route in the JAX package,
 so turned by their EXIF orientation). Items are float32 (T, C, H, W) RGB
@@ -20,9 +26,6 @@ the JAX package's order (the interval's ``choice``, the start's
 gives the same windows, crops and flips; the batch loader therefore reads
 its items one after another, and ``skip`` makes an item's draws without
 decoding it (the other ranks' rows on a mesh).
-
-``VideoTestVimeo90KDataset`` and ``VideoTestDUFDataset`` are not ported
-yet (ROADMAP Queue 1 item 3a).
 """
 
 import glob
@@ -31,9 +34,11 @@ import random
 
 import numpy as np
 
-from bsvd_tpu_torch.data.data_util import generate_frame_indices
+from bsvd_tpu_torch.data.data_util import (duf_downsample,
+                                           generate_frame_indices)
 from bsvd_tpu_torch.data.transforms import (augment, crop_origin,
-                                            flip_draws, paired_random_crop)
+                                            flip_draws, mod_crop,
+                                            paired_random_crop)
 from bsvd_tpu_torch.data.utils_common import (get_imagenames, open_image,
                                               open_image_dims, open_sequence)
 from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
@@ -114,6 +119,68 @@ class VideoTestDataset:
 
     def __len__(self):
         return len(self.items)
+
+
+@DATASET_REGISTRY.register()
+class VideoTestVimeo90KDataset:
+    """opt: dataroot_gt, dataroot_lq, meta_info_file (a septuplet folder
+    per line, first column), num_frame (default 7), name. Items: lq
+    (num_frame, C, H, W) of ``im<i>.png``, gt (C, H', W') of ``im4.png``,
+    folder 'vimeo90k', idx ('<item>/<items>'), lq_path (the centre
+    frame's)."""
+
+    def __init__(self, opt):
+        self.opt = opt
+        if opt.get('cache_data'):
+            raise NotImplementedError(
+                'cache_data in Vimeo90K-Test dataset is not implemented.')
+        gt_root, lq_root = opt['dataroot_gt'], opt['dataroot_lq']
+        num_frame = opt.get('num_frame', 7)
+        neighbors = [i + (9 - num_frame) // 2 for i in range(num_frame)]
+        with open(opt['meta_info_file']) as fin:
+            subfolders = [line.split(' ')[0] for line in fin if line.strip()]
+        self.gt_paths = [os.path.join(gt_root, s, 'im4.png')
+                         for s in subfolders]
+        self.lq_paths = [[os.path.join(lq_root, s, f'im{i}.png')
+                          for i in neighbors] for s in subfolders]
+        self.total = len(subfolders)
+
+    def __getitem__(self, index):
+        paths = self.lq_paths[index]
+        return {'lq': np.stack([open_image(p)[0] for p in paths]),
+                'gt': open_image(self.gt_paths[index])[0],
+                'folder': 'vimeo90k', 'idx': f'{index}/{self.total}',
+                'lq_path': paths[len(paths) // 2]}
+
+    def __len__(self):
+        return self.total
+
+
+def _mod_crop_chw(img, scale):
+    return np.transpose(mod_crop(np.transpose(img, (1, 2, 0)), scale),
+                        (2, 0, 1))
+
+
+@DATASET_REGISTRY.register()
+class VideoTestDUFDataset(VideoTestDataset):
+    """VideoTestDataset for DUF; extra opt: use_duf_downsampling, scale
+    (default 4). The GT frame is mod-cropped to ``scale``."""
+
+    def __getitem__(self, index):
+        fi, ci = self.items[index]
+        scale = self.opt.get('scale', 4)
+        idxs = generate_frame_indices(ci, len(self.lq_frames[fi]),
+                                      self.num_frame, self.padding)
+        if self.opt.get('use_duf_downsampling'):
+            gt_seq = np.stack([_mod_crop_chw(open_image(
+                self.gt_frames[fi][i])[0], scale) for i in idxs])
+            lq = duf_downsample(gt_seq, kernel_size=13, scale=scale)
+        else:
+            lq = np.stack([open_image(self.lq_frames[fi][i])[0]
+                           for i in idxs])
+        gt = _mod_crop_chw(open_image(self.gt_frames[fi][ci])[0], scale)
+        return {'lq': lq, 'gt': gt, 'folder': self.base_folder[fi],
+                'idx': f'{ci}/{len(self.lq_frames[fi])}'}
 
 
 class _ClipTrees:

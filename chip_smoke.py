@@ -318,6 +318,27 @@ Phases, each printed as one JSON object on its own line:
    on random weights saved here, ``inference_esrgan`` and
    ``inference_ridnet`` on two synthetic PNGs each: the images' shapes,
    command seconds.
+20. video_parity, video_steps, video_edvr_data, video_edvr_cli,
+   video_edvr_profile, video_inference_basicvsr (the rest of the zoo's
+   video family; fp32, TF32 off; no kernel of the port on these paths):
+   at published widths, card against CPU to 1e-4 x max|ref|, every DCN
+   pack's ``conv_offset`` random: EDVR-M on 5 frames of 64 x 64, IconVSR
+   (64 x 30, key frames every 5, temporal padding 2) on 15 frames, TOFlow
+   and DUF x4 (52 layers) on 7; 3 VideoRecurrentModel steps of IconVSR
+   (SpyNet frozen at step 1) and 3 VideoGANModel steps with EDVR-M as G,
+   card against CPU, each step from the card's weights (losses 1e-4,
+   each optimizer group's gradients 5e-2 in L2: ``STEP_GRAD_TOL``). The
+   train CLI on ``EDVR_YML`` (BasicSR's
+   train_EDVR_M_x4_SR_REDS_M.yml values), --force_yml changing the
+   folders (REDS-layout trees at 720 x 1280 GT / 180 x 320 LQ), lmdb to
+   disk, no pretrained file, total_iter 30 and tsa_iter 11: ms an
+   iteration over 12-30 and the share spent waiting, peak memory, finite
+   losses, the warm phase (conv_first still, fusion moving) and the
+   unfreeze, its one validation's PSNR and seconds a clip; one more
+   iteration under the profiler (busy ms, idle share, the top kernels).
+   Then ``python -m bsvd_tpu_torch.inference.inference_basicvsr`` on a
+   20-frame 64 x 64 folder with random weights saved here: the outputs,
+   command seconds.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
@@ -4681,6 +4702,24 @@ class _StoredNoise(torch.nn.Module):
         return self.g([s1, s2], randomize_noise=False)[0]
 
 
+def _card_matches_cpu(out, name, net, *args):
+    """``net`` (on the CPU) and a copy of it on the card on the same
+    inputs, fp32: appends the record to ``out``, raises past 1e-4 x
+    max|ref| or on a value that is not finite; returns the CPU's
+    output."""
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = net(*args)
+        cpu_s = time.perf_counter() - t0
+        got = copy.deepcopy(net).to('cuda')(*[a.cuda() for a in args]).cpu()
+    err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
+    out.append({'net': name, 'shape_out': list(ref.shape),
+                'max_abs_err': err, 'max_abs_ref': scale, 'cpu_s': cpu_s})
+    if not err <= FP32_TOL * scale or not torch.isfinite(got).all():
+        raise AssertionError(f'{name} card vs CPU: {out[-1]}')
+    return ref
+
+
 def _face_parity():
     """Card (fp32, TF32 off) against CPU on the same weights, to 1e-4 x
     max|ref|: HiFaceGAN at num_feat 48 on a 64 x 64 LQ, StyleGAN2's 256
@@ -4690,16 +4729,7 @@ def _face_parity():
     out = []
 
     def check(name, net, *args):
-        with torch.no_grad():
-            ref = net(*args)
-            got = copy.deepcopy(net).to('cuda')(*[a.cuda()
-                                                  for a in args]).cpu()
-        err, scale = (got - ref).abs().max().item(), ref.abs().max().item()
-        out.append({'net': name, 'shape_out': list(ref.shape),
-                    'max_abs_err': err, 'max_abs_ref': scale})
-        if not err <= FP32_TOL * scale or not torch.isfinite(got).all():
-            raise AssertionError(f'{name} card vs CPU: {out[-1]}')
-        return ref
+        return _card_matches_cpu(out, name, net, *args)
     lq = torch.from_numpy(rng.uniform(0, 1, (1, 3, 64, 64)).astype(
         np.float32))
     check('HiFaceGAN num_feat 48', build_network(
@@ -4943,6 +4973,479 @@ def phase_face_gans():
     emit({'phase': 'face_gans', 'seconds': time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the rest of the zoo's video family (EDVR-M from the command
+# line, IconVSR, TOFlow, DUF, the video GAN engines, inference_basicvsr)
+# ---------------------------------------------------------------------------
+
+# BasicSR's options/train/EDVR/train_EDVR_M_x4_SR_REDS_M.yml: its nets,
+# data, schedule, loss and metric (num_gpu auto: one card here, BasicSR's
+# 8); EDVR_FORCE changes the folders (and lmdb to disk), drops the
+# pretrained file and cuts total_iter and tsa_iter
+EDVR_YML = """name: 100_EDVR_M_x4_SR_REDS_600k_B4G8_valREDS4
+model_type: EDVRModel
+scale: 4
+num_gpu: auto
+manual_seed: 10
+datasets:
+  train:
+    name: REDS
+    type: REDSDataset
+    dataroot_gt: datasets/REDS/train_sharp_with_val.lmdb
+    dataroot_lq: datasets/REDS/train_sharp_bicubic_with_val.lmdb
+    dataroot_flow: ~
+    meta_info_file: basicsr/data/meta_info/meta_info_REDS_GT.txt
+    val_partition: REDS4
+    io_backend:
+      type: lmdb
+    num_frame: 5
+    gt_size: 256
+    interval_list: [1]
+    random_reverse: false
+    use_hflip: true
+    use_rot: true
+    num_worker_per_gpu: 3
+    batch_size_per_gpu: 4
+    dataset_enlarge_ratio: 200
+    prefetch_mode: ~
+  val:
+    name: REDS4
+    type: VideoTestDataset
+    dataroot_gt: datasets/REDS/train_sharp
+    dataroot_lq: datasets/REDS/train_sharp_bicubic
+    meta_info_file: basicsr/data/meta_info/meta_info_REDS4_test_GT.txt
+    io_backend:
+      type: disk
+    cache_data: false
+    num_frame: 5
+    padding: reflection_circle
+network_g:
+  type: EDVR
+  num_in_ch: 3
+  num_out_ch: 3
+  num_feat: 64
+  num_frame: 5
+  deformable_groups: 8
+  num_extract_block: 5
+  num_reconstruct_block: 10
+  center_frame_idx: ~
+  hr_in: false
+  with_predeblur: false
+  with_tsa: true
+path:
+  pretrain_network_g: experiments/pretrained_models/EDVR/EDVR_M_woTSA_x4_SR_REDS_official-1edf645c.pth
+  strict_load_g: false
+  resume_state: ~
+train:
+  optim_g:
+    type: Adam
+    lr: !!float 4e-4
+    weight_decay: 0
+    betas: [0.9, 0.99]
+  scheduler:
+    type: CosineAnnealingRestartLR
+    periods: [50000, 100000, 150000, 150000, 150000]
+    restart_weights: [1, 0.5, 0.5, 0.5, 0.5]
+    eta_min: !!float 1e-7
+  total_iter: 600000
+  warmup_iter: -1
+  tsa_iter: 50000
+  dcn_lr_mul: 1
+  pixel_opt:
+    type: CharbonnierLoss
+    loss_weight: 1.0
+    reduction: sum
+val:
+  val_freq: !!float 5e3
+  save_img: false
+  metrics:
+    psnr:
+      type: calculate_psnr
+      crop_border: 0
+      test_y_channel: false
+logger:
+  print_freq: 100
+  save_checkpoint_freq: !!float 5e3
+  use_tb_logger: true
+  wandb:
+    project: ~
+    resume_id: ~
+dist_params:
+  backend: nccl
+  port: 29500
+"""
+EDVR_ITERS, EDVR_TSA_ITER = 30, 11
+# REDS's 720 x 1280 GT / 180 x 320 LQ frames: (clips, frames) of the train
+# and val trees
+EDVR_TRAIN, EDVR_VAL = (2, 10), (1, 5)
+EDVR_M = {'type': 'EDVR', 'num_feat': 64, 'num_frame': 5,
+          'deformable_groups': 8, 'num_extract_block': 5,
+          'num_reconstruct_block': 10, 'with_tsa': True}
+ICON_NET = {'type': 'IconVSR', 'num_feat': 64, 'num_block': 30,
+            'keyframe_stride': 5, 'temporal_padding': 2}
+# the steps' gradients, card against CPU (both fp32): each optimizer
+# group's L2 difference within this share of its L2 norm. fp32 alone
+# parts them by 1e-3 - 1e-2, differing from run to run on the same
+# inputs (H100 80GB HBM3, 700 W: EDVR-M as G of the GAN step 1.2e-3 -
+# 1.0e-2 over five runs; its D up to 5.5e-3; IconVSR's SpyNet group
+# 1.5e-3): the card's scatter-adds sum in no fixed order, and a bilinear
+# sample's gradient in its coordinate jumps where the coordinate crosses
+# a pixel. A fault on the card moved G's by 11.5% (the channels-last
+# average-pool backward, ROADMAP Queue 3).
+STEP_GRAD_TOL = 5e-2
+
+
+def _random_offsets(net, seed, scale=2.0):
+    """Every DCN pack's conv_offset random (a fresh pack's is zero, a
+    plain conv): offsets of a few pixels."""
+    from bsvd_tpu_torch.ops.deform_conv import DCNv2Pack
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, DCNv2Pack):
+                w = m.conv_offset.weight
+                w.copy_((torch.randn(w.shape, generator=gen) * scale
+                         / w[0].numel() ** 0.5).to(w.device))
+                m.conv_offset.bias.copy_(torch.randn(
+                    m.conv_offset.bias.shape, generator=gen).to(w.device))
+    return net
+
+
+def _video_parity():
+    """Card (fp32, TF32 off) against CPU on the same weights, to 1e-4 x
+    max|ref|: EDVR-M (random DCN offsets) on 5 frames of 64 x 64, IconVSR
+    (64 x 30, key frames every 5, temporal padding 2) on a 15-frame
+    64 x 64 clip, TOFlow on 7 frames and DUF x4 (52 layers) on 7 frames of
+    64 x 64."""
+    rng = np.random.default_rng(SEED + 70)
+    out = []
+
+    def check(name, net, x):
+        _card_matches_cpu(out, name, net.eval(), x)
+        out[-1].update(shape_in=list(x.shape), params=count_params(net))
+
+    def clip(t):
+        return torch.from_numpy(rng.uniform(0, 1, (1, t, 3, 64, 64)).astype(
+            np.float32))
+    check('EDVR-M', _random_offsets(build_network(
+        dict(EDVR_M, seed=SEED), 'cpu'), SEED + 71), clip(5))
+    check('IconVSR 64 x 30', _random_offsets(build_network(
+        dict(ICON_NET, seed=SEED), 'cpu'), SEED + 72), clip(15))
+    check('TOFlow', build_network({'type': 'TOFlow', 'seed': SEED}, 'cpu'),
+          clip(7))
+    check('DUF x4 52 layers', build_network(
+        {'type': 'DUF', 'scale': 4, 'num_layer': 52, 'seed': SEED}, 'cpu'),
+        clip(7))
+    emit({'phase': 'video_parity', 'nets': out,
+          'tol': f'{FP32_TOL} x max|ref|', 'fp32_tf32_off': True})
+
+
+def _capture_grads(optim, into):
+    """Wrap ``optim.step`` to keep, in ``into``, each step's gradients (on
+    the CPU) before it runs."""
+    step = optim.step
+
+    def capture():
+        into.update({n: (torch.zeros_like(p) if p.grad is None
+                         else p.grad).detach().cpu().clone()
+                     for n, p in zip(optim.names, optim.params)})
+        step()
+    optim.step = capture
+
+
+def _steps_card_vs_cpu(opt, batch, iters, nets, seed):
+    """``iters`` steps of the model of ``opt`` on the card and on the CPU
+    (fp32), each from the card's weights (loaded into the CPU's model
+    before the step; ``nets`` names the model's networks): every step's
+    logged losses within 1e-4 x max(1, |ref|), and each optimizer group's
+    gradients within STEP_GRAD_TOL in L2. Returns the record."""
+    from bsvd_tpu_torch.models.base_model import build_model
+    models = [build_model(copy.deepcopy(opt), device=d)
+              for d in ('cuda', 'cpu')]
+    for m in models:
+        for name in nets:
+            _random_offsets(getattr(m, name), seed)
+    grads = [{} for _ in models]
+    for m, into in zip(models, grads):
+        for attr in ('optimizer', 'optimizer_d', 'optimizer_flow',
+                     'optimizer_dcn'):
+            optim = getattr(m, attr, None)
+            if optim is not None:
+                into[attr] = {}
+                _capture_grads(optim, into[attr])
+    card, cpu = models
+    rec = {'steps': [], 'ms_per_step_card': []}
+    for it in range(1, iters + 1):
+        for name in nets:
+            getattr(cpu, name).load_state_dict(
+                {k: v.cpu() for k, v in getattr(card, name).state_dict()
+                 .items()})
+        for m in models:
+            m.feed_data(batch)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card.optimize_parameters(it)
+        torch.cuda.synchronize()
+        rec['ms_per_step_card'].append((time.perf_counter() - t0) * 1e3)
+        cpu.optimize_parameters(it)
+        got, ref = card.get_current_log(), cpu.get_current_log()
+        step = {'it': it, 'losses': got, 'loss_errs': {
+            k: abs(got[k] - ref[k]) / max(1.0, abs(ref[k])) for k in ref}}
+        for attr in grads[1]:
+            want, have = grads[1][attr], grads[0][attr]
+            d = {n: (have[n] - g).double() for n, g in want.items()}
+            norm = math.sqrt(sum(float(g.double().square().sum())
+                                 for g in want.values()))
+            worst = max(d, key=lambda n: float(d[n].abs().max()))
+            scale = max(float(g.abs().max()) for g in want.values())
+            step[attr] = {
+                'l2_over_l2': math.sqrt(sum(float(v.square().sum())
+                                            for v in d.values()))
+                / max(norm, 1e-30),
+                'max_over_max': float(d[worst].abs().max())
+                / max(scale, 1e-30), 'worst_tensor': worst}
+        rec['steps'].append(step)
+        if not (list(got) == list(ref)
+                and all(math.isfinite(v) for v in got.values())
+                and max(step['loss_errs'].values()) <= FP32_TOL
+                and all(step[a]['l2_over_l2'] <= STEP_GRAD_TOL
+                        for a in grads[1])):
+            raise AssertionError(f'{opt["model_type"]} steps card vs CPU: '
+                                 f'{rec}')
+    rec['optimizer_counts'] = {a: getattr(card, a).count for a in grads[0]}
+    return rec
+
+
+def _video_steps(root):
+    """3 VideoRecurrentModel steps of IconVSR (64 x 30) on a 5-frame 32 x
+    32 clip (SpyNet frozen at step 1, fix_flow 2) and 3 VideoGANModel
+    steps with EDVR-M as G and the VGG-style discriminator (128, 64
+    features) on two 5-frame windows, card against CPU."""
+    rng = np.random.default_rng(SEED + 73)
+    paths = {'models': os.path.join(root, 'm'),
+             'training_states': os.path.join(root, 's')}
+    adam = {'type': 'Adam', 'lr': 2e-4, 'betas': [0.9, 0.99]}
+    vrm = {'name': 'iconvsr_steps', 'model_type': 'VideoRecurrentModel',
+           'is_train': True, 'num_gpu': 1, 'scale': 4,
+           'network_g': dict(ICON_NET, seed=SEED), 'path': paths,
+           'train': {'optim_g': adam, 'total_iter': 3, 'fix_flow': 2,
+                     'flow_lr_mul': 0.125,
+                     'pixel_opt': {'type': 'CharbonnierLoss',
+                                   'loss_weight': 1.0, 'reduction': 'mean'}},
+           'logger': {}}
+    batch = {'lq': rng.uniform(0, 1, (1, 5, 3, 32, 32)).astype(np.float32),
+             'gt': rng.uniform(0, 1, (1, 5, 3, 128, 128)).astype(np.float32)}
+    icon = _steps_card_vs_cpu(vrm, batch, 3, ('net',), SEED + 74)
+    gan = {'name': 'edvr_gan_steps', 'model_type': 'VideoGANModel',
+           'is_train': True, 'num_gpu': 1, 'scale': 4,
+           'network_g': dict(EDVR_M, seed=SEED),
+           'network_d': {'type': 'VGGStyleDiscriminator128', 'num_in_ch': 3,
+                         'num_feat': 64, 'seed': SEED},
+           'path': paths,
+           'train': {'optim_g': dict(adam, lr=1e-4),
+                     'optim_d': dict(adam, lr=1e-4), 'total_iter': 3,
+                     'pixel_opt': {'type': 'L1Loss', 'loss_weight': 1e-2},
+                     'gan_opt': {'type': 'GANLoss', 'gan_type': 'vanilla',
+                                 'loss_weight': 5e-3}},
+           'logger': {}}
+    batch = {'lq': rng.uniform(0, 1, (2, 5, 3, 32, 32)).astype(np.float32),
+             'gt': rng.uniform(0, 1, (2, 3, 128, 128)).astype(np.float32)}
+    vgan = _steps_card_vs_cpu(gan, batch, 3, ('net', 'net_d'), SEED + 75)
+    emit({'phase': 'video_steps', 'iconvsr_video_recurrent_model': icon,
+          'edvr_m_video_gan_model': vgan,
+          'grad_tol': f'{STEP_GRAD_TOL} of each group\'s L2 norm',
+          'loss_tol': f'{FP32_TOL} x max(1, |ref|)', 'fp32_tf32_off': True,
+          'card': SMI})
+    if icon['optimizer_counts'] != {'optimizer': 3, 'optimizer_flow': 3}:
+        raise AssertionError(f'IconVSR steps: {icon}')
+
+
+def _edvr_profile(model, dopt, n=1):
+    """The device profile of n more train steps of the CLI's model on a
+    batch of its train dataset's first items."""
+    ds = build_dataset(dopt)
+    items = [ds[i] for i in range(dopt['batch_size_per_gpu'])]
+    model.feed_data({k: np.stack([it[k] for it in items])
+                     for k in ('lq', 'gt')})
+
+    def run():
+        for i in range(n):
+            model.optimize_parameters(EDVR_ITERS + 1 + i)
+        torch.cuda.synchronize()
+    run()                                   # the same shapes, warm
+    prof = device_profile(run, n, 'edvr_steps')
+    # the deformable sampling's four-corner gather and its backward's
+    # scatter-add (ATen's scatter / gather kernels), and cuDNN's NHWC <->
+    # NCHW conversions around some of its convs
+    parts = {'dcn_gather_scatter_kernels': ('scatter', 'gather'),
+             'cudnn_layout_conversions': ('nhwcToNchw', 'nchwToNhwc')}
+    prof['sampling_ms_per_unit'] = {
+        k: sum(ms for name, ms in prof['by_kernel']
+               if any(w in name for w in words))
+        for k, words in parts.items()}
+    prof.pop('by_kernel')
+    prof['top_device_ms_per_unit'] = prof['top_device_ms_per_unit'][:10]
+    return prof
+
+
+def _edvr_cli(root):
+    """The train CLI on EDVR_YML (BasicSR's EDVR-M REDS widths, batch,
+    data and schedule) for EDVR_ITERS iterations, TSA-only before
+    EDVR_TSA_ITER; the run's one validation (after the last iteration:
+    the yml's val_freq is past them)."""
+    from bsvd_tpu_torch.models.sr_model import SRModel
+    from bsvd_tpu_torch.models.video_base_model import EDVRModel as EM
+    from bsvd_tpu_torch.models.video_base_model import VideoBaseModel as VB
+    yml = os.path.join(root, 'train_EDVR_M_x4_SR_REDS_M.yml')
+    with open(yml, 'w') as f:
+        f.write(EDVR_YML)
+    force = [*(f'datasets:{ph}:dataroot_{k}={root}/{ph}/{k}'
+               for ph in ('train', 'val') for k in ('gt', 'lq')),
+             'datasets:train:io_backend:type=disk',
+             'path:pretrain_network_g=~', f'train:total_iter={EDVR_ITERS}',
+             f'train:tsa_iter={EDVR_TSA_ITER}']
+    snaps, vals = {}, []
+    step, validation = EM.optimize_parameters, SRModel.validation
+
+    def watched(model, it):
+        if it == 1:
+            snaps[0] = {k: v.detach().clone() for k, v in (
+                ('conv_first', model.net.conv_first.weight),
+                ('fusion', model.net.fusion.feat_fusion.weight))}
+        step(model, it)
+        if it in (1, EDVR_TSA_ITER - 1, EDVR_TSA_ITER):
+            snaps[it] = {'conv_first': model.net.conv_first.weight
+                         .detach().clone(),
+                         'fusion': model.net.fusion.feat_fusion.weight
+                         .detach().clone()}
+
+    def timed_validation(model, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = validation(model, *a, **k)
+        torch.cuda.synchronize()
+        vals.append((res, time.perf_counter() - t0))
+        return res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    EM.optimize_parameters, SRModel.validation = watched, timed_validation
+    try:
+        t0 = time.perf_counter()
+        with _StepClock((VB, EM)) as clock:
+            model = train_pipeline(root, cmd=['-opt', yml, '--force_yml',
+                                              *force])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        EM.optimize_parameters, SRModel.validation = step, validation
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    steady = clock.steady(EDVR_TSA_ITER + 1, EDVR_ITERS)
+    opt, dopt = model.opt, model.opt['datasets']['train']
+    moved = {k: {p: not torch.equal(snaps[a][p], snaps[b][p])
+                 for p in ('conv_first', 'fusion')}
+             for k, (a, b) in {'step_1': (0, 1),
+                               'warm_2_to_tsa_minus_1': (1,
+                                                         EDVR_TSA_ITER - 1),
+                               'at_tsa_iter': (EDVR_TSA_ITER - 1,
+                                               EDVR_TSA_ITER)}.items()}
+    exp = os.path.join(root, 'experiments', opt['name'], 'models')
+    val_clips = EDVR_VAL[0]
+    rec = {'phase': 'video_edvr_cli',
+           'source': 'BasicSR options/train/EDVR/train_EDVR_M_x4_SR_REDS_M'
+                     '.yml (nets, data, schedule, loss, metric)',
+           'force_yml': force, 'model': type(model).__name__,
+           'network_g': opt['network_g'], 'iters': EDVR_ITERS,
+           'tsa_iter': EDVR_TSA_ITER,
+           'batch': dopt['batch_size_per_gpu'],
+           'num_frame': dopt['num_frame'], 'gt_size': dopt['gt_size'],
+           'frames_gt_lq': [[720, 1280], [180, 320]],
+           'train_clips_frames': EDVR_TRAIN, 'val_clips_frames': EDVR_VAL,
+           'params_g': count_params(model.net), 'wall_s': wall,
+           'steady': steady,
+           'wait_share': steady['data_wait_ms'] / steady['ms_per_iter'],
+           'peak_allocated_gb': peak, 'losses': model.get_current_log(),
+           'optimizer_counts': [model.optimizer.count,
+                                model.optimizer_dcn.count],
+           'moved': moved, 'validations': len(vals),
+           'val_psnr': vals[0][0]['psnr'] if vals else None,
+           'val_s_per_clip': vals[0][1] / val_clips if vals else None,
+           'val_ms_per_frame': (vals[0][1] / (val_clips * EDVR_VAL[1]) * 1e3
+                                if vals else None),
+           'checkpoints': sorted(os.listdir(exp)), 'fp32_tf32_off': True,
+           'card': SMI}
+    emit(rec)
+    want_moved = {'step_1': {'conv_first': False, 'fusion': True},
+                  'warm_2_to_tsa_minus_1': {'conv_first': False,
+                                            'fusion': True},
+                  'at_tsa_iter': {'conv_first': True, 'fusion': True}}
+    if not (len(clock.marks) == EDVR_ITERS and len(vals) == 1
+            and math.isfinite(rec['val_psnr']) and moved == want_moved
+            and rec['optimizer_counts'] == [EDVR_ITERS] * 2
+            and 'net_g_latest.npz' in rec['checkpoints']
+            and all(math.isfinite(v) for v in rec['losses'].values())):
+        raise AssertionError(f'EDVR-M train CLI: {rec}')
+    emit({'phase': 'video_edvr_profile', 'iterations': 1,
+          **_edvr_profile(model, dopt), 'card': SMI})
+
+
+def _inference_basicvsr(root, rng):
+    """``python -m bsvd_tpu_torch.inference.inference_basicvsr`` on a
+    20-frame 64 x 64 folder with random BasicVSR (64 x 30) weights saved
+    here: the output count and shapes, command seconds."""
+    from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
+    from bsvd_tpu_torch.utils.img_util import imfrombytes, imwrite
+    ckpt = os.path.join(root, 'basicvsr.npz')
+    save_npz_params(ckpt, {'params': to_jax_tree(build_network(
+        {'type': 'BasicVSR', 'num_feat': 64, 'num_block': 30,
+         'seed': SEED}, 'cpu'))})
+    frames, out = os.path.join(root, 'frames'), os.path.join(root, 'vsr')
+    for i in range(20):
+        imwrite(rng.integers(0, 256, (64, 64, 3)).astype(np.uint8),
+                os.path.join(frames, f'{i:08d}.png'))
+    t0 = time.perf_counter()
+    _run_module(['bsvd_tpu_torch.inference.inference_basicvsr',
+                 '--model_path', ckpt, '--input_path', frames,
+                 '--save_path', out], 600)
+    seconds = time.perf_counter() - t0
+    shapes = {}
+    for f in sorted(os.listdir(out)):
+        with open(os.path.join(out, f), 'rb') as fh:
+            shapes[f] = list(imfrombytes(fh.read(), 'color').shape)
+    rec = {'phase': 'video_inference_basicvsr', 'frames': 20,
+           'interval': 15, 'command_s': seconds, 'outputs': len(shapes),
+           'shapes': sorted({tuple(s) for s in shapes.values()}),
+           'card': SMI}
+    emit(rec)
+    if sorted(shapes) != [f'{i:08d}_BasicVSR.png' for i in range(20)] \
+            or rec['shapes'] != [(256, 256, 3)]:
+        raise AssertionError(f'inference_basicvsr: {rec}')
+
+
+def phase_video_family():
+    """Phase 20: the rest of the zoo's video family. No kernel of the port
+    is on these paths (plain PyTorch, as the JAX package's XLA): the
+    kernels line is unchanged."""
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, 'video_family')
+    rng = np.random.default_rng(SEED + 76)
+    _video_parity()
+    _video_steps(root)
+    t1 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        futures = (_vsr_clips(os.path.join(root, 'train'), *EDVR_TRAIN, 720,
+                              1280, rng, pool)
+                   + _vsr_clips(os.path.join(root, 'val'), *EDVR_VAL, 720,
+                                1280, rng, pool))
+        for f in futures:
+            f.result()
+    emit({'phase': 'video_edvr_data', 'write_s': time.perf_counter() - t1,
+          'train': EDVR_TRAIN, 'val': EDVR_VAL, 'gt_hw': [720, 1280],
+          'lq_hw': [180, 320]})
+    _edvr_cli(root)
+    _inference_basicvsr(root, rng)
+    emit({'phase': 'video_family', 'seconds': time.perf_counter() - t0})
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -5025,6 +5528,7 @@ def run():
     phase_zoo_vsr()
     _sum_launches(parallel_launches, phase_tools())
     phase_face_gans()
+    phase_video_family()
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

@@ -1362,3 +1362,69 @@ def test_stylegan2_g_path_step_on_the_card_matches_cpu(dev, tmp_path):
         _grads_close(grads[2][net], grads[0][net], grads[1][net])
     mpl = float(exact.mean_path_length)
     assert abs(float(card.mean_path_length) - mpl) <= 1e-4 * abs(mpl)
+
+
+def test_modulated_deform_conv_on_the_card_matches_cpu(dev):
+    """``ops/deform_conv.modulated_deform_conv`` at EDVR-M's level-1 shape
+    in training (batch 4, 64 channels, 64 x 64, 8 deformable groups,
+    offsets up to 4 px, past every border), forward and the gradients of
+    x, offset, mask and weight: the card's fp32 (TF32 off) against the
+    CPU's float64, within twice the CPU fp32's own distance plus 1e-5 x
+    max|ref| (``grid_sample``'s CUDA backward adds with atomics, in no
+    fixed order)."""
+    from bsvd_tpu_torch.ops.deform_conv import modulated_deform_conv
+    rng = np.random.default_rng(11)
+    n, c, h, w, dg = 4, 64, 64, 64, 8
+    ins = {'x': rng.uniform(-1, 1, (n, c, h, w)),
+           'offset': rng.uniform(-4, 4, (n, dg * 18, h, w)),
+           'mask': rng.uniform(0, 1, (n, dg * 9, h, w)),
+           'weight': rng.standard_normal((c, c, 3, 3)) / 24}
+    bias = torch.from_numpy(rng.standard_normal(c).astype(np.float32))
+    cot = rng.standard_normal((n, c, h, w))
+    runs = []
+    for device, dtype in (('cpu', torch.float32), ('cpu', torch.float64),
+                          (dev, torch.float32)):
+        t = {k: torch.tensor(v, dtype=dtype, device=device,
+                             requires_grad=True) for k, v in ins.items()}
+        out = modulated_deform_conv(t['x'], t['offset'], t['mask'],
+                                    t['weight'], bias.to(device, dtype),
+                                    deformable_groups=dg)
+        out.backward(torch.tensor(cot, dtype=dtype, device=device))
+        runs.append({'out': out.detach()} | {k: v.grad
+                                              for k, v in t.items()})
+    cpu, exact, card = runs
+    for k, ref in exact.items():
+        own = float((cpu[k].double() - ref).abs().max())
+        err = float((card[k].cpu().double() - ref).abs().max())
+        assert err <= 2 * own + 1e-5 * float(ref.abs().max()), (k, err, own)
+
+
+@pytest.mark.parametrize('pool', ['edvr_tsa', 'hifacegan_excl'])
+@pytest.mark.parametrize('layout', ['contiguous', 'channels_last'])
+def test_avg_pools_on_the_card_match_cpu_in_any_layout(dev, pool, layout):
+    """The port's padded 3 x 3 stride-2 average pools (EDVR's TSA, the
+    padding counted; HiFaceGAN's, not), forward and backward, on the
+    card against the CPU within 1e-5 x max|ref|, on a contiguous and on
+    a channels-last input. PyTorch 2.11's CUDA ``F.avg_pool2d`` backward
+    of a channels-last tensor at these settings is 90-100% of max|ref|
+    off, which reached EDVR-M's gradients through TSA (7-11% in L2 at
+    batch 2); the port pools a contiguous copy."""
+    from bsvd_tpu_torch.archs.edvr_arch import _avg_pool_3s2
+    from bsvd_tpu_torch.archs.hifacegan_arch import avg_pool_excl
+    fn = _avg_pool_3s2 if pool == 'edvr_tsa' else avg_pool_excl
+    fmt = (torch.channels_last if layout == 'channels_last'
+           else torch.contiguous_format)
+    rng = np.random.default_rng(12)
+    x0 = torch.from_numpy(rng.standard_normal((2, 64, 16, 16)).astype(
+        np.float32))
+    gy = torch.from_numpy(rng.standard_normal((2, 64, 8, 8)).astype(
+        np.float32))
+    runs = []
+    for device in ('cpu', dev):
+        x = x0.clone().to(device).to(memory_format=fmt).requires_grad_()
+        y = fn(x)
+        y.backward(gy.to(device))
+        runs.append((y.detach().cpu(), x.grad.cpu()))
+    for got, ref in zip(runs[1], runs[0]):
+        err = float((got - ref).abs().max())
+        assert err <= 1e-5 * float(ref.abs().max()), (pool, layout, err)

@@ -73,7 +73,13 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.inference._common',
         'bsvd_tpu_torch.inference.inference_stylegan2',
         'bsvd_tpu_torch.inference.inference_esrgan',
-        'bsvd_tpu_torch.inference.inference_ridnet'} | {
+        'bsvd_tpu_torch.inference.inference_ridnet',
+        'bsvd_tpu_torch.ops.deform_conv', 'bsvd_tpu_torch.archs.edvr_arch',
+        'bsvd_tpu_torch.archs.tof_arch', 'bsvd_tpu_torch.archs.duf_arch',
+        'bsvd_tpu_torch.models.video_base_model',
+        'bsvd_tpu_torch.models.video_gan_model',
+        'bsvd_tpu_torch.data.vimeo90k_dataset',
+        'bsvd_tpu_torch.inference.inference_basicvsr'} | {
         f'bsvd_tpu_torch.tools.{t}' for t in (
             '_common', '_stream_bench', 'make_synth_dataset',
             'profile_blocks', 'profile_stream', 'bench_train',

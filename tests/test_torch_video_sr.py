@@ -194,12 +194,16 @@ def test_basicvsr_matches_jax():
     assert got.shape == (1, 5, 3, 256, 256)
     _close(got, np.moveaxis(np.asarray(ref), -1, 2), rel=2e-5)
     # a BasicSR-layout state dict (constant buffers included) loads
-    # strictly; IconVSR waits for EDVR
+    # strictly; IconVSR (tests/test_torch_iconvsr.py) shares its SpyNet,
+    # branches and upsampler
     state = {k: v.clone() for k, v in net.state_dict().items()}
     assert {'spynet.mean', 'spynet.std'} <= set(state)
     build_network(opt, 'cpu').load_state_dict(state, strict=True)
-    with pytest.raises(NotImplementedError, match='Queue 1'):
-        build_network({'type': 'IconVSR'}, 'cpu')
+    icon = build_network({'type': 'IconVSR', 'num_feat': 16,
+                          'num_block': 2}, 'cpu').state_dict()
+    shared = [k for k in state if k.startswith(
+        ('spynet.', 'backward_trunk.', 'upconv', 'conv_hr', 'conv_last'))]
+    assert shared and all(icon[k].shape == state[k].shape for k in shared)
 
 
 # ---------------------------------------------------------------------------
