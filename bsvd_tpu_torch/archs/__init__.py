@@ -1,14 +1,15 @@
 """Arch registry of the port: importing this package registers the WNet
 wrappers (BSVD, TSN, BufferConv), the zoo's SR nets, VGG feature
 extractor and discriminators, its video family (SpyNet, BasicVSR,
-IconVSR, EDVR, TOFlow, DUF) and its face GANs (HiFaceGAN and its
-discriminator, StyleGAN2's generator and discriminator) in
+IconVSR, EDVR, TOFlow, DUF), its face GANs (HiFaceGAN and its
+discriminator, StyleGAN2's generator and discriminator) and DFDNet in
 ARCH_REGISTRY."""
 
 import torch
 
 from bsvd_tpu_torch.archs import (basicvsr_arch,  # noqa: F401
-                                  discriminator_arch, duf_arch, edvr_arch,
+                                  dfdnet_arch, discriminator_arch, duf_arch,
+                                  edvr_arch,
                                   hifacegan_arch, spynet_arch, sr_archs,
                                   stylegan2_arch, tof_arch, vgg_arch,
                                   wnet_arch)

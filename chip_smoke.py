@@ -300,8 +300,9 @@ Phases, each printed as one JSON object on its own line:
    face_inference (the zoo's face GANs; fp32, TF32 off; no kernel of the
    port on these paths): HiFaceGAN at num_feat 48 (64 x 64 LQ), StyleGAN2's
    256 Cmul2 generator (stored noise, two styles) and discriminator, card
-   against CPU to 1e-4 x max|ref|. 8 synthetic 512 x 512 faces (LQ: 4x
-   area-down, bicubic-up in torch) and 16 of 256 x 256. The train CLI on
+   against CPU to 1e-4 x max|ref|. 8 synthetic 512 x 512 faces (LQ: the
+   ported prepare_hifacegan_dataset's sr4x template, 4x INTER_AREA down,
+   INTER_CUBIC up, on the card) and 16 of 256 x 256. The train CLI on
    options/train/hifacegan_sr4x.yml at its widths (num_feat 48, gt_size
    512, batch 1, VGG19 perceptual at random weights), --force_yml
    changing the folders and total_iter (30) only: ms an iteration over
@@ -339,6 +340,26 @@ Phases, each printed as one JSON object on its own line:
    Then ``python -m bsvd_tpu_torch.inference.inference_basicvsr`` on a
    20-frame 64 x 64 folder with random weights saved here: the outputs,
    command seconds.
+21. faces_cv2_ops, faces_dfdnet, faces_paste, faces_hifacegan_prep,
+   faces_usm_noise_niqe (cv2's image operations in the port and the
+   modules on them; fp32, TF32 off; no kernel of the port on these
+   paths): each ``utils/cv2_ops`` operation on card tensors against the
+   same call on the CPU at its callers' sizes (uint8 bit for bit, float32
+   1e-5), its card ms and peak memory. ``FaceRestorationHelper`` with
+   given 5- and 68-point landmarks (dlib is absent) on a synthetic 1024 x
+   1024 frame, DFDNet at num_feat 64 on the 512 x 512 crop with a
+   synthetic dictionary (``DFD_ATOMS`` atoms, ``DFD_ATOM_HW``; the last
+   conv scaled so the tanh does not saturate on random weights): the card
+   against the CPU (the chosen atoms equal, the output within 1e-4 x
+   max|ref|), ms a face; ``paste_faces_to_input_image`` at upscale 2
+   (2048 x 2048, the PNG write included) against the CPU helper, ms.
+   Every ``prepare_hifacegan_dataset`` template over 8 GT faces at 512,
+   the script's LQ files on the card equal to its CPU run's, ms a face.
+   ``usm_sharp`` and ``usm_sharp_torch`` (card against CPU; the batched
+   form in float64, its cuDNN blur flipping threshold masks in fp32), the
+   batched degradation noise on a given noise tensor, NIQE on a 480 x 640
+   frame with a synthetic parameter file (1e-5 relative), ms and peak
+   memory. Phase 19's HiFaceGAN LQ comes from the sr4x template.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
@@ -364,8 +385,10 @@ NV12 to RGB (``library_ms`` null).
 The last line is ``{"ok": true, "device": {...}}``.
 """
 
+import contextlib
 import copy
 import csv
+import io
 import json
 import math
 import logging
@@ -4576,8 +4599,9 @@ def phase_tools(device='cuda', tool_args=(), burnin_args=(), wide=None):
 
 HIFACEGAN_YML = os.path.join(ROOT, 'options', 'train', 'hifacegan_sr4x.yml')
 FACE_ITERS, SG_ITERS = 30, 32
-# 8 GT faces at the yml's gt_size 512 (LQ: 4x area-down, bicubic-up) and
-# 16 FFHQ-sized 256 x 256 faces for StyleGAN2
+# 8 GT faces at the yml's gt_size 512 (LQ: prepare_hifacegan_dataset's sr4x
+# template, the ported script) and 16 FFHQ-sized 256 x 256 faces for
+# StyleGAN2
 FACE_N, FACE_HW, SG_N, SG_HW = 8, 512, 16, 256
 # BasicSR's options/train/StyleGAN/train_StyleGAN2_256_Cmul2_FFHQ.yml: its
 # nets, losses, lazy-regularisation intervals, mixing, Adam and data
@@ -4676,11 +4700,21 @@ def _write_faces(folder, imgs, pool):
             for i, a in enumerate(arr)]
 
 
+def _sr4x_lq(gt, rng):
+    """HiFaceGAN's LQ of (n, 3, h, w) float RGB GT faces by the ported
+    prepare_hifacegan_dataset's sr4x template (4x INTER_AREA down, INTER_CUBIC
+    up, on the card), as (n, 3, h, w) float RGB."""
+    from bsvd_tpu_torch.scripts.data_preparation.prepare_hifacegan_dataset \
+        import degrade
+    bgr = gt.permute(0, 2, 3, 1).flip(-1).to(torch.uint8)
+    lq = torch.stack([degrade(b, 'sr4x', rng, 'cuda') for b in bgr])
+    return lq.flip(-1).permute(0, 3, 1, 2).float()
+
+
 def _face_data(root, rng):
     """root/gt, root/lq (HiFaceGAN) and root/ffhq (StyleGAN2)."""
     gt = _faces(FACE_N, FACE_HW, rng)
-    lq = F.interpolate(F.avg_pool2d(gt, 4), scale_factor=4, mode='bicubic',
-                       align_corners=False).clamp(0, 255).round()
+    lq = _sr4x_lq(gt, np.random.default_rng(SEED + 62))
     t0 = time.perf_counter()
     with ThreadPoolExecutor(8) as pool:
         for f in (_write_faces(os.path.join(root, 'gt'), gt, pool)
@@ -5446,6 +5480,361 @@ def phase_video_family():
     emit({'phase': 'video_family', 'seconds': time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# phase 21: faces and degradations (utils/cv2_ops; FaceRestorationHelper
+# and DFDNet; prepare_hifacegan_dataset; USM, the degradation noise, NIQE)
+# ---------------------------------------------------------------------------
+
+# DFDNet's synthetic dictionary (none is in the repository): 32 atoms per
+# part at each feature size, spatial 24 / 12 / 6 / 3 at feature sizes
+# 256 / 128 / 64 / 32 (channels 128 / 256 / 512 / 512, the net's)
+DFD_ATOMS = 32
+DFD_ATOM_HW = {'256': (128, 24), '128': (256, 12), '64': (512, 6),
+               '32': (512, 3)}
+# the frame a 512 x 512 face is cropped from and pasted back into (x2)
+DFD_FRAME = 1024
+# the 68-landmark part centres and spreads on the 512 crop
+DFD_PARTS = {'left_eye': ((190, 245), 22), 'right_eye': ((322, 245), 22),
+             'nose': ((256, 318), 18), 'mouth': ((256, 392), 30)}
+HFG_N = 8
+NIQE_HW = (480, 640)
+
+
+def _card_ms(fn, reps=5):
+    """(fn's result, median ms of ``reps`` runs after one warm-up, peak MiB
+    allocated above what was allocated before)."""
+    out = fn()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    ms = median_ms(fn, reps, 0)
+    return out, ms, (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+def _same(name, got, ref, tol=1e-5):
+    """A card result against the CPU's: uint8 bit for bit, else within
+    ``tol``; returns the max |diff|."""
+    got = got.cpu()
+    if got.dtype == torch.uint8:
+        err = (got.int() - ref.int()).abs().max().item()
+        ok = err == 0
+    else:
+        err = (got.double() - ref.double()).abs().max().item()
+        ok = err <= tol and bool(torch.isfinite(got).all())
+    if got.shape != ref.shape or not ok:
+        raise AssertionError(f'{name}: card against CPU {err} '
+                             f'{tuple(got.shape)} {tuple(ref.shape)}')
+    return err
+
+
+def _motion(k, angle):
+    from bsvd_tpu_torch.scripts.data_preparation.prepare_hifacegan_dataset \
+        import _motion_kernel
+    return _motion_kernel(k, angle, 'cpu')
+
+
+def _cv2_ops_card(rng):
+    """Each cv2_ops operation on card tensors against the CPU at its
+    callers' sizes (the paste-back's float32 warp, erosion and feathering
+    at 2048 x 2048 are held in _faces_paste)."""
+    from bsvd_tpu_torch.utils import cv2_ops as co
+    from bsvd_tpu_torch.utils.face_util import umeyama_similarity
+    frame = torch.from_numpy(rng.integers(0, 256, (DFD_FRAME, DFD_FRAME, 3),
+                                          dtype=np.uint8))
+    face = frame[:512, :512].contiguous()
+    small = co.resize(face, (128, 128), co.INTER_AREA)
+    frac = co.resize(face, (87, 87), co.INTER_AREA)
+    f512 = face.float() / 255
+    gray = torch.from_numpy(rng.random(NIQE_HW + (3,)).astype(np.float32))
+    tmpl = np.array([[686.77227723, 488.62376238],
+                     [586.77227723, 493.59405941],
+                     [337.91089109, 488.38613861],
+                     [437.95049505, 493.51485149],
+                     [513.58415842, 678.5049505]]) / 2
+    lm = tmpl * 0.5 + np.array([380.0, 400.0])
+    fwd, inv = umeyama_similarity(lm, tmpl), umeyama_similarity(tmpl, lm * 2)
+    cases = [
+        ('resize INTER_LINEAR x2 (face_util)', frame,
+         lambda x: co.resize(x, (2048, 2048))),
+        ('resize INTER_AREA 512->128 (sr4x)', face,
+         lambda x: co.resize(x, (128, 128), co.INTER_AREA)),
+        ('resize INTER_AREA 512->87 (sr4x8x)', face,
+         lambda x: co.resize(x, (87, 87), co.INTER_AREA)),
+        ('resize INTER_CUBIC 128->512', small,
+         lambda x: co.resize(x, (512, 512), co.INTER_CUBIC)),
+        ('resize INTER_CUBIC 87->512', frac,
+         lambda x: co.resize(x, (512, 512), co.INTER_CUBIC)),
+        ('warp_affine uint8 frame->512 crop', frame,
+         lambda x: co.warp_affine(x, fwd, (512, 512))),
+        ('warp_affine uint8 512->2048 back', face,
+         lambda x: co.warp_affine(x, inv, (2048, 2048))),
+        ('gaussian_blur uint8 19 sigma 3', face,
+         lambda x: co.gaussian_blur(x, (19, 19), 3.0)),
+        ('gaussian_blur uint8 49 sigma 8', face,
+         lambda x: co.gaussian_blur(x, (49, 49), 8.0)),
+        ('gaussian_blur float32 51 sigma 0 (usm)', f512,
+         lambda x: co.gaussian_blur(x, (51, 51), 0)),
+        ('filter2d uint8 motion 11', face,
+         lambda x: co.filter2d(x, -1, _motion(11, 33.0))),
+        ('filter2d uint8 motion 20', face,
+         lambda x: co.filter2d(x, -1, _motion(20, 251.0))),
+        ('erode float32 4 x 4', f512, lambda x: co.erode(x, np.ones((4, 4), np.uint8))),
+        ('cvt_color float32 BGR2GRAY', gray,
+         lambda x: co.cvt_color(x, co.COLOR_BGR2GRAY)),
+    ]
+    out = []
+    for name, x, fn in cases:
+        ref = fn(x)
+        xc = x.cuda()
+        got, ms, peak = _card_ms(lambda: fn(xc))
+        out.append({'op': name, 'in': list(x.shape), 'dtype': str(x.dtype),
+                    'max_abs_err': _same(name, got, ref), 'card_ms': ms,
+                    'peak_mib': peak})
+    emit({'phase': 'faces_cv2_ops', 'ops': out,
+          'rule': 'uint8 bit-equal, float32 1e-5 (card against CPU)'})
+
+
+def _dfd_dict(rng):
+    return {s: {p: rng.standard_normal((DFD_ATOMS, c, hw, hw)).astype(
+        np.float32) for p in DFD_PARTS} for s, (c, hw) in DFD_ATOM_HW.items()}
+
+
+def _lm68(rng):
+    """68 landmarks on the 512 crop: each part's points around its
+    centre (the others, 0-16 and 27-28, on the jaw and the bridge)."""
+    from bsvd_tpu_torch.inference.inference_dfdnet import get_part_location
+    lm = np.zeros((68, 2))
+    lm[:17] = np.stack([np.linspace(120, 392, 17), 400 + 60 * np.sin(
+        np.linspace(0, np.pi, 17))], 1)
+    idx = {'left_eye': list(range(17, 22)) + list(range(36, 42)),
+           'right_eye': list(range(22, 27)) + list(range(42, 48)),
+           'nose': list(range(27, 36)), 'mouth': list(range(48, 68))}
+    for part, ((cx, cy), spread) in DFD_PARTS.items():
+        lm[idx[part]] = np.array([cx, cy]) + rng.uniform(
+            -spread, spread, (len(idx[part]), 2))
+    return lm, get_part_location(lm)
+
+
+def _faces_dfdnet(rng):
+    """FaceRestorationHelper with given landmarks (dlib is absent) on a
+    DFD_FRAME x DFD_FRAME frame, DFDNet at num_feat 64 on the 512 x 512
+    crop: card against CPU (the chosen atoms equal, the output within
+    1e-4 x max|ref|), ms a face, ms of the paste-back at upscale 2, peak
+    memory."""
+    from bsvd_tpu_torch.archs.dfdnet_arch import DFDNet
+    from bsvd_tpu_torch.utils.face_util import FaceRestorationHelper
+    from bsvd_tpu_torch.utils.img_util import tensor2img
+    frame = _faces(1, DFD_FRAME, rng)[0].permute(1, 2, 0).to(torch.uint8)
+    helper = FaceRestorationHelper(2, 512, device='cuda')
+    lm5 = helper.face_template * 0.5 + np.array([380.0, 400.0])
+    helper.input_img = frame
+    helper.all_landmarks_5 = [lm5]
+    _, crop_ms, _ = _card_ms(lambda: (helper.cropped_faces.clear(),
+                                      helper.affine_matrices.clear(),
+                                      helper.inverse_affine_matrices.clear(),
+                                      helper.warp_crop_faces()))
+    crop = helper.cropped_faces[0]
+    _, locs = _lm68(rng)
+    net = DFDNet(64, face_dict=_dfd_dict(rng), seed=SEED)
+    with torch.no_grad():
+        # random weights put the tanh's input near 1e4: scale the last conv
+        # so the output is not saturated and the comparison means something
+        net.upsample4[4].weight.mul_(3e-5)
+        net.upsample4[4].bias.mul_(3e-5)
+    x = ((crop.float() / 255. - 0.5) / 0.5).permute(2, 0, 1)[None]
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        ref = net(x.cpu().contiguous(), locs)
+    cpu_s = time.perf_counter() - t0
+    atoms_cpu = dict(net.last_atoms)
+    card = net.to('cuda')
+    xc = x.contiguous()
+    with torch.no_grad():
+        out, ms, peak = _card_ms(lambda: card(xc, locs))
+    err, scale = (out.cpu() - ref).abs().max().item(), ref.abs().max().item()
+
+    def three():
+        with torch.no_grad():
+            for _ in range(3):
+                card(xc, locs)
+        torch.cuda.synchronize()
+    prof = device_profile(three, 3, 'dfdnet_faces')
+    prof.pop('by_kernel')
+    prof['top_device_ms_per_unit'] = prof['top_device_ms_per_unit'][:8]
+    if card.last_atoms != atoms_cpu or not err <= FP32_TOL * scale \
+            or not torch.isfinite(out).all() or not 0.05 < scale < 0.999:
+        raise AssertionError(f'DFDNet card vs CPU: err {err}, max|ref| '
+                             f'{scale}, atoms {card.last_atoms} / '
+                             f'{atoms_cpu}')
+    emit({'phase': 'faces_dfdnet', 'num_feat': 64, 'face': [512, 512],
+          'dict_atoms': DFD_ATOMS, 'dict_atom_shapes': {
+              s: [DFD_ATOMS, c, hw, hw] for s, (c, hw) in
+              DFD_ATOM_HW.items()},
+          'part_boxes': [loc[0].tolist() for loc in locs],
+          'atoms': {f'{fs}/{p}': i for (fs, p), i in atoms_cpu.items()},
+          'max_abs_err': err, 'max_abs_ref': scale, 'tol': f'{FP32_TOL} x '
+          'max|ref|', 'ms_per_face': ms, 'peak_mib': peak, 'cpu_s': cpu_s,
+          'crop_ms': crop_ms, 'profile': prof, 'card': SMI})
+    restored = tensor2img(out[0].cpu().numpy(), min_max=(-1, 1))
+    del card, out
+    _faces_paste(helper, restored, frame)
+
+
+def _faces_paste(helper, restored, frame):
+    """paste_faces_to_input_image at upscale 2 (a 2048 x 2048 output: the
+    float32 warps, erosions and feathering at that size, and the PNG
+    write), card against the CPU helper on the same inputs."""
+    from bsvd_tpu_torch.utils.face_util import FaceRestorationHelper
+    helper.add_restored_face(restored)
+    path = os.path.join(WORK, 'faces_paste', 'card.png')
+    out, ms, peak = _card_ms(lambda: helper.paste_faces_to_input_image(path),
+                             reps=3)
+    cpu = FaceRestorationHelper(2, 512, device='cpu')
+    cpu.input_img = frame.cpu()
+    cpu.inverse_affine_matrices = list(helper.inverse_affine_matrices)
+    cpu.add_restored_face(restored)
+    t0 = time.perf_counter()
+    ref = cpu.paste_faces_to_input_image(path.replace('card', 'cpu'))
+    cpu_s = time.perf_counter() - t0
+    err = _same('paste_faces_to_input_image', out, ref, 1e-3)
+    png = [png_decode.load(path.replace('card', k)) for k in ('card', 'cpu')]
+    if not np.array_equal(*png):
+        raise AssertionError('paste_faces_to_input_image: the written '
+                             'frames differ')
+    emit({'phase': 'faces_paste', 'frame': [DFD_FRAME, DFD_FRAME],
+          'upscale': 2, 'out': list(out.shape), 'max_abs_err': err,
+          'png_equal': True, 'ms': ms, 'peak_mib': peak, 'cpu_s': cpu_s,
+          'card': SMI})
+
+
+def _hifacegan_prep(root, rng):
+    """Every prepare_hifacegan_dataset template over HFG_N GT faces at 512
+    on the card, the script's LQ files equal to its CPU run's; ms a GT
+    face (the template on a card tensor, synchronized), the script's
+    seconds, peak memory."""
+    from bsvd_tpu_torch.scripts.data_preparation import \
+        prepare_hifacegan_dataset as prep
+    gt_dir = os.path.join(root, 'gt')
+    gt = _faces(HFG_N, 512, rng)
+    with ThreadPoolExecutor(8) as pool:
+        for f in _write_faces(gt_dir, gt, pool):
+            f.result()
+    bgr = gt.permute(0, 2, 3, 1).flip(-1).to(torch.uint8)
+    out = []
+    for i, deg in enumerate(prep.DEG_TEMPLATES):
+        seed = SEED + 90 + i
+        dirs = {k: os.path.join(root, f'{deg}_{k}') for k in ('cuda', 'cpu')}
+        secs = {}
+        for k, d in dirs.items():
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(io.StringIO()):
+                prep.create_training_dataset(deg, gt_dir, d, seed, device=k)
+            secs[k] = time.perf_counter() - t0
+        names = sorted(os.listdir(dirs['cuda']))
+        if names != sorted(os.listdir(dirs['cpu'])) or len(names) != HFG_N:
+            raise AssertionError(f'{deg}: {names}')
+        for n in names:
+            a, b = (png_decode.load(os.path.join(dirs[k], n)) for k in dirs)
+            if not np.array_equal(a, b):
+                raise AssertionError(f'{deg} {n}: card LQ != CPU LQ')
+        face_rng = np.random.default_rng(seed)
+        times = []
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        for b in bgr:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            prep.degrade(b, deg, face_rng, 'cuda')
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        out.append({'template': deg, 'ms_per_face_median': statistics.median(
+            times), 'ms_per_face_first': times[0],
+            'script_s_card': secs['cuda'], 'script_s_cpu': secs['cpu'],
+            'peak_mib': (torch.cuda.max_memory_allocated() - base) / 2 ** 20,
+            'lq_equal_cpu': True})
+    emit({'phase': 'faces_hifacegan_prep', 'gt': [HFG_N, 512, 512],
+          'templates': out, 'card': SMI})
+
+
+def _niqe_params(path, seed):
+    """A synthetic NIQE parameter file (a seeded mean and positive-definite
+    covariance of the real shapes; the repository has none)."""
+    r = np.random.default_rng(seed)
+    a = r.standard_normal((36, 36))
+    np.savez(path, mu_pris_param=r.uniform(0.2, 3.0, (1, 36)),
+             cov_pris_param=a @ a.T / 36 + 0.5 * np.eye(36))
+    return path
+
+
+def _usm_noise_niqe(rng):
+    """usm_sharp (one frame) and usm_sharp_torch (a batch), the batched
+    degradation noise on a given noise tensor, NIQE on a NIQE_HW frame:
+    card against CPU, card ms and peak memory."""
+    from bsvd_tpu_torch.data.degradations import add_gaussian_noise_torch
+    from bsvd_tpu_torch.metrics.niqe import calculate_niqe
+    from bsvd_tpu_torch.utils.img_process_util import (usm_sharp,
+                                                       usm_sharp_torch)
+    rec = {}
+    batch = (_faces(8, 512, rng) / 255).permute(0, 2, 3, 1).contiguous()
+    one = batch[0].contiguous()
+    cpu_b, cpu_1 = batch.cpu(), one.cpu()
+    ref = usm_sharp(cpu_1)
+    got, ms, peak = _card_ms(lambda: usm_sharp(one))
+    rec['usm_sharp 512'] = {'max_abs_err': _same('usm_sharp', got, ref),
+                            'ms': ms, 'peak_mib': peak}
+    # the batched form blurs with cuDNN on the card: a residual within fp32
+    # rounding of the threshold flips its mask (2.4e-4 of the output on an
+    # H100), so card and CPU are held in float64, the time taken in fp32
+    ref = usm_sharp_torch(cpu_b.double())
+    err = _same('usm_sharp_torch', usm_sharp_torch(batch.double()), ref, 1e-9)
+    _, ms, peak = _card_ms(lambda: usm_sharp_torch(batch))
+    rec['usm_sharp_torch 8 x 512'] = {'max_abs_err_float64': err, 'ms': ms,
+                                      'peak_mib': peak}
+    sigma = torch.tensor(rng.uniform(1, 30, 8), dtype=torch.float32)
+    noise = torch.from_numpy(rng.standard_normal(batch.shape).astype(
+        np.float32))
+    gray = torch.from_numpy(rng.standard_normal(batch.shape[:3] + (1,))
+                            .astype(np.float32))
+    ref = add_gaussian_noise_torch(cpu_b, sigma, (1, 0) * 4, noise=noise,
+                                   gray=gray)
+    nc, gc, sc = noise.cuda(), gray.cuda(), sigma.cuda()
+    got, ms, peak = _card_ms(lambda: add_gaussian_noise_torch(
+        batch, sc, (1, 0) * 4, noise=nc, gray=gc))
+    rec['add_gaussian_noise_torch 8 x 512'] = {
+        'max_abs_err': _same('noise', got, ref, 1e-6), 'ms': ms,
+        'peak_mib': peak}
+    params = _niqe_params(os.path.join(WORK, 'niqe_synthetic.npz'),
+                          SEED + 95)
+    img = (_faces(1, NIQE_HW[1], rng)[0, :, :NIQE_HW[0]].permute(1, 2, 0)
+           .flip(-1).to(torch.uint8).contiguous())
+    t0 = time.perf_counter()
+    ref = calculate_niqe(img.cpu(), 0, niqe_pris_params=params)
+    cpu_s = time.perf_counter() - t0
+    got, ms, peak = _card_ms(lambda: calculate_niqe(
+        img, 0, niqe_pris_params=params), reps=3)
+    if not abs(got - ref) <= 1e-5 * abs(ref) or not math.isfinite(got):
+        raise AssertionError(f'NIQE card {got} CPU {ref}')
+    rec['niqe 480 x 640'] = {'card': got, 'cpu': ref, 'ms': ms,
+                             'peak_mib': peak, 'cpu_s': cpu_s,
+                             'params': 'synthetic (seeded mean, PD cov)'}
+    emit({'phase': 'faces_usm_noise_niqe', 'checks': rec, 'card': SMI})
+
+
+def phase_faces_degradations():
+    """Phase 21: faces and degradations. No kernel of the port is on these
+    paths (cv2_ops and DFDNet are plain PyTorch, as the JAX package's
+    numpy / cv2 / XLA): the kernels line is unchanged."""
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, 'faces_degradations')
+    rng = np.random.default_rng(SEED + 91)
+    _cv2_ops_card(rng)
+    _faces_dfdnet(rng)
+    _hifacegan_prep(root, rng)
+    _usm_noise_niqe(rng)
+    emit({'phase': 'faces_degradations',
+          'seconds': time.perf_counter() - t0})
+
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -5529,6 +5918,7 @@ def run():
     _sum_launches(parallel_launches, phase_tools())
     phase_face_gans()
     phase_video_family()
+    phase_faces_degradations()
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

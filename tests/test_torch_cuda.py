@@ -1428,3 +1428,99 @@ def test_avg_pools_on_the_card_match_cpu_in_any_layout(dev, pool, layout):
     for got, ref in zip(runs[1], runs[0]):
         err = float((got - ref).abs().max())
         assert err <= 1e-5 * float(ref.abs().max()), (pool, layout, err)
+
+
+# ----------------------------------------------------- cv2_ops on the card
+def _cv2_cases(rng):
+    """(name, fn, input) at the callers' shapes: face_util's upscale,
+    warps, erosion and feathering; prepare_hifacegan's resizes, blurs and
+    motion filter; NIQE's gray."""
+    from bsvd_tpu_torch.utils import cv2_ops as co
+    from bsvd_tpu_torch.utils.face_util import umeyama_similarity
+    u8 = torch.from_numpy(rng.integers(0, 256, (200, 232, 3),
+                                       dtype=np.uint8))
+    f32 = torch.from_numpy(rng.random((200, 232, 3)).astype(np.float32))
+    tmpl = np.array([[686.77, 488.62], [586.77, 493.59], [337.91, 488.39],
+                     [437.95, 493.51], [513.58, 678.50]]) / 8
+    lm = tmpl * 1.4 + rng.uniform(10, 30, (1, 2))
+    fwd, inv = umeyama_similarity(lm, tmpl), umeyama_similarity(tmpl, lm * 2)
+    kern = np.zeros((13, 13), np.float32)
+    kern[6] = 1.0
+    kern = co.warp_affine(torch.from_numpy(kern),
+                          co.get_rotation_matrix_2d((6, 6), 37.0, 1.0),
+                          (13, 13))
+    kern = kern / kern.sum()
+    return [
+        ('resize_linear_x2', lambda x: co.resize(x, (464, 400)), u8),
+        ('resize_area_4', lambda x: co.resize(x, (58, 50), co.INTER_AREA),
+         u8),
+        ('resize_area_frac', lambda x: co.resize(x, (41, 37), co.INTER_AREA),
+         u8),
+        ('resize_cubic', lambda x: co.resize(x, (232, 200), co.INTER_CUBIC),
+         u8[:50, :58].contiguous()),
+        ('warp_u8', lambda x: co.warp_affine(x, fwd, (128, 128)), u8),
+        ('warp_back_u8', lambda x: co.warp_affine(x, inv, (464, 400)), u8),
+        ('warp_f32', lambda x: co.warp_affine(x, inv, (464, 400)), f32),
+        ('erode_f32', lambda x: co.erode(x, np.ones((4, 4), np.uint8)), f32),
+        ('gauss_u8', lambda x: co.gaussian_blur(x, (19, 19), 3.1), u8),
+        ('gauss_f32', lambda x: co.gaussian_blur(x, (51, 51), 0), f32),
+        ('filter2d_u8', lambda x: co.filter2d(x, -1, kern), u8),
+        ('gray_f32', lambda x: co.cvt_color(x, co.COLOR_BGR2GRAY), f32),
+    ]
+
+
+def test_cv2_ops_on_the_card_equal_cpu(dev):
+    """Every operation on a CUDA tensor equals the same call on the CPU:
+    uint8 bit for bit, float32 within 1e-5 (the fused multiply-adds are
+    computed in float64 on both)."""
+    rng = np.random.default_rng(20)
+    for name, fn, x in _cv2_cases(rng):
+        ref = fn(x)
+        got = fn(x.to(dev))
+        assert got.device.type == 'cuda', name
+        if ref.dtype == torch.uint8:
+            assert torch.equal(got.cpu(), ref), name
+        else:
+            err = (got.cpu() - ref).abs().max().item()
+            assert err <= 1e-5, (name, err)
+
+
+def test_dfdnet_on_the_card_matches_cpu(dev):
+    """DFDNet at full width on a 256 x 256 face: the same atoms as the
+    CPU, the output within 1e-4 x max|ref| (last conv scaled down so the
+    tanh does not saturate)."""
+    from bsvd_tpu_torch.archs.dfdnet_arch import DFDNet
+    rng = np.random.default_rng(21)
+    sizes = {'256': (128, 8, 8), '128': (256, 6, 6), '64': (512, 4, 4),
+             '32': (512, 3, 3)}
+    face_dict = {s: {p: rng.standard_normal((3,) + v).astype(np.float32)
+                     for p in ('left_eye', 'right_eye', 'nose', 'mouth')}
+                 for s, v in sizes.items()}
+    net = DFDNet(64, face_dict=face_dict, seed=3)
+    with torch.no_grad():
+        net.upsample4[4].weight.mul_(3e-5)
+        net.upsample4[4].bias.mul_(3e-5)
+    locs = [np.array([[64, 64, 128, 128]]), np.array([[160, 64, 224, 128]]),
+            np.array([[96, 128, 160, 192]]), np.array([[96, 192, 160, 248]])]
+    x = torch.from_numpy(rng.uniform(-1, 1, (1, 3, 256, 256)).astype(
+        np.float32))
+    card = copy.deepcopy(net).to(dev)
+    with torch.no_grad():
+        ref = net(x, locs)
+        got = card(x.to(dev), locs).cpu()
+    assert card.last_atoms == net.last_atoms
+    _close(got, ref, torch.float32)
+
+
+def test_hifacegan_templates_on_the_card_equal_cpu(dev):
+    """Every prepare_hifacegan template on a card tensor equals the CPU's
+    at the same seed, bit for bit."""
+    from bsvd_tpu_torch.scripts.data_preparation import \
+        prepare_hifacegan_dataset as prep
+    rng = np.random.default_rng(22)
+    gt = rng.integers(0, 256, (128, 128, 3), dtype=np.uint8)
+    for deg in prep.DEG_TEMPLATES:
+        a = prep.degrade(gt, deg, np.random.default_rng(5), device='cpu')
+        b = prep.degrade(gt, deg, np.random.default_rng(5), device=dev)
+        assert b.device.type == 'cuda'
+        assert torch.equal(b.cpu(), a), deg

@@ -79,7 +79,16 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.models.video_base_model',
         'bsvd_tpu_torch.models.video_gan_model',
         'bsvd_tpu_torch.data.vimeo90k_dataset',
-        'bsvd_tpu_torch.inference.inference_basicvsr'} | {
+        'bsvd_tpu_torch.inference.inference_basicvsr',
+        'bsvd_tpu_torch.utils.cv2_ops', 'bsvd_tpu_torch.utils.face_util',
+        'bsvd_tpu_torch.archs.dfdnet_arch',
+        'bsvd_tpu_torch.inference.inference_dfdnet',
+        'bsvd_tpu_torch.scripts.data_preparation.prepare_hifacegan_dataset',
+        'bsvd_tpu_torch.utils.img_process_util',
+        'bsvd_tpu_torch.utils.matlab_functions',
+        'bsvd_tpu_torch.data.degradations', 'bsvd_tpu_torch.metrics.niqe',
+        'bsvd_tpu_torch.scripts.metrics.calculate_niqe',
+        'bsvd_tpu_torch.scripts.metrics.calculate_psnr_ssim'} | {
         f'bsvd_tpu_torch.tools.{t}' for t in (
             '_common', '_stream_bench', 'make_synth_dataset',
             'profile_blocks', 'profile_stream', 'bench_train',
@@ -111,7 +120,9 @@ def test_port_imports_without_jax_yaml_or_nvcc():
     'bsvd_tpu_torch.utils.jpeg_encode', 'bsvd_tpu_torch.utils.flow_util',
     'bsvd_tpu_torch.archs.stylegan2_arch',
     'bsvd_tpu_torch.inference.inference_stylegan2',
-    'bsvd_tpu_torch.data.single_image_dataset'])
+    'bsvd_tpu_torch.data.single_image_dataset',
+    'bsvd_tpu_torch.utils.face_util', 'bsvd_tpu_torch.metrics.niqe',
+    'bsvd_tpu_torch.scripts.data_preparation.prepare_hifacegan_dataset'])
 def test_module_imports_first(module):
     """A module imported first in a fresh interpreter (no circular import
     through the data package's datasets)."""
