@@ -2,16 +2,17 @@
 wrappers (BSVD, TSN, BufferConv), the zoo's SR nets, VGG feature
 extractor and discriminators, its video family (SpyNet, BasicVSR,
 IconVSR, EDVR, TOFlow, DUF), its face GANs (HiFaceGAN and its
-discriminator, StyleGAN2's generator and discriminator) and DFDNet in
-ARCH_REGISTRY."""
+discriminator, StyleGAN2's generator and discriminator), DFDNet, SwinIR
+and the FID InceptionV3 in ARCH_REGISTRY."""
 
 import torch
 
 from bsvd_tpu_torch.archs import (basicvsr_arch,  # noqa: F401
                                   dfdnet_arch, discriminator_arch, duf_arch,
                                   edvr_arch,
-                                  hifacegan_arch, spynet_arch, sr_archs,
-                                  stylegan2_arch, tof_arch, vgg_arch,
+                                  hifacegan_arch, inception_arch,
+                                  spynet_arch, sr_archs, stylegan2_arch,
+                                  swinir_arch, tof_arch, vgg_arch,
                                   wnet_arch)
 from bsvd_tpu_torch.utils.registry import ARCH_REGISTRY
 

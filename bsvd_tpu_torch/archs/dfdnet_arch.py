@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from bsvd_tpu_torch.archs.inception_arch import resize_bilinear
 from bsvd_tpu_torch.archs.vgg_arch import VGGFeatureExtractor, vgg_names
 from bsvd_tpu_torch.utils.registry import ARCH_REGISTRY
 
@@ -40,29 +41,6 @@ CHANNEL_SIZES = (128, 256, 512, 512)
 # the normalised 3 x 3 binomial kernel of BasicSR's Blur
 _BLUR_K = np.array([[1., 2., 1.], [2., 4., 2.], [1., 2., 1.]],
                    np.float32) / 16.0
-
-
-def _resize_matrix(n_in, n_out, device):
-    """(n_out, n_in) bilinear interpolation matrix, torch's
-    align_corners=False convention with edge clamping (the port's copy of
-    bsvd_tpu/archs/inception_arch.py's)."""
-    dst = np.arange(n_out, dtype=np.float64)
-    src = np.clip((dst + 0.5) * (n_in / n_out) - 0.5, 0, n_in - 1)
-    i0 = np.floor(src).astype(np.int64)
-    i1 = np.minimum(i0 + 1, n_in - 1)
-    frac = src - i0
-    m = np.zeros((n_out, n_in), np.float32)
-    m[dst.astype(np.int64), i0] += (1 - frac).astype(np.float32)
-    m[dst.astype(np.int64), i1] += frac.astype(np.float32)
-    return torch.from_numpy(m).to(device)
-
-
-def resize_bilinear(x, out_h, out_w):
-    """NCHW bilinear resize as two matmuls (align_corners=False)."""
-    mh = _resize_matrix(x.shape[2], out_h, x.device)
-    mw = _resize_matrix(x.shape[3], out_w, x.device)
-    x = torch.einsum('oh,nchw->ncow', mh, x)
-    return torch.einsum('pw,ncow->ncop', mw, x)
 
 
 def resize_nearest(x, out_h, out_w):

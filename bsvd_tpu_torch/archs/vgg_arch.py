@@ -146,9 +146,11 @@ class VGGFeatureExtractor(nn.Module):
         self.vgg_net = nn.Sequential(layers)
         self.register_buffer('mean', torch.tensor(_MEAN).view(1, 3, 1, 1))
         self.register_buffer('std', torch.tensor(_STD).view(1, 3, 1, 1))
-        path = pretrain_path or os.environ.get('BSVD_VGG_PRETRAIN_PATH',
-                                               DEFAULT_PRETRAIN_PATH)
-        self.pretrained = os.path.exists(path)
+        # pretrain_path False: random weights, no file looked for
+        path = None if pretrain_path is False else (
+            pretrain_path or os.environ.get('BSVD_VGG_PRETRAIN_PATH',
+                                            DEFAULT_PRETRAIN_PATH))
+        self.pretrained = path is not None and os.path.exists(path)
         if self.pretrained:
             self.load_state_dict(convert_torchvision_vgg(
                 read_torchvision_vgg(path), vgg_type), strict=False)

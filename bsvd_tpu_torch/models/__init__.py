@@ -1,7 +1,7 @@
 """The port's train / eval engines; importing the package registers
 DenoisingModel, SRModel, SRGANModel, ESRGANModel, VideoRecurrentModel,
 VideoBaseModel, EDVRModel, VideoGANModel, VideoRecurrentGANModel,
-HiFaceGANModel and StyleGAN2Model in MODEL_REGISTRY
+HiFaceGANModel, StyleGAN2Model and SwinIRModel in MODEL_REGISTRY
 (``base_model.build_model`` makes one from the options)."""
 
 from bsvd_tpu_torch.models import (denoising_model,  # noqa: F401

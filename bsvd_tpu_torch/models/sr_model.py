@@ -234,3 +234,10 @@ class SRModel(BaseModel):
         self.save_training_state(epoch, current_iter,
                                  opt_state=self.optimizer.state_dict(),
                                  extra=self._training_state_extra())
+
+
+@MODEL_REGISTRY.register()
+class SwinIRModel(SRModel):
+    """SwinIR's engine: SRModel's (counterpart of bsvd_tpu/models/
+    sr_model.py:184). BasicSR's swinir_model only pads the test input to
+    window multiples, which the port's SwinIR does in its forward."""

@@ -360,6 +360,26 @@ Phases, each printed as one JSON object on its own line:
    batched degradation noise on a given noise tensor, NIQE on a 480 x 640
    frame with a synthetic parameter file (1e-5 relative), ms and peak
    memory. Phase 19's HiFaceGAN LQ comes from the sr4x template.
+22. swinir_forward, swinir_train_cli, swinir_step_grad, swinir_inference,
+   inception, fid_scripts, lpips, diffjpeg (fp32, TF32 off; no kernel of
+   the port on these paths: the phase asserts it adds no launch):
+   SwinIR classical x2 at BasicSR's SRx2 widths (``SWINIR_YML``) on a
+   678 x 1020 DIV2K LR frame, fp32 and bf16 autocast, ms a frame and peak
+   memory, the card against the CPU on a 64 x 64 crop; the train CLI on
+   ``SWINIR_YML`` for 30 iterations on synthetic 480 x 480 pairs (ms an
+   iteration over 11-30, the wait share, peak memory, the validation's
+   seconds), one step's gradients card against CPU, and the
+   ``inference_swinir`` command; the TF-FID InceptionV3 from a random
+   ``.pth`` at a batch of 64 of 256 x 256 resized to 299 (ms a batch,
+   images a second), the three FID scripts as commands on a 256-image
+   folder (the folder against its own statistics gives ~0) and a random
+   StyleGAN2 256 Cmul2; LPIPS at 512 x 512 (ms a pair, card against
+   CPU) and ``calculate_lpips`` on 16 PNG pairs; DiffJPEG on 12 x 3 x 256
+   x 256 at qualities drawn from [30, 95], ms of the forward and of
+   forward + backward, the quantised coefficients card against CPU (the
+   flips counted). Device profiles of one SwinIR frame (fp32, bf16) and
+   of 3 train steps, kernels grouped. The five commands run last, in two
+   waves of concurrent processes (their seconds share card and host).
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
@@ -579,9 +599,14 @@ def emit(obj):
     print(json.dumps(obj), flush=True)
 
 
-def _run_module(args, timeout):
-    """``python -m <args>`` from the repo root; its stdout lines."""
-    res = subprocess.run([sys.executable, '-m', *args], cwd=ROOT,
+def _run_module(args, timeout, cwd=ROOT, env=None):
+    """``python -m <args>`` (from the repo root unless ``cwd``, the repo on
+    the path; ``env`` entries added to the environment); its stdout
+    lines."""
+    env = dict(os.environ, **(env or {}))
+    env['PYTHONPATH'] = os.pathsep.join(
+        p for p in (ROOT, env.get('PYTHONPATH')) if p)
+    res = subprocess.run([sys.executable, '-m', *args], cwd=cwd, env=env,
                          capture_output=True, text=True, timeout=timeout)
     if res.returncode:
         raise AssertionError(f'{args[0]} exited {res.returncode}: '
@@ -5835,6 +5860,651 @@ def phase_faces_degradations():
           'seconds': time.perf_counter() - t0})
 
 
+# ---------------------------------------------------------------------------
+# phase 22: SwinIR, FID, LPIPS, DiffJPEG
+# ---------------------------------------------------------------------------
+
+# BasicSR's options/train/SwinIR/train_SwinIR_SRx2_scratch.yml (classical
+# SR x2 at the released widths, DIV2K pairs, batch 4 of 96 px GT, Adam 2e-4
+# (0.9, 0.99), MultiStepLR, L1, EMA 0.999); the phase points its folders at
+# synthetic pairs with --force_yml
+SWINIR_YML = """name: train_SwinIR_SRx2_scratch_P48W8_DIV2K_500k_B4G8
+model_type: SwinIRModel
+scale: 2
+num_gpu: auto
+manual_seed: 0
+datasets:
+  train:
+    name: DIV2K
+    type: PairedImageDataset
+    dataroot_gt: datasets/DF2K/DIV2K_train_HR_sub
+    dataroot_lq: datasets/DF2K/DIV2K_train_LR_bicubic_X2_sub
+    meta_info_file: basicsr/data/meta_info/meta_info_DIV2K800sub_GT.txt
+    filename_tmpl: '{}'
+    io_backend:
+      type: disk
+    gt_size: 96
+    use_hflip: true
+    use_rot: true
+    use_shuffle: true
+    num_worker_per_gpu: 6
+    batch_size_per_gpu: 4
+    dataset_enlarge_ratio: 1
+    prefetch_mode: ~
+  val:
+    name: Set5
+    type: PairedImageDataset
+    dataroot_gt: datasets/Set5/GTmod12
+    dataroot_lq: datasets/Set5/LRbicx2
+    io_backend:
+      type: disk
+network_g:
+  type: SwinIR
+  upscale: 2
+  in_chans: 3
+  img_size: 48
+  window_size: 8
+  img_range: 1.
+  depths: [6, 6, 6, 6, 6, 6]
+  embed_dim: 180
+  num_heads: [6, 6, 6, 6, 6, 6]
+  mlp_ratio: 2
+  upsampler: 'pixelshuffle'
+  resi_connection: '1conv'
+path:
+  pretrain_network_g: ~
+  strict_load_g: true
+  resume_state: ~
+train:
+  ema_decay: 0.999
+  optim_g:
+    type: Adam
+    lr: !!float 2e-4
+    weight_decay: 0
+    betas: [0.9, 0.99]
+  scheduler:
+    type: MultiStepLR
+    milestones: [250000, 400000, 450000, 475000]
+    gamma: 0.5
+  total_iter: 500000
+  warmup_iter: -1
+  pixel_opt:
+    type: L1Loss
+    loss_weight: 1.0
+    reduction: mean
+val:
+  val_freq: !!float 5e3
+  save_img: false
+  metrics:
+    psnr:
+      type: calculate_psnr
+      crop_border: 2
+      test_y_channel: true
+logger:
+  print_freq: 100
+  save_checkpoint_freq: !!float 5e3
+  use_tb_logger: true
+  wandb:
+    project: ~
+    resume_id: ~
+dist_params:
+  backend: nccl
+  port: 29500
+"""
+
+
+SWINIR_LR = (678, 1020)     # a DIV2K x2 LR frame (padded to 680 x 1024)
+SWINIR_ITERS = 30
+# DIV2K800sub's 480 x 480 GT crops (240 x 240 LR) and Set5-sized val pairs
+SWINIR_TRAIN, SWINIR_GT = 16, 480
+SWINIR_VAL, SWINIR_VAL_GT = 2, 252
+# the card against the CPU in fp32 (TF32 off): 1e-4 x max|ref| for
+# outputs and features, 1e-3 of each optimizer group's L2 for gradients
+# (summation order only: no sampling or scatter on these paths)
+P22_TOL, P22_GRAD_TOL = 1e-4, 1e-3
+FID_N, FID_HW, INCEPTION_BATCH = 256, 256, 64
+LPIPS_PAIRS, LPIPS_HW = 16, 512
+# Real-ESRGAN's degradation batch
+JPEG_SHAPE, JPEG_Q = (12, 3, 256, 256), (30, 95)
+
+
+def _p22_close(name, got, ref, tol=P22_TOL):
+    """A card tensor against the CPU's: max |diff| within tol x max|ref|;
+    returns (max |diff|, max |ref|)."""
+    got, ref = got.detach().float().cpu(), ref.detach().float().cpu()
+    err = (got - ref).abs().max().item()
+    scale = ref.abs().max().item()
+    if got.shape != ref.shape or not err <= tol * scale \
+            or not bool(torch.isfinite(got).all()):
+        raise AssertionError(f'{name}: card against CPU {err} (max|ref| '
+                             f'{scale}) {tuple(got.shape)}')
+    return err, scale
+
+
+def _swinir_yml():
+    return yaml_load(SWINIR_YML)
+
+
+def _kernel_shares(prof):
+    """A device profile's kernels in groups (ms per unit): GEMMs and
+    cuDNN's implicit-GEMM convs, softmax, LayerNorm, GELU, copies / layout
+    changes, the rest (elementwise, reductions)."""
+    groups = {'gemm_conv': ('gemm', 'cutlass', 'xmma', 'nvjet', 'sm90_'),
+              'softmax': ('softmax',), 'layer_norm': ('layer_norm',),
+              'gelu': ('gelu',), 'copy_layout': ('copy', 'cat', 'index',
+                                                 'roll', 'transpose')}
+    out = dict.fromkeys([*groups, 'other'], 0.0)
+    for name, ms in prof['by_kernel']:
+        low = name.lower()
+        key = next((g for g, words in groups.items()
+                    if any(w in low for w in words)), 'other')
+        out[key] += ms
+    return out
+
+
+def _swinir_forward(rng, dev='cuda'):
+    """SWINIR_YML's network_g (random weights from the seed) on a DIV2K x2
+    LR frame in fp32 and under bf16 autocast: ms a frame, peak GB; the
+    card against the CPU in fp32 on a 64 x 64 crop."""
+    net = build_network(dict(_swinir_yml()['network_g'], seed=SEED),
+                        dev).eval()
+    x = torch.from_numpy(rng.uniform(0, 1, (1, 3) + SWINIR_LR).astype(
+        np.float32)).to(dev)
+    rec, outs = {}, {}
+    with torch.no_grad():
+        for dtype in ('fp32', 'bf16'):
+            def run():
+                with torch.autocast(dev, torch.bfloat16,
+                                    enabled=dtype == 'bf16'):
+                    return net(x)
+            torch.cuda.empty_cache()
+            out, ms, _ = _card_ms(run, reps=3)
+            outs[dtype] = out.float()
+            rec[dtype] = {'ms_per_frame': ms,
+                          'peak_allocated_gb':
+                          torch.cuda.max_memory_allocated() / 1e9}
+        crop = x[:, :, :64, :64]
+        cpu_net = copy.deepcopy(net).cpu()
+        err, scale = _p22_close('swinir fp32 64x64', net(crop),
+                                cpu_net(crop.cpu()))
+        profiles = {}
+        if dev == 'cuda':
+            for dtype in ('fp32', 'bf16'):
+                def once():
+                    with torch.autocast(dev, torch.bfloat16,
+                                        enabled=dtype == 'bf16'):
+                        net(x)
+                    torch.cuda.synchronize()
+                prof = device_profile(once, 1, f'swinir_{dtype}')
+                prof['groups_ms'] = _kernel_shares(prof)
+                prof.pop('by_kernel')
+                prof['top_device_ms_per_unit'] = \
+                    prof['top_device_ms_per_unit'][:8]
+                profiles[dtype] = prof
+    shape = list(outs['fp32'].shape)
+    rec = {'phase': 'swinir_forward', 'network_g': _swinir_yml()['network_g'],
+           'params': count_params(net), 'lr_hw': list(SWINIR_LR),
+           'out_shape': shape, **rec,
+           'bf16_psnr_vs_fp32': psnr(outs['bf16'], outs['fp32']),
+           'profile_one_frame': profiles,
+           'card_vs_cpu_fp32_64': {'max_abs_err': err, 'max_ref': scale,
+                                   'tol': f'{P22_TOL} x max|ref|'},
+           'fp32_tf32_off': True, 'card': SMI}
+    emit(rec)
+    if shape != [1, 3, 2 * SWINIR_LR[0], 2 * SWINIR_LR[1]] or not all(
+            bool(torch.isfinite(o).all()) for o in outs.values()):
+        raise AssertionError(f'SwinIR forward: {rec}')
+    return net
+
+
+def _swinir_pairs(root, rng, pool):
+    """Futures of the train and val PNG pairs: GT of random 4 x 4 colour
+    blocks, LR its 2 x 2 mean."""
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    futures = []
+    for split, n, hw in (('train', SWINIR_TRAIN, SWINIR_GT),
+                         ('val', SWINIR_VAL, SWINIR_VAL_GT)):
+        for i in range(n):
+            base = rng.integers(0, 256, (hw // 4, hw // 4, 3))
+            gt = np.kron(base, np.ones((4, 4, 1))).astype(np.uint8)
+            lq = gt.reshape(hw // 2, 2, hw // 2, 2, 3).mean((1, 3)).round()
+            futures += [pool.submit(imwrite, gt, os.path.join(
+                root, split, 'gt', f'{i:04d}.png')), pool.submit(
+                imwrite, lq.astype(np.uint8), os.path.join(
+                    root, split, 'lq', f'{i:04d}.png'))]
+    return futures
+
+
+def _swinir_profile(model, dopt, n=3):
+    """The device profile of n more train steps of the CLI's model on a
+    batch of its train dataset's first items, its kernels grouped."""
+    ds = build_dataset(dopt)
+    items = [ds[i] for i in range(dopt['batch_size_per_gpu'])]
+    model.feed_data({k: np.stack([it[k] for it in items])
+                     for k in ('lq', 'gt')})
+
+    def run():
+        for i in range(n):
+            model.optimize_parameters(SWINIR_ITERS + 1 + i)
+        torch.cuda.synchronize()
+    run()                                   # the same shapes, warm
+    prof = device_profile(run, n, 'swinir_steps')
+    prof['groups_ms'] = _kernel_shares(prof)
+    prof.pop('by_kernel')
+    prof['top_device_ms_per_unit'] = prof['top_device_ms_per_unit'][:8]
+    return prof
+
+
+def _swinir_cli(root, dev='cuda'):
+    """The train CLI on SWINIR_YML for SWINIR_ITERS iterations on the
+    phase's pairs (folders and meta_info_file forced), its one validation
+    after the last (the yml's val_freq is past them); then one step's
+    gradients, card against CPU."""
+    from bsvd_tpu_torch.models.sr_model import SRModel
+    yml = os.path.join(root, 'train_SwinIR_SRx2_scratch.yml')
+    with open(yml, 'w') as f:
+        f.write(SWINIR_YML)
+    force = [*(f'datasets:{ph}:dataroot_{k}={root}/{ph}/{k}'
+               for ph in ('train', 'val') for k in ('gt', 'lq')),
+             'datasets:train:meta_info_file=~',
+             f'train:total_iter={SWINIR_ITERS}', 'logger:print_freq=10',
+             f'logger:save_checkpoint_freq={SWINIR_ITERS}']
+    vals, validation = [], SRModel.validation
+
+    def timed_validation(model, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = validation(model, *a, **k)
+        torch.cuda.synchronize()
+        vals.append((res, time.perf_counter() - t0))
+        return res
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    SRModel.validation = timed_validation
+    try:
+        t0 = time.perf_counter()
+        with _StepClock((SRModel,)) as clock:
+            model = train_pipeline(root, cmd=['-opt', yml, '--device', dev,
+                                              '--force_yml', *force])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        SRModel.validation = validation
+    steady = clock.steady(11, SWINIR_ITERS)
+    opt, dopt = model.opt, model.opt['datasets']['train']
+    exp = os.path.join(root, 'experiments', opt['name'], 'models')
+    rec = {'phase': 'swinir_train_cli',
+           'source': 'BasicSR options/train/SwinIR/train_SwinIR_SRx2_scratch'
+                     '.yml (net, data, optimizer, schedule, loss, EMA, '
+                     'metric)', 'force_yml': force,
+           'model': type(model).__name__, 'iters': SWINIR_ITERS,
+           'batch': dopt['batch_size_per_gpu'], 'gt_size': dopt['gt_size'],
+           'train_pairs': SWINIR_TRAIN, 'gt_hw': [SWINIR_GT] * 2,
+           'wall_s': wall, 'steady': steady,
+           'wait_share': steady['data_wait_ms'] / steady['ms_per_iter'],
+           'peak_allocated_gb': torch.cuda.max_memory_allocated() / 1e9,
+           'losses': model.get_current_log(),
+           'optimizer_count': model.optimizer.count,
+           'validations': len(vals),
+           'val_psnr': float(vals[0][0]['psnr']) if vals else None,
+           'val_s': vals[0][1] if vals else None,
+           'val_images': SWINIR_VAL,
+           'checkpoints': sorted(os.listdir(exp)), 'fp32_tf32_off': True,
+           'card': SMI}
+    emit(rec)
+    if not (type(model).__name__ == 'SwinIRModel'
+            and len(clock.marks) == SWINIR_ITERS and len(vals) == 1
+            and model.optimizer.count == SWINIR_ITERS
+            and math.isfinite(rec['val_psnr'])
+            and model.net_g_ema is not None
+            and 'net_g_latest.npz' in rec['checkpoints']
+            and all(math.isfinite(v) for v in rec['losses'].values())):
+        raise AssertionError(f'SwinIR train CLI: {rec}')
+    if dev == 'cuda':
+        emit({'phase': 'swinir_train_profile', 'iterations': 3,
+              **_swinir_profile(model, dopt), 'card': SMI})
+    yopt = _swinir_yml()
+    step_opt = {'name': 'swinir_step', 'model_type': 'SwinIRModel',
+                'is_train': True, 'num_gpu': 1, 'scale': 2,
+                'network_g': dict(yopt['network_g'], seed=SEED),
+                'path': {'models': os.path.join(root, 'm'),
+                         'training_states': os.path.join(root, 's')},
+                'train': yopt['train'], 'logger': {}}
+    rng = np.random.default_rng(SEED + 102)
+    batch = {'lq': rng.uniform(0, 1, (2, 3, 48, 48)).astype(np.float32),
+             'gt': rng.uniform(0, 1, (2, 3, 96, 96)).astype(np.float32)}
+    step = _steps_card_vs_cpu(step_opt, batch, 1, ('net',), SEED)
+    emit({'phase': 'swinir_step_grad', 'batch': [2, 48, 48], **step,
+          'grad_tol': f'{P22_GRAD_TOL} of the group\'s L2 norm',
+          'fp32_tf32_off': True, 'card': SMI})
+    if not step['steps'][0]['optimizer']['l2_over_l2'] <= P22_GRAD_TOL:
+        raise AssertionError(f'SwinIR step card vs CPU: {step}')
+
+
+def _swinir_inference_job(root, net, rng, dev):
+    """The ``inference_swinir`` command (classical SR x2) on two LR PNGs
+    with the phase's random weights as a ``.pth`` under ``params``, and
+    its check: the outputs' names and shapes."""
+    from bsvd_tpu_torch.utils.img_util import imfrombytes, imwrite
+    ckpt = os.path.join(root, 'swinir_x2.pth')
+    torch.save({'params': {k: v.cpu() for k, v in net.state_dict().items()}},
+               ckpt)
+    src, out = os.path.join(root, 'lr'), os.path.join(root, 'swinir_out')
+    for name, hw in (('a', (96, 128)), ('b', (75, 61))):
+        imwrite(rng.integers(0, 256, hw + (3,)).astype(np.uint8),
+                os.path.join(src, f'{name}.png'))
+
+    def check(lines, rec):
+        shapes = {}
+        for f in sorted(os.listdir(out)):
+            with open(os.path.join(out, f), 'rb') as fh:
+                shapes[f] = list(imfrombytes(fh.read(), 'color').shape)
+        rec['outputs'] = shapes
+        return shapes == {'a_SwinIR.png': [192, 256, 3],
+                          'b_SwinIR.png': [150, 122, 3]}
+    return ('inference_swinir',
+            ['bsvd_tpu_torch.inference.inference_swinir', '--model_path',
+             ckpt, '--input', src, '--output', out, '--task',
+             'classical_sr', '--scale', '2', '--device', dev], {}, root,
+            check)
+
+
+def _run_jobs(jobs):
+    """Run each job's command (``python -m``) at once, in threads; each
+    job is (name, args, env, cwd, check(lines, rec) -> ok). Returns
+    {name: record with its command seconds}; raises at the first failed
+    check."""
+    def one(job):
+        name, args, env, cwd, check = job
+        t0 = time.perf_counter()
+        lines = _run_module(args, 600, cwd=cwd, env=env)
+        rec = {'command_s': time.perf_counter() - t0}
+        if not check(lines, rec):
+            raise AssertionError(f'{name}: {rec} {lines[-5:]}')
+        return name, rec
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        return dict(f.result() for f in [pool.submit(one, j) for j in jobs])
+
+
+def _inception_pth(path, seed):
+    """A torchvision-layout FID Inception state dict of random weights
+    (He-normal convs, random BN statistics), saved as a ``.pth``."""
+    from bsvd_tpu_torch.archs.inception_arch import InceptionV3
+    gen = torch.Generator().manual_seed(seed)
+    state = {}
+    for k, v in InceptionV3().state_dict().items():
+        if 'num_batches_tracked' in k:
+            state[k] = v
+        elif 'running_var' in k:
+            state[k] = torch.rand(v.shape, generator=gen) + 0.5
+        elif k.endswith('bn.weight'):
+            state[k] = 1 + 0.1 * torch.randn(v.shape, generator=gen)
+        elif 'conv.weight' in k:
+            state[k] = torch.randn(v.shape, generator=gen) * math.sqrt(
+                2.0 / v[0].numel())
+        else:
+            state[k] = 0.1 * torch.randn(v.shape, generator=gen)
+    torch.save(state, path)
+    return path
+
+
+def _inception(pth, rng, dev='cuda'):
+    """The patched InceptionV3 at a batch of 64 images of 256 x 256
+    (resized to 299): ms a batch, images a second, peak GB; card against
+    CPU features on 4 images."""
+    from bsvd_tpu_torch.metrics.fid import (extract_inception_features,
+                                            load_patched_inception_v3)
+    net = load_patched_inception_v3(pretrain_path=pth, device=dev)
+    x = torch.from_numpy(rng.uniform(-1, 1, (INCEPTION_BATCH, 3, FID_HW,
+                                             FID_HW)).astype(np.float32))
+    xc = x.to(dev)
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        _, ms, _ = _card_ms(lambda: net(xc), reps=10)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    cpu_net = copy.deepcopy(net).cpu()
+    got = extract_inception_features([x[:4].numpy()], net)
+    ref = extract_inception_features([x[:4].numpy()], cpu_net)
+    err, scale = _p22_close('inception features', torch.from_numpy(got),
+                            torch.from_numpy(ref))
+    rec = {'phase': 'inception', 'batch': [INCEPTION_BATCH, 3, FID_HW,
+                                           FID_HW],
+           'resized_to': 299, 'ms_per_batch': ms,
+           'images_per_s': INCEPTION_BATCH / ms * 1e3,
+           'peak_allocated_gb': peak,
+           'card_vs_cpu_features_4': {'max_abs_err': err, 'max_ref': scale,
+                                      'tol': f'{P22_TOL} x max|ref|'},
+           'fp32_tf32_off': True, 'card': SMI}
+    emit(rec)
+
+
+def _fid_value(lines):
+    return float(lines[-1].split('fid:')[1])
+
+
+def _fid_folder(root, rng, pool):
+    """Futures of the PNG writes of the FID_N-image folder (8 x 8 random
+    colour blocks an image)."""
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    folder = os.path.join(root, 'faces')
+    futures = []
+    for i in range(FID_N):
+        base = rng.integers(0, 256, (8, 8, 3))
+        img = np.kron(base, np.ones((FID_HW // 8, FID_HW // 8, 1)))
+        futures.append(pool.submit(imwrite, img.astype(np.uint8),
+                                   os.path.join(folder, f'{i:05d}.png')))
+    return folder, futures
+
+
+def _fid_jobs(root, folder, pth, dev):
+    """The three FID scripts as commands: the statistics job (first), then
+    the folder's FID against them (the same images: about 0) and a random
+    StyleGAN2 256 Cmul2's FID."""
+    from bsvd_tpu_torch.archs.stylegan2_arch import StyleGAN2Generator
+    from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
+    env = {'BSVD_INCEPTION_PRETRAIN_PATH': pth}
+    stats = os.path.join(root, f'inception_FFHQ_{FID_HW}.npz')
+
+    def stats_ok(lines, rec):
+        with np.load(stats) as z:
+            rec['keys'] = sorted(z.files)
+            rec['trace_cov'] = float(np.trace(z['cov']))
+        return rec['keys'] == ['cov', 'mean', 'name', 'size']
+
+    def same_ok(lines, rec):
+        rec['fid'] = _fid_value(lines)
+        with np.load(stats) as z:
+            trace = float(np.trace(z['cov']))
+        return abs(rec['fid']) <= 1e-3 * trace
+
+    def sg_ok(lines, rec):
+        rec['fid'] = _fid_value(lines)
+        return math.isfinite(rec['fid'])
+    g = StyleGAN2Generator(256, num_style_feat=512, num_mlp=8,
+                           channel_multiplier=2, seed=SEED)
+    ckpt = os.path.join(root, 'stylegan2_256.npz')
+    save_npz_params(ckpt, {'params_ema': to_jax_tree(g)})
+    mod = 'bsvd_tpu_torch.scripts.metrics.'
+    first = ('fid_stats', [mod + 'calculate_fid_stats_from_datasets',
+                           '--dataroot', folder, '--size', str(FID_HW),
+                           '--num_sample', str(FID_N), '--device', dev],
+             env, root, stats_ok)
+    then = [('fid_folder_same_images',
+             [mod + 'calculate_fid_folder', folder, '--fid_stats', stats,
+              '--num_sample', str(FID_N), '--device', dev], env, ROOT,
+             same_ok),
+            ('fid_stylegan2_256_cmul2',
+             [mod + 'calculate_stylegan2_fid', ckpt, stats, '--size', '256',
+              '--num_sample', str(FID_N), '--device', dev], env, ROOT,
+             sg_ok)]
+    return first, then
+
+
+def _lpips_files(root, seed):
+    """Random torchvision-layout VGG16 weights (He-normal, through
+    conv5_3) and lpips heads, as ``.pth`` files."""
+    from bsvd_tpu_torch.archs.vgg_arch import vgg_names
+    from bsvd_tpu_torch.metrics.lpips import CHNS
+    gen = torch.Generator().manual_seed(seed)
+    vgg, cin = {}, 3
+    for idx, name in enumerate(vgg_names('vgg16')[:30]):
+        if name.startswith('conv'):
+            cout = min(64 * 2 ** (int(name[4]) - 1), 512)
+            vgg[f'features.{idx}.weight'] = torch.randn(
+                (cout, cin, 3, 3), generator=gen) * math.sqrt(2 / (9 * cin))
+            vgg[f'features.{idx}.bias'] = (torch.rand(
+                cout, generator=gen) - 0.5) * 0.2
+            cin = cout
+    lins = {f'lin{i}.model.1.weight': torch.rand((1, c, 1, 1), generator=gen)
+            * 0.1 for i, c in enumerate(CHNS)}
+    paths = (os.path.join(root, 'lpips_vgg.pth'),
+             os.path.join(root, 'vgg16.pth'))
+    torch.save(lins, paths[0])
+    torch.save(vgg, paths[1])
+    return paths
+
+
+def _lpips(root, rng, pool, dev='cuda'):
+    """LPIPS at 512 x 512 in-process: ms a pair, card against CPU on one
+    pair; returns the ``calculate_lpips`` job on LPIPS_PAIRS PNG pairs
+    (its per-pair lines and average)."""
+    from bsvd_tpu_torch.metrics.lpips import load_lpips
+    from bsvd_tpu_torch.utils.img_util import imwrite
+    lin, vgg = _lpips_files(root, SEED + 103)
+    gt, res = os.path.join(root, 'lp_gt'), os.path.join(root, 'lp_res')
+    futures = []
+    for i in range(LPIPS_PAIRS):
+        base = rng.integers(0, 256, (LPIPS_HW // 8, LPIPS_HW // 8, 3))
+        img = np.kron(base, np.ones((8, 8, 1)))
+        noisy = np.clip(img + rng.normal(0, 10, img.shape), 0, 255)
+        futures += [pool.submit(imwrite, img.astype(np.uint8),
+                                os.path.join(gt, f'{i:03d}.png')),
+                    pool.submit(imwrite, noisy.astype(np.uint8),
+                                os.path.join(res, f'{i:03d}.png'))]
+    net = load_lpips(lin, vgg, device=dev)
+    pair = [torch.from_numpy(rng.uniform(-1, 1, (1, 3, LPIPS_HW, LPIPS_HW))
+                             .astype(np.float32)) for _ in range(2)]
+    card = [p.to(dev) for p in pair]
+    torch.cuda.empty_cache()
+    with torch.no_grad():
+        got, ms, _ = _card_ms(lambda: net(*card), reps=10)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        ref = copy.deepcopy(net).cpu()(*pair)
+    err, scale = _p22_close('lpips', got, ref)
+    for f in futures:
+        f.result()
+    emit({'phase': 'lpips', 'hw': [LPIPS_HW] * 2, 'ms_per_pair': ms,
+          'peak_allocated_gb': peak,
+          'card_vs_cpu': {'max_abs_err': err, 'max_ref': scale,
+                          'tol': f'{P22_TOL} x max|ref|'},
+          'fp32_tf32_off': True, 'card': SMI})
+
+    def check(lines, rec):
+        vals = [float(line.split('LPIPS: ')[1].rstrip('.'))
+                for line in lines if '. \tLPIPS' in line]
+        rec['pairs'] = len(vals)
+        rec['average'] = float(lines[-1].split('LPIPS: ')[1])
+        return len(vals) == LPIPS_PAIRS and all(
+            math.isfinite(v) and v > 0 for v in vals)
+    return ('calculate_lpips',
+            ['bsvd_tpu_torch.scripts.metrics.calculate_lpips', '--gt', gt,
+             '--restored', res, '--device', dev],
+            {'BSVD_LPIPS_PRETRAIN_PATH': lin,
+             'BSVD_VGG16_PRETRAIN_PATH': vgg}, ROOT, check)
+
+
+def _diffjpeg(rng, dev='cuda'):
+    """DiffJPEG on Real-ESRGAN's batch, quality drawn from JPEG_Q: ms of
+    the forward and of forward + backward; card against CPU: the
+    quantised coefficients (``torch.round``) one step apart on at most
+    1e-4 of them, and the decode of the CPU's coefficients on the card
+    within P22_TOL x max|ref| of the CPU's."""
+    from bsvd_tpu_torch.utils import diffjpeg
+    x = torch.from_numpy(rng.uniform(0, 1, JPEG_SHAPE).astype(np.float32))
+    q = torch.from_numpy(rng.uniform(*JPEG_Q, JPEG_SHAPE[0]).astype(
+        np.float32))
+    xc, qc = x.to(dev), q.to(dev)
+    jpeg = diffjpeg.DiffJPEG(differentiable=True)
+    with torch.no_grad():
+        out, fwd_ms, _ = _card_ms(lambda: jpeg(xc, qc), reps=10)
+    xg = xc.clone().requires_grad_(True)
+
+    def fwd_bwd():
+        xg.grad = None
+        jpeg(xg, qc).sum().backward()
+        return xg.grad
+    grad, fb_ms, _ = _card_ms(fwd_bwd, reps=10)
+    xh, xhc = x.permute(0, 2, 3, 1), xc.permute(0, 2, 3, 1)
+    cpu_c = diffjpeg.compress(xh, q, torch.round)
+    card_c = diffjpeg.compress(xhc, qc, torch.round)
+    flips = total = 0
+    for k in cpu_c:
+        d = (card_c[k].cpu() - cpu_c[k]).abs()
+        if d.max().item() > 1:
+            raise AssertionError(f'diffjpeg {k}: coefficients {d.max()} '
+                                 'steps apart')
+        flips += int((d > 0).sum())
+        total += d.numel()
+    h, w = JPEG_SHAPE[2:]
+    ref = diffjpeg.decompress(cpu_c, q, h, w)
+    got = diffjpeg.decompress({k: v.to(dev) for k, v in cpu_c.items()}, qc,
+                              h, w)
+    err, scale = _p22_close('diffjpeg decode', got, ref)
+    rec = {'phase': 'diffjpeg', 'shape': list(JPEG_SHAPE),
+           'quality_range': list(JPEG_Q), 'fwd_ms': fwd_ms,
+           'fwd_bwd_ms': fb_ms,
+           'out_vs_cpu_max_abs_err': (out.cpu() - jpeg(x, q)).abs().max()
+           .item(), 'coefficient_flips': flips, 'coefficients': total,
+           'decode_card_vs_cpu': {'max_abs_err': err, 'max_ref': scale},
+           'grad_finite': bool(torch.isfinite(grad).all()), 'card': SMI}
+    emit(rec)
+    if flips > 1e-4 * total or not rec['grad_finite']:
+        raise AssertionError(f'DiffJPEG: {rec}')
+
+
+def phase_swinir_fid_lpips_diffjpeg(dev='cuda'):
+    """Phase 22: SwinIR, FID, LPIPS, DiffJPEG. No kernel of the port is on
+    these paths (plain PyTorch, as the JAX package's XLA): the phase must
+    add no launch to the kernels line. The in-process timings come first;
+    then the five commands in two waves of concurrent processes (their
+    seconds are those of a shared card and host)."""
+    t0 = time.perf_counter()
+    before = counts()
+    root = os.path.join(WORK, 'swinir_fid')
+    rng = np.random.default_rng(SEED + 100)
+    with ThreadPoolExecutor(8) as pool:
+        writes = _swinir_pairs(root, rng, pool)
+        folder, fid_writes = _fid_folder(root, rng, pool)
+        net = _swinir_forward(rng, dev)
+        for f in writes:
+            f.result()
+        _swinir_cli(root, dev)
+        inference = _swinir_inference_job(root, net, rng, dev)
+        del net
+        torch.cuda.empty_cache()
+        pth = _inception_pth(os.path.join(root, 'pt_inception.pth'),
+                             SEED + 104)
+        _inception(pth, rng, dev)
+        lpips_job = _lpips(root, rng, pool, dev)
+        for f in fid_writes:
+            f.result()
+    _diffjpeg(rng, dev)
+    t1 = time.perf_counter()
+    fid_first, fid_then = _fid_jobs(root, folder, pth, dev)
+    commands = _run_jobs([inference, lpips_job, fid_first])
+    commands.update(_run_jobs(fid_then))
+    emit({'phase': 'swinir_fid_lpips_commands', 'waves': [
+        ['inference_swinir', 'calculate_lpips', 'fid_stats'],
+        ['fid_folder_same_images', 'fid_stylegan2_256_cmul2']],
+        'fid_images': FID_N, 'fid_hw': [FID_HW] * 2,
+        'lpips_pairs': LPIPS_PAIRS, **commands,
+        'wall_s': time.perf_counter() - t1, 'card': SMI})
+    added = delta_since(before)
+    emit({'phase': 'swinir_fid_lpips_diffjpeg',
+          'seconds': time.perf_counter() - t0, 'launches_added': added})
+    if any(added.values()):
+        raise AssertionError(f'phase 22 launched kernels: {added}')
+
 def main():
     global WORK
     if sys.argv[1:2] == ['--train-cli-rank']:
@@ -5919,6 +6589,7 @@ def run():
     phase_face_gans()
     phase_video_family()
     phase_faces_degradations()
+    phase_swinir_fid_lpips_diffjpeg()
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

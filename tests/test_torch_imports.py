@@ -88,7 +88,15 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.utils.matlab_functions',
         'bsvd_tpu_torch.data.degradations', 'bsvd_tpu_torch.metrics.niqe',
         'bsvd_tpu_torch.scripts.metrics.calculate_niqe',
-        'bsvd_tpu_torch.scripts.metrics.calculate_psnr_ssim'} | {
+        'bsvd_tpu_torch.scripts.metrics.calculate_psnr_ssim',
+        'bsvd_tpu_torch.archs.swinir_arch',
+        'bsvd_tpu_torch.inference.inference_swinir',
+        'bsvd_tpu_torch.archs.inception_arch', 'bsvd_tpu_torch.metrics.fid',
+        'bsvd_tpu_torch.metrics.lpips', 'bsvd_tpu_torch.utils.diffjpeg',
+        'bsvd_tpu_torch.scripts.metrics.calculate_fid_folder',
+        'bsvd_tpu_torch.scripts.metrics.calculate_fid_stats_from_datasets',
+        'bsvd_tpu_torch.scripts.metrics.calculate_lpips',
+        'bsvd_tpu_torch.scripts.metrics.calculate_stylegan2_fid'} | {
         f'bsvd_tpu_torch.tools.{t}' for t in (
             '_common', '_stream_bench', 'make_synth_dataset',
             'profile_blocks', 'profile_stream', 'bench_train',
@@ -122,7 +130,11 @@ def test_port_imports_without_jax_yaml_or_nvcc():
     'bsvd_tpu_torch.inference.inference_stylegan2',
     'bsvd_tpu_torch.data.single_image_dataset',
     'bsvd_tpu_torch.utils.face_util', 'bsvd_tpu_torch.metrics.niqe',
-    'bsvd_tpu_torch.scripts.data_preparation.prepare_hifacegan_dataset'])
+    'bsvd_tpu_torch.scripts.data_preparation.prepare_hifacegan_dataset',
+    'bsvd_tpu_torch.archs.swinir_arch', 'bsvd_tpu_torch.archs.inception_arch',
+    'bsvd_tpu_torch.metrics.fid', 'bsvd_tpu_torch.metrics.lpips',
+    'bsvd_tpu_torch.utils.diffjpeg',
+    'bsvd_tpu_torch.scripts.metrics.calculate_stylegan2_fid'])
 def test_module_imports_first(module):
     """A module imported first in a fresh interpreter (no circular import
     through the data package's datasets)."""
