@@ -1,18 +1,14 @@
 """Dataset path helpers (counterpart of bsvd_tpu/data/data_util.py):
 paired paths from two folders or a meta-info file, one folder's paths,
 the temporal neighbour indices of the video datasets, and DUF's official
-Gaussian downsampling (scipy, as in the JAX package). The lmdb readers
-raise NotImplementedError (ROADMAP.md Queue 1)."""
+Gaussian downsampling (scipy, as in the JAX package). An lmdb folder's
+keys come from its ``meta_info.txt`` (``utils/lmdb_util``)."""
 
 from os import path as osp
 
 import numpy as np
 
 from bsvd_tpu_torch.utils.misc import scandir
-
-_LMDB = ('lmdb folders are not ported (ROADMAP.md Queue 1: lmdb with '
-         'utils/lmdb_util and _lmdb_compat)')
-
 
 def paired_paths_from_folders(folders, keys, filename_tmpl='{}'):
     """[{'<input key>_path', '<gt key>_path'}] of a [input folder, gt
@@ -55,8 +51,29 @@ def paired_paths_from_meta_info_file(folders, keys, meta_info_file,
     return paths
 
 
+def _lmdb_keys(folder):
+    """The keys of an lmdb folder: each ``meta_info.txt`` line up to its
+    first '.'."""
+    with open(osp.join(folder, 'meta_info.txt')) as fin:
+        return [line.split('.')[0] for line in fin]
+
+
 def paired_paths_from_lmdb(folders, keys):
-    raise NotImplementedError(_LMDB)
+    """[{'<input key>_path': key, '<gt key>_path': key}] of two lmdb
+    folders' shared keys, sorted. ValueError where a folder lacks the
+    ``.lmdb`` suffix or the two key sets differ."""
+    assert len(folders) == 2 and len(keys) == 2
+    input_folder, gt_folder = folders
+    input_key, gt_key = keys
+    if not (input_folder.endswith('.lmdb') and gt_folder.endswith('.lmdb')):
+        raise ValueError(f'{input_key} and {gt_key} folders should both be '
+                         f'lmdb, got {input_folder} / {gt_folder}')
+    input_lmdb_keys = _lmdb_keys(input_folder)
+    if set(input_lmdb_keys) != set(_lmdb_keys(gt_folder)):
+        raise ValueError(f'Keys in {input_key}_folder and {gt_key}_folder '
+                         f'differ.')
+    return [{f'{input_key}_path': k, f'{gt_key}_path': k}
+            for k in sorted(input_lmdb_keys)]
 
 
 def paths_from_folder(folder):
@@ -65,7 +82,11 @@ def paths_from_folder(folder):
 
 
 def paths_from_lmdb(folder):
-    raise NotImplementedError(_LMDB)
+    """The keys of an lmdb folder in ``meta_info.txt``'s order; ValueError
+    without the ``.lmdb`` suffix."""
+    if not folder.endswith('.lmdb'):
+        raise ValueError(f'Folder {folder} should be in lmdb format.')
+    return _lmdb_keys(folder)
 
 
 def generate_frame_indices(crt_idx, max_frame_num, num_frames,

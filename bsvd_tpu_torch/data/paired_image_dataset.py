@@ -1,7 +1,9 @@
 """Paired LQ / GT images of the SR family (counterpart of
 bsvd_tpu/data/paired_image_dataset.py): items of float32 (C, H, W) RGB in
 [0, 1] (or normalised by the options' ``mean`` / ``std``), read with
-``FileClient`` and ``imfrombytes``; train items are cropped by
+``FileClient`` (from folders, a meta-info file's names, or two lmdb
+stores under the client keys 'lq' and 'gt') and ``imfrombytes``; train
+items are cropped by
 ``gt_size`` and flipped / rotated, val items have GT cut to LQ x scale.
 
 One ``random.Random(manual_seed)`` per dataset draws every crop and flip,
@@ -40,6 +42,9 @@ class PairedImageDataset:
         self.gt_folder, self.lq_folder = opt['dataroot_gt'], opt['dataroot_lq']
         self.filename_tmpl = opt.get('filename_tmpl', '{}')
         if self.io_backend_opt.get('type', 'disk') == 'lmdb':
+            self.io_backend_opt['db_paths'] = [self.lq_folder,
+                                               self.gt_folder]
+            self.io_backend_opt['client_keys'] = ['lq', 'gt']
             self.paths = paired_paths_from_lmdb(
                 [self.lq_folder, self.gt_folder], ['lq', 'gt'])
         elif opt.get('meta_info_file') is not None:
@@ -65,9 +70,9 @@ class PairedImageDataset:
         gt_path = self.paths[index]['gt_path']
         lq_path = self.paths[index]['lq_path']
         # img_util is read at call time: it imports this package itself
-        img_gt = img_util.imfrombytes(self.file_client.get(gt_path),
+        img_gt = img_util.imfrombytes(self.file_client.get(gt_path, 'gt'),
                                       float32=True)
-        img_lq = img_util.imfrombytes(self.file_client.get(lq_path),
+        img_lq = img_util.imfrombytes(self.file_client.get(lq_path, 'lq'),
                                       float32=True)
         if self.opt.get('phase') == 'train':
             img_gt, img_lq = paired_random_crop(
@@ -94,8 +99,8 @@ class PairedImageDataset:
         if self.opt.get('phase') != 'train':
             return
         gt_path = self.paths[index]['gt_path']
-        sizes = [img_util.imsize(self.file_client.get(self.paths[index][k]))
-                 for k in ('gt_path', 'lq_path')]
+        sizes = [img_util.imsize(self.file_client.get(
+            self.paths[index][f'{k}_path'], k)) for k in ('gt', 'lq')]
         crop_origin(*sizes, self.opt['gt_size'], self.opt.get('scale', 1),
                     gt_path, self._rng)
         flip_draws(self.opt.get('use_hflip', True),

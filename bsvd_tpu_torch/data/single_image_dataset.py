@@ -4,8 +4,9 @@ single_image_dataset.py): ``SingleImageDataset``, LQ only, and
 ``random.Random(manual_seed)``, as in the JAX package, so both give the
 same flips in the same order. Items are float32 (C, H, W) RGB in [0, 1]
 (or normalised by the options' ``mean`` / ``std``), read with
-``FileClient`` and the port's ``imfrombytes``; lmdb raises
-NotImplementedError, as elsewhere in the port."""
+``FileClient`` and the port's ``imfrombytes``; on lmdb the folder is one
+store under the client key 'lq' (SingleImageDataset) or 'gt'
+(FFHQDataset), its keys from ``meta_info.txt``."""
 
 import os
 import random
@@ -34,7 +35,10 @@ class _ImageFolder:
         self.io_backend_opt = dict(opt.get('io_backend') or {'type': 'disk'})
         self.mean = opt.get('mean')
         self.std = opt.get('std')
+        self.client_key = client_key
         if self.io_backend_opt.get('type') == 'lmdb':
+            self.io_backend_opt['db_paths'] = [folder]
+            self.io_backend_opt['client_keys'] = [client_key]
             self.paths = paths_from_lmdb(folder)
         elif client_key == 'lq' and opt.get('meta_info_file') is not None:
             with open(opt['meta_info_file'], 'r') as fin:
@@ -53,7 +57,9 @@ class _ImageFolder:
         return self._client
 
     def _read(self, path):
-        return img_util.imfrombytes(self.file_client.get(path), float32=True)
+        return img_util.imfrombytes(self.file_client.get(path,
+                                                         self.client_key),
+                                    float32=True)
 
     def __len__(self):
         return len(self.paths)

@@ -14,7 +14,9 @@ W). One ``random.Random(manual_seed)`` draws in the JAX package's order
 (the reversal with ``random_reverse``, the crop's two ``randint``s, the
 three flips), so a seed gives the same items; ``skip`` makes an item's
 draws from the frames' headers without decoding them (the other ranks'
-rows on a mesh). The lmdb backend raises NotImplementedError.
+rows on a mesh). On lmdb the LQ and GT roots are two stores under the
+client keys 'lq' and 'gt', a frame's key ``<clip>/<seq>/im<i>`` (what
+``create_lmdb`` gives a ``sequences`` folder).
 """
 
 import os
@@ -22,7 +24,6 @@ import random
 
 import numpy as np
 
-from bsvd_tpu_torch.data.data_util import _LMDB
 from bsvd_tpu_torch.data.transforms import (augment, crop_origin,
                                             flip_draws, paired_random_crop)
 from bsvd_tpu_torch.utils.file_client import FileClient
@@ -43,8 +44,10 @@ class Vimeo90KDataset:
         with open(opt['meta_info_file'], 'r') as fin:
             self.keys = [line.split(' ')[0] for line in fin]
         self.io_backend_opt = dict(opt.get('io_backend') or {'type': 'disk'})
-        if self.io_backend_opt.get('type') == 'lmdb':
-            raise NotImplementedError(_LMDB)
+        self.is_lmdb = self.io_backend_opt.get('type') == 'lmdb'
+        if self.is_lmdb:
+            self.io_backend_opt['db_paths'] = [self.lq_root, self.gt_root]
+            self.io_backend_opt['client_keys'] = ['lq', 'gt']
         self.neighbor_list = [i + (9 - opt['num_frame']) // 2
                               for i in range(opt['num_frame'])]
         self.random_reverse = opt.get('random_reverse', False)
@@ -61,24 +64,24 @@ class Vimeo90KDataset:
     def __len__(self):
         return len(self.keys)
 
-    def _read(self, path):
-        return imfrombytes(self.file_client.get(path), float32=True)
+    def _read(self, path, client_key):
+        return imfrombytes(self.file_client.get(path, client_key),
+                           float32=True)
 
     def _paths(self, index):
         """The item's key, its neighbours (reversed by the draw) and the
-        LQ / GT path of a frame name."""
+        LQ / GT path (or lmdb key) of a frame number."""
         neighbors = list(self.neighbor_list)
         if self.random_reverse and self._rng.random() < 0.5:
             neighbors.reverse()
         key = self.keys[index]
         clip, seq = key.split('/')
 
-        def lq(i):
-            return os.path.join(self.lq_root, clip, seq, f'im{i}.png')
-
-        def gt(i):
-            return os.path.join(self.gt_root, clip, seq, f'im{i}.png')
-        return key, neighbors, lq, gt
+        def frame(root):
+            if self.is_lmdb:
+                return lambda i: f'{clip}/{seq}/im{i}'
+            return lambda i: os.path.join(root, clip, seq, f'im{i}.png')
+        return key, neighbors, frame(self.lq_root), frame(self.gt_root)
 
     def _crop_and_flip(self, img_gts, img_lqs, key):
         img_gts, img_lqs = paired_random_crop(
@@ -90,17 +93,17 @@ class Vimeo90KDataset:
 
     def __getitem__(self, index):
         key, neighbors, lq, gt = self._paths(index)
-        imgs = self._crop_and_flip(self._read(gt(4)),
-                                   [self._read(lq(i)) for i in neighbors],
-                                   key)
+        imgs = self._crop_and_flip(self._read(gt(4), 'gt'),
+                                   [self._read(lq(i), 'lq')
+                                    for i in neighbors], key)
         return {'lq': np.stack([img2tensor(v) for v in imgs[:-1]]),
                 'gt': img2tensor(imgs[-1]), 'key': key}
 
     def skip(self, index):
         """The draws of ``self[index]`` without decoding its frames."""
         key, neighbors, lq, gt = self._paths(index)
-        crop_origin(imsize(self.file_client.get(gt(4))),
-                    imsize(self.file_client.get(lq(neighbors[0]))),
+        crop_origin(imsize(self.file_client.get(gt(4), 'gt')),
+                    imsize(self.file_client.get(lq(neighbors[0]), 'lq')),
                     self.opt['gt_size'], self.opt['scale'], key, self._rng)
         flip_draws(self.opt.get('use_hflip', True),
                    self.opt.get('use_rot', True), self._rng)
@@ -117,9 +120,10 @@ class Vimeo90KRecurrentDataset(Vimeo90KDataset):
 
     def __getitem__(self, index):
         key, neighbors, lq, gt = self._paths(index)
-        imgs = self._crop_and_flip([self._read(gt(i)) for i in neighbors],
-                                   [self._read(lq(i)) for i in neighbors],
-                                   key)
+        imgs = self._crop_and_flip([self._read(gt(i), 'gt')
+                                    for i in neighbors],
+                                   [self._read(lq(i), 'lq')
+                                    for i in neighbors], key)
         t = len(neighbors)
         lqs = np.stack([img2tensor(v) for v in imgs[:t]])
         gts = np.stack([img2tensor(v) for v in imgs[t:]])
@@ -130,8 +134,8 @@ class Vimeo90KRecurrentDataset(Vimeo90KDataset):
 
     def skip(self, index):
         key, neighbors, lq, gt = self._paths(index)
-        crop_origin(imsize(self.file_client.get(gt(neighbors[0]))),
-                    imsize(self.file_client.get(lq(neighbors[0]))),
+        crop_origin(imsize(self.file_client.get(gt(neighbors[0]), 'gt')),
+                    imsize(self.file_client.get(lq(neighbors[0]), 'lq')),
                     self.opt['gt_size'], self.opt['scale'], key, self._rng)
         flip_draws(self.opt.get('use_hflip', True),
                    self.opt.get('use_rot', True), self._rng)

@@ -110,7 +110,7 @@ Phases, each printed as one JSON object on its own line:
    (options/test/bsvd_c64.yml's network_g, val and logger blocks verbatim,
    its pretrain_ckpt line dropped; random c64 weights saved as a ``.npz``
    checkpoint for path.pretrain_network_g; one ValFolderDataset on phase
-   12's two 25-frame 540x960 PNG folders at sigma 20/255, padded to 544
+   12's 13-frame 540x960 PNG folder at sigma 20/255, padded to 544
    rows), whole clip and, with --force_yml, by the train yml's chunked
    protocol: finite metrics, K1-K4 launches per clip, every frame read by
    the zlib PNG reader (the route printed), the per-scene CSVs and the
@@ -139,16 +139,17 @@ Phases, each printed as one JSON object on its own line:
 
 12. the entry points on PNG frame folders (in a scratch root): first, before
    phase 10, synthetic PNG folders written with the port's encoder (train:
-   4 clips x 24 frames at 480x854, DAVIS's frame size; val: 2 x 25 at
+   4 clips x 24 frames at 480x854, DAVIS's frame size; val: 1 x 13 at
    540x960; odd frames with PNG filters 0-4 on their rows, even ones with
    filter 0), read back exactly, and the zlib reader's ms per whole frame
    and per 11-frame 96x96 window. Then ``train_video_loader`` alone with
    the train yml's loader options (batches a second, default workers and
    one), and the train command line, ``train_pipeline(root, cmd=['-opt',
    options/train/bsvd_c64_unblind.yml, '--force_yml', ...])``, c64 at the
-   yml's widths and batch, --force_yml setting only the folders, 25
-   validation frames, 30 iterations, print / save / validation every 10 /
-   30 / 30: fp32, bf16 AMP, then an --auto_resume to 32. Each run: K1-K4
+   yml's widths and batch, --force_yml setting only the folders, 13
+   validation frames, 20 iterations, print / save every 10 / 20 and one
+   validation after the last: fp32, bf16 AMP, then an --auto_resume to 22
+   (no validation). Each run: K1-K4
    launched, K7 28 times a step, the checkpoint, state and option-file
    copy written, the timers' ms per iteration and data time, the frames'
    route, and (fp32, bf16) the same model's step on one repeated
@@ -220,8 +221,8 @@ Phases, each printed as one JSON object on its own line:
    to 1e-4 x max|ref|. The train CLI on options/train/msrresnet_x4.yml and
    esrgan_x4.yml (--force_yml pointing at 16 synthetic DIV2K _sub-layout
    GT PNGs of 480 x 480 with their 4x4-mean LQs and a Set5-layout val
-   set): 30 iterations at the yml's batch 16 and gt_size 128, ms an
-   iteration over 11-30 (the wait for data and the step), peak memory,
+   set): 20 iterations at the yml's batch 16 and gt_size 128, ms an
+   iteration over 11-20 (the wait for data and the step), peak memory,
    the validation PSNR and that of the reloaded checkpoint (the same to
    1e-3 dB); ESRGAN's losses, EMA, both networks' files and both
    optimizers in the resume state, the random VGG's warning; an ESRGAN
@@ -271,13 +272,14 @@ Phases, each printed as one JSON object on its own line:
    mean LQs) and a REDS4-layout val tree (2 clips x 15 frames, LQ 90 x
    160); the train CLI on options/train/basicvsr_reds.yml, --force_yml
    changing only the folders, ``network_g:spynet_path=~`` (no SpyNet
-   weights in the repository), 30 iterations, fix_flow 10 and the print /
+   weights in the repository), 20 iterations, fix_flow 10 and the print /
    save / validation frequencies: the yml's batch 1, 15 frames, gt_size
-   256. Ms an iteration over 11-30 (the wait for data and the step), peak
-   memory, SpyNet's weights the same bits through iteration 9 and moved at
-   10, both Adams' counts, the validation PSNR and seconds a clip, the
-   checkpoint; the device profile of 3 more steps (busy ms, idle share,
-   the top kernels); then ``--auto_resume`` to 40 iterations.
+   256, one validation after the last iteration. Ms an iteration over
+   11-20 (the wait for data and the step), peak memory, SpyNet's weights
+   the same bits through iteration 9 and moved at 10, both Adams' counts,
+   the validation PSNR and seconds a clip, the checkpoint; the device
+   profile of one more step (busy ms, idle share,
+   the top kernels); then ``--auto_resume`` to 25 iterations.
 18. k2_route, tiff_frames, tools: K2's width gate (``ops/conv_chain.fits``)
    against the kernel at each limit (bf16 256, 192 with x2; fp32 192:
    the widest launches, 64 more is refused); the c64 net with interm_ch
@@ -288,7 +290,7 @@ Phases, each printed as one JSON object on its own line:
    540 x 960 frame written as TIFF by the port (LZW and Deflate with
    predictor 2, none) and as PNG: read back equal, ms a decode of each
    and of a 96 x 96 TIFF window. ``tools/run_eval_burnin`` (the JAX
-   repo's option file) on one 25-frame 540 x 960 .tif folder at sigma 20
+   repo's option file) on one 11-frame 540 x 960 .tif folder at sigma 20
    (``test_pipeline``; K1-K4 at one forward's counts, every frame by the
    TIFF reader, finite metrics) and on a 10-frame DAVIS-shaped PNG folder;
    then each timing tool once at full width (BSVD-c64, 540 x 960 bf16
@@ -305,20 +307,20 @@ Phases, each printed as one JSON object on its own line:
    INTER_CUBIC up, on the card) and 16 of 256 x 256. The train CLI on
    options/train/hifacegan_sr4x.yml at its widths (num_feat 48, gt_size
    512, batch 1, VGG19 perceptual at random weights), --force_yml
-   changing the folders and total_iter (30) only: ms an iteration over
-   11-30 and the share spent waiting, peak memory, finite losses, every
+   changing the folders and total_iter (20) only: ms an iteration over
+   11-20 and the share spent waiting, peak memory, finite losses, every
    D spectral-norm u moved, its one validation's PSNR. The train CLI on a
    yml of BasicSR's train_StyleGAN2_256_Cmul2_FFHQ.yml widths and losses
    (FFHQDataset, mean / std 0.5, wgan_softplus, r1 10 every 16, path 2
-   every 4, mixing 0.9, Adam 2e-3, batch 4), 32 iterations: ms a plain,
+   every 4, mixing 0.9, Adam 2e-3, batch 4), 16 iterations: ms a plain,
    path and r1 + path iteration (each between two synchronizations), peak
    memory, both penalties nonzero, and one more iteration of each kind
    under the profiler (device busy ms, idle share, the top kernels).
    Then ``python -m
    bsvd_tpu_torch.inference.inference_stylegan2 --size 1024 --sample 4``
    on random weights saved here, ``inference_esrgan`` and
-   ``inference_ridnet`` on two synthetic PNGs each: the images' shapes,
-   command seconds.
+   ``inference_ridnet`` on two synthetic PNGs each, the three at once:
+   the images' shapes, command seconds.
 20. video_parity, video_steps, video_edvr_data, video_edvr_cli,
    video_edvr_profile, video_inference_basicvsr (the rest of the zoo's
    video family; fp32, TF32 off; no kernel of the port on these paths):
@@ -332,8 +334,8 @@ Phases, each printed as one JSON object on its own line:
    train CLI on ``EDVR_YML`` (BasicSR's
    train_EDVR_M_x4_SR_REDS_M.yml values), --force_yml changing the
    folders (REDS-layout trees at 720 x 1280 GT / 180 x 320 LQ), lmdb to
-   disk, no pretrained file, total_iter 30 and tsa_iter 11: ms an
-   iteration over 12-30 and the share spent waiting, peak memory, finite
+   disk, no pretrained file, total_iter 20 and tsa_iter 11: ms an
+   iteration over 12-20 and the share spent waiting, peak memory, finite
    losses, the warm phase (conv_first still, fusion moving) and the
    unfreeze, its one validation's PSNR and seconds a clip; one more
    iteration under the profiler (busy ms, idle share, the top kernels).
@@ -366,8 +368,8 @@ Phases, each printed as one JSON object on its own line:
    SwinIR classical x2 at BasicSR's SRx2 widths (``SWINIR_YML``) on a
    678 x 1020 DIV2K LR frame, fp32 and bf16 autocast, ms a frame and peak
    memory, the card against the CPU on a 64 x 64 crop; the train CLI on
-   ``SWINIR_YML`` for 30 iterations on synthetic 480 x 480 pairs (ms an
-   iteration over 11-30, the wait share, peak memory, the validation's
+   ``SWINIR_YML`` for 20 iterations on synthetic 480 x 480 pairs (ms an
+   iteration over 11-20, the wait share, peak memory, the validation's
    seconds), one step's gradients card against CPU, and the
    ``inference_swinir`` command; the TF-FID InceptionV3 from a random
    ``.pth`` at a batch of 64 of 256 x 256 resized to 299 (ms a batch,
@@ -378,12 +380,40 @@ Phases, each printed as one JSON object on its own line:
    x 256 at qualities drawn from [30, 95], ms of the forward and of
    forward + backward, the quantised coefficients card against CPU (the
    flips counted). Device profiles of one SwinIR frame (fp32, bf16) and
-   of 3 train steps, kernels grouped. The five commands run last, in two
-   waves of concurrent processes (their seconds share card and host).
+   of one train step, kernels grouped. The five commands run last, at once
+   (their seconds share card and host), the two FID commands against the
+   statistics computed in this process first; the statistics command's
+   file equal to them to 1e-4 x max|ref|.
+23. storage_scripts, storage_sr_train_cli, storage_vimeo90k,
+   storage_npz_round_trip (the zoo's storage and last scripts; the data
+   scripts on the host, the MATLAB scripts' imresize and the SR CLI on
+   the card): BasicSR's DIV2K preparation on two synthetic 2040 x 1356 HR
+   PNGs: ``generate_bicubic_img`` (mod 12, x4, on the card), then
+   ``extract_subimages`` (HR 480 / 240, LR 120 / 60: 40 pairs an image),
+   ``generate_meta_info`` and ``create_lmdb`` of each sub-image folder
+   (each script by its ``main(argv)`` here, the host-only ones in threads;
+   their seconds); the stores' bytes. The
+   train CLI on options/train/msrresnet_x4.yml copied with ``io_backend:
+   {type: lmdb}`` and the stores, 20 iterations, then on the sub-image
+   folders: their first batches bit-equal, first losses within 1e-6
+   relative, ms an iteration over 6-20 and the wait share of each. A
+   Vimeo90K septuplet tree (4 sequences of 448 x 256),
+   ``generate_LR_Vimeo90K`` on the card, ``create_lmdb`` of both
+   ``sequences`` folders (keys ``<clip>/<seq>/im<i>``): every
+   Vimeo90KDataset / Vimeo90KRecurrentDataset item from the stores
+   bit-equal to the item from the folders. A random c64 TSN ``.pth``
+   through ``convert_to_npz --tsn``: the nets built from the ``.pth`` and
+   from the ``.npz`` each run a 10-frame 540p bf16 whole-clip forward on
+   K1-K4 (their launches on the kernels line), bit-equal. Memcached and
+   the downloads need a server: they are held on the CPU only
+   (tests/test_torch_io_utils.py).
+
+Every phase's line carries ``t_s``, the seconds since the run started;
+``phase_seconds`` gives each phase's seconds.
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14, 15, 16 and 18 (counters set to
+phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14, 15, 16, 18 and 23 (counters set to
 0 before each run, read after; phase 13's ranks and phase 14's profile entry count
 their runs in their own processes), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
@@ -437,7 +467,7 @@ from bsvd_tpu_torch.archs.streaming import (StreamDenoiser,  # noqa: E402
 from bsvd_tpu_torch.archs.wnet_arch import (wnet_apply,  # noqa: E402
                                             wnet_apply_chunk)
 from bsvd_tpu_torch.convert.torch_ckpt import to_jax_params  # noqa: E402
-from bsvd_tpu_torch.data import build_dataset  # noqa: E402
+from bsvd_tpu_torch.data import build_dataset, data_util  # noqa: E402
 from bsvd_tpu_torch.data import (jpeg_decode, png_decode,  # noqa: E402
                                  tiff_decode, utils_common)
 from bsvd_tpu_torch.data.video_train_loader import (  # noqa: E402
@@ -471,7 +501,8 @@ from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
 from bsvd_tpu_torch.train import train_loop, train_pipeline  # noqa: E402
 from bsvd_tpu_torch.data import bmp_decode  # noqa: E402
 from bsvd_tpu_torch.data import mp4_demux, nvdec, yuv  # noqa: E402
-from bsvd_tpu_torch.utils import jpeg_encode, tb_events  # noqa: E402
+from bsvd_tpu_torch.utils import (jpeg_encode, lmdb_util,  # noqa: E402
+                                  tb_events)
 from bsvd_tpu_torch.utils.img_util import encode_png  # noqa: E402
 from bsvd_tpu_torch.utils.logger import get_root_logger  # noqa: E402
 from bsvd_tpu_torch.utils.options import (parse_options,  # noqa: E402
@@ -491,6 +522,8 @@ WORK = None
 # phase 3's forward times and phase 2's per-unit sums, read by phase 14;
 # phase 8's ms per step by amp, read by phase 15
 MAIN_TIMING, KERNEL_SUMS, TRAIN_MS = {}, {}, {}
+# seconds of each phase (run's ``timed``) and the run's start
+PHASE_S, T_START = {}, None
 # phase 12's bf16 train CLI validates with a PSNR metric (the train yml
 # names none), so that its event files hold metrics/psnr
 # nvidia-smi's name and power limit of the card (set in run)
@@ -581,7 +614,7 @@ PER_CHUNK = dict(PER_FORWARD, conv3x3=32)
 # yml's validation), an 85-frame clip (Set8 / DAVIS) for the wall time;
 # phase 10: two 25-frame folders
 CHUNK_T, CHUNK_PSZ, CHUNK_FUTURE, LONG_T = 25, 11, 2, 85
-EVAL_T = 25
+EVAL_T = 13
 PER_BLOCK = dict(per_steady_push(), bibuffer_conv=0,
                  bibuffer_multi=2 * STAGES * len(MEMCV_C), bibuffer_chain=0)
 # the train slice: options/train/bsvd_c64_unblind.yml (batch 8 x 11 frames
@@ -596,6 +629,10 @@ PEAK_FLOPS, PEAK_BYTES = 989e12, 3.35e12
 
 
 def emit(obj):
+    """One JSON line; a phase's line carries ``t_s``, the seconds since the
+    run started."""
+    if 'phase' in obj and T_START is not None:
+        obj = dict(obj, t_s=time.perf_counter() - T_START)
     print(json.dumps(obj), flush=True)
 
 
@@ -2027,7 +2064,7 @@ def _routes_since(before):
 
 def phase_eval(nets, data, chunked=True):
     """The test CLI (``test_pipeline(root, cmd=['-opt', yml])``) over the
-    two 540p val folders (PNG, or JPEG in phase 12a), whole clip and, with
+    540p val folder (PNG, or JPEG in phase 12a), whole clip and, with
     ``chunked`` and --force_yml, by the train yml's chunked protocol.
     Returns the main-path launches."""
     net = nets['TSM']
@@ -2069,7 +2106,7 @@ def phase_eval(nets, data, chunked=True):
         csvs = sorted(f for f in os.listdir(log) if f.endswith('.csv'))
         pngs = [f for _, _, fs in os.walk(opt['path']['visualization'])
                 for f in fs if f.endswith('.png')]
-        if csvs != ['synth_20_clip00.csv', 'synth_20_clip01.csv'] or \
+        if csvs != [f'synth_20_clip{i:02d}.csv' for i in range(n_clips)] or \
                 len(pngs) != EVAL_T * n_clips:
             raise AssertionError(f'eval {label}: {csvs}, {len(pngs)} '
                                  f'frames saved')
@@ -2430,8 +2467,8 @@ def phase_options(nets, clip):
 
 # train: DAVIS 480p frame size; val: Set8's 540x960 (phase 10's clips)
 TRAIN_CLIPS, TRAIN_FRAMES, TRAIN_FRAME_HW = 4, 24, (480, 854)
-VAL_CLIPS = 2
-CLI_ITERS, CLI_RESUME_ITERS = 30, 32
+VAL_CLIPS = 1
+CLI_ITERS, CLI_RESUME_ITERS = 20, 22
 
 
 def _write_clip(folder, frames, pool):
@@ -2525,14 +2562,16 @@ def phase_frames():
 
 def _train_cli_cmd(data, *extra, iters=CLI_ITERS):
     """The train command on the shipped yml: --force_yml points the
-    datasets at the PNG folders and cuts the run to ``iters``."""
+    datasets at the PNG folders and cuts the run to ``iters``; val_freq
+    past CLI_ITERS, so the loop validates once, after its last
+    iteration."""
     return ['-opt', TRAIN_YML, *extra, '--force_yml',
             f"datasets:train:trainset_dir={data['train']}",
             f"datasets:val:valsetdir={data['val']}",
             f'datasets:val:num_validation_frames={EVAL_T}',
             f'train:total_iter={iters}', 'logger:print_freq=10',
             f'logger:save_checkpoint_freq={CLI_ITERS}',
-            f'val:val_freq={CLI_ITERS}']
+            f'val:val_freq={CLI_ITERS + 1}']
 
 
 class _StepClock:
@@ -2617,7 +2656,7 @@ class _StepClock:
                 f'data_ms_{a + 1}_{b}': (b * db - a * da) / (b - a)}
 
 
-def _profile_loader_fed(model, data, first_iter, n=10):
+def _profile_loader_fed(model, data, first_iter, n=5):
     """The device profile of n iterations fed by train_video_loader (the
     train yml's loader options), as the train loop runs them, after 3
     unprofiled ones; the profiler's host overhead is in the window."""
@@ -2691,8 +2730,8 @@ def phase_entry(data):
     for label, extra, force, iters in (
             ('fp32', [], [], CLI_ITERS),
             ('bf16', [], ['train:fp16=true', *TB_VAL_METRICS], CLI_ITERS),
-            ('bf16_auto_resume', ['--auto_resume'], ['train:fp16=true'],
-             CLI_RESUME_ITERS)):
+            ('bf16_auto_resume', ['--auto_resume'],
+             ['train:fp16=true', 'val:val_freq=~'], CLI_RESUME_ITERS)):
         cmd = _train_cli_cmd(data, *extra, iters=iters) + force
         routes = dict(utils_common.ROUTES)
         reset_counts()
@@ -3390,7 +3429,7 @@ SR_YMLS = {name: os.path.join(ROOT, 'options', 'train', f'{name}.yml')
 # batch of the yml's 16); a Set5-layout val set, GT a multiple of 12
 SR_TRAIN_N, SR_GT_HW, SR_VAL = 16, 480, ((228, 228), (240, 180),
                                          (156, 204), (180, 240), (204, 156))
-SR_ITERS = 30
+SR_ITERS = 20
 PERCEPTUAL = ['train:perceptual_opt:type=PerceptualLoss',
               'train:perceptual_opt:layer_weights:conv5_4=1',
               'train:perceptual_opt:vgg_type=vgg19']
@@ -3482,7 +3521,7 @@ def _sr_cmd(yml, dirs, *force):
             f"datasets:val:dataroot_lq={dirs['val_lq']}",
             f'train:total_iter={SR_ITERS}', 'logger:print_freq=10',
             f'logger:save_checkpoint_freq={SR_ITERS}',
-            f'val:val_freq={SR_ITERS}', *force]
+            f'val:val_freq={SR_ITERS + 1}', *force]
 
 
 def _sr_cli(yml, dirs):
@@ -4162,7 +4201,7 @@ VSR_YML = os.path.join(ROOT, 'options', 'train', 'basicvsr_reds.yml')
 # the yml's num_frame 15, GT over its gt_size 256; REDS4-layout val clips
 # at half REDS4's size (LQ 90 x 160)
 VSR_TRAIN, VSR_VAL = (2, 20, 256, 320), (2, 15, 360, 640)
-VSR_ITERS, VSR_RESUME_ITERS, VSR_FIX_FLOW = 30, 40, 10
+VSR_ITERS, VSR_RESUME_ITERS, VSR_FIX_FLOW = 20, 25, 10
 VSR_NET = {'type': 'BasicVSR', 'num_feat': 64, 'num_block': 30}
 
 
@@ -4223,10 +4262,11 @@ def _vsr_cmd(root, iters, *extra):
             'network_g:spynet_path=~', f'train:total_iter={iters}',
             f'train:fix_flow={VSR_FIX_FLOW}', 'logger:print_freq=10',
             f'logger:save_checkpoint_freq={VSR_ITERS}',
-            f'val:val_freq={VSR_ITERS}']
+            # past both runs: each validates once, after its last iteration
+            f'val:val_freq={VSR_RESUME_ITERS + 1}']
 
 
-def _vsr_profile(model, dopt, n=3):
+def _vsr_profile(model, dopt, n=1):
     """The device profile of n more train steps of the CLI's model on one
     item of its train dataset (after the CLI's run: its saved state is
     what the resume reads)."""
@@ -4250,8 +4290,17 @@ def _vsr_cli(root):
     VSR_FIX_FLOW), then --auto_resume to VSR_RESUME_ITERS."""
     from bsvd_tpu_torch.models.video_recurrent_model import \
         VideoRecurrentModel as VRM
-    from bsvd_tpu_torch.train import build_val_loaders
-    snaps, orig = {}, VRM.optimize_parameters
+    snaps, orig, vals = {}, VRM.optimize_parameters, []
+    validation, own = VRM.validation, VRM.__dict__.get('validation')
+
+    def timed_validation(model, loader, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = validation(model, loader, *a, **k)
+        torch.cuda.synchronize()
+        vals.append((res, (time.perf_counter() - t0) / len(loader.dataset),
+                     len(loader.dataset)))
+        return res
 
     def watched(model, it):
         first = model.net.spynet.basic_module[0].basic_module[0].weight
@@ -4263,6 +4312,7 @@ def _vsr_cli(root):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     VRM.optimize_parameters = watched
+    VRM.validation = timed_validation
     try:
         t0 = time.perf_counter()
         with _StepClock((VRM,)) as clock:
@@ -4271,14 +4321,15 @@ def _vsr_cli(root):
         wall = time.perf_counter() - t0
     finally:
         VRM.optimize_parameters = orig
+        if own is None:
+            del VRM.validation
+        else:
+            VRM.validation = own
     peak = torch.cuda.max_memory_allocated() / 1e9
     opt = model.opt
-    loader = build_val_loaders(opt)[0]
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    psnr = model.validation(loader, VSR_ITERS, None)['psnr']
-    torch.cuda.synchronize()
-    val_s = (time.perf_counter() - t0) / len(loader.dataset)
+    # the run's one validation (val_freq is its last iteration)
+    (res, val_s, n_val), = vals
+    psnr = res['psnr']
     exp = os.path.join(root, 'experiments', opt['name'])
     ckpt = os.path.join(exp, 'models', f'net_g_{VSR_ITERS}.npz')
     dopt = opt['datasets']['train']
@@ -4293,7 +4344,7 @@ def _vsr_cli(root):
            'steady': clock.steady(11, VSR_ITERS),
            'peak_allocated_gb': peak, 'val_psnr': psnr,
            'val_s_per_clip': val_s,
-           'val_clips': [len(loader.dataset), VSR_VAL[1],
+           'val_clips': [n_val, VSR_VAL[1],
                          VSR_VAL[2] // 4, VSR_VAL[3] // 4],
            'checkpoint': os.path.relpath(ckpt, WORK),
            'checkpoint_mb': os.path.getsize(ckpt) / 1e6,
@@ -4364,7 +4415,7 @@ WIDE_FP32_T, WIDE_FP32_HW = 3, (136, 240)
 TOOL_RUNS = (
     ('profile_blocks', ['--reps', '3']),
     ('profile_stream', ['--reps', '5', '--pushes', '20']),
-    ('bench_train', ['--batch', '16', '--iters', '5', '--real-data',
+    ('bench_train', ['--batch', '16', '--iters', '3', '--real-data',
                      '--synth-clips', '2', '--synth-frames', '12',
                      '--workers', '4']),
     ('bench_push_block', ['--reps', '2']),
@@ -4373,7 +4424,7 @@ TOOL_RUNS = (
     ('probe_mem', ['--reps', '3']),
     ('probe_streams', ['--pushes', '10']),
 )
-TIFF_T = 25
+TIFF_T = 11
 
 
 def _k2_limits():
@@ -4623,7 +4674,7 @@ def phase_tools(device='cuda', tool_args=(), burnin_args=(), wide=None):
 # ---------------------------------------------------------------------------
 
 HIFACEGAN_YML = os.path.join(ROOT, 'options', 'train', 'hifacegan_sr4x.yml')
-FACE_ITERS, SG_ITERS = 30, 32
+FACE_ITERS, SG_ITERS = 20, 16
 # 8 GT faces at the yml's gt_size 512 (LQ: prepare_hifacegan_dataset's sr4x
 # template, the ported script) and 16 FFHQ-sized 256 x 256 faces for
 # StyleGAN2
@@ -4884,7 +4935,7 @@ def _hifacegan_cli(root):
 
 def _stylegan2_cli(root):
     """The train CLI on SG_YML (BasicSR's 256 Cmul2 FFHQ widths) for
-    SG_ITERS iterations: r1 at 16 and 32 (with the path penalty, every 4
+    SG_ITERS iterations: r1 at 16 (with the path penalty, every 4
     iterations); each iteration clocked between two synchronizations."""
     from bsvd_tpu_torch.models.stylegan2_model import StyleGAN2Model as SG
     yml = os.path.join(root, 'train_StyleGAN2_256_Cmul2_FFHQ.yml')
@@ -4958,9 +5009,9 @@ def _stylegan2_cli(root):
 
 
 def _inference_scripts(root, rng):
-    """The three inference modules as commands: StyleGAN2 at --size 1024
-    --sample 4 on a checkpoint of random weights saved here, ESRGAN (x4)
-    and RIDNet on two synthetic PNGs each."""
+    """The three inference modules by their ``main(argv)`` in this process:
+    StyleGAN2 at --size 1024 --sample 4 on a checkpoint of random weights
+    saved here, ESRGAN (x4) and RIDNet on two synthetic PNGs each."""
     from bsvd_tpu_torch.archs.stylegan2_arch import StyleGAN2Generator
     from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
     from bsvd_tpu_torch.utils.img_util import imfrombytes, imwrite
@@ -4992,15 +5043,13 @@ def _inference_scripts(root, rng):
         'inference_ridnet': ['--model_path', ckpts['ridnet'], '--test_path',
                              os.path.join(root, 'inputs'), '--output',
                              os.path.join(root, 'ridnet')]}
-    rec = {'phase': 'face_inference', 'card': SMI}
+    rec = {'phase': 'face_inference', 'card': SMI, 'in_process': True}
     for name, argv in runs.items():
-        t0 = time.perf_counter()
-        _run_module([f'bsvd_tpu_torch.inference.{name}', *argv], 600)
+        seconds = _run_main(f'bsvd_tpu_torch.inference.{name}', argv)
         folder = argv[argv.index('--output') + 1]
-        shapes = {f: list(read(os.path.join(folder, f)).shape)
-                  for f in sorted(os.listdir(folder))}
-        rec[name] = {'command_s': time.perf_counter() - t0,
-                     'outputs': shapes}
+        rec[name] = {'main_s': seconds,
+                     'outputs': {f: list(read(os.path.join(folder, f)).shape)
+                                 for f in sorted(os.listdir(folder))}}
     want = {'inference_stylegan2': {'000000.png': [2048, 2048, 3]},
             'inference_esrgan': {'00_ESRGAN.png': [512, 608, 3],
                                  '01_ESRGAN.png': [800, 896, 3]},
@@ -5133,7 +5182,7 @@ dist_params:
   backend: nccl
   port: 29500
 """
-EDVR_ITERS, EDVR_TSA_ITER = 30, 11
+EDVR_ITERS, EDVR_TSA_ITER = 20, 11
 # REDS's 720 x 1280 GT / 180 x 320 LQ frames: (clips, frames) of the train
 # and val trees
 EDVR_TRAIN, EDVR_VAL = (2, 10), (1, 5)
@@ -5448,9 +5497,9 @@ def _edvr_cli(root):
 
 
 def _inference_basicvsr(root, rng):
-    """``python -m bsvd_tpu_torch.inference.inference_basicvsr`` on a
-    20-frame 64 x 64 folder with random BasicVSR (64 x 30) weights saved
-    here: the output count and shapes, command seconds."""
+    """``bsvd_tpu_torch.inference.inference_basicvsr``'s ``main(argv)`` on
+    a 20-frame 64 x 64 folder with random BasicVSR (64 x 30) weights saved
+    here: the output count and shapes, its seconds."""
     from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
     from bsvd_tpu_torch.utils.img_util import imfrombytes, imwrite
     ckpt = os.path.join(root, 'basicvsr.npz')
@@ -5461,17 +5510,14 @@ def _inference_basicvsr(root, rng):
     for i in range(20):
         imwrite(rng.integers(0, 256, (64, 64, 3)).astype(np.uint8),
                 os.path.join(frames, f'{i:08d}.png'))
-    t0 = time.perf_counter()
-    _run_module(['bsvd_tpu_torch.inference.inference_basicvsr',
-                 '--model_path', ckpt, '--input_path', frames,
-                 '--save_path', out], 600)
-    seconds = time.perf_counter() - t0
+    seconds = _run_main('bsvd_tpu_torch.inference.inference_basicvsr', [
+        '--model_path', ckpt, '--input_path', frames, '--save_path', out])
     shapes = {}
     for f in sorted(os.listdir(out)):
         with open(os.path.join(out, f), 'rb') as fh:
             shapes[f] = list(imfrombytes(fh.read(), 'color').shape)
     rec = {'phase': 'video_inference_basicvsr', 'frames': 20,
-           'interval': 15, 'command_s': seconds, 'outputs': len(shapes),
+           'interval': 15, 'main_s': seconds, 'outputs': len(shapes),
            'shapes': sorted({tuple(s) for s in shapes.values()}),
            'card': SMI}
     emit(rec)
@@ -5954,7 +6000,7 @@ dist_params:
 
 
 SWINIR_LR = (678, 1020)     # a DIV2K x2 LR frame (padded to 680 x 1024)
-SWINIR_ITERS = 30
+SWINIR_ITERS = 20
 # DIV2K800sub's 480 x 480 GT crops (240 x 240 LR) and Set5-sized val pairs
 SWINIR_TRAIN, SWINIR_GT = 16, 480
 SWINIR_VAL, SWINIR_VAL_GT = 2, 252
@@ -6075,7 +6121,7 @@ def _swinir_pairs(root, rng, pool):
     return futures
 
 
-def _swinir_profile(model, dopt, n=3):
+def _swinir_profile(model, dopt, n=1):
     """The device profile of n more train steps of the CLI's model on a
     batch of its train dataset's first items, its kernels grouped."""
     ds = build_dataset(dopt)
@@ -6209,6 +6255,18 @@ def _swinir_inference_job(root, net, rng, dev):
             check)
 
 
+def _run_main(module, argv):
+    """``module.main(argv)`` in this process (what ``python -m module``
+    runs, without a process start), its output set aside; its seconds."""
+    import importlib
+    mod = importlib.import_module(module)
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        mod.main(list(argv))
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
 def _run_jobs(jobs):
     """Run each job's command (``python -m``) at once, in threads; each
     job is (name, args, env, cwd, check(lines, rec) -> ok). Returns
@@ -6296,24 +6354,59 @@ def _fid_folder(root, rng, pool):
     return folder, futures
 
 
+def _fid_stats_in_process(root, folder, pth, dev):
+    """The statistics job's computation (``calculate_fid_stats_from_
+    datasets``' FFHQDataset, batches and ``stats``) in this process, so the
+    FID commands need not wait for the statistics command; its file."""
+    from bsvd_tpu_torch.metrics.fid import (extract_inception_features,
+                                            load_patched_inception_v3)
+    from bsvd_tpu_torch.scripts.metrics import \
+        calculate_fid_stats_from_datasets as fs
+    dataset = build_dataset({
+        'name': 'FFHQ', 'type': 'FFHQDataset', 'dataroot_gt': folder,
+        'io_backend': {'type': 'disk'}, 'use_hflip': False,
+        'mean': [0.5, 0.5, 0.5], 'std': [0.5, 0.5, 0.5]})
+    net = load_patched_inception_v3(pretrain_path=pth, device=dev)
+    # a command runs with PyTorch's default TF32 for cuDNN convs (this
+    # script turns it off): the same here, so both compute alike
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            mean, cov = fs.stats(extract_inception_features(fs.batches(
+                dataset, 'gt', FID_N, INCEPTION_BATCH), net), FID_N)
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    path = os.path.join(root, f'inception_FFHQ_{FID_HW}_in_process.npz')
+    np.savez(path, name='FFHQ', size=FID_HW, mean=mean, cov=cov)
+    return path
+
+
 def _fid_jobs(root, folder, pth, dev):
-    """The three FID scripts as commands: the statistics job (first), then
-    the folder's FID against them (the same images: about 0) and a random
-    StyleGAN2 256 Cmul2's FID."""
+    """The three FID scripts as commands, run at once: the statistics job,
+    and against the same statistics computed in this process first, the
+    folder's FID (the same images: about 0) and a random StyleGAN2 256
+    Cmul2's FID. The command's statistics must equal this process's to
+    1e-4 x max|ref|."""
     from bsvd_tpu_torch.archs.stylegan2_arch import StyleGAN2Generator
     from bsvd_tpu_torch.convert.torch_generic import to_jax_tree
     env = {'BSVD_INCEPTION_PRETRAIN_PATH': pth}
     stats = os.path.join(root, f'inception_FFHQ_{FID_HW}.npz')
+    ref = _fid_stats_in_process(root, folder, pth, dev)
 
     def stats_ok(lines, rec):
-        with np.load(stats) as z:
+        with np.load(stats) as z, np.load(ref) as r:
             rec['keys'] = sorted(z.files)
             rec['trace_cov'] = float(np.trace(z['cov']))
-        return rec['keys'] == ['cov', 'mean', 'name', 'size']
+            rec['max_abs_diff_in_process'] = {
+                k: float(np.abs(z[k] - r[k]).max()) for k in ('mean', 'cov')}
+            close = all(rec['max_abs_diff_in_process'][k] <= P22_TOL *
+                        np.abs(r[k]).max() for k in ('mean', 'cov'))
+        return rec['keys'] == ['cov', 'mean', 'name', 'size'] and close
 
     def same_ok(lines, rec):
         rec['fid'] = _fid_value(lines)
-        with np.load(stats) as z:
+        with np.load(ref) as z:
             trace = float(np.trace(z['cov']))
         return abs(rec['fid']) <= 1e-3 * trace
 
@@ -6325,19 +6418,18 @@ def _fid_jobs(root, folder, pth, dev):
     ckpt = os.path.join(root, 'stylegan2_256.npz')
     save_npz_params(ckpt, {'params_ema': to_jax_tree(g)})
     mod = 'bsvd_tpu_torch.scripts.metrics.'
-    first = ('fid_stats', [mod + 'calculate_fid_stats_from_datasets',
+    return [('fid_stats', [mod + 'calculate_fid_stats_from_datasets',
                            '--dataroot', folder, '--size', str(FID_HW),
                            '--num_sample', str(FID_N), '--device', dev],
-             env, root, stats_ok)
-    then = [('fid_folder_same_images',
-             [mod + 'calculate_fid_folder', folder, '--fid_stats', stats,
+             env, root, stats_ok),
+            ('fid_folder_same_images',
+             [mod + 'calculate_fid_folder', folder, '--fid_stats', ref,
               '--num_sample', str(FID_N), '--device', dev], env, ROOT,
              same_ok),
             ('fid_stylegan2_256_cmul2',
-             [mod + 'calculate_stylegan2_fid', ckpt, stats, '--size', '256',
+             [mod + 'calculate_stylegan2_fid', ckpt, ref, '--size', '256',
               '--num_sample', str(FID_N), '--device', dev], env, ROOT,
              sg_ok)]
-    return first, then
 
 
 def _lpips_files(root, seed):
@@ -6490,12 +6582,14 @@ def phase_swinir_fid_lpips_diffjpeg(dev='cuda'):
             f.result()
     _diffjpeg(rng, dev)
     t1 = time.perf_counter()
-    fid_first, fid_then = _fid_jobs(root, folder, pth, dev)
-    commands = _run_jobs([inference, lpips_job, fid_first])
-    commands.update(_run_jobs(fid_then))
+    fid = _fid_jobs(root, folder, pth, dev)
+    t_fid = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    commands = _run_jobs([inference, lpips_job, *fid])
     emit({'phase': 'swinir_fid_lpips_commands', 'waves': [
-        ['inference_swinir', 'calculate_lpips', 'fid_stats'],
-        ['fid_folder_same_images', 'fid_stylegan2_256_cmul2']],
+        ['inference_swinir', 'calculate_lpips', 'fid_stats',
+         'fid_folder_same_images', 'fid_stylegan2_256_cmul2']],
+          'fid_stats_in_process_s': t_fid,
         'fid_images': FID_N, 'fid_hw': [FID_HW] * 2,
         'lpips_pairs': LPIPS_PAIRS, **commands,
         'wall_s': time.perf_counter() - t1, 'card': SMI})
@@ -6504,6 +6598,349 @@ def phase_swinir_fid_lpips_diffjpeg(dev='cuda'):
           'seconds': time.perf_counter() - t0, 'launches_added': added})
     if any(added.values()):
         raise AssertionError(f'phase 22 launched kernels: {added}')
+
+# ---------------------------------------------------------------------------
+# phase 23: the zoo's storage and last scripts (lmdb stores made by the
+# data scripts, the SR train CLI and Vimeo90K from them, the checkpoint
+# converter's round trip on the kernels)
+# ---------------------------------------------------------------------------
+
+# BasicSR's DIV2K preparation (docs/DatasetPreparation.md): HR frames of
+# 2040 wide, mod-12 GT and MATLAB-bicubic x4 LR, sub-images of 480 / 240
+# (HR) and 120 / 60 (LR), then an lmdb store of each
+DIV2K_HW, DIV2K_N, P23_ITERS = (1356, 2040), 2, 20
+# Vimeo90K's septuplets are 448 x 256
+VIMEO_SEQS, VIMEO_HW = ('00001/0001', '00001/0002', '00002/0001',
+                        '00002/0007'), (256, 448)
+SR_YML = os.path.join(ROOT, 'options', 'train', 'msrresnet_x4.yml')
+P23_SCRIPTS = 'bsvd_tpu_torch.scripts'
+
+
+def _p23_frame(rng, h, w):
+    """A smooth colour field with texture (a coarse grid upscaled on the
+    card, noise), uint8 BGR."""
+    base = torch.from_numpy(rng.uniform(0, 255, (3, h // 24 + 2,
+                                                 w // 24 + 2)))
+    img = F.interpolate(base[None].cuda(), size=(h, w), mode='bilinear',
+                        align_corners=False)[0].permute(1, 2, 0).cpu().numpy()
+    return np.clip(img + rng.normal(0, 6, img.shape), 0, 255).round().astype(
+        np.uint8)
+
+
+def _store_bytes(path):
+    return os.path.getsize(os.path.join(path, 'data.mdb'))
+
+
+class _FirstStep:
+    """While SR train pipelines run: each run's first batch (CPU copies)
+    and its first step's loss."""
+
+    def __enter__(self):
+        from bsvd_tpu_torch.models.sr_model import SRModel
+        self.cls, self.runs = SRModel, []
+        self.feed, self.step = SRModel.feed_data, SRModel.optimize_parameters
+        first = self
+
+        def feed(model, data):
+            if not first.runs or first.runs[-1][0] is not model:
+                first.runs.append([model, {k: torch.as_tensor(data[k]).cpu()
+                                           .clone() for k in ('lq', 'gt')},
+                                   None])
+            return first.feed(model, data)
+
+        def step(model, it):
+            out = first.step(model, it)
+            if first.runs[-1][2] is None:
+                first.runs[-1][2] = float(model.get_current_log()['l_pix'])
+            return out
+        SRModel.feed_data, SRModel.optimize_parameters = feed, step
+        return self
+
+    def __exit__(self, *exc):
+        self.cls.feed_data, self.cls.optimize_parameters = \
+            self.feed, self.step
+
+
+def _p23_sr_data(root):
+    """The HR PNGs (``DIV2K_N`` of ``DIV2K_HW``, zlib level 1) and the
+    folders the scripts make from them."""
+    hr = os.path.join(root, 'DIV2K_train_HR')
+    t0 = time.perf_counter()
+    for i in range(DIV2K_N):
+        _p23_png(_p23_frame(np.random.default_rng(SEED + 233 + i),
+                               *DIV2K_HW),
+                    os.path.join(hr, f'{i + 1:04d}.png'))
+    d = {k: os.path.join(root, k) for k in (
+        'GTmod12', 'LRbicx4', 'GT_sub', 'LR_sub')}
+    d['gt_lmdb'] = os.path.join(root, 'DIV2K_train_HR_sub.lmdb')
+    d['lq_lmdb'] = os.path.join(root, 'DIV2K_train_LR_bicubic_X4_sub.lmdb')
+    d['meta'] = os.path.join(root, 'meta_info_DIV2K_sub_GT.txt')
+    return d, time.perf_counter() - t0
+
+
+def _p23_png(img, path):
+    from bsvd_tpu_torch.utils.img_util import IMWRITE_PNG_COMPRESSION, imwrite
+    imwrite(img, path, [IMWRITE_PNG_COMPRESSION, 1])
+
+
+def _p23_vimeo(root, rng):
+    """The GT septuplet tree (``VIMEO_SEQS`` of 7 frames), its meta-info
+    file, the LQ tree and store paths the scripts make."""
+    gt = os.path.join(root, 'vimeo_septuplet', 'sequences')
+    for seq in VIMEO_SEQS:
+        for i in range(1, 8):
+            _p23_png(_p23_frame(rng, *VIMEO_HW),
+                        os.path.join(gt, seq, f'im{i}.png'))
+    meta = os.path.join(root, 'meta_info_Vimeo90K_test.txt')
+    with open(meta, 'w') as f:
+        f.writelines(f'{s} 7 ({VIMEO_HW[0]},{VIMEO_HW[1]},3)\n'
+                     for s in VIMEO_SEQS)
+    lq = os.path.join(root, 'vimeo_septuplet_matlabLRx4', 'sequences')
+    return {'gt': gt, 'lq': lq, 'meta': meta,
+            'gt_lmdb': os.path.join(root, 'vimeo90k_train_GT_only4th.lmdb'),
+            'lq_lmdb': os.path.join(root, 'vimeo90k_train_LR7frames.lmdb')}
+
+
+def _p23_scripts(root, d, v, pth, npz):
+    """The scripts by their ``main(argv)`` in this process (what ``python
+    -m`` runs, without a process start each): the two MATLAB scripts on
+    the card and the converter, then the host-only data scripts in two
+    dependent waves of threads."""
+    from bsvd_tpu_torch.scripts.data_preparation import (create_lmdb,
+                                                         extract_subimages,
+                                                         generate_meta_info)
+    t0 = time.perf_counter()
+    out = {'main_s': {name: _run_main(f'{P23_SCRIPTS}.{mod}', argv)
+                      for name, mod, argv in (
+        ('generate_bicubic_img', 'matlab_scripts.generate_bicubic_img', [
+            '--input', os.path.join(root, 'DIV2K_train_HR'), '--mod_scale',
+            '12', '--up_scale', '4', '--save_mod', d['GTmod12'], '--save_lr',
+            d['LRbicx4'], '--device', 'cuda']),
+        ('generate_LR_Vimeo90K', 'matlab_scripts.generate_LR_Vimeo90K', [
+            '--root', os.path.dirname(v['gt']), '--device', 'cuda']),
+        ('convert_to_npz_tsn', 'model_conversion.convert_to_npz', [
+            '--tsn', '--input', pth, '--output', npz]))}}
+    if not (len(os.listdir(d['LRbicx4'])) == DIV2K_N and os.path.exists(npz)
+            and len(os.listdir(os.path.join(v['lq'], VIMEO_SEQS[0]))) == 7):
+        raise AssertionError(f'phase 23 scripts: {os.listdir(root)}')
+    waves = [
+        {'extract_subimages_hr': (extract_subimages, [
+            '--input', d['GTmod12'], '--output', d['GT_sub'], '--crop_size',
+            '480', '--step', '240']),
+         'extract_subimages_lr': (extract_subimages, [
+             '--input', d['LRbicx4'], '--output', d['LR_sub'],
+             '--crop_size', '120', '--step', '60']),
+         'create_lmdb_vimeo_gt': (create_lmdb, [
+             '--input', v['gt'], '--output', v['gt_lmdb']]),
+         'create_lmdb_vimeo_lq': (create_lmdb, [
+             '--input', v['lq'], '--output', v['lq_lmdb']])},
+        {'generate_meta_info': (generate_meta_info, [
+            '--input', d['GT_sub'], '--meta_info', d['meta']]),
+         'create_lmdb_div2k_hr': (create_lmdb, [
+             '--input', d['GT_sub'], '--output', d['gt_lmdb']]),
+         'create_lmdb_div2k_lr': (create_lmdb, [
+             '--input', d['LR_sub'], '--output', d['lq_lmdb']])}]
+
+    def run(item):
+        name, (mod, argv) = item
+        t = time.perf_counter()
+        mod.main(argv)
+        return name, time.perf_counter() - t
+    # their progress lines are not this script's: stdout is set aside
+    # around the waves (not in each thread: the swap is global)
+    with contextlib.redirect_stdout(io.StringIO()):
+        for wave in waves:
+            with ThreadPoolExecutor(len(wave)) as pool:
+                out['main_s'].update(pool.map(run, wave.items()))
+    out['wall_s'] = time.perf_counter() - t0
+    for folder in (d['GT_sub'], d['LR_sub']):
+        if len(os.listdir(folder)) != 40 * DIV2K_N:
+            raise AssertionError(f'extract_subimages: {folder}')
+    return out
+
+
+def _p23_sr_yml(root, d):
+    """options/train/msrresnet_x4.yml copied line by line, with
+    ``io_backend: {type: lmdb}`` and the stores as its train and val
+    data."""
+    lines = []
+    with open(SR_YML) as f:
+        for line in f:
+            key = line.strip().split(':')[0]
+            pad = line[:len(line) - len(line.lstrip())]
+            if key in ('dataroot_gt', 'dataroot_lq'):
+                line = f"{pad}{key}: {d[key[-2:] + '_lmdb']}\n"
+            lines.append(line)
+            if line.strip() == 'type: PairedImageDataset':
+                lines += [f'{pad}io_backend:\n', f'{pad}  type: lmdb\n']
+    path = os.path.join(root, 'msrresnet_x4_lmdb.yml')
+    with open(path, 'w') as f:
+        f.writelines(lines)
+    opt = yaml_load(path)
+    if not all(opt['datasets'][ph]['io_backend'] == {'type': 'lmdb'}
+               and opt['datasets'][ph]['dataroot_gt'] == d['gt_lmdb']
+               for ph in ('train', 'val')):
+        raise AssertionError(f'lmdb yml: {opt["datasets"]}')
+    return path
+
+
+def _p23_sr_cli(root, d):
+    """The SR train CLI on the lmdb yml, then on the sub-image folders:
+    their first batches bit-equal, their first losses within 1e-6."""
+    yml = _p23_sr_yml(root, d)
+    force = [f'train:total_iter={P23_ITERS}', 'logger:print_freq=10']
+    disk = [f'datasets:{ph}:{k}' for ph in ('train', 'val') for k in (
+        'io_backend:type=disk', f"dataroot_gt={d['GT_sub']}",
+        f"dataroot_lq={d['LR_sub']}")]
+    runs = {}
+    from bsvd_tpu_torch.models.sr_model import SRModel
+    with _FirstStep() as first:
+        for name, extra in (('lmdb', []), ('folders', disk)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with _StepClock((SRModel,)) as clock:
+                model = train_pipeline(os.path.join(root, name), cmd=[
+                    '-opt', yml, '--force_yml', *force, *extra])
+            torch.cuda.synchronize()
+            steady = clock.steady(6, P23_ITERS)
+            runs[name] = {
+                'wall_s': time.perf_counter() - t0, 'steady': steady,
+                'wait_share': steady['data_wait_ms'] / steady['ms_per_iter'],
+                'iters': model.optimizer.count,
+                'loss_last': float(model.get_current_log()['l_pix'])}
+    (_, b_lmdb, l_lmdb), (_, b_disk, l_disk) = first.runs[:2]
+    same = {k: bool(torch.equal(b_lmdb[k], b_disk[k])) for k in ('lq', 'gt')}
+    rel = abs(l_lmdb - l_disk) / abs(l_disk)
+    rec = {'yml': os.path.relpath(SR_YML, ROOT), 'runs': runs,
+           'first_batch_shapes': {k: list(v.shape)
+                                  for k, v in b_lmdb.items()},
+           'first_batches_bit_equal': same, 'first_losses': [l_lmdb, l_disk],
+           'first_loss_rel_diff': rel}
+    if not (all(same.values()) and rel <= 1e-6
+            and all(r['iters'] == P23_ITERS and math.isfinite(r['loss_last'])
+                    for r in runs.values())):
+        raise AssertionError(f'lmdb SR train CLI: {rec}')
+    return rec
+
+
+def _p23_vimeo_items(v):
+    """Vimeo90KDataset and Vimeo90KRecurrentDataset items from the stores
+    equal to the items from the folders, every sequence."""
+    out = {}
+    for kind in ('Vimeo90KDataset', 'Vimeo90KRecurrentDataset'):
+        opt = {'name': 'vimeo', 'type': kind, 'num_frame': 7,
+               'random_reverse': True, 'meta_info_file': v['meta'],
+               'gt_size': 256, 'scale': 4, 'manual_seed': SEED,
+               'phase': 'train'}
+        lm = build_dataset(dict(opt, dataroot_gt=v['gt_lmdb'],
+                                dataroot_lq=v['lq_lmdb'],
+                                io_backend={'type': 'lmdb'}))
+        fo = build_dataset(dict(opt, dataroot_gt=v['gt'], dataroot_lq=v['lq'],
+                                io_backend={'type': 'disk'}))
+        t0 = time.perf_counter()
+        items = [lm[i] for i in range(len(lm))]
+        lmdb_s = time.perf_counter() - t0
+        equal = [all(np.array_equal(a[k], b[k]) for k in ('lq', 'gt'))
+                 and a['key'] == b['key']
+                 for a, b in zip(items, (fo[i] for i in range(len(fo))))]
+        out[kind] = {'items': len(items), 'bit_equal': equal,
+                     'lq': list(items[0]['lq'].shape),
+                     'gt': list(items[0]['gt'].shape),
+                     'lmdb_ms_per_item': lmdb_s / len(items) * 1e3}
+        if not (len(items) == len(VIMEO_SEQS) and all(equal)):
+            raise AssertionError(f'Vimeo90K on lmdb: {kind} {out[kind]}')
+    return out
+
+
+def _p23_tsn_pth(path):
+    """A c64 TSN checkpoint of random weights (the test yml's network_g)
+    in the reference's layout; the net it came from."""
+    from bsvd_tpu_torch.archs.wnet_arch import _to_tree
+    from bsvd_tpu_torch.convert.torch_ckpt import to_tsn_state_dict
+    net = build_network(dict(C64, seed=SEED + 231), 'cpu')
+    torch.save({'params': to_tsn_state_dict(_to_tree(net.params), net.cfg)},
+               path)
+
+
+def _p23_round_trip(pth, npz, clip):
+    """The net loaded from the .pth and the net built from convert_to_npz's
+    .npz: a 10-frame 540p bf16 whole-clip forward each on K1-K4, bit-equal.
+    Returns the launches."""
+    from bsvd_tpu_torch.convert.torch_ckpt import from_jax_params
+    from bsvd_tpu_torch.models.checkpoint import load_npz_params
+    a = build_network(C64)
+    a.load(pth)
+    b = build_network(C64)
+    b.load_params(from_jax_params(load_npz_params(npz), b.cfg))
+    reset_counts()
+    outs = []
+    with _NoConv2d():
+        for net in (a, b):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs.append(denoise_seq(net, None, clip[1], noise_sigma=SIGMA,
+                                    compute_dtype=torch.bfloat16))
+            wall = time.perf_counter() - t0
+    launches = counts()
+    for k in KERNELS:
+        if launches[k] != 2 * PER_FORWARD.get(k, 0):
+            raise AssertionError(f'npz round trip: {k} launched '
+                                 f'{launches[k]}, expected '
+                                 f'{2 * PER_FORWARD.get(k, 0)}')
+    _check_out(outs[0], clip[0])
+    rec = {'forward': [T, H, W], 'dtype': 'bfloat16',
+           'outputs_bit_equal': bool(np.array_equal(outs[0], outs[1])),
+           'npz_keys': len(np.load(npz).files),
+           'denoise_seq_s': wall, 'launches': launches}
+    if not rec['outputs_bit_equal']:
+        raise AssertionError(f'npz round trip: outputs differ {rec}')
+    return rec, launches
+
+
+def phase_storage_scripts():
+    """Phase 23: the data scripts make lmdb stores as BasicSR documents
+    for DIV2K and Vimeo90K; the SR train CLI and the Vimeo90K datasets
+    read them; convert_to_npz's checkpoint drives K1-K4. Memcached and the
+    downloads need a server: they are held on the CPU only. Returns the
+    launches."""
+    t0 = time.perf_counter()
+    root = os.path.join(WORK, 'storage')
+    rng = np.random.default_rng(SEED + 230)
+    d, hr_s = _p23_sr_data(root)
+    v = _p23_vimeo(root, rng)
+    pth, npz = os.path.join(root, 'bsvd-64.pth'), os.path.join(
+        root, 'bsvd-64.npz')
+    _p23_tsn_pth(pth)
+    data_s = time.perf_counter() - t0
+    scripts = _p23_scripts(root, d, v, pth, npz)
+    with open(d['meta']) as f:
+        meta = f.read().splitlines()
+    keys = data_util.paths_from_lmdb(d['gt_lmdb'])
+    if not (len(meta) == 40 * DIV2K_N and meta[0] == '0001_s001.png '
+            '(480,480,3)' and keys == [m.split('.')[0] for m in meta]
+            and data_util.paths_from_lmdb(v['lq_lmdb'])[0]
+            == f'{VIMEO_SEQS[0]}/im1'):
+        raise AssertionError(f'phase 23 stores: {meta[:2]} {keys[:2]}')
+    stores = {os.path.basename(p): _store_bytes(p) for p in (
+        d['gt_lmdb'], d['lq_lmdb'], v['gt_lmdb'], v['lq_lmdb'])}
+    emit({'phase': 'storage_scripts', 'hr': [DIV2K_N, *DIV2K_HW],
+          'write_s': data_s, 'hr_write_s': hr_s, 'scripts': scripts,
+          'sub_images': len(meta), 'store_bytes': stores,
+          'store': 'record log (no lmdb package)'
+          if lmdb_util.lmdb_package().__name__.endswith('_lmdb_compat')
+          else 'lmdb package', 'card': SMI})
+    emit(dict(_p23_sr_cli(root, d), phase='storage_sr_train_cli',
+              card=SMI))
+    emit({'phase': 'storage_vimeo90k', 'sequences': len(VIMEO_SEQS),
+          'gt_hw': VIMEO_HW, **_p23_vimeo_items(v)})
+    clip = _clips(np.random.default_rng(SEED + 232), 1)[0]
+    rec, launches = _p23_round_trip(pth, npz, clip)
+    emit(dict(rec, phase='storage_npz_round_trip', card=SMI))
+    emit({'phase': 'storage', 'seconds': time.perf_counter() - t0,
+          'cpu_only': 'memcached and the downloads need a server: '
+                      'tests/test_torch_io_utils.py on the CPU'})
+    return launches
+
 
 def main():
     global WORK
@@ -6520,8 +6957,17 @@ def main():
         shutil.rmtree(WORK, ignore_errors=True)
 
 
+def timed(name, fn, *args):
+    """``fn(*args)``, its seconds kept under ``name`` in PHASE_S."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    return out
+
+
 def run():
-    global SMI
+    global SMI, T_START
+    T_START = time.perf_counter()
     name = torch.cuda.get_device_name(0)
     smi = subprocess.run(['nvidia-smi', '--query-gpu=name,power.limit',
                           '--format=csv,noheader', '-i', '0'],
@@ -6552,13 +6998,14 @@ def run():
           'data_helper_libraries': {k: os.path.relpath(v, ROOT)
                                     for k, v in helpers.items()}})
 
-    summary = phase_kernels()
+    summary = timed('2_kernels', phase_kernels)
     clips = _clips(np.random.default_rng(SEED), 3)
-    nets, outs, launches = phase_main(clips)
-    out32 = phase_parity(nets, clips, outs)
+    nets, outs, launches = timed('3_main', phase_main, clips)
+    out32 = timed('4_parity', phase_parity, nets, clips, outs)
     clip24 = _clips(np.random.default_rng(SEED + 3), 1, STREAM_T)[0]
-    stream_launches = phase_stream(nets, clip24)
-    seq_launches, off_path = phase_stream_parity(nets, clips, outs, out32)
+    stream_launches = timed('5_stream', phase_stream, nets, clip24)
+    seq_launches, off_path = timed('6_stream_parity', phase_stream_parity,
+                                   nets, clips, outs, out32)
     # K6 is off the streaming main path when every MemCvBlock takes K5
     off_route = () if k6_on_path() else ('bibuffer_chain',)
     for k in KERNELS:
@@ -6566,30 +7013,40 @@ def run():
                 and not stream_launches[k] > 0):
             raise AssertionError(f'{k} never launched on the streaming path')
         launches[k] += stream_launches[k] + seq_launches[k]
-    phase_train_grad()
-    train_launches = phase_train()
-    chunk_launches = phase_chunked(nets)
-    data = phase_frames()
-    jdata = phase_jpeg_frames(data)
-    eval_launches = phase_eval(nets, data)
-    jpeg_eval_launches = phase_eval(nets, jdata, chunked=False)
-    option_launches_run = phase_options(nets, clip24)
-    entry_launches = phase_entry(data)
-    jpeg_train_launches = phase_train_cli_jpeg(jdata)
-    parallel_launches = phase_streams(nets['TSM'], clip24)
-    phase_loader_draws()
-    _sum_launches(parallel_launches, phase_parallel_dryrun())
-    _sum_launches(parallel_launches, phase_nccl_train_cli(data))
-    _sum_launches(parallel_launches, phase_profile(nets['TSM']))
-    _sum_launches(parallel_launches, phase_zoo_sr())
-    mp4_launches, nv12_rgb = phase_mp4(data)
+    timed('7_train_grad', phase_train_grad)
+    train_launches = timed('8_train', phase_train)
+    chunk_launches = timed('9_chunked', phase_chunked, nets)
+    data = timed('12_frames', phase_frames)
+    jdata = timed('12a_jpeg_frames', phase_jpeg_frames, data)
+    eval_launches = timed('10_eval', phase_eval, nets, data)
+    jpeg_eval_launches = timed('10_eval_jpeg', phase_eval, nets, jdata,
+                               False)
+    option_launches_run = timed('11_options', phase_options, nets, clip24)
+    entry_launches = timed('12_entry', phase_entry, data)
+    jpeg_train_launches = timed('12a_train_cli_jpeg', phase_train_cli_jpeg,
+                                jdata)
+    parallel_launches = timed('13_streams', phase_streams, nets['TSM'],
+                              clip24)
+    timed('13_loader_draws', phase_loader_draws)
+    _sum_launches(parallel_launches, timed('13_dryrun',
+                                           phase_parallel_dryrun))
+    _sum_launches(parallel_launches, timed('13_nccl_train_cli',
+                                           phase_nccl_train_cli, data))
+    _sum_launches(parallel_launches, timed('14_profile', phase_profile,
+                                           nets['TSM']))
+    _sum_launches(parallel_launches, timed('15_zoo_sr', phase_zoo_sr))
+    mp4_launches, nv12_rgb = timed('16_mp4', phase_mp4, data)
     _sum_launches(parallel_launches, mp4_launches)
-    phase_zoo_vsr()
-    _sum_launches(parallel_launches, phase_tools())
-    phase_face_gans()
-    phase_video_family()
-    phase_faces_degradations()
-    phase_swinir_fid_lpips_diffjpeg()
+    timed('17_zoo_vsr', phase_zoo_vsr)
+    _sum_launches(parallel_launches, timed('18_tools', phase_tools))
+    timed('19_face_gans', phase_face_gans)
+    timed('20_video_family', phase_video_family)
+    timed('21_faces_degradations', phase_faces_degradations)
+    timed('22_swinir_fid_lpips_diffjpeg', phase_swinir_fid_lpips_diffjpeg)
+    _sum_launches(parallel_launches, timed('23_storage_scripts',
+                                           phase_storage_scripts))
+    emit({'phase': 'phase_seconds', 'seconds': PHASE_S,
+          'total_s': time.perf_counter() - T_START})
     for k in KERNELS:
         launches[k] += (train_launches[k] + chunk_launches[k]
                         + eval_launches[k] + jpeg_eval_launches[k]

@@ -2,7 +2,7 @@
 fresh interpreter without a GPU or nvcc, and pulls in neither jax, the JAX
 package, yaml, cv2, pandas, tensorflow nor tensorboard (the machine with
 the card has none of them), nor torchvision (the zoo's VGG is the port's
-own)."""
+own), nor requests (the downloads are on urllib)."""
 
 import os
 import subprocess
@@ -22,7 +22,8 @@ for n in names:
 bad = sorted(m for m in sys.modules
              if m.split('.')[0] in ('jax', 'jaxlib', 'bsvd_tpu', 'yaml',
                                     'cv2', 'pandas', 'tensorflow',
-                                    'tensorboard', 'torchvision'))
+                                    'tensorboard', 'torchvision',
+                                    'requests'))
 print(len(names), bad)
 assert len(names) >= 40, names
 assert {'bsvd_tpu_torch.archs.streaming',
@@ -96,7 +97,19 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.scripts.metrics.calculate_fid_folder',
         'bsvd_tpu_torch.scripts.metrics.calculate_fid_stats_from_datasets',
         'bsvd_tpu_torch.scripts.metrics.calculate_lpips',
-        'bsvd_tpu_torch.scripts.metrics.calculate_stylegan2_fid'} | {
+        'bsvd_tpu_torch.scripts.metrics.calculate_stylegan2_fid',
+        'bsvd_tpu_torch.utils._lmdb_compat', 'bsvd_tpu_torch.utils.lmdb_util',
+        'bsvd_tpu_torch.utils.download_util',
+        'bsvd_tpu_torch.scripts.download_gdrive',
+        'bsvd_tpu_torch.scripts.download_pretrained_models',
+        'bsvd_tpu_torch.scripts.publish_models',
+        'bsvd_tpu_torch.scripts.model_conversion.convert_to_npz',
+        'bsvd_tpu_torch.scripts.matlab_scripts.generate_bicubic_img',
+        'bsvd_tpu_torch.scripts.matlab_scripts.generate_LR_Vimeo90K'} | {
+        f'bsvd_tpu_torch.scripts.data_preparation.{s}' for s in (
+            'create_lmdb', 'extract_subimages', 'generate_meta_info',
+            'regroup_reds_dataset', 'extract_images_from_tfrecords',
+            'download_datasets')} | {
         f'bsvd_tpu_torch.tools.{t}' for t in (
             '_common', '_stream_bench', 'make_synth_dataset',
             'profile_blocks', 'profile_stream', 'bench_train',
@@ -134,7 +147,12 @@ def test_port_imports_without_jax_yaml_or_nvcc():
     'bsvd_tpu_torch.archs.swinir_arch', 'bsvd_tpu_torch.archs.inception_arch',
     'bsvd_tpu_torch.metrics.fid', 'bsvd_tpu_torch.metrics.lpips',
     'bsvd_tpu_torch.utils.diffjpeg',
-    'bsvd_tpu_torch.scripts.metrics.calculate_stylegan2_fid'])
+    'bsvd_tpu_torch.scripts.metrics.calculate_stylegan2_fid',
+    'bsvd_tpu_torch.utils.lmdb_util', 'bsvd_tpu_torch.utils.file_client',
+    'bsvd_tpu_torch.scripts.data_preparation.create_lmdb',
+    'bsvd_tpu_torch.scripts.data_preparation.extract_images_from_tfrecords',
+    'bsvd_tpu_torch.scripts.matlab_scripts.generate_LR_Vimeo90K',
+    'bsvd_tpu_torch.scripts.model_conversion.convert_to_npz'])
 def test_module_imports_first(module):
     """A module imported first in a fresh interpreter (no circular import
     through the data package's datasets)."""

@@ -5,7 +5,8 @@ JAX package's on the CPU:
   ``flip_sequence``) item by item on a small septuplet tree, the same
   ``manual_seed`` (reversal, crop and flips drawn alike), one GT frame
   EXIF-turned by 180 degrees; ``skip`` makes an item's draws without
-  decoding it; the lmdb backend raises;
+  decoding it; the lmdb backend builds its clients on the stores' paths
+  (its items: ``tests/test_torch_lmdb.py``);
 - ``VideoTestVimeo90KDataset`` and ``VideoTestDUFDataset`` (with and
   without ``use_duf_downsampling``, frames whose sides are not multiples
   of the scale) item by item;
@@ -110,8 +111,11 @@ def test_vimeo90k_datasets_equal_jax(vimeo, case):
     for i in order[:3]:
         again.skip(i)
     _same_item(again[order[3]], _nth(jbuild(opt), order, 3))
-    with pytest.raises(NotImplementedError, match='lmdb'):
-        build_dataset(dict(opt, io_backend={'type': 'lmdb'}))
+    lmdb = build_dataset(dict(opt, io_backend={'type': 'lmdb'}))
+    assert lmdb.io_backend_opt == {'type': 'lmdb', 'client_keys': [
+        'lq', 'gt'], 'db_paths': [vimeo['lq'], vimeo['gt']]}
+    assert lmdb.io_backend_opt == jbuild(dict(
+        opt, io_backend={'type': 'lmdb'})).io_backend_opt
 
 
 def _nth(ds, order, n):
