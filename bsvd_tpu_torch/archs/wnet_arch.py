@@ -228,15 +228,20 @@ class _Norms:
     ``__call__`` applies norm and act; otherwise (norm 'none', BN folded)
     the kernels apply the act. ``mask``: the row-validity hook ``mask(v,
     level)`` of the spatially sharded forward (parallel/spatial.py), which
-    ``__call__`` applies after every conv site, after the act (relu /
-    relu6 of 0 is 0, so this is JAX's order). ``split``: the two-conv K2
+    ``__call__`` applies after every conv site, after the norm and the act
+    (a normalised zero row is not zero). ``split``: the two-conv K2
     sites run as two K1 launches, for a norm or for a mask (a chain cannot
     mask its intermediate). On an interior shard the mask is the identity
-    and the sites still split: the port keeps one route per forward."""
+    and the sites still split: the port keeps one route per forward.
 
-    def __init__(self, cfg, stats=None, mask=None):
+    On a mesh a norm's statistics are the global batch's: ``axes`` (the
+    ``parallel.mesh.Axis``es that share them) and ``owned(level)`` (the
+    (lo, hi) rows of H this rank owns at resolution ``level``, where the
+    block carries a halo) go to ``nn.layers.norm_apply``."""
+
+    def __init__(self, cfg, stats=None, mask=None, axes=(), owned=None):
         self.norm, self.act, self.stats = cfg.norm, cfg.act, stats
-        self.mask = mask
+        self.mask, self.axes, self.owned = mask, tuple(axes), owned
         self.normed = cfg.norm == 'in' or (cfg.norm == 'bn'
                                            and stats is not None)
         self.split = self.normed or mask is not None
@@ -247,7 +252,9 @@ class _Norms:
         conv output computed with ``kernel_act``, then the mask at
         resolution ``level``."""
         if self.normed:
-            y = get_act(self.act)(norm_apply(self.norm, leaf, y, self.stats))
+            rows = None if self.owned is None else self.owned(level)
+            y = get_act(self.act)(norm_apply(self.norm, leaf, y, self.stats,
+                                             axes=self.axes, rows=rows))
         return self.rows(y, level)
 
     def rows(self, y, level):
@@ -257,8 +264,9 @@ class _Norms:
 
     def replay(self):
         """The same route with statistics recorded nowhere: the recompute
-        of a rematerialised stage normalises as its forward did, and its
-        BN sites must not be folded a second time."""
+        of a rematerialised stage normalises as its forward did (on a mesh
+        its all-reduces run again, in the forward's order on every rank),
+        and its BN sites must not be folded a second time."""
         other = copy.copy(self)
         if self.stats is not None:
             other.stats = []
@@ -423,16 +431,18 @@ def _remat_stage(p, y, cfg, t_len, nrm):
     return _RematStage.apply(stage, y, *leaves)
 
 
-def wnet_apply(params, x, cfg, bn_stats=None):
+def wnet_apply(params, x, cfg, bn_stats=None, axes=()):
     """MIMO forward: x (N, T, H, W, C_in) -> (N, T, H, W, out_ch).
 
     With shift_mode='TSM' this is whole-clip BSVD inference when T is the
     clip length (and the TSN training forward when T == num_segments).
     Norm 'bn': with ``bn_stats`` None, eval mode (BN folded into the
     convs); with a list, train mode (batch statistics, appended to it for
-    ``nn.layers.bn_update``). ``cfg.remat`` under autograd recomputes each
-    stage in the backward (``_RematStage``)."""
-    nrm = _Norms(cfg, bn_stats)
+    ``nn.layers.bn_update``). ``axes``: the mesh axes whose ranks hold the
+    rest of the batch the norms' statistics are taken over (a data-sharded
+    train step, ``parallel.mesh.norm_axes``). ``cfg.remat`` under autograd
+    recomputes each stage in the backward (``_RematStage``)."""
+    nrm = _Norms(cfg, bn_stats, axes=axes)
     if not nrm.normed:
         params = _folded(params)
     n, t, h, w, c = x.shape

@@ -5,10 +5,13 @@ StyleGAN2's g_path_regularize. The penalties differentiate through the
 discriminator with ``torch.autograd.grad`` (``create_graph``, so their
 own gradient reaches its parameters)."""
 
+import math
+
 import torch
 import torch.nn.functional as F
 
 from bsvd_tpu_torch.losses.losses import CharbonnierLoss, L1Loss, MSELoss
+from bsvd_tpu_torch.parallel.mesh import all_reduce_sum
 from bsvd_tpu_torch.utils.registry import LOSS_REGISTRY
 
 GAN_TYPES = ('vanilla', 'lsgan', 'wgan', 'wgan_softplus', 'hinge')
@@ -109,12 +112,19 @@ def gradient_penalty_loss(disc_fn, real_data, fake_data, generator=None,
 
 
 def g_path_regularize(gen_fn, latents, mean_path_length, generator=None,
-                      decay=0.01, noise=None):
+                      decay=0.01, noise=None, axes=()):
     """StyleGAN2's path-length regulariser: (penalty, path lengths, the
     new running mean). The probe noise is ``noise`` (a normal draw of the
     image's shape) where given, else drawn from ``generator``. Latents
     that carry a graph (the mapping net's output) keep it: the penalty's
-    gradient then reaches what made them, as in the JAX package's step."""
+    gradient then reaches what made them, as in the JAX package's step.
+    ``axes``: mesh axes whose ranks hold the rest of the path batch (equal
+    shares). Each mean over the batch is then the global batch's, through
+    one all-reduce of its sum (the same bits on every rank): with 2-D
+    latents (the mapping net's codes) the one path length's mean of
+    squares, so every rank computes the global penalty; with a path length
+    a sample, their mean, and the penalty is this rank's mean, which the
+    ranks' average makes the global one."""
     if not latents.requires_grad:
         latents = latents.detach().requires_grad_(True)
     img = gen_fn(latents)
@@ -125,9 +135,18 @@ def g_path_regularize(gen_fn, latents, mean_path_length, generator=None,
     noise = noise / (img.shape[-2] * img.shape[-1]) ** 0.5
     grad = torch.autograd.grad((img * noise).sum(), latents,
                                create_graph=True)[0]
-    path_lengths = torch.sqrt(grad.square().sum(-1).mean(-1) + 1e-12)
-    path_mean = mean_path_length + decay * (path_lengths.mean()
-                                            - mean_path_length)
+    sq = grad.square().sum(-1)
+    ranks = math.prod(a.size for a in axes)
+
+    def global_mean(v):         # over dim 0, the batch
+        return all_reduce_sum(v.sum(0), axes) / (v.shape[0] * ranks)
+    if ranks > 1 and sq.dim() == 1:
+        path_lengths = torch.sqrt(global_mean(sq) + 1e-12)
+    else:
+        path_lengths = torch.sqrt(sq.mean(-1) + 1e-12)
+    mean = global_mean(path_lengths) if ranks > 1 and path_lengths.dim() \
+        else path_lengths.mean()
+    path_mean = mean_path_length + decay * (mean - mean_path_length)
     penalty = (path_lengths - path_mean).square().mean()
     return penalty, path_lengths, path_mean
 

@@ -8,6 +8,7 @@ import math
 
 import torch
 
+from bsvd_tpu_torch.parallel.mesh import all_reduce_sum
 from bsvd_tpu_torch.utils.registry import LOSS_REGISTRY
 
 _REDUCTIONS = ('none', 'mean', 'sum')
@@ -128,13 +129,19 @@ class PSNRLoss:
         return self.loss_weight * self.scale * torch.log(mse + 1e-8).mean()
 
 
-def _criterion(name):
+def _criterion(name, axes=()):
+    """The perceptual criterion ``name`` as a function of two tensors.
+    ``axes``: the mesh axes whose ranks hold the rest of the batch; 'fro'
+    then all-reduces its squared sum over them before the square root (the
+    global batch's Frobenius norm, on every rank), while 'l1' / 'l2' stay
+    this rank's means (the ranks' average is the global mean)."""
     if name == 'l1':
         return lambda a, b: (a - b).abs().mean()
     if name == 'l2':
         return lambda a, b: (a - b).square().mean()
     if name == 'fro':
-        return lambda a, b: torch.sqrt((a - b).square().sum())
+        return lambda a, b: torch.sqrt(all_reduce_sum(
+            (a - b).square().sum(), axes))
     raise NotImplementedError(f'{name} criterion has not been supported.')
 
 
@@ -171,6 +178,11 @@ class PerceptualLoss:
                 'random init (set BSVD_VGG_PRETRAIN_PATH for parity).')
         self.criterion_type = criterion
         self.criterion = _criterion(criterion)
+
+    def reduce_over(self, axes):
+        """Take the criterion over the global batch whose rows the ranks of
+        ``axes`` hold (``_criterion``): what a data-sharded engine sets."""
+        self.criterion = _criterion(self.criterion_type, axes)
 
     @staticmethod
     def _gram_mat(x):

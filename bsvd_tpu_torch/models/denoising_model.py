@@ -32,9 +32,11 @@ style) loss of the fp32 output against the target, frames flattened to
 PerceptualLoss``); with the rows split the ranks gather their rows first
 (``parallel.mesh.gather_rows``), so the VGG sees whole frames.
 
-Not ported here: norm 'bn' on a mesh of more than one rank, and norm 'in'
-with the rows split (the statistics would need an all-reduce: ROADMAP.md
-Queue 1).
+Norms on a mesh: BN's statistics are those of the global batch (over
+both axes) and 'in''s those of the whole frame (over 'spatial'), pooled by
+one differentiable all-reduce a site (``nn.layers.norm_apply``), as the
+JAX package's GSPMD step computes them; every rank then folds the same
+global statistics into the running ones.
 """
 
 import csv
@@ -58,7 +60,8 @@ from bsvd_tpu_torch.models.seq_inference import denoise_seq
 from bsvd_tpu_torch.nn.layers import bn_update
 from bsvd_tpu_torch.parallel.mesh import (all_gather, gather_objects,
                                           gather_rows, is_main_process,
-                                          make_mesh, mean_over_ranks)
+                                          make_mesh, mean_over_ranks,
+                                          norm_axes)
 from bsvd_tpu_torch.parallel.spatial import _local_forward, spatial_ok
 from bsvd_tpu_torch.utils.img_util import imwrite, tensor2img
 from bsvd_tpu_torch.utils.logger import get_root_logger
@@ -99,27 +102,29 @@ def make_train_step(net, optimizer, cri_pix, amp=False, mesh=None,
     the rows split, its pixel loss over its own rows), then the gradients
     and the loss are averaged over both axes in one all_reduce and every
     rank applies the same optax-exact Adam and EMA, so the parameters stay
-    the same bits on every rank."""
+    the same bits on every rank. A norm's statistics are the global
+    batch's (``parallel.mesh.norm_axes``), so BN's running statistics are
+    the same bits on every rank too."""
     cfg = net.cfg
     bn = cfg.norm == 'bn'
     sharded = mesh is not None and mesh.size > 1
     n_sp = mesh.shape['spatial'] if mesh is not None else 1
-    if sharded and (bn or (cfg.norm == 'in' and n_sp > 1)):
-        raise NotImplementedError(
-            f'norm {cfg.norm!r} on a mesh of {mesh.shape}: the statistics '
-            f'of a sharded batch need an all-reduce (ROADMAP.md Queue 1)')
+    axes = norm_axes(cfg.norm, mesh) if sharded else ()
     checked = []
 
     def forward(x, stats):
         if n_sp == 1:
-            return net.train_forward(x, amp=amp, bn_stats=stats)
+            return net.train_forward(x, amp=amp, bn_stats=stats, apply=lambda
+                                     p, v, c, s: wnet_apply(p, v, c, s, axes))
         hg = x.shape[2] * n_sp
-        if not spatial_ok(cfg, hg, mesh):
+        if not spatial_ok(cfg, hg, mesh, norms=True):
             raise ValueError(f'spatial train step: H {hg} is not a multiple '
                              f'of 4 x {n_sp} (parallel.spatial.spatial_ok)')
         axis = mesh.axis('spatial')
-        return net.train_forward(x, amp=amp, apply=lambda p, v, c, _:
-                                 _local_forward(p, v, c, hg, axis))
+        return net.train_forward(x, amp=amp, bn_stats=stats, apply=lambda
+                                 p, v, c, s: _local_forward(
+                                     p, v, c, hg, axis, bn_stats=s,
+                                     axes=axes))
 
     def step(batch, ema_params=None, ema_decay=0.0):
         if sharded and not checked:

@@ -15,9 +15,13 @@ a data-only mesh (N = 1), compute the unsharded function on every rank's
 card (the JAX package partitions those with GSPMD). Every rank returns the
 whole array. ``BlockStreamDenoiser`` puts its streams on the 'data' axis.
 
-The JAX package's auto-chunking of a whole clip over the memory budget is
-not ported: it is not the whole-clip function for bidirectional nets
-(ROADMAP.md Queue 3), so such a clip raises NotImplementedError.
+A whole-clip MIMO call whose activations would exceed the device's
+memory budget (``_memory_budget``) runs the streaming pipeline instead,
+with a warning naming the route: the streaming route computes the same
+whole-clip function in O(1) frames of state. The JAX package warns and
+auto-chunks there, which drops the temporal shift's future slice at chunk
+ends (not the whole-clip function for bidirectional nets, ROADMAP.md
+Queue 3); the port does not copy that.
 """
 
 import logging
@@ -35,7 +39,10 @@ _log = logging.getLogger('bsvd_tpu_torch')
 
 
 def _memory_budget(device, frac=0.8):
-    """Usable device memory in bytes: ``frac`` of the card's total."""
+    """Usable device memory in bytes: ``frac`` of the card's total; None
+    (no budget) off the card."""
+    if device.type != 'cuda':
+        return None
     return frac * torch.cuda.mem_get_info(device)[1]
 
 
@@ -198,18 +205,18 @@ def denoise_seq(params, cfg, seq, noise_sigma=None, temp_psz=-1,
                    f'protocol, H {h}, norm {cfg.norm!r} on a spatial mesh: '
                    f'every rank denoises the whole clip on its card')
 
-    if (device.type == 'cuda' and whole_clip and mode == 'mimo'
-            and not sharded):
+    if whole_clip and mode == 'mimo' and not sharded:
         # a whole-clip forward holds O(T) full-resolution activations
         per_frame = h * w * 256 * torch.empty((), dtype=dtype).element_size()
         budget = _memory_budget(device)
-        if t * per_frame > budget:
-            raise NotImplementedError(
-                f'whole-clip MIMO of {t} frames at {h}x{w} (~'
+        if budget is not None and t * per_frame > budget:
+            _log.warning(
+                f'denoise_seq: whole-clip MIMO of {t} frames at {h}x{w} (~'
                 f'{t * per_frame / 2**30:.1f} GB of activations) exceeds the '
-                f'device budget (~{budget / 2**30:.1f} GB); the JAX '
-                f'auto-chunking is not ported (ROADMAP.md Queue 3): pass '
-                f"temp_psz, or mode='streaming'")
+                f'device budget (~{budget / 2**30:.1f} GB): running the '
+                f"streaming route (mode='streaming'), the same whole-clip "
+                f'function')
+            mode = 'streaming'
 
     x = _clip_input(seq, noise_sigma, cfg, device, dtype)     # (T, H, W, C)
     # pinned host memory: a pageable copy of the permuted tensor ran at

@@ -10,8 +10,10 @@ every rank is fed its own rows of the global batch (the loader of
 ``data.build_dataloader`` decodes those rows only), steps on them, and
 the gradients and losses are averaged over the ranks in one
 ``all_reduce`` of one buffer, so the parameters stay the same bits on
-every rank: the JAX package's data-sharded jitted step. Validation runs
-on rank 0.
+every rank: the JAX package's data-sharded jitted step. A perceptual
+criterion 'fro' is the global batch's norm (its squared sums all-reduced
+before the square root, ``losses.PerceptualLoss.reduce_over``).
+Validation runs on rank 0.
 
 Network files are ``.npz`` in the JAX package's tree layout
 (``convert.torch_generic``), ``params`` and, with an EMA, ``params_ema``;
@@ -91,11 +93,8 @@ class SRModel(BaseModel):
                                if train_opt.get('perceptual_opt') else None)
         if self.cri_perceptual is not None:
             self.cri_perceptual.vgg.to(self.device)
-            if self.mesh.size > 1 and self.cri_perceptual.criterion_type \
-                    == 'fro':
-                raise NotImplementedError(
-                    'perceptual criterion fro on a mesh: the mean over the '
-                    'ranks of a square root is not that of the global batch')
+            # 'fro': the global batch's norm, its squared sums all-reduced
+            self.cri_perceptual.reduce_over((self.mesh.axis('data'),))
 
     @staticmethod
     def _adam(named_params, schedule, optim_opt):

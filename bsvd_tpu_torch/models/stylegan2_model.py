@@ -24,8 +24,18 @@ images' noise and its probe noise. Save writes ``net_g`` (``params``,
 ``params_ema``), ``net_d`` and the two optimizers, with
 ``mean_path_length`` as extra state. Out of training (``is_train``
 false) the model samples from the loaded weights (``path.param_key_g``,
-e.g. ``params_ema``). On more than one rank it raises
-NotImplementedError.
+e.g. ``params_ema``).
+
+On a data mesh of N ranks (``num_gpu``; the JAX package shards the real
+batch over 'data' under GSPMD) each rank is fed its rows of the real
+batch and makes the global batch's draws from the same generator, keeping
+its rows. D's step and R1 run on the gathered reals and fakes (the
+minibatch stddev groups samples across the whole batch); G renders its
+rows and gathers them differentiably (``mesh.gather_rows``) before D. The
+path penalty takes this rank's rows of the path batch, its mean path
+length all-reduced (every rank computes the whole path batch where it does
+not divide). Gradients and logs are averaged over the ranks
+(``mesh.mean_over_ranks``), so every rank holds the same bits.
 """
 
 import copy
@@ -40,7 +50,8 @@ from bsvd_tpu_torch.losses.gan_loss import g_path_regularize, r1_penalty
 from bsvd_tpu_torch.models.base_model import BaseModel
 from bsvd_tpu_torch.models.optim import Adam
 from bsvd_tpu_torch.models.sr_model import load_pretrained
-from bsvd_tpu_torch.parallel.mesh import make_mesh
+from bsvd_tpu_torch.parallel.mesh import (all_gather, gather_rows, make_mesh,
+                                          mean_over_ranks)
 from bsvd_tpu_torch.utils.registry import MODEL_REGISTRY
 
 
@@ -51,10 +62,7 @@ class StyleGAN2Model(BaseModel):
         super().__init__(opt)
         self.device = torch.device(device or opt.get('device', 'cuda'))
         self.mesh = make_mesh(opt.get('num_gpu', 'auto'))
-        if self.mesh.size > 1:
-            raise NotImplementedError(
-                f'StyleGAN2Model on {self.mesh.size} ranks: the port trains '
-                f'it on one device')
+        self.data = self.mesh.axis('data')
         self.net = build_network(opt['network_g'], self.device)
         self.print_network(self.net)
         load_pretrained(opt, self.net, 'g')
@@ -127,16 +135,39 @@ class StyleGAN2Model(BaseModel):
                      path_probe=self._normal(n, 3, size, size))
         return d
 
+    def _path_axes(self, batch):
+        """The axes a global batch of ``batch`` splits the path penalty's
+        batch over: 'data' where it divides over its ranks, else none."""
+        n, path = self.data.size, max(1, batch // 2)
+        return (self.data,) if n > 1 and path % n == 0 else ()
+
+    def _rows(self, draws, path_axes=()):
+        """This rank's rows of the global batch's draws; of the path
+        penalty's draws where ``path_axes`` split them, else all."""
+        n, i = self.data.size, self.data.index
+
+        def rows(v, k):
+            if isinstance(v, list):
+                return [rows(t, k) for t in v]
+            step = v.shape[0] // k
+            return v[i * step:(i + 1) * step]
+        return {key: rows(v, n if not key.startswith('path') or path_axes
+                          else 1) for key, v in draws.items()}
+
     # ---- training -------------------------------------------------------
     def feed_data(self, data):
+        """``gt``: this rank's rows of the real batch."""
         gt = data['gt']
         gt = torch.as_tensor(gt if isinstance(gt, torch.Tensor)
                              else np.asarray(gt))
         self.real_img = gt.to(self.device, torch.float32)
 
     def _d_step(self, real, do_r1, draws):
+        """D on the gathered batch: its fakes (this rank's rows, no
+        gradient, gathered) and ``real`` (the whole real batch)."""
         with torch.no_grad():
             fake, _ = self.net(draws['styles'], noise=draws['noise'])
+        fake = all_gather(fake, self.data, 0)
         self.net_d.requires_grad_(True)
         self.optimizer_d.zero_grad()
         fake_pred = self.net_d(fake)
@@ -149,15 +180,19 @@ class StyleGAN2Model(BaseModel):
         else:
             l_r1 = torch.zeros((), device=self.device)
         l_d.backward()
-        self.optimizer_d.step()
-        return OrderedDict(l_d=l_d.detach(), l_d_r1=l_r1.detach(),
+        logs = OrderedDict(l_d=l_d, l_d_r1=l_r1,
                            real_score=real_pred.detach().mean(),
                            fake_score=fake_pred.detach().mean())
+        logs = OrderedDict(zip(logs, mean_over_ranks(self.optimizer_d.params,
+                                                     list(logs.values()))))
+        self.optimizer_d.step()
+        return logs
 
-    def _g_step(self, do_path, draws):
+    def _g_step(self, do_path, draws, path_axes=()):
         self.net_d.requires_grad_(False)
         self.optimizer.zero_grad()
         fake, _ = self.net(draws['styles'], noise=draws['noise'])
+        fake = gather_rows(fake, self.data, 0)
         l_g = self.cri_gan(self.net_d(fake), True, is_disc=False)
         logs = OrderedDict(l_g=l_g)            # the GAN term, as JAX logs
         if do_path:
@@ -165,26 +200,32 @@ class StyleGAN2Model(BaseModel):
             l_path, _, new_mean = g_path_regularize(
                 lambda lat: self.net([lat], input_is_latent=True,
                                      noise=draws['path_noise'])[0],
-                latents, self.mean_path_length, noise=draws['path_probe'])
+                latents, self.mean_path_length, noise=draws['path_probe'],
+                axes=path_axes)
             l_g = l_g + self.path_reg_weight * self.net_g_reg_every * l_path
             self.mean_path_length = new_mean.detach()
             logs['l_g_path'] = l_path
         else:
             logs['l_g_path'] = torch.zeros((), device=self.device)
         l_g.backward()
+        logs = OrderedDict(zip(logs, mean_over_ranks(self.optimizer.params,
+                                                     list(logs.values()))))
         self.optimizer.step()
         BaseModel.ema_update(dict(self.net_g_ema.named_parameters()),
                              dict(self.net.named_parameters()),
                              self.ema_decay)
-        return OrderedDict((k, v.detach()) for k, v in logs.items())
+        return logs
 
     def optimize_parameters(self, current_iter):
         self.current_iter = current_iter
-        batch = self.real_img.shape[0]
+        real = all_gather(self.real_img, self.data, 0)
+        batch = real.shape[0]
         do_r1 = current_iter % self.net_d_reg_every == 0
-        d_logs = self._d_step(self.real_img, do_r1, self.draws_d(batch))
+        d_logs = self._d_step(real, do_r1, self._rows(self.draws_d(batch)))
         do_path = current_iter % self.net_g_reg_every == 0
-        g_logs = self._g_step(do_path, self.draws_g(batch, do_path))
+        axes = self._path_axes(batch)
+        g_logs = self._g_step(do_path, self._rows(
+            self.draws_g(batch, do_path), axes), axes)
         self.log_dict = OrderedDict(**d_logs, **g_logs)
 
     # ---- sampling -------------------------------------------------------

@@ -13,6 +13,7 @@ import torch
 import torch.nn.functional as F
 
 from bsvd_tpu_torch.ops import _flops
+from bsvd_tpu_torch.parallel.mesh import all_reduce_sum, axes_index
 
 ACTS = ('relu', 'relu6', 'none')
 NORMS = ('none', 'in', 'bn')
@@ -135,27 +136,65 @@ def _stat_dtype(dtype):
         else dtype
 
 
-def norm_apply(norm, p, x, stats, eps=BN_EPS):
+def _moments(v, dims, axes, rows):
+    """(mean, biased variance, count) of ``v`` over ``dims`` (kept as size
+    1) on rows ``rows`` of H (axis -3; None: all) of this rank, pooled over
+    the ranks of ``axes``. Each rank takes its rows' mean and sum of
+    squared deviations (M2), writes them into its slot of a (ranks, 2, ...)
+    buffer that one all-reduce fills, and every rank pools the slots in
+    the same order (Chan et al.: M2 = sum M2_i + sum n_i (mean_i - mean)^2),
+    so the statistics are the same bits everywhere and no cancellation of
+    sums of squares enters. Differentiable (``mesh.AllReduce``). The
+    ranks' counts are equal (equal shards, equal owned rows)."""
+    own = v if rows is None else v.narrow(-3, rows[0], rows[1] - rows[0])
+    n = math.prod(own.shape[d] for d in dims)
+    mean = own.mean(dim=dims, keepdim=True)
+    m2 = (own - mean).square().sum(dim=dims, keepdim=True)
+    index, size = axes_index(axes)
+    if size == 1:
+        return mean, m2 / n, n
+    shape = (2,) + tuple(mean.shape)
+    slots = torch.cat([own.new_zeros((index,) + shape),
+                       torch.stack([mean, m2])[None],
+                       own.new_zeros((size - 1 - index,) + shape)])
+    means, m2s = all_reduce_sum(slots, axes).unbind(1)
+    mean = means.mean(0)
+    m2 = m2s.sum(0) + n * (means - mean).square().sum(0)
+    return mean, m2 / (n * size), n * size
+
+
+def norm_apply(norm, p, x, stats, eps=BN_EPS, axes=(), rows=None):
     """The norm of a split site (conv, then norm, then act) over NHWC
     ``x``, computed in fp32 for half precision and returned in x's dtype.
 
     'in': per frame and channel over H and W. 'bn' (train mode): the
     statistics of the batch (every axis but C, variance biased), appended
     to ``stats`` as ``(p, mean, var, count)`` for ``bn_update``. Eval-mode
-    BN never runs here: it is folded into the conv (``fold_bn_conv``)."""
+    BN never runs here: it is folded into the conv (``fold_bn_conv``).
+
+    On a mesh the statistics are those of the global batch: ``axes`` (the
+    ``parallel.mesh.Axis``es whose ranks hold the rest of the population,
+    ``mesh.norm_axes``) and ``rows`` ((lo, hi): the rows of H this rank
+    owns in a halo-extended block, ``parallel.spatial``) select them
+    (``_moments``: one all-reduce a site); every row of ``x``, halo
+    included, is normalised with them, and ``count`` is the global one.
+    Without either, the statistics of ``x`` alone."""
     v = x.to(_stat_dtype(x.dtype))
-    if norm == 'in':
-        mean = v.mean(dim=(-3, -2), keepdim=True)
-        var = v.var(dim=(-3, -2), keepdim=True, unbiased=False)
-        return ((v - mean) * torch.rsqrt(var + eps)).to(x.dtype)
-    if norm != 'bn':
+    if norm not in ('in', 'bn'):
         raise ValueError(f'norm {norm!r} does not split its site')
-    dims = tuple(range(v.dim() - 1))
-    mean = v.mean(dim=dims)
-    var = v.var(dim=dims, unbiased=False)
-    stats.append((p, mean.detach(), var.detach(), v.numel() // v.shape[-1]))
-    y = (v - mean) * torch.rsqrt(var + eps) * p['scale'].to(v.dtype) \
-        + p['bias'].to(v.dtype)
+    dims = (-3, -2) if norm == 'in' else tuple(range(v.dim() - 1))
+    if axes or rows is not None:
+        mean, var, n = _moments(v, dims, axes, rows)
+    else:
+        mean = v.mean(dim=dims, keepdim=True)
+        var = v.var(dim=dims, keepdim=True, unbiased=False)
+        n = v.numel() // v.shape[-1] if norm == 'bn' else None
+    y = (v - mean) * torch.rsqrt(var + eps)
+    if norm == 'bn':
+        ch = v.shape[-1]
+        stats.append((p, mean.detach().reshape(ch), var.detach().reshape(ch),
+                      n))
+        y = y * p['scale'].to(v.dtype) + p['bias'].to(v.dtype)
     return y.to(x.dtype)
 
 

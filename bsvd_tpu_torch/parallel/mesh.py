@@ -9,8 +9,8 @@ s}), ``size``, this rank's coordinates (rank r sits at data r // s,
 spatial r % s) and one process group per axis (``Mesh.axis``). A
 ``shard_map`` body becomes the same function run on every rank on its own
 slice (``shard_batch``), and its collectives run on the axis' group
-(``all_gather``, ``GatherRows``, ``all_reduce_mean``). A mesh spans every
-rank of the group.
+(``all_gather``, ``GatherRows``, ``all_reduce_mean``, and ``AllReduce``
+for statistics taken across ranks). A mesh spans every rank of the group.
 
 Launching on several cards::
 
@@ -27,6 +27,7 @@ counterpart.
 """
 
 import functools
+import math
 import os
 import subprocess
 import warnings
@@ -361,6 +362,84 @@ def gather_rows(x, axis, dim):
     if axis.size > 1 and torch.is_grad_enabled() and x.requires_grad:
         return GatherRows.apply(x, axis, dim)
     return all_gather(x, axis, dim)
+
+
+def _sum_in_place(x, axes):
+    """``x`` summed in place over the ranks of ``axes`` (each of more than
+    one rank): one collective on the default group where the axes together
+    span every rank, else one per axis in turn."""
+    if math.prod(a.size for a in axes) == world()[1]:
+        groups = (None,)
+    else:
+        groups = tuple(a.group for a in axes)
+    for group in groups:
+        dist.all_reduce(x, group=group)
+    all_reduce_sum.calls += len(groups)
+    all_reduce_sum.bytes += len(groups) * x.numel() * x.element_size()
+    return x
+
+
+class AllReduce(torch.autograd.Function):
+    """The sum of ``x`` over the ranks of one or more axes, with the same
+    sum of the incoming gradients as its backward.
+
+    The factor is 1. Every trainer here has rank r compute a loss L_r on
+    its shard and averages the parameter gradients over the ranks
+    (``mean_over_ranks``), so the step follows L = mean_r L_r. A statistic
+    S = sum_q s_q feeds every rank's loss: dL/ds_q = (1/R) sum_r dL_r/dS.
+    Rank q's contribution to the averaged gradient through s_q is (1/R)
+    times what its backward sends into s_q, so that must be sum_r dL_r/dS:
+    the all-reduce of the incoming gradients, unscaled (the same holds
+    where every rank computes the same loss, L_r = L)."""
+
+    @staticmethod
+    def forward(ctx, x, axes):
+        ctx.axes = axes
+        return _sum_in_place(x.contiguous().clone(), axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _sum_in_place(g.contiguous().clone(), ctx.axes), None
+
+
+def all_reduce_sum(x, axes):
+    """The sum of ``x`` over the ranks of the ``Axis``es ``axes`` (a new
+    tensor; ``x`` itself where none has more than one rank), differentiable
+    where ``x`` needs a gradient (``AllReduce``). Every rank of the axes
+    must call it, in the same order as the others. ``all_reduce_sum.calls``
+    counts the collectives run (forward and backward), ``.bytes`` the bytes
+    this rank sent into them."""
+    axes = tuple(a for a in axes if a.size > 1)
+    if not axes:
+        return x
+    if torch.is_grad_enabled() and x.requires_grad:
+        return AllReduce.apply(x, axes)
+    return _sum_in_place(x.contiguous().clone(), axes)
+
+
+all_reduce_sum.calls = 0
+all_reduce_sum.bytes = 0
+
+
+def norm_axes(norm, mesh):
+    """The axes whose ranks share a norm site's statistics on ``mesh``
+    (None: no mesh): 'bn' (per channel over batch, frames, rows and
+    columns) both, 'in' (per frame and channel over rows and columns)
+    'spatial' alone; axes of one rank are left out."""
+    if mesh is None:
+        return ()
+    names = {'bn': AXES, 'in': ('spatial',)}.get(norm, ())
+    return tuple(mesh.axis(n) for n in names if mesh.shape[n] > 1)
+
+
+def axes_index(axes):
+    """(this rank's index among the ranks of ``axes``, their number): the
+    axes' indices read as the digits of one number, first axis most
+    significant."""
+    index, size = 0, 1
+    for a in axes:
+        index, size = index * a.size + a.index, size * a.size
+    return index, size
 
 
 def all_reduce_mean(flat):

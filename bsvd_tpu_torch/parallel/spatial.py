@@ -17,6 +17,15 @@ interior ranks every row is in the image and the mask is the identity.
 Under a mask the two-conv K2 sites run as two K1 launches, since a chain
 cannot mask its intermediate; the streaming K6 is excluded likewise.
 
+Norms. A norm's statistics are taken over the rows each rank owns (the
+centre of its extended block, ``halo / level`` rows in at each site's
+resolution level: never a halo row, never a row outside the image),
+all-reduced over the axis (and over 'data' for BN in a train step,
+``nn.layers.norm_apply``), and every extended row is normalised with
+them. A norm is then pointwise, so the halo recompute stays exact. The
+mask comes after the norm and the act. A rematerialised stage replays its
+all-reduces in the same order on every rank.
+
 H must divide by 4 * n_spatial (two stride-2 levels, even shard offsets);
 ``spatial_ok`` gates the callers.
 """
@@ -25,7 +34,7 @@ import torch
 
 from bsvd_tpu_torch.archs.wnet_arch import (_folded, _Norms, _remat_stage,
                                             _stage_apply)
-from bsvd_tpu_torch.parallel.mesh import all_gather, gather_rows
+from bsvd_tpu_torch.parallel.mesh import all_gather, gather_rows, norm_axes
 
 
 def stage_halo(cfg):
@@ -52,15 +61,19 @@ def stage_halo(cfg):
     return -(-g // 4) * 4
 
 
-def spatial_ok(cfg, h, mesh):
+def spatial_ok(cfg, h, mesh, norms=False):
     """True when the sharded forward handles (cfg, H, mesh): a spatial axis
-    of more than one rank, norm 'none' and H % (4 * n_spatial) == 0."""
+    of more than one rank, H % (4 * n_spatial) == 0, and norm 'none'
+    unless ``norms``. The train step passes ``norms=True``: its norms take
+    their statistics across the rows' ranks (``_local_forward``). The
+    whole-clip eval keeps the JAX package's gate, so a normed net's eval
+    on a spatial mesh computes the unsharded function on every rank."""
     if mesh is None:
         return False
     n_sp = mesh.shape.get('spatial', 1)
     if n_sp <= 1:
         return False
-    return cfg.norm == 'none' and h % (4 * n_sp) == 0
+    return (norms or cfg.norm == 'none') and h % (4 * n_sp) == 0
 
 
 def stream_spatial_ok(cfg, h, mesh):
@@ -104,7 +117,8 @@ def _extend_rows(full, start, rows):
     return out
 
 
-def _local_forward(params, x_local, cfg, h_global, axis, x_full=None):
+def _local_forward(params, x_local, cfg, h_global, axis, x_full=None,
+                   bn_stats=None, axes=()):
     """Per-rank stage loop (the body JAX runs inside shard_map).
 
     Args:
@@ -113,14 +127,20 @@ def _local_forward(params, x_local, cfg, h_global, axis, x_full=None):
         axis: the mesh's 'spatial' ``Axis``.
         x_full: the whole (N, T, H, W, C) input where the caller has it
             (stage 0 then takes its block without a gather).
+        bn_stats: a list for train-mode BN (``wnet_arch.wnet_apply``).
+        axes: the axes a norm's statistics are taken over
+            (``mesh.norm_axes``; ``axis`` among them).
     Returns this rank's (N, T, H_local, W, out_ch) block; differentiable.
     """
     n, t, h_local, w, _ = x_local.shape
     halo = stage_halo(cfg)
     s_ext = axis.index * h_local - halo
     h_ext = h_local + 2 * halo
-    nrm = _Norms(cfg, mask=_row_mask(s_ext, h_global))
-    params = _folded(params)
+    nrm = _Norms(cfg, bn_stats, mask=_row_mask(s_ext, h_global), axes=axes,
+                 owned=lambda level: (halo // level,
+                                      (halo + h_local) // level))
+    if not nrm.normed:
+        params = _folded(params)
     stage = _remat_stage if cfg.remat and torch.is_grad_enabled() \
         else _stage_apply
     y = x_local
@@ -151,8 +171,8 @@ def wnet_apply_spatial(params, x, cfg, mesh):
     h = x.shape[2]
     h_local = h // sp.size
     x_local = x[:, :, sp.index * h_local:(sp.index + 1) * h_local]
-    y = all_gather(_local_forward(params, x_local, cfg, h, sp, x_full=x),
-                   sp, 2)
+    y = all_gather(_local_forward(params, x_local, cfg, h, sp, x_full=x,
+                                  axes=norm_axes(cfg.norm, mesh)), sp, 2)
     return all_gather(y, data, 0) if batch else y
 
 

@@ -62,6 +62,12 @@ Phases, each printed as one JSON object on its own line:
    on the main path, K6 or two K5, still runs through ``_memcv_step``),
    and ``denoise_seq(mode='streaming')`` of a 10-frame clip against
    ``mode='mimo'`` by the same PSNR rule.
+6a. a whole clip over the device budget: phase 4's 10-frame 540p clip in
+   bf16 through ``denoise_seq`` (mode 'mimo') with
+   ``seq_inference._memory_budget`` lowered to half the gate's estimate of
+   its activations: the streaming route runs (its warning logged, K5 and
+   K1 / K3 / K4 at one frame launched, no F.conv2d), held to the fp32
+   whole-clip output by phase 4's PSNR rule; wall ms a frame.
 7. train_grad: one fp32 ``DenoisingModel`` step of the full-width c64 TSN
    on 2 clips x 5 frames of 64x64, kernels on the card against the plain
    path on the CPU (same weights and batch): the loss and every gradient
@@ -177,14 +183,27 @@ Phases, each printed as one JSON object on its own line:
    ``python -m bsvd_tpu_torch.parallel.dryrun`` with two gloo ranks that
    share cuda:0 (``--size full``): the 544x960 whole clip and stream (24
    pushes, a push_block of 8, a flush) in fp32 and bf16 with the rows
-   over both ranks, and three fp32 train steps at 8 x 11 x 96 x 96 a
-   rank as data 2 x spatial 1 and data 1 x spatial 2, each held by the
+   over both ranks, three fp32 train steps at 8 x 11 x 96 x 96 a
+   rank as data 2 x spatial 1 and data 1 x spatial 2, and two of the c64
+   net with norm 'bn' (2 x 1, 1 x 2) and norm 'in' (1 x 2), their
+   statistics the global batch's (one all-reduce a site), each held by the
    dryrun against the unsharded call on the card (fp32 1e-4 x max|ref|,
    bf16 phase 4's PSNR rule, the first step's gradients, every step's
-   loss within 1e-4 relative, the parameters within 2 x lr a step of the
-   unsharded run's and the same bits on both ranks); per rank its launches (K2 and K6 none
-   under the row mask), gathered bytes and ms (two processes on one
-   card: no scaling number). ``"multi_card"`` says "1 device", or holds
+   loss within 1e-4 relative, the parameters and BN running statistics
+   within 2 x lr a step of the unsharded run's and the same bits on both
+   ranks; a normed layout's gradients and losses within 3x fp32's own gap
+   there, the unsharded step's on the plain route, where that is larger;
+   rank 0 runs the unsharded steps); per rank its launches (K2 and K6 none under the row mask or at
+   a normed site; K1, K3, K4 and K7 on every rank), gathered bytes, the
+   norms' all-reduces a step and ms (two processes on one card: no
+   scaling number). In the same spawn StyleGAN2Model (out_size 64,
+   narrow 0.25, batch 4, R1 and the path penalty at iteration 2) and
+   SRModel at msrresnet_x4.yml's widths with a VGG19 perceptual and style
+   loss of criterion 'fro' (gt 128, batch 4), two iterations each on the
+   two ranks, held against their serial runs on the card (every logged
+   value within 1e-4 x max(1, |ref|), or 3x the gap of a serial run with
+   its samples reversed, the states within 2 x lr an iteration, the same
+   bits on both ranks). ``"multi_card"`` says "1 device", or holds
    the NCCL dryrun over every card. Last, the train CLI under
    ``python -m torch.distributed.run --nproc_per_node 1`` with
    ``--launcher pytorch`` (NCCL, world size 1; this script as the rank,
@@ -413,7 +432,7 @@ Every phase's line carries ``t_s``, the seconds since the run started;
 
 Any failed check raises (exit code != 0). The line before the last is
 ``{"kernels": [...]}``: per kernel, its launches in the main-path runs of
-phases 3, 5, 8, 9, 10, 11, 12, 12a, 13, 14, 15, 16, 18 and 23 (counters set to
+phases 3, 5, 6a, 8, 9, 10, 11, 12, 12a, 13, 14, 15, 16, 18 and 23 (counters set to
 0 before each run, read after; phase 13's ranks and phase 14's profile entry count
 their runs in their own processes), the
 largest max |diff| of phase 2, and ``ms`` / ``plain_ms`` / ``library_ms``
@@ -1533,6 +1552,58 @@ def phase_stream_parity(nets, clips, outs, out32):
         raise AssertionError(f"denoise_seq(mode='streaming') {psnr_s} dB, "
                              f"mode='mimo' {psnr_m} dB")
     return seq, off_path
+
+
+# ---------------------------------------------------------------------------
+# phase 6a: a whole clip over the device budget (the streaming route)
+# ---------------------------------------------------------------------------
+
+def phase_over_budget(nets, clips, outs, out32):
+    """``denoise_seq`` of phase 4's 10-frame 540p clip in bf16 with
+    ``seq_inference._memory_budget`` lowered below the clip's whole-clip
+    activations: the streaming route runs (its warning logged, K5 / K10
+    and K1 / K3 / K4 at one frame launched), held to the whole-clip fp32
+    output by phase 4's PSNR rule (within 1 dB of the bf16 MIMO output's
+    PSNR). Returns its launches."""
+    import bsvd_tpu_torch.models.seq_inference as seq_mod
+    net = nets['TSM']
+    clean, noisy = clips[0]
+    seen = []
+    handler = logging.Handler()
+    handler.emit = lambda record: seen.append(record.getMessage())
+    logger = logging.getLogger('bsvd_tpu_torch')
+    real = seq_mod._memory_budget
+    per_clip = T * H * W * 256 * 2          # the gate's bf16 estimate
+    seq_mod._memory_budget = lambda device, frac=0.8: per_clip / 2
+    logger.addHandler(handler)
+    try:
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with _NoConv2d():
+            got = denoise_seq(net, None, noisy, noise_sigma=SIGMA,
+                              compute_dtype=torch.bfloat16)
+        wall = time.perf_counter() - t0
+        launches = counts()
+    finally:
+        seq_mod._memory_budget = real
+        logger.removeHandler(handler)
+    _check_out(got, clean)
+    db = psnr(torch.from_numpy(got), torch.from_numpy(out32))
+    mimo_db = psnr(torch.from_numpy(outs['TSM'][0]), torch.from_numpy(out32))
+    rec = {'phase': 'over_budget', 'frames': T, 'hw': [H, W],
+           'budget_gb': per_clip / 2 / 1e9,
+           'whole_clip_estimate_gb': per_clip / 1e9,
+           'warned': any('streaming route' in m for m in seen),
+           'psnr_db_vs_fp32_mimo': db, 'bf16_mimo_psnr_db': mimo_db,
+           'launches': launches, 'wall_s': wall,
+           'ms_per_frame': wall * 1e3 / T}
+    emit(rec)
+    used = ('bibuffer_conv', 'conv3x3', 'conv_s2', 'conv_ps')
+    if not rec['warned'] or not db > mimo_db - 1.0 or \
+            not all(launches[k] > 0 for k in used):
+        raise AssertionError(f'over-budget whole clip: {rec}')
+    return launches
 
 
 # ---------------------------------------------------------------------------
@@ -2980,9 +3051,10 @@ def phase_train_cli_jpeg(jdata):
 N_STREAMS = (1, 2, 4, 8)
 # the NCCL train CLI's iterations (bf16 AMP) and its steady window
 NCCL_CLI_ITERS = 10
+TRAIN_LAYOUTS = ('2x1', '1x2', 'bn:2x1', 'bn:1x2', 'in:1x2')
 DRYRUN = ['--nproc', '2', '--data', '1', '--spatial', '2', '--backend',
           'gloo', '--device', 'cuda', '--size', 'full', '--checks',
-          'eval,stream,train', '--train_layouts', '2x1,1x2']
+          'eval,stream,train,zoo', '--train_layouts', ','.join(TRAIN_LAYOUTS)]
 # phase 12's bf16 CLI run (no launcher), for the NCCL run's comparison
 # and phase 14's TensorBoard check
 ENTRY = {}
@@ -3102,12 +3174,17 @@ def _sum_launches(total, got):
 def phase_parallel_dryrun():
     """Two gloo ranks that share cuda:0, driven by parallel.dryrun at full
     size: the 544x960 whole clip (fp32, bf16) and stream (fp32, bf16) with
-    the rows over both ranks, three fp32 train steps as data 2 x spatial 1
-    and data 1 x spatial 2, each held against the unsharded call on the
-    card (the dryrun asserts: fp32 1e-4 x max|ref|, bf16 the PSNR rule,
-    the first step's gradients, every step's loss, the parameters' gap,
-    the ranks' bits). Returns the sharded runs' launches, summed
-    over the ranks."""
+    the rows over both ranks; three fp32 train steps as data 2 x spatial 1
+    and data 1 x spatial 2, and two of norm 'bn' (2 x 1, 1 x 2) and of norm
+    'in' (1 x 2), their statistics the global batch's; each held against
+    the unsharded call on the card (the dryrun asserts: fp32 1e-4 x
+    max|ref|, bf16 the PSNR rule, the first step's gradients, every step's
+    loss, the parameters' and BN running statistics' gap, the ranks'
+    bits). A normed step launches K1, K3, K4 and K7 on every rank, K2
+    never. Then StyleGAN2Model and SRModel with a perceptual 'fro' on the
+    two ranks, each against its serial run on the card (the dryrun's
+    'zoo' check). Returns the sharded runs' launches, summed over the
+    ranks."""
     launches = dict.fromkeys(KERNELS, 0)
     out = json.loads(_run_module(['bsvd_tpu_torch.parallel.dryrun',
                                   *DRYRUN], 600)[-1])
@@ -3132,16 +3209,34 @@ def phase_parallel_dryrun():
                                                       'spatial': 2},
               'backend': 'gloo', 'ranks_share': 'cuda:0', 'note': note,
               'per_rank': per_rank})
-    for i, layout in enumerate(('2x1', '1x2')):
+    for i, layout in enumerate(TRAIN_LAYOUTS):
         per_rank = [r['train'][i] for r in out['ranks']]
+        normed = ':' in layout
         for rec in per_rank:
-            if not rec['ranks_identical'] or \
-                    not rec['launches']['conv3x3_dw'] > 0:
+            got = rec['launches']
+            k1 = got['conv3x3'] + got['shift_conv_fused_v1']
+            if not rec['ranks_identical'] or not got['conv3x3_dw'] > 0 or \
+                    (normed and not (k1 > 0 and got['conv_s2'] > 0
+                                     and got['conv_ps'] > 0
+                                     and got['conv_chain'] == 0
+                                     and min(rec['all_reduces_per_step'])
+                                     > 0)):
                 raise AssertionError(f'train {layout}: {rec}')
-            _sum_launches(launches, rec['launches'])
+            _sum_launches(launches, got)
         emit({'phase': 'parallel_train', 'layout_data_x_spatial': layout,
               'backend': 'gloo', 'ranks_share': 'cuda:0', 'note': note,
               'per_rank': per_rank})
+    zoo = out['zoo']
+    emit({'phase': 'parallel_zoo', 'backend': 'gloo',
+          'ranks_share': 'cuda:0', 'note': note,
+          'engines': {k: dict(v, per_rank_ms=[r['zoo'][k]['ms']
+                                              for r in out['ranks']],
+                              ranks_identical=[r['zoo'][k]['ranks_identical']
+                                               for r in out['ranks']])
+                      for k, v in zoo.items()}})
+    if not all(r['zoo'][k]['ranks_identical'] for r in out['ranks']
+               for k in zoo):
+        raise AssertionError(f'zoo: ranks differ: {out["ranks"]}')
     emit({'phase': 'parallel_dryrun', 'seconds': out['seconds'],
           'argv': DRYRUN})
     if torch.cuda.device_count() >= 2:
@@ -7013,6 +7108,8 @@ def run():
                 and not stream_launches[k] > 0):
             raise AssertionError(f'{k} never launched on the streaming path')
         launches[k] += stream_launches[k] + seq_launches[k]
+    _sum_launches(launches, timed('6a_over_budget', phase_over_budget,
+                                  nets, clips, outs, out32))
     timed('7_train_grad', phase_train_grad)
     train_launches = timed('8_train', phase_train)
     chunk_launches = timed('9_chunked', phase_chunked, nets)

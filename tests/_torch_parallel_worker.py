@@ -17,7 +17,9 @@ from bsvd_tpu_torch.models.denoising_model import make_train_step
 from bsvd_tpu_torch.models.optim import Adam
 from bsvd_tpu_torch.models.seq_inference import (BlockStreamDenoiser,
                                                  denoise_seq)
-from bsvd_tpu_torch.parallel.mesh import Mesh, make_mesh, shard_batch
+from bsvd_tpu_torch.parallel.mesh import (Axis, Mesh, all_gather,
+                                          all_reduce_sum, make_mesh,
+                                          mean_over_ranks, shard_batch, world)
 from bsvd_tpu_torch.parallel.spatial import wnet_apply_spatial
 
 
@@ -36,11 +38,33 @@ def _block_stream(bsd, frames):
     return torch.stack(outs)
 
 
-def _train(cfg, params, batches, mesh, amp=False):
+class _SGD:
+    """Plain SGD over named parameters (``optax.sgd``): the normed steps'
+    comparisons use it, since Adam turns the rounding noise of a gradient
+    that is 0 in exact arithmetic (a conv bias before a norm) into a step
+    of +-lr whose sign differs between two summation orders."""
+
+    def __init__(self, named, lr):
+        self.params, self.lr = [p for _, p in named], lr
+
+    def zero_grad(self):
+        for p in self.params:
+            p.grad = None
+
+    @torch.no_grad()
+    def step(self):
+        for p in self.params:
+            if p.grad is not None:
+                p -= self.lr * p.grad
+
+
+def _train(cfg, params, batches, mesh, amp=False, sgd_lr=None):
     """The parameters after the steps, the losses, and the first step's
-    gradients (after the all_reduce), by parameter name."""
+    gradients (after the all_reduce), by parameter name. ``sgd_lr``: SGD
+    at that rate instead of Adam at 1e-3."""
     net = _WNetBase(cfg, params=_map_tree(params, torch.clone))
-    opt = Adam(net.named_parameters(), lambda count: 1e-3)
+    opt = Adam(net.named_parameters(), lambda count: 1e-3) \
+        if sgd_lr is None else _SGD(net.named_parameters(), sgd_lr)
     step = make_train_step(net, opt, build_loss(
         {'type': 'MSELoss', 'loss_weight': 1.0}), amp=amp, mesh=mesh)
     losses, grads = [], None
@@ -142,3 +166,117 @@ def sr_train(mesh, device, workdir):
     if mesh.rank == 0:
         torch.save(out, os.path.join(workdir, 'outputs.pt'))
     return {'sums': sums}
+
+
+def _same_on_ranks(tensors):
+    """True when every rank holds the same bits in ``tensors``."""
+    flat = torch.cat([t.detach().reshape(-1).float() for t in tensors])
+    whole = Axis('world', None, *world())
+    return bool((all_gather(flat[None], whole, 0) == flat).all())
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        return [v for k in sorted(tree) for v in _leaves(tree[k])]
+    return [tree]
+
+
+def _all_reduce_grad(mesh, device):
+    """A shared scalar w, rank q's statistic s_q = (w a_q)^2, S = sum_q s_q
+    (``all_reduce_sum``), rank r's loss c_r S: the gradient averaged over
+    the ranks (``mean_over_ranks``) against that of mean_r c_r S, and the
+    collectives it took."""
+    w = torch.tensor(1.5, device=device, requires_grad=True)
+    a = [0.5 + q for q in range(mesh.size)]
+    c = [2.0 - 0.3 * r for r in range(mesh.size)]
+    axes = (mesh.axis('data'), mesh.axis('spatial'))
+    calls = all_reduce_sum.calls
+    s = all_reduce_sum((w * a[mesh.rank]) ** 2, axes)
+    (c[mesh.rank] * s).backward()
+    mean_over_ranks([w], [])
+    got = float(w.grad)
+    want = sum(c) / len(c) * sum(2 * 1.5 * v * v for v in a)
+    return {'got': got, 'want': want, 'sum': float(s),
+            'collectives': all_reduce_sum.calls - calls}
+
+
+def mesh_stats(mesh, device, workdir):
+    """The cases of tests/test_torch_mesh_stats.py on every rank: the
+    normed train steps on each layout of ``inputs.pt['train']`` (SGD), the
+    whole-clip eval of normed nets with the rows split, the engines of
+    ``inputs.pt['models']`` (each rank fed its rows of the global batch),
+    and the all-reduce's gradient. Rank 0 writes ``outputs.pt``; every rank
+    returns whether it holds the bits of the others."""
+    from bsvd_tpu_torch.models.base_model import build_model
+    inp = torch.load(os.path.join(workdir, 'inputs.pt'), weights_only=False)
+    devices = [device] * mesh.size
+    out, same = {}, {}
+    out['all_reduce_grad'] = _all_reduce_grad(mesh, device)
+    for name, case in sorted(inp.get('train', {}).items()):
+        m = make_mesh(mesh.size, spatial=case['spatial'], devices=devices)
+        calls = all_reduce_sum.calls
+        params, losses, grads = _train(WNetConfig(**case['cfg']),
+                                       case['params'], case['batches'], m,
+                                       sgd_lr=case['lr'])
+        out[name] = {'params': params, 'losses': losses, 'grads': grads,
+                     'mesh': dict(m.shape),
+                     'collectives': all_reduce_sum.calls - calls}
+        same[name] = _same_on_ranks(_leaves(params))
+    for name, case in sorted(inp.get('eval', {}).items()):
+        m = make_mesh(mesh.size, spatial=case['spatial'], devices=devices)
+        cfg = WNetConfig(**case['cfg'])
+        out[name] = denoise_seq(case['params'], cfg, case['seq'],
+                                noise_sigma=0.1, mesh=m)
+        with torch.no_grad():
+            out[name + '_spatial'] = wnet_apply_spatial(
+                case['params'], case['x'], cfg, m)
+        same[name] = _same_on_ranks([torch.from_numpy(out[name]),
+                                     out[name + '_spatial']])
+    for name, case in sorted(inp.get('models', {}).items()):
+        model = build_model(case['opt'], device=device)
+        for attr, state in case['states'].items():
+            getattr(model, attr).load_state_dict(state)
+        logs = []
+        for it, batch in enumerate(case['batches'], 1):
+            n = len(batch['gt']) // mesh.size
+            model.feed_data({k: v[mesh.rank * n:(mesh.rank + 1) * n]
+                             for k, v in batch.items()})
+            model.optimize_parameters(it)
+            logs.append(model.get_current_log())
+        states = {attr: {k: v.detach().clone() for k, v in
+                         getattr(model, attr).state_dict().items()}
+                  for attr in case['states']}
+        rec = {'logs': logs, 'states': states, 'mesh': dict(
+            model.mesh.shape)}
+        tensors = [v for st in states.values() for v in st.values()]
+        if hasattr(model, 'mean_path_length'):
+            rec['mean_path_length'] = float(model.mean_path_length)
+            tensors.append(model.mean_path_length.reshape(1))
+        out[name] = rec
+        same[name] = _same_on_ranks(tensors)
+    if mesh.rank == 0:
+        torch.save(out, os.path.join(workdir, 'outputs.pt'))
+    return {'same_on_ranks': same}
+
+
+def norm_layouts(mesh, device, workdir):
+    """One train step (Adam) of a small WNet for each (norm, data,
+    spatial) of ``inputs.pt['cases']`` on 2 ranks: the loss, whether the
+    ranks hold the same parameters after, and the collectives the step's
+    statistics took (``all_reduce_sum``). Rank 0 writes ``outputs.pt``."""
+    inp = torch.load(os.path.join(workdir, 'inputs.pt'), weights_only=False)
+    out = {}
+    for norm, data, spatial in inp['cases']:
+        m = make_mesh(mesh.size, spatial=spatial, devices=[device] * 2)
+        cfg = WNetConfig(chns=(8, 16, 32), mid_ch=8, interm_ch=8, norm=norm,
+                         act='relu6')
+        calls = all_reduce_sum.calls
+        params, losses, _ = _train(cfg, _WNetBase(cfg).param_tree(),
+                                   inp['batches'], m)
+        out[(norm, data, spatial)] = {
+            'mesh': dict(m.shape), 'loss': losses[0],
+            'collectives': all_reduce_sum.calls - calls,
+            'same_on_ranks': _same_on_ranks(_leaves(params))}
+    if mesh.rank == 0:
+        torch.save(out, os.path.join(workdir, 'outputs.pt'))
+    return {}

@@ -1041,6 +1041,60 @@ def test_two_gloo_ranks_on_one_card_match_unsharded(dev):
         assert tr['ranks_identical'] and tr['launches']['conv3x3_dw'] > 0
 
 
+def test_bn_step_on_two_gloo_ranks_matches_unsharded(dev):
+    """Two gloo ranks on cuda:0 (``parallel.dryrun --train_layouts
+    bn:2x1 --size full``): two fp32 steps of the c64 net with norm 'bn' at
+    8 x 11 x 96 x 96 a rank, its statistics the global batch's, held by the
+    dryrun against the unsharded step on the card (losses, first-step
+    gradients, parameters and running statistics, the same bits on both
+    ranks; rank 0 runs the unsharded steps); K1, K3, K4 and K7 launched on
+    each rank, K2 never, the norms' all-reduces run."""
+    import json
+    import os
+    import subprocess
+    import sys
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    res = subprocess.run(
+        [sys.executable, '-m', 'bsvd_tpu_torch.parallel.dryrun', '--nproc',
+         '2', '--data', '2', '--spatial', '1', '--backend', 'gloo',
+         '--device', 'cuda', '--checks', 'train', '--train_layouts',
+         'bn:2x1', '--size', 'full', '--timeout', '500'],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    out = json.loads(res.stdout.strip().splitlines()[-1])
+    assert out['dryrun'] == 'ok' and len(out['ranks']) == 2
+    assert 'running_stats_dev' in out['ranks'][0]['train'][0]
+    for rank in out['ranks']:
+        (tr,) = rank['train']
+        got = tr['launches']
+        assert tr['norm'] == 'bn' and tr['ranks_identical']
+        assert min(tr['all_reduces_per_step']) > 0
+        assert got['conv_chain'] == 0
+        assert all(got[k] > 0 for k in ('conv_s2', 'conv_ps', 'conv3x3_dw'))
+        assert got['conv3x3'] + got['shift_conv_fused_v1'] > 0
+
+
+def test_over_budget_whole_clip_streams_on_the_card(dev, monkeypatch):
+    """``denoise_seq`` of a whole clip over a lowered device budget runs
+    the streaming route on the card (K5 launched) and gives the whole-clip
+    MIMO output (fp32: 1e-4 x max(1, max|ref|))."""
+    from bsvd_tpu_torch.archs.wnet_arch import WNetConfig, _map_tree, wnet_init
+    from bsvd_tpu_torch.models import seq_inference
+    from bsvd_tpu_torch.ops.bibuffer_conv import bibuffer_conv
+    cfg = WNetConfig(chns=(16, 32, 64), mid_ch=16, interm_ch=16,
+                     act='relu6')
+    params = _map_tree(wnet_init(cfg, 3), lambda t: t.to(dev))
+    seq = np.random.default_rng(4).uniform(0, 1, (6, 3, 24, 40)).astype(
+        np.float32)
+    ref = seq_inference.denoise_seq(params, cfg, seq, noise_sigma=0.1)
+    monkeypatch.setattr(seq_inference, '_memory_budget',
+                        lambda device, frac=0.8: 1.0)
+    before = getattr(bibuffer_conv, 'launches', 0)
+    got = seq_inference.denoise_seq(params, cfg, seq, noise_sigma=0.1)
+    assert getattr(bibuffer_conv, 'launches', 0) > before
+    _close(torch.from_numpy(got), torch.from_numpy(ref), torch.float32)
+
+
 def test_kernel_routes_count_the_plain_routes_flops(dev):
     """profiler.flops_and_memory counts a wrapper's kernel launch as its
     plain route on the CPU counts it (one formula a wrapper, ops/_flops):

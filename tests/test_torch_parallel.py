@@ -308,27 +308,49 @@ def test_data_parallel_validation_writes_the_serial_csvs(tmp_path):
     assert len(list(b.glob('test_*.log'))) == 1
 
 
-@pytest.mark.parametrize('norm,data,spatial,raises', [
-    ('bn', 2, 1, True), ('in', 1, 2, True), ('in', 2, 1, False),
-    ('none', 1, 2, False)])
-def test_train_step_refuses_split_statistics(norm, data, spatial, raises):
-    """Norm 'bn' on a mesh of more than one rank, and 'in' with the rows
-    split, raise naming ROADMAP (their statistics would need an
-    all-reduce); 'in' over data alone is per sample and runs."""
-    from bsvd_tpu_torch.archs.wnet_arch import WNetConfig, _WNetBase
-    from bsvd_tpu_torch.losses import build_loss
-    from bsvd_tpu_torch.models.denoising_model import make_train_step
-    from bsvd_tpu_torch.models.optim import Adam
-    net = _WNetBase(WNetConfig(chns=(8, 16, 32), mid_ch=8, interm_ch=8,
-                               norm=norm, act='relu6'))
-    args = (net, Adam(net.named_parameters(), lambda c: 1e-3),
-            build_loss({'type': 'MSELoss'}))
-    mesh = Mesh(data, spatial, 'cpu')
-    if raises:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            make_train_step(*args, mesh=mesh)
-    else:
-        assert callable(make_train_step(*args, mesh=mesh))
+NORM_LAYOUTS = [('bn', 2, 1, True), ('in', 1, 2, True), ('in', 2, 1, False),
+                ('none', 1, 2, False)]
+
+
+@pytest.fixture(scope='module')
+def norm_layout_steps(tmp_path_factory):
+    """One spawn of 2 gloo ranks (``parallel.dryrun --target
+    tests/_torch_parallel_worker.py:norm_layouts``): a train step of each
+    layout of NORM_LAYOUTS."""
+    import json
+    tmp = tmp_path_factory.mktemp('norm_layouts')
+    rng = np.random.default_rng(9)
+    torch.save({'cases': [c[:3] for c in NORM_LAYOUTS], 'batches': [{
+        'lq': torch.from_numpy(rng.uniform(0, 1, (2, 3, 16, 16, 4)).astype(
+            np.float32)),
+        'gt': torch.from_numpy(rng.uniform(0, 1, (2, 3, 16, 16, 3)).astype(
+            np.float32))}]}, tmp / 'inputs.pt')
+    res = subprocess.run(
+        [sys.executable, '-m', 'bsvd_tpu_torch.parallel.dryrun', '--nproc',
+         '2', '--data', '2', '--spatial', '1', '--backend', 'gloo',
+         '--device', 'cpu', '--checks', 'none', '--timeout', '200',
+         '--target', os.path.join(ROOT, 'tests',
+                                  '_torch_parallel_worker.py:norm_layouts'),
+         '--workdir', str(tmp)], cwd=ROOT, capture_output=True, text=True,
+        timeout=240)
+    assert res.returncode == 0, res.stdout[-3000:] + res.stderr[-3000:]
+    assert json.loads(res.stdout.strip().splitlines()[-1])['dryrun'] == 'ok'
+    return torch.load(tmp / 'outputs.pt', weights_only=False)
+
+
+@pytest.mark.parametrize('norm,data,spatial,raises', NORM_LAYOUTS)
+def test_train_step_refuses_split_statistics(norm, data, spatial, raises,
+                                             norm_layout_steps):
+    """Every norm steps on every layout (it raised for norm 'bn' on a mesh
+    of more than one rank and 'in' with the rows split): the step builds,
+    its loss is finite, both ranks hold the same parameters after it, and
+    the statistics took collectives exactly where the ranks share them
+    (``raises``: 'bn' over data, 'in' over rows; 'in' over data is per
+    sample, 'none' has none)."""
+    rec = norm_layout_steps[(norm, data, spatial)]
+    assert rec['mesh'] == {'data': data, 'spatial': spatial}
+    assert np.isfinite(rec['loss']) and rec['same_on_ranks']
+    assert (rec['collectives'] > 0) == raises
 
 
 @pytest.mark.parametrize('mode', ['mimo', 'streaming'])
