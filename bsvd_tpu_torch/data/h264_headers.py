@@ -4,13 +4,15 @@ it): the displayed (H, W), the coded size and the frame cropping, which
 the train loader needs to draw another rank's window without decoding
 it, and the fields that decide whether the port reads the stream at all.
 
-The port decodes on NVDEC and converts as cv2's swscale does for
-BT.601 limited-range 4:2:0 (``data/yuv``). Streams outside that raise
-NotImplementedError naming the field: a chroma format other than 4:2:0
-(NVDEC does not take High 4:4:4 H.264), a bit depth other than 8,
-interlaced coding (``frame_mbs_only_flag`` 0), and a VUI that asks for
-full range or a matrix other than BT.601 (cv2 converts those with other
-coefficients, found against cv2 5.0 in this repository's tests).
+The port decodes with its host decoder (``data/h264_decode``) and
+converts as cv2's swscale does for BT.601 limited-range 4:2:0
+(``data/yuv``). Streams outside that raise NotImplementedError naming the
+field and the ROADMAP item that will take it: a chroma format other than
+4:2:0, a bit depth other than 8 and interlaced coding
+(``frame_mbs_only_flag`` 0), which the host decoder does not read, and a
+VUI that asks for full range or a matrix other than BT.601 (cv2 converts
+those with other coefficients, found against cv2 5.0 in this
+repository's tests).
 """
 
 # profile_idc values whose SPS carries chroma_format_idc and bit depths
@@ -101,11 +103,12 @@ def parse_sps(nal):
     if chroma != 1:
         raise NotImplementedError(
             f'H.264 chroma_format_idc {chroma} (profile_idc {profile}): the '
-            f'port decodes 4:2:0 only (NVDEC does not take High 4:4:4)')
+            f'host decoder reads 4:2:0 only (ROADMAP Queue 1 item 5e)')
     if depth_y != 8 or depth_c != 8:
         raise NotImplementedError(
             f'H.264 bit_depth_luma {depth_y} / bit_depth_chroma {depth_c}: '
-            f'the port reads 8-bit streams only')
+            f'the host decoder reads 8-bit streams only (ROADMAP Queue 1 '
+            f'item 5e)')
     r.ue()                                    # log2_max_frame_num_minus4
     poc_type = r.ue()
     if poc_type == 0:
@@ -123,8 +126,9 @@ def parse_sps(nal):
     frame_mbs_only = r.u(1)
     if not frame_mbs_only:
         raise NotImplementedError(
-            'H.264 frame_mbs_only_flag 0 (interlaced coding): the port reads '
-            'progressive streams only')
+            'H.264 frame_mbs_only_flag 0 (interlaced coding): the host '
+            'decoder reads progressive streams only (ROADMAP Queue 1 item '
+            '5e)')
     r.u(1)                                    # direct_8x8_inference_flag
     crop = (0, 0, 0, 0)
     if r.u(1):                                # frame_cropping_flag
@@ -147,11 +151,11 @@ def parse_sps(nal):
     if full_range:
         raise NotImplementedError(
             'H.264 VUI video_full_range_flag 1: the port converts limited '
-            'range only (data/yuv)')
+            'range only (data/yuv; ROADMAP Queue 1 item 5e)')
     if matrix is not None and matrix not in _BT601:
         raise NotImplementedError(
             f'H.264 VUI matrix_coefficients {matrix}: the port converts '
-            f'with BT.601 only (data/yuv)')
+            f'with BT.601 only (data/yuv; ROADMAP Queue 1 item 5e)')
     coded = (height_units * 16, width_mbs * 16)
     left, right, top, bottom = crop
     hw = (coded[0] - top - bottom, coded[1] - left - right)

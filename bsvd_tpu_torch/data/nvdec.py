@@ -1,6 +1,9 @@
-"""H.264 on the card's NVDEC for the train loader's mp4 clips (the JAX
-package decodes them with cv2 on the host, bsvd_tpu/data/video_train_
-loader.py:75-84, :114-127).
+"""H.264 on the card's NVDEC (the JAX package decodes mp4 clips with cv2
+on the host, bsvd_tpu/data/video_train_loader.py:75-84, :114-127). The
+train loader does not use it: it decodes every mp4 on the host with
+``data/h264_decode``. This binding stays, with its card tests, for a
+machine whose container exposes the video engine (ROADMAP Queue 1 item
+5).
 
 ``_native/nvdec.cpp`` is built by g++ at first use (never at import) into
 ``bsvd_tpu_torch/_build/bsvd_nvdec-<hash>/``; it declares the CUVID types
@@ -120,14 +123,12 @@ def lib():
 
 def require(device):
     """``device`` with its card's index; NotImplementedError unless it is
-    a CUDA device: mp4 clips decode on NVDEC only (the port has no CPU
-    decoder)."""
+    a CUDA device (NVDEC is on the card)."""
     device = torch.device(device)
     if device.type != 'cuda':
         raise NotImplementedError(
-            f'mp4 clips are decoded on the card\'s NVDEC; device {device} '
-            f'has none and the port has no CPU H.264 decoder (train on the '
-            f'card, or on frame folders)')
+            f'NVDEC decodes on the card; device {device} has none (the '
+            f'train loader decodes mp4 on the host with data/h264_decode)')
     if device.index is None:          # the caller's card, not thread 0's
         device = torch.device('cuda', torch.cuda.current_device())
     return device

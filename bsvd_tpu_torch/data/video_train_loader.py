@@ -29,16 +29,22 @@ through the port's zlib reader, JPEG through the native decoder, TIFF
 through ``data/tiff_decode`` (a window decodes only its strips or tiles;
 the stored pixels, as for PNG and JPEG). mp4 clips
 (``.mp4`` / ``.m4v`` / ``.mov``, H.264 4:2:0 8-bit) are demuxed by the
-port's own reader (``data/mp4_demux``), decoded on the card's NVDEC
-(``data/nvdec``: one decoder per worker thread and clip, as the JAX
-package keeps a ``VideoCapture``), and their NV12 frames stay on the card
-until the window is drawn; the kernel ``csrc/nv12_rgb.cu``
-(``data/yuv``) converts only the window, as cv2's swscale would, and
-the window reaches the queue as the frame route gives it, (T, 3, ch, cw)
-uint8 on the host. A video window draws its clip and start, is decoded,
-then draws its row and column, the JAX package's order for video. An mp4
-on a CPU device raises NotImplementedError naming NVDEC; ``.avi`` /
-``.mkv`` / ``.webm`` raise NotImplementedError naming the container.
+port's own reader (``data/mp4_demux``) and decoded on the host by the
+port's own H.264 decoder (``data/h264_decode``: one decoder per worker
+thread and clip, as the JAX package keeps a ``VideoCapture``), on every
+device: it is the route for every mp4, as cv2 is the JAX package's, and
+nothing the machine exposes changes it. The NV12 of the window's even
+rows and columns goes to the loader's device, where ``yuv.nv12_to_rgb``
+converts it as cv2's swscale would: the kernel ``csrc/nv12_rgb.cu`` on a
+CUDA device (it raises on failure; nothing falls back), the plain version
+on a CPU device. The window reaches the queue as the frame route gives
+it, (T, 3, ch, cw) uint8 on the host. A video window draws its clip and
+start, is decoded, then draws its row and column, the JAX package's order
+for video. A CABAC clip, or one whose B slices hold inter macroblocks,
+raises ``h264_decode.UnsupportedH264`` when the folder is indexed
+(``h264_decode.check_track``); a CUDA device with no index is the card
+current where the loader is built; ``.avi`` / ``.mkv`` / ``.webm`` raise
+NotImplementedError naming the container.
 """
 
 import os
@@ -48,7 +54,7 @@ import threading
 import numpy as np
 import torch
 
-from bsvd_tpu_torch.data import mp4_demux, nvdec, utils_common, yuv
+from bsvd_tpu_torch.data import h264_decode, mp4_demux, utils_common, yuv
 from bsvd_tpu_torch.data.utils_common import get_imagenames
 from bsvd_tpu_torch.utils.logger import get_root_logger
 from bsvd_tpu_torch.utils.registry import DATASET_REGISTRY
@@ -59,7 +65,7 @@ MAX_REDRAWS = 1000
 
 class _ClipIndex:
     """The frame folders and mp4 clips under ``root`` and their frame
-    counts; mp4 clips decode on ``device``."""
+    counts; mp4 windows convert on ``device``."""
 
     def __init__(self, root, device='cuda'):
         self.entries = []   # (path, kind 'frames' | 'video', num_frames)
@@ -72,13 +78,14 @@ class _ClipIndex:
                     self.entries.append((path, 'frames', len(frames)))
             elif name.lower().endswith(mp4_demux.VIDEO_EXTS):
                 track = mp4_demux.open_track(path)
+                h264_decode.check_track(track)
                 # the count cv2.CAP_PROP_FRAME_COUNT gives, as JAX draws
                 if track.frame_count > 0:
                     self._tracks[path] = track
                     self.entries.append((path, 'video', track.frame_count))
         if not self.entries:
             raise IOError(f'no video files or frame folders under {root}')
-        self.device = nvdec.require(device) if self._tracks else None
+        self.device = _card(device) if self._tracks else None
         self._dims = {}                  # path -> (H, W)
         self._lock = threading.Lock()
         self._tls = threading.local()    # a worker's decoders and stream
@@ -140,19 +147,23 @@ class _ClipIndex:
         neither)."""
         track = self._tracks[path]
         ch, cw = crop_hw
+        if decode:
+            frames = self._decoder(path).decode(track, start, seq_len)
+        else:               # the frames every rank can tell are missing
+            track.window_samples(start, seq_len)
+        h, w = track.hw
+        if h < ch or w < cw:
+            raise IOError(f'clip {path} smaller than crop {crop_hw}')
+        y0 = int(rng.integers(0, h - ch + 1))
+        x0 = int(rng.integers(0, w - cw + 1))
+        if not decode:
+            return None
+        sub, wy, wx = nv12_window(frames, h, y0, x0, ch, cw)
+        if self.device.type == 'cpu':
+            return yuv.nv12_to_rgb(sub, wy, wx, ch, cw).numpy()
         with torch.cuda.stream(self._stream()):
-            if decode:
-                frames = self._decoder(path).decode(track, start, seq_len)
-            else:           # the frames every rank can tell are missing
-                track.window_samples(start, seq_len)
-            h, w = track.hw
-            if h < ch or w < cw:
-                raise IOError(f'clip {path} smaller than crop {crop_hw}')
-            y0 = int(rng.integers(0, h - ch + 1))
-            x0 = int(rng.integers(0, w - cw + 1))
-            if not decode:
-                return None
-            return yuv.nv12_to_rgb(frames, y0, x0, ch, cw).cpu().numpy()
+            rgb = yuv.nv12_to_rgb(sub.to(self.device), wy, wx, ch, cw)
+            return rgb.cpu().numpy()
 
     def _decoder(self, path):
         """This thread's decoder of clip ``path``, kept alive."""
@@ -160,7 +171,7 @@ class _ClipIndex:
         if decoders is None:
             decoders = self._tls.decoders = {}
         if path not in decoders:
-            decoders[path] = nvdec.Decoder(self.device)
+            decoders[path] = h264_decode.Decoder()
         return decoders[path]
 
     def _stream(self):
@@ -175,6 +186,28 @@ class _ClipIndex:
         for dec in getattr(self._tls, 'decoders', {}).values():
             dec.close()
         self._tls.decoders = {}
+
+
+def _card(device):
+    """``device`` with its card's index: a CUDA device that names none is
+    the current card of the thread that builds the loader (a rank's, under
+    torchrun); the worker threads would take card 0."""
+    device = torch.device(device)
+    if device.type == 'cuda' and device.index is None:
+        device = torch.device('cuda', torch.cuda.current_device())
+    return device
+
+
+def nv12_window(frames, h, y0, x0, ch, cw):
+    """The NV12 of the even rows and columns around the window (y0, x0,
+    ch, cw) of (T, h * 3 / 2, W) frames -> (sub-frames, the window's row
+    and column in them). Each chroma pair stays with its 2 x 2 luma
+    block, so the conversion of the window is the same."""
+    ya, xa = y0 & ~1, x0 & ~1
+    hh, ww = (y0 + ch - ya + 1) & ~1, (x0 + cw - xa + 1) & ~1
+    luma = frames[:, ya:ya + hh, xa:xa + ww]
+    chroma = frames[:, h + ya // 2:h + (ya + hh) // 2, xa:xa + ww]
+    return torch.cat([luma, chroma], dim=1).contiguous(), y0 - ya, x0 - xa
 
 
 def normalize_augment(batch, rng, total=None):

@@ -512,16 +512,27 @@ def _zoo_run(opt, batches, device, rows=None, reverse=False):
         batches = [{k: v[::-1].copy() for k, v in b.items()}
                    for b in batches]
     logs, ms = [], []
-    for it, batch in enumerate(batches, 1):
-        if rows is not None:
-            n = len(batch['gt']) // rows[1]
-            batch = {k: v[rows[0] * n:(rows[0] + 1) * n]
-                     for k, v in batch.items()}
-        with _Counted(device) as c:
-            model.feed_data(batch)
-            model.optimize_parameters(it)
-        ms.append(c.ms)
-        logs.append(model.get_current_log())
+    # cuDNN's deterministic algorithms: the runs compared here part by
+    # summation order alone, the same on every call (nondeterministic
+    # backward convolutions of StyleGAN2's path penalty moved one run's
+    # path length by 1e-4 relative, run to run)
+    flags = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+        True, False
+    try:
+        for it, batch in enumerate(batches, 1):
+            if rows is not None:
+                n = len(batch['gt']) // rows[1]
+                batch = {k: v[rows[0] * n:(rows[0] + 1) * n]
+                         for k, v in batch.items()}
+            with _Counted(device) as c:
+                model.feed_data(batch)
+                model.optimize_parameters(it)
+            ms.append(c.ms)
+            logs.append(model.get_current_log())
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = \
+            flags
     nets = [a for a in ('net', 'net_g_ema', 'net_d') if
             getattr(model, a, None) is not None]
     states = {a: {k: v.detach().float().cpu() for k, v in

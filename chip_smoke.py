@@ -253,35 +253,46 @@ Phases, each printed as one JSON object on its own line:
    fp32 step card against CPU with the loss, the WNet's masks and the
    perceptual loss's discontinuities (VGG ReLU masks, max-pool picks,
    the l1 signs) shared, to 1e-4 x max|ref| per tensor.
-16. mp4: the train loader's mp4 route on the card. Fixture clips from
+16. mp4: the train loader's mp4 route on the card: the port's own H.264
+   decoder on the host (``data/h264_decode``, the route for every mp4 on
+   every device, as cv2 is the JAX package's), the NV12 window to the
+   card, the kernel nv12_rgb. Fixture clips from
    tools/make_video_fixtures.py (H.264 of I_PCM / P_Skip macroblocks,
    which decode exactly to the planes written): IDR/P 320 x 240, IDR/P
    854 x 480 (coded 864 x 480), High-profile B frames with ctts and an
-   edit list at 416 x 234, 24 frames each. The refusals name their
-   cause: an mp4 on the CPU (NVDEC), a missing libnvcuvid (a fresh
-   process), cuvidGetDecoderCaps for H.264 4:2:0 / 4:4:4 / 4:2:2 8-bit
-   and 4:2:0 10-bit. From every start of each fixture, libnvcuvid's
-   parser (``nvdec.parse``: host code) on the port's CUVID structs: its
-   sequence equal to the SPS, one picture a sample, the demuxer's
-   display order. NVDEC counts as hidden only on
-   ``nvdec.NvdecNotExposed`` (cuvidGetDecoderCaps out of memory where
-   NVIDIA_DRIVER_CAPABILITIES lacks 'video'); any other caps failure
-   fails the phase. The kernel nv12_rgb against its plain version, bit
-   for bit, at odd and even window origins and the whole 854 x 480 frame
-   (NVDEC's planes, or the writer's where NVDEC is hidden); both timed
-   (CUDA events, median of 50) on an 11 x 96 x 96 window beside its
-   bound (bytes at 3.35 TB/s). Where NVDEC is exposed: its NV12 from
-   every start equal to the writer's planes, and its frames a second;
-   the yml's loader (one worker, the same seed) over 4 mp4 clips x 24
+   edit list at 416 x 234, 24 frames each. Each on its own line: (a) the
+   host decoder's NV12 from every start of each fixture equal to the
+   writer's planes; (b) nv12_rgb against its plain version, bit for bit,
+   on the host decoder's 854 x 480 frames at odd and even window origins
+   and the whole frame, both timed (CUDA events, median of 50) on an
+   11 x 96 x 96 window beside its bound (bytes at 3.35 TB/s); (c) the
+   yml's loader (one worker, the same seed) over 4 fixture clips x 24
    frames at 854 x 480 and over PNG folders of the same RGB frames: the
-   same 3 batches; the train CLI on options/train/bsvd_c64_unblind.yml
-   over the mp4 folder: bf16 AMP, 30 iterations, one validation of 10
-   frames a clip; K1-K4 and K7 launches per step, ms an iteration over
-   11-30 (the wait and the step) and over 3-10, beside phase 12's PNG
-   run and 12a's JPEG run; the loader's batches a second with 1 and 8
-   workers. Where it is hidden these runs cannot decode: the record says
-   "not run" with the driver's error, and nv12_rgb's main-path launches
-   are 0 (its ``main_path`` says why).
+   same 3 batches; (d) the train CLI on options/train/bsvd_c64_unblind.yml
+   over a folder of coded clips: 4 CAVLC clips x 24 frames at 854 x 480
+   from tools/make_h264_streams.py (p_partitions: one IDR of intra 4x4 /
+   16x16, then P pictures of every partition, skips and intra 4x4, with
+   residuals, quarter-pel vectors past the edges and deblocking; one
+   group of pictures a clip, so a window decodes from frame 0), written
+   by a background process (nice 10) that starts after the build: bf16
+   AMP, 20 iterations, one validation of 10 frames a clip, finite losses,
+   K1-K4 and K7 launches per step, nv12_rgb's launches, ms and it/s an
+   iteration over 11-20 and 3-10 beside phase 12's PNG run and 12a's JPEG
+   run, and the device profile (idle share) of 3 loader-fed iterations;
+   (e) the host decoder's frames a second on one thread (the 854 x 480
+   fixture, a copy a frame; and a whole coded clip, its IDR and 23 P
+   pictures) and the loader's windows a second over the coded clips with
+   1 and 8 workers. NVDEC's own
+   checks stay where they were: the refusals name their cause (an mp4 on
+   the CPU, a missing libnvcuvid in a fresh process,
+   cuvidGetDecoderCaps for H.264 4:2:0 / 4:4:4 / 4:2:2 8-bit and 4:2:0
+   10-bit), libnvcuvid's parser (``nvdec.parse``: host code) from every
+   start of each fixture (its sequence equal to the SPS, one picture a
+   sample, the demuxer's display order), and where NVDEC is exposed its
+   NV12 equal to the writer's planes from every start. NVDEC counts as
+   hidden only on ``nvdec.NvdecNotExposed`` (cuvidGetDecoderCaps out of
+   memory where NVIDIA_DRIVER_CAPABILITIES lacks 'video'); any other caps
+   failure fails the phase. The loader never uses NVDEC.
 17. zoo_vsr: the zoo's recurrent video SR, plain PyTorch (no kernel of
    the port on its path, as the JAX package computes it in XLA), fp32
    with TF32 off. One BasicVSR forward at the yml's widths (64 features,
@@ -519,7 +530,7 @@ from bsvd_tpu_torch.profiler import count_params, device_profile  # noqa: E402
 from bsvd_tpu_torch.test import test_pipeline  # noqa: E402
 from bsvd_tpu_torch.train import train_loop, train_pipeline  # noqa: E402
 from bsvd_tpu_torch.data import bmp_decode  # noqa: E402
-from bsvd_tpu_torch.data import mp4_demux, nvdec, yuv  # noqa: E402
+from bsvd_tpu_torch.data import h264_decode, mp4_demux, nvdec, yuv  # noqa: E402
 from bsvd_tpu_torch.utils import (jpeg_encode, lmdb_util,  # noqa: E402
                                   tb_events)
 from bsvd_tpu_torch.utils.img_util import encode_png  # noqa: E402
@@ -3975,6 +3986,25 @@ MP4_CLIPS = 4
 MP4_WINDOWS = ((0, 0), (1, 1), (0, 1), (1, 0),
                (TRAIN_FRAME_HW[0] - TRAIN_HW, TRAIN_FRAME_HW[1] - TRAIN_HW))
 MP4_LOADER_BATCHES = 3
+# the coded train folder (module docstring, phase 16): clips, frames
+MP4_CODED = (4, 24)
+CODED_WRITER = """
+import json, os, sys
+from tools import make_h264_streams as mhs
+os.nice(10)
+out, seed, clips, frames, h, w = sys.argv[1], *map(int, sys.argv[2:])
+stats = []
+for i in range(clips):
+    n, st = mhs.write_stream(
+        os.path.join(out, 'clips', f'clip{i:02d}.mp4'), 'p_partitions',
+        seed + i, options={'size': (h, w), 'frames': frames,
+                           'slices': (1, 4), 'second_idr': False,
+                           'mb_kinds': {'I4': 3, 'I16': 1}})
+    stats.append(dict(st, frames=n))
+with open(os.path.join(out, 'stats.json'), 'w') as f:
+    json.dump(stats, f)
+"""
+CODED = {}      # the background writer: its process and start time
 NV12_RGB = ('nv12_rgb', 'bsvd_tpu_torch/csrc/nv12_rgb.cu',
             'bsvd_tpu/data/video_train_loader.py:122')
 
@@ -4029,18 +4059,36 @@ def _mp4_errors():
 
 
 def _mp4_decode_check(root, exposed):
-    """Each fixture kind from every start: libnvcuvid's parser (its
-    sequence against the SPS, one picture per access unit, the display
-    order of the demuxer's window); where NVDEC is exposed, its NV12 equal
-    to the writer's planes and its frames a second on the 854 x 480 clip.
-    Returns the 854 x 480 clip's NV12 on the card (NVDEC's, else the
-    writer's, for the kernel's comparison only) and the record."""
+    """Each fixture kind from every start: the host decoder's NV12 equal
+    to the writer's planes, and its frames a second decoding the whole
+    clip on one thread; libnvcuvid's parser (its sequence against the
+    SPS, one picture per access unit, the display order of the demuxer's
+    window); where NVDEC is exposed, its NV12 equal to the writer's
+    planes. Returns the host decoder's 854 x 480 clip on the card and the
+    record."""
     rec, planes854 = {}, None
     for i, (name, (w, h, n, kw)) in enumerate(MP4_FIXTURES.items()):
         path = os.path.join(root, f'{name}.mp4')
-        want = torch.from_numpy(mvf.nv12(*mvf.write_clip(
-            path, SEED + 160 + i, w, h, n, **kw))).cuda()
+        want_np = mvf.nv12(*mvf.write_clip(path, SEED + 160 + i, w, h, n,
+                                           **kw))
+        want = torch.from_numpy(want_np).cuda()
         track = mp4_demux.open_track(path)
+        host = h264_decode.Decoder()
+        try:
+            for start in range(n):
+                count = min(TRAIN_T, n - start)
+                got = host.decode(track, start, count).numpy()
+                if not np.array_equal(got, want_np[start:start + count]):
+                    bad = np.argwhere(got != want_np[start:start + count])
+                    raise AssertionError(f'host decoder {name}@{start}: '
+                                         f'planes differ from the writer\'s '
+                                         f'at {bad[:3].tolist()}')
+            t0 = time.perf_counter()
+            for _ in range(3):
+                clip = host.decode(track, 0, n)
+            host_fps = 3 * n / (time.perf_counter() - t0)
+        finally:
+            host.close()
         parsed = 0
         t0 = time.perf_counter()
         for start in range(n):
@@ -4056,26 +4104,95 @@ def _mp4_decode_check(root, exposed):
         r = {'hw': [h, w], 'coded_hw': list(track.coded_hw), 'frames': n,
              'sync_samples': int(track.sync.sum()),
              'bytes_per_frame': float(track.sizes.mean()),
+             'host_decode': 'equal to the writer\'s planes from every '
+                            'start',
+             'host_frames_per_s_one_thread': host_fps,
              'parser_starts_checked': n,
              'parser_frames_per_s': parsed / (time.perf_counter() - t0),
              'min_num_decode_surfaces': got['min_surfaces']}
-        clip = want
         if exposed:
-            nv, clip = _nvdec_planes(track, want, name, n)
-            r.update(nv)
+            r.update(_nvdec_planes(track, want, name, n))
         else:
             dec = nvdec.Decoder('cuda')
             try:
                 dec.decode(track, 0, 1)
                 raise AssertionError('NVDEC decoded where caps refused it')
             except nvdec.NvdecNotExposed as e:
-                r['decode'] = f'not run: {e}'
+                r['nvdec_decode'] = f'not run: {e}'
             finally:
                 dec.close()
         rec[name] = r
         if (h, w) == TRAIN_FRAME_HW:
-            planes854 = clip
+            planes854 = clip.cuda()
     return planes854, rec
+
+
+def _start_coded_writer():
+    """Start writing the coded train folder (MP4_CODED) in a background
+    process; ``_coded_clips`` waits for it."""
+    out = os.path.join(WORK, 'mp4_coded')
+    os.makedirs(os.path.join(out, 'clips'))
+    h, w = TRAIN_FRAME_HW
+    log = open(os.path.join(out, 'writer.log'), 'w')
+    proc = subprocess.Popen(
+        [sys.executable, '-c', CODED_WRITER, out, str(SEED + 180),
+         *map(str, MP4_CODED), str(h), str(w)],
+        cwd=ROOT, stdout=log, stderr=subprocess.STDOUT)
+    CODED.update(out=out, log=log, t0=time.perf_counter(), proc=proc)
+
+
+def _coded_clips():
+    """The coded train folder, once its writer has ended, and its
+    record (the macroblocks written, the writer's seconds, the wait)."""
+    t0 = time.perf_counter()
+    proc = CODED['proc']
+    code = proc.wait(timeout=900)
+    CODED['log'].close()
+    out = CODED['out']
+    if code:
+        with open(os.path.join(out, 'writer.log')) as f:
+            raise AssertionError(f'coded clip writer exited {code}: '
+                                 f'{f.read()[-3000:]}')
+    with open(os.path.join(out, 'stats.json')) as f:
+        stats = json.load(f)
+    kinds = ('I4', 'I16', 'P16x16', 'P16x8', 'P8x16', 'P8x8', 'SKIP',
+             'mv_past_the_edge', 'deblock_idc_0')
+    total = {k: sum(st.get(k, 0) for st in stats) for k in kinds}
+    if [st['frames'] for st in stats] != [MP4_CODED[1]] * MP4_CODED[0] or \
+            not total['P16x16'] + total['P8x8'] or not total['I4']:
+        raise AssertionError(f'coded clips: {stats}')
+    return os.path.join(out, 'clips'), {
+        'stream': f'make_h264_streams p_partitions at {TRAIN_FRAME_HW}, '
+                  f'one IDR then P pictures',
+        'clips': MP4_CODED[0], 'frames': MP4_CODED[1],
+        'bytes': sum(os.path.getsize(os.path.join(out, 'clips', f))
+                     for f in os.listdir(os.path.join(out, 'clips'))),
+        'macroblocks': total,
+        'writer_s_since_start': time.perf_counter() - CODED['t0'],
+        'waited_s': time.perf_counter() - t0}
+
+
+def _coded_rate(coded_dir):
+    """The host decoder's frames a second on one thread over a whole
+    coded clip (its IDR and every P picture); two decoders agree."""
+    path = os.path.join(coded_dir, 'clip00.mp4')
+    track = mp4_demux.open_track(path)
+    n = track.frame_count
+    a, b = h264_decode.Decoder(), h264_decode.Decoder()
+    try:
+        first = a.decode(track, 0, n)
+        t0 = time.perf_counter()
+        for _ in range(3):
+            again = b.decode(track, 0, n)
+        secs = (time.perf_counter() - t0) / 3
+    finally:
+        a.close()
+        b.close()
+    if not torch.equal(first, again):
+        raise AssertionError('host decoder: two decodes of one stream differ')
+    return {'stream': os.path.basename(path), 'frames': n,
+            'bytes': os.path.getsize(path),
+            'frames_per_s_one_thread': n / secs}
 
 
 def _nvdec_planes(track, want, name, n):
@@ -4195,13 +4312,14 @@ def _mp4_cli(mp4_dir, data):
         'train:fp16=true', f'datasets:val:num_validation_frames={JPEG_VAL_T}']
     reset_counts()
     yuv.nv12_to_rgb.launches = 0
-    decoded = nvdec.frames_decoded
+    decoded = h264_decode.frames_decoded
     t0 = time.perf_counter()
     with _NoConv2d(), _ValSeconds() as secs, _StepClock() as clock:
         model = train_pipeline(root, cmd=cmd)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     run, conv = counts(), yuv.nv12_to_rgb.launches
+    host_frames = h264_decode.frames_decoded - decoded
     step_kernels = ('conv3x3', 'conv_chain', 'conv_s2', 'conv_ps',
                     'conv3x3_dw')
     for k in step_kernels:
@@ -4211,11 +4329,11 @@ def _mp4_cli(mp4_dir, data):
     if run['conv3x3_dw'] != PER_TRAIN_STEP['conv3x3_dw'] * CLI_ITERS or \
             model.optimizer.count != CLI_ITERS or not conv >= \
             CLI_ITERS * TRAIN_N or len(clock.marks) != CLI_ITERS or not \
-            nvdec.frames_decoded - decoded >= CLI_ITERS * TRAIN_N * TRAIN_T:
+            host_frames >= CLI_ITERS * TRAIN_N * TRAIN_T:
         raise AssertionError(f'train CLI on mp4: K7 {run["conv3x3_dw"]}, '
                              f'optimizer count {model.optimizer.count}, '
                              f'nv12_rgb {conv}, {len(clock.marks)} clocked, '
-                             f'{nvdec.frames_decoded - decoded} decoded')
+                             f'{host_frames} decoded')
     rec = {'phase': 'train_cli', 'run': 'bf16_mp4', 'amp': model.amp,
            'iters': CLI_ITERS, 'wall_s': wall, 'launches': run,
            # a step's launches (K7's checked exactly above); the rest are
@@ -4224,7 +4342,7 @@ def _mp4_cli(mp4_dir, data):
            'validation_launches': {k: run[k] - PER_TRAIN_STEP[k] * CLI_ITERS
                                    for k in step_kernels},
            'nv12_rgb_launches': conv,
-           'nvdec_frames': nvdec.frames_decoded - decoded,
+           'host_decoded_frames': host_frames,
            'validations': len(secs.runs),
            'loss_last': model.get_current_log()['l_pix'],
            'steady': clock.steady(11, CLI_ITERS),
@@ -4234,57 +4352,72 @@ def _mp4_cli(mp4_dir, data):
            'jpeg_bf16_steady_3_10': ENTRY.get('jpeg_steady_3_10')}
     if not math.isfinite(rec['loss_last']):
         raise AssertionError('train CLI on mp4: non-finite loss')
+    rec['it_per_s'] = {k: 1e3 / v['ms_per_iter']
+                       for k, v in (('11_20', rec['steady']),
+                                    ('3_10', rec['steady_3_10']))}
+    # the same model fed by the loader over the mp4 folder: idle share
+    before = yuv.nv12_to_rgb.launches
+    with _NoConv2d():
+        rec['loader_fed_profile'] = _profile_loader_fed(
+            model, dict(data, train=mp4_dir), CLI_ITERS + 1, n=3)
+    conv += yuv.nv12_to_rgb.launches - before
+    for k, v in counts().items():
+        run[k] = v
+    rec['nv12_rgb_launches_with_profile'] = conv
     del model
     return rec, run, conv
 
 
 def _mp4_loader_rates(mp4_dir, data):
-    """Batches a second of the yml's loader over the mp4 folder with 1 and
-    8 workers (after the first batch), and NVDEC's frames a second then."""
+    """Batches and windows a second of the yml's loader over the mp4
+    folder with 1 and 8 workers (after the first batch), and the host
+    decoder's frames a second over the whole run."""
     rates = []
-    for workers, batches in ((1, 3), (8, 6)):
-        before = nvdec.frames_decoded
+    for workers, batches in ((1, 2), (8, 4)):
+        before = h264_decode.frames_decoded
         t0 = time.perf_counter()
         rate = _loader_rate(dict(data, train=mp4_dir), workers, batches)
-        rate['nvdec_frames'] = nvdec.frames_decoded - before
-        rate['nvdec_frames_per_s_whole_run'] = rate['nvdec_frames'] / (
-            time.perf_counter() - t0)
+        rate['host_decoded_frames'] = h264_decode.frames_decoded - before
+        rate['host_frames_per_s_whole_run'] = rate[
+            'host_decoded_frames'] / (time.perf_counter() - t0)
         rates.append(rate)
     return rates
 
 
 def phase_mp4(data):
     """Phase 16. Returns (K1-K7 launches of the CLI run, the nv12_rgb
-    record for the kernels line). Where NVDEC is hidden from the process
-    the mp4 loader and CLI runs cannot decode: they are reported as not
-    run, and nv12_rgb's main-path launches are 0."""
+    record for the kernels line)."""
     root = os.path.join(WORK, 'mp4')
     os.makedirs(root)
     errors, exposed = _mp4_errors()
-    rec = {'phase': 'mp4', 'errors': errors}
-    planes854, rec['decode'] = _mp4_decode_check(root, exposed)
+    planes854, decode = _mp4_decode_check(root, exposed)
+    emit({'phase': 'mp4', 'item': 'fixtures_against_the_writer',
+          'errors': errors, 'decode': decode})
     kernel = _mp4_kernel_check(planes854)
-    rec['nv12_rgb'] = kernel
-    if not exposed:
-        why = f'not run: {errors["caps"]["1_8"]}'
-        kernel.update(launches=0, main_path=why)
-        rec.update(loader_equals_png=why, train_cli=why, loader_rates=why)
-        emit(rec)
-        name, src, rep = NV12_RGB
-        return {k: 0 for k in KERNELS}, dict(kernel, name=name, source=src,
-                                             replaces=rep)
-    mp4_dir, png_dir, rec['write_s'] = _mp4_folders(root)
+    emit(dict({'phase': 'mp4', 'item': 'nv12_rgb_against_plain',
+               'frames': 'the host decoder\'s 854 x 480'}, **kernel))
+    mp4_dir, png_dir, write_s = _mp4_folders(root)
+    reset_counts()
+    yuv.nv12_to_rgb.launches = 0
     kernel['launches'] = _mp4_loader_equal(mp4_dir, png_dir, data)
-    kernel['main_path'] = 'the mp4 loader and the train CLI'
-    rec['loader_equals_png'] = True
-    emit(rec)
-    cli, run, conv = _mp4_cli(mp4_dir, data)
-    emit(cli)
+    emit({'phase': 'mp4', 'item': 'loader_equals_png', 'clips': MP4_CLIPS,
+          'frames': TRAIN_FRAMES, 'hw': list(TRAIN_FRAME_HW),
+          'write_s': write_s, 'batches': MP4_LOADER_BATCHES,
+          'nv12_rgb_launches': kernel['launches']})
+    coded_dir, coded = _coded_clips()
+    emit(dict(coded, phase='mp4', item='coded_clips'))
+    cli, run, conv = _mp4_cli(coded_dir, data)
+    emit(dict(cli, item='train_cli'))
     kernel['launches'] += conv
-    emit({'phase': 'mp4_loader', 'cpu_count': os.cpu_count(),
-          'rates': _mp4_loader_rates(mp4_dir, data)})
-    name, src, rep = NV12_RGB
-    return run, dict(kernel, name=name, source=src, replaces=rep)
+    kernel['main_path'] = ('the mp4 loader (fixtures) and the train CLI '
+                           '(coded clips)')
+    emit({'phase': 'mp4', 'item': 'rates', 'cpu_count': os.cpu_count(),
+          'host_decoder_854x480_fixture_frames_per_s_one_thread':
+              decode['cropped_854x480']['host_frames_per_s_one_thread'],
+          'host_decoder_coded': _coded_rate(coded_dir),
+          'loader_coded': _mp4_loader_rates(coded_dir, data)})
+    name, src, rep_ = NV12_RGB
+    return run, dict(kernel, name=name, source=src, replaces=rep_)
 
 
 # ---------------------------------------------------------------------------
@@ -4510,14 +4643,14 @@ WIDE_FP32_T, WIDE_FP32_HW = 3, (136, 240)
 TOOL_RUNS = (
     ('profile_blocks', ['--reps', '3']),
     ('profile_stream', ['--reps', '5', '--pushes', '20']),
-    ('bench_train', ['--batch', '16', '--iters', '3', '--real-data',
+    ('bench_train', ['--batch', '16', '--iters', '2', '--real-data',
                      '--synth-clips', '2', '--synth-frames', '12',
                      '--workers', '4']),
-    ('bench_push_block', ['--reps', '2']),
-    ('bench_stream_block_step', ['--reps', '2']),
-    ('bench_block_stream', ['--reps', '2']),
+    ('bench_push_block', ['--reps', '1']),
+    ('bench_stream_block_step', ['--reps', '1']),
+    ('bench_block_stream', ['--reps', '1']),
     ('probe_mem', ['--reps', '3']),
-    ('probe_streams', ['--pushes', '10']),
+    ('probe_streams', ['--pushes', '6']),
 )
 TIFF_T = 11
 
@@ -7049,6 +7182,9 @@ def main():
     try:
         run()
     finally:
+        if CODED.get('proc') is not None and CODED['proc'].poll() is None:
+            CODED['proc'].kill()
+            CODED['proc'].wait()
         shutil.rmtree(WORK, ignore_errors=True)
 
 
@@ -7080,12 +7216,13 @@ def run():
         helpers = {name: pool.submit(mod.build) for name, mod in (
             ('png_unfilter', png_decode), ('jpeg_decode', jpeg_decode),
             ('jpeg_encode', jpeg_encode), ('nvdec', nvdec),
-            ('tiff_decode', tiff_decode))}
+            ('tiff_decode', tiff_decode), ('h264_decode', h264_decode))}
         lib_path = _build.build()
         _build.lib()
         t1 = time.perf_counter()
         helpers = {k: f.result() for k, f in helpers.items()}
-    for mod in (png_decode, jpeg_decode, jpeg_encode, nvdec, tiff_decode):
+    for mod in (png_decode, jpeg_decode, jpeg_encode, nvdec, tiff_decode,
+                h264_decode):
         mod.lib()
     emit({'phase': 'build', 'seconds': t1 - t0,
           'library': os.path.relpath(lib_path, ROOT),
@@ -7093,6 +7230,7 @@ def run():
           'data_helper_libraries': {k: os.path.relpath(v, ROOT)
                                     for k, v in helpers.items()}})
 
+    _start_coded_writer()
     summary = timed('2_kernels', phase_kernels)
     clips = _clips(np.random.default_rng(SEED), 3)
     nets, outs, launches = timed('3_main', phase_main, clips)

@@ -1578,3 +1578,84 @@ def test_hifacegan_templates_on_the_card_equal_cpu(dev):
         b = prep.degrade(gt, deg, np.random.default_rng(5), device=dev)
         assert b.device.type == 'cuda'
         assert torch.equal(b.cpu(), a), deg
+
+
+@pytest.mark.parametrize('family', ['p_partitions', 'weighted', 'slices'])
+def test_mp4_loader_on_the_card_equals_the_cpu_loader(dev, tmp_path, family):
+    """train_video_loader over a folder of host-decoded CAVLC clips
+    (tools/make_h264_streams.py): on the card (the window's NV12 to the
+    card, csrc/nv12_rgb.cu) its batches equal the CPU loader's (the plain
+    conversion) bit for bit, one worker, the same seed, and the kernel
+    launched once a window."""
+    from bsvd_tpu_torch.data.video_train_loader import train_video_loader
+    from bsvd_tpu_torch.data.yuv import nv12_to_rgb
+    from tools import make_h264_streams as mhs
+    folder = tmp_path / 'clips'
+    folder.mkdir()
+    for seed in (0, 1):
+        mhs.write_stream(str(folder / f'{family}_{seed}.mp4'), family, seed)
+    opt = {'trainset_dir': str(folder), 'batch_size_per_gpu': 2,
+           'temp_patch_size': 5, 'patch_size': [24, 40],
+           'max_number_patches': 6, 'noise_ival': [5, 55],
+           'noise_shape': 'NF', 'num_workers': 1, 'manual_seed': 7}
+    batches = {}
+    for device in ('cpu', 'cuda'):
+        before = nv12_to_rgb.launches
+        loader = train_video_loader(dict(opt, device=device))
+        try:
+            batches[device] = list(loader)
+        finally:
+            loader.close()
+        launched = nv12_to_rgb.launches - before
+        assert (launched >= 6) if device == 'cuda' else launched == 0
+    assert len(batches['cpu']) == len(batches['cuda']) == 3
+    for a, b in zip(batches['cuda'], batches['cpu']):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])
+
+
+def test_mp4_loader_converts_on_the_builders_card(dev, tmp_path,
+                                                  monkeypatch):
+    """Built after set_device(1) with device 'cuda' (a second rank under
+    torchrun), the loader's worker threads send every window to card 1 and
+    convert it there with csrc/nv12_rgb.cu; its batches equal the CPU
+    loader's."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip('needs two CUDA devices')
+    from bsvd_tpu_torch.data import video_train_loader as vtl
+    from bsvd_tpu_torch.data import yuv
+    from tools import make_h264_streams as mhs
+    folder = tmp_path / 'clips'
+    folder.mkdir()
+    mhs.write_stream(str(folder / 'clip.mp4'), 'p_partitions', 0)
+    seen, convert = [], yuv.nv12_to_rgb
+
+    def watched(nv12, *args):
+        out = convert(nv12, *args)
+        seen.append((nv12.device, out.device, torch.cuda.current_device()))
+        return out
+    watched.launches = 0      # the kernel counts its launches here now
+    monkeypatch.setattr(yuv, 'nv12_to_rgb', watched)
+    opt = {'trainset_dir': str(folder), 'batch_size_per_gpu': 2,
+           'temp_patch_size': 5, 'patch_size': [24, 40],
+           'max_number_patches': 6, 'noise_ival': [5, 55],
+           'noise_shape': 'NF', 'num_workers': 1, 'manual_seed': 7}
+    batches = {}
+    for device in ('cpu', 'cuda'):
+        seen.clear()
+        previous = torch.cuda.current_device()
+        torch.cuda.set_device(1)
+        try:
+            loader = vtl.train_video_loader(dict(opt, device=device))
+        finally:
+            torch.cuda.set_device(previous)
+        try:
+            batches[device] = list(loader)
+        finally:
+            loader.close()
+    one = torch.device('cuda', 1)
+    assert len(seen) >= 6 and all(s == (one, one, 1) for s in seen), seen
+    assert watched.launches == len(seen)
+    for a, b in zip(batches['cuda'], batches['cpu']):
+        for k in b:
+            np.testing.assert_array_equal(a[k], b[k])

@@ -57,6 +57,7 @@ assert {'bsvd_tpu_torch.archs.streaming',
         'bsvd_tpu_torch.data.sampler', 'bsvd_tpu_torch.models.sr_model',
         'bsvd_tpu_torch.models.srgan_model', 'bsvd_tpu_torch.data.mp4_demux',
         'bsvd_tpu_torch.data.h264_headers', 'bsvd_tpu_torch.data.nvdec',
+        'bsvd_tpu_torch.data.h264_decode',
         'bsvd_tpu_torch.data.yuv', 'bsvd_tpu_torch.data.orientation',
         'bsvd_tpu_torch.nn.warp', 'bsvd_tpu_torch.utils.flow_util',
         'bsvd_tpu_torch.archs.spynet_arch',
@@ -121,10 +122,10 @@ assert not bad, bad
 from bsvd_tpu_torch.ops import _build
 from bsvd_tpu_torch.data import jpeg_decode, png_decode, tiff_decode
 from bsvd_tpu_torch.utils import jpeg_encode
-from bsvd_tpu_torch.data import nvdec
+from bsvd_tpu_torch.data import h264_decode, nvdec
 assert _build._lib is None       # nothing built or loaded at import
 assert jpeg_decode._lib is None and png_decode._lib is None
-assert tiff_decode._lib is None
+assert tiff_decode._lib is None and h264_decode._lib is None
 assert jpeg_encode._lib is None and nvdec._lib is None
 """
 

@@ -10,10 +10,12 @@ below): IDR/P at 128 x 96; IDR/P cropped to 120 x 96 (coded 128 x 96,
 ``co64``, ``moov`` first, 5-sample chunks); High profile with
 non-reference B frames, ``ctts`` and an edit list, cropped to 112 x 90.
 
-NVDEC runs only on the card (tests/test_torch_cuda.py, chip_smoke.py
-phase 16). Here the loader's decoder is a test double that returns the
-writer's NV12 planes for the window; the demuxer's window, the draws, the
-crop, the plain conversion, augmentation and noise are the port's own.
+The loader decodes with the port's host decoder (``data/h264_decode``,
+held to cv2 on every coding tool in tests/test_torch_h264.py) on every
+device; here the whole route is the port's own: the demuxer's window, the
+decode, the draws, the crop, the plain conversion, augmentation and
+noise. NVDEC runs only on the card (tests/test_torch_cuda.py,
+chip_smoke.py phase 16), and the loader does not use it.
 
 Tolerances: none. Every comparison is of integer decodes and the same
 integer or numpy arithmetic: equal bit for bit.
@@ -23,13 +25,13 @@ import os
 import struct
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
 import torch
 
-from bsvd_tpu_torch.data import h264_headers, mp4_demux, nvdec
-from bsvd_tpu_torch.data import video_train_loader as vtl
+from bsvd_tpu_torch.data import h264_decode, h264_headers, mp4_demux, nvdec
 from bsvd_tpu_torch.data.video_train_loader import train_video_loader
 from bsvd_tpu_torch.data.yuv import nv12_to_rgb, nv12_to_rgb_plain
 from tools import make_video_fixtures as mvf
@@ -242,27 +244,6 @@ def test_cv2_seeks_are_frame_accurate_on_the_fixtures(clips, kind):
         np.testing.assert_array_equal(img, seq[start])
 
 
-class _WriterDecoder:
-    """Test double of ``nvdec.Decoder``: the writer's NV12 planes of the
-    window, after the demuxer has cut the window's access units."""
-
-    planes = {}
-    windows = []
-
-    def __init__(self, device):
-        assert device == torch.device('cpu')
-
-    def decode(self, track, start, count):
-        _, _, ts = track.window(start, count)
-        assert set(range(start, start + count)) <= set(ts.tolist())
-        self.windows.append((os.path.basename(track.path), start))
-        y, u, v = self.planes[track.path]
-        return torch.from_numpy(mvf.nv12(y, u, v)[start:start + count])
-
-    def close(self):
-        pass
-
-
 def _opt(root, **over):
     return dict({'trainset_dir': root, 'batch_size_per_gpu': 2,
                  'temp_patch_size': 5, 'patch_size': [24, 40],
@@ -272,25 +253,21 @@ def _opt(root, **over):
 
 
 @pytest.mark.parametrize('kind', list(KINDS))
-def test_loader_over_mp4_equals_jax(clips, kind, tmp_path, monkeypatch):
+def test_loader_over_mp4_equals_jax(clips, kind, tmp_path):
     """Three batches bit for bit against the JAX package's loader (cv2's
     decode) over a folder of the clip and a copy, one worker, the same
     seed: the clip, start, row and column drawn in JAX's order for video,
-    the window converted by the plain version, augmentation and noise."""
+    the window decoded on the host and converted by the plain version,
+    augmentation and noise."""
     from bsvd_tpu.data.video_train_loader import train_video_loader as jax
-    path, planes, _ = clips[kind]
+    path, _, _ = clips[kind]
     data = open(path, 'rb').read()
     folder = tmp_path / 'clips'
     folder.mkdir()
-    _WriterDecoder.planes, _WriterDecoder.windows = {}, []
     for name in ('a.mp4', 'b.mp4'):
         (folder / name).write_bytes(data)
-        _WriterDecoder.planes[str(folder / name)] = planes
-    monkeypatch.setattr(nvdec, 'Decoder', _WriterDecoder)
-    monkeypatch.setattr(nvdec, 'require', torch.device)
-    # no CUDA stream on the CPU: torch.cuda.stream(None) does nothing
-    monkeypatch.setattr(vtl._ClipIndex, '_stream', lambda self: None)
     opt = _opt(str(folder), manual_seed=4 + len(kind))
+    decoded = h264_decode.frames_decoded
     ours, ref = train_video_loader(opt), jax(dict(opt))
     try:
         got, want = list(ours), list(ref)
@@ -298,8 +275,7 @@ def test_loader_over_mp4_equals_jax(clips, kind, tmp_path, monkeypatch):
         ours.close()
         ref.close()
     assert len(got) == len(want) == 3
-    assert len(_WriterDecoder.windows) >= 6
-    assert {name for name, _ in _WriterDecoder.windows} == {'a.mp4', 'b.mp4'}
+    assert h264_decode.frames_decoded - decoded >= 6 * opt['temp_patch_size']
     for a, b in zip(got, want):
         assert sorted(a) == sorted(b)
         for k in b:
@@ -307,11 +283,46 @@ def test_loader_over_mp4_equals_jax(clips, kind, tmp_path, monkeypatch):
             np.testing.assert_array_equal(a[k], b[k])
 
 
-def test_mp4_on_a_cpu_device_raises_naming_nvdec(clips):
-    """No CPU decoder: the loader refuses an mp4 folder on the CPU."""
-    folder = os.path.dirname(clips['idr_p'][0])
-    with pytest.raises(NotImplementedError, match='NVDEC'):
-        train_video_loader(_opt(folder))
+@pytest.mark.parametrize('device,want', [
+    ('cuda', 'cuda:1'), ('cuda:2', 'cuda:2'), ('cpu', 'cpu')])
+def test_loader_keeps_the_builders_card(clips, tmp_path, monkeypatch,
+                                        device, want):
+    """A CUDA device with no index is the card current on the thread that
+    builds the loader (a rank's after set_device, under torchrun), and the
+    worker threads' streams go to it, not to their own current card 0."""
+    from bsvd_tpu_torch.data.video_train_loader import _ClipIndex
+    folder = tmp_path / 'clips'
+    folder.mkdir()
+    (folder / 'a.mp4').write_bytes(open(clips['idr_p'][0], 'rb').read())
+    made = []
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 1)
+    monkeypatch.setattr(torch.cuda, 'Stream',
+                        lambda dev: made.append(torch.device(dev)))
+    index = _ClipIndex(str(folder), device)
+    assert index.device == torch.device(want)
+    if index.device.type == 'cuda':
+        monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+        worker = threading.Thread(target=index._stream)
+        worker.start()
+        worker.join()
+        assert made == [torch.device(want)]
+
+
+def test_loader_over_frame_folders_asks_no_card(tmp_path, monkeypatch):
+    """Without mp4 clips the loader resolves no card (it converts none)."""
+    from bsvd_tpu_torch.data.video_train_loader import _ClipIndex
+    clip = tmp_path / 'clips' / 'c0'
+    clip.mkdir(parents=True)
+    (clip / '00000.png').write_bytes(b'')
+
+    def no_card():
+        raise AssertionError('a card asked for over frame folders')
+    monkeypatch.setattr(torch.cuda, 'current_device', no_card)
+    assert _ClipIndex(str(tmp_path / 'clips'), 'cuda').device is None
+
+
+def test_nvdec_decoder_on_a_cpu_device_raises_naming_nvdec():
+    """NVDEC has no CPU device: its decoder refuses one."""
     with pytest.raises(NotImplementedError, match='NVDEC'):
         nvdec.Decoder('cpu')
 
